@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of commefficient_tpu for NVIDIA Hopper (H100).
+
+A package of its own beside the JAX package, which stays the reference
+the port is held against (tests/test_torch_*.py run both on the same
+inputs). It imports torch and never jax, and nothing of
+commefficient_tpu: where it needs a host module of the JAX package it
+keeps its own copy.
+
+What is ported is the FetchSGD round on ResNet9/CIFAR
+(`--mode sketch` and `--mode uncompressed`), end to end:
+config -> data -> model -> client backward -> count-sketch encode
+(CUDA kernel) -> server table-space step with the median estimate
+(CUDA kernel) -> weight update and byte accounting, driven by
+`training/cv_train.py`. Options whose path is not ported yet are
+refused loudly by `Config.validate` (ROADMAP.md Queue 1).
+
+Entry points run on the card unless the caller passes
+`device="cpu"`; on the CPU every kernel wrapper takes its plain
+PyTorch version.
+"""

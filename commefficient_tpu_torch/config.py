@@ -1,0 +1,587 @@
+"""Configuration: the port's copy of the flat config namespace.
+
+Field for field and flag for flag the same as commefficient_tpu's
+Config and parse_args (itself the reference CLI's flag set), so a
+launch command of the JAX drivers parses here unchanged and the
+parity tests can build both configs from one argument list. The one
+difference is `--device`: the port takes cuda (the default) or cpu
+where the JAX package names a TPU.
+
+`validate()` runs the same invariants as the JAX package and then
+refuses, with NotImplementedError naming the ROADMAP.md queue item,
+every option whose path the port does not run yet. That is a loud
+refusal, never a fallback: a run either takes the ported path exactly
+or does not start.
+
+`--kernel_backend` is accepted for flag parity only. The port's route
+is chosen by the tensor's device: a CUDA tensor goes through the
+hand-written kernels, a CPU tensor through their plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed",
+         "powersgd", "dp_sketch")
+# the modes whose client, round and server paths are ported
+PORTED_MODES = ("sketch", "uncompressed")
+ERROR_TYPES = ("none", "local", "virtual")
+DP_MODES = ("worker", "server")
+SCREEN_MODES = ("off", "finite", "norm")
+POISON_KINDS = ("nan", "inf", "scale")
+AGGREGATORS = ("mean", "coord_median", "trimmed_mean", "norm_clip")
+ATTACKS = ("sign_flip", "scaled", "colluding", "little_is_enough")
+
+FED_DATASETS = {
+    "CIFAR10": 10,
+    "CIFAR100": 100,
+    "EMNIST": 62,
+    "ImageNet": 1000,
+    "PERSONA": -1,
+}
+
+DEFAULT_NUM_CLIENTS = {
+    "EMNIST": 3500,
+    "PERSONA": 17568,
+}
+
+# ROADMAP.md Queue 1 items that still hold each unported path
+Q_MODES = "Queue 1 item 6 (remaining modes and per-client state)"
+Q_MODELS = "Queue 1 item 8 (other models and datasets)"
+Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
+
+
+def num_classes_of_dataset(dataset_name: str) -> int:
+    return FED_DATASETS[dataset_name]
+
+
+@dataclass(frozen=True)
+class Config:
+    # meta
+    do_test: bool = False
+    mode: str = "sketch"
+    use_tensorboard: bool = False
+    seed: int = 21
+
+    # data / model
+    model: str = "ResNet9"
+    do_finetune: bool = False
+    do_checkpoint: bool = False
+    checkpoint_path: str = "./checkpoint"
+    checkpoint_every: int = 0
+    resume: bool = False
+    finetune_path: str = "./finetune"
+    finetuned_from: Optional[str] = None
+    num_results_train: int = 2
+    num_results_val: int = 2
+    dataset_name: str = "CIFAR10"
+    dataset_dir: str = "./dataset"
+    do_batchnorm: bool = False
+    nan_threshold: float = 999.0
+    do_profile: bool = False
+
+    # observability (the JAX package's telemetry/journal layer; the port
+    # keeps the flags for parity and refuses the ones that need it)
+    telemetry: bool = True
+    journal_path: str = ""
+    profile_spans: str = ""
+    debug_transfer_guard: bool = False
+    trace: bool = False
+
+    # compression
+    k: int = 50000
+    num_cols: int = 500000
+    num_rows: int = 5
+    num_blocks: int = 20
+    do_topk_down: bool = False
+    down_k: int = 0
+    kernel_backend: str = "xla"
+    sketch_table_dtype: str = "f32"
+
+    # optimization
+    local_momentum: float = 0.9
+    virtual_momentum: float = 0.0
+    weight_decay: float = 5e-4
+    num_epochs: float = 24.0
+    num_fedavg_epochs: int = 1
+    fedavg_batch_size: int = -1
+    fedavg_lr_decay: float = 1.0
+    error_type: str = "none"
+    lr_scale: Optional[float] = None
+    pivot_epoch: float = 5.0
+
+    # fault tolerance and integrity
+    client_dropout: float = 0.0
+    donate_round_state: bool = True
+    straggler_rate: float = 0.0
+    straggler_min_work: float = 0.1
+    straggler_cutoff: float = 0.0
+    update_screen: str = "off"
+    screen_norm_mult: float = 5.0
+    poison_rate: float = 0.0
+    poison_kind: str = "nan"
+    aggregator: str = "mean"
+    trim_beta: float = 0.2
+    byzantine_rate: float = 0.0
+    attack: str = "sign_flip"
+    target_screened_rate: float = -1.0
+    screen_adapt_step: float = 0.5
+    screen_mult_min: float = 1.5
+    screen_mult_max: float = 64.0
+    speed_match: bool = False
+    speed_match_target: float = 0.25
+    speed_match_step: float = 0.25
+    speed_ratio: float = 0.5
+    speed_ratio_min: float = 0.25
+    speed_ratio_max: float = 0.9
+    scan_span_palette: str = ""
+    adapt_staleness: bool = False
+    staleness_target: float = 0.3
+    staleness_step: float = 0.25
+    staleness_decay_min: float = 0.2
+    staleness_decay_max: float = 0.95
+    rollback_screen_rounds: int = 8
+    max_numeric_rollbacks: int = 2
+    keep_checkpoints: int = 3
+    ckpt_max_age_hours: float = 0.0
+    ckpt_every_spans: int = 1
+
+    # parallelization
+    port: int = 5315
+    scan_rounds: bool = False
+    scan_span: int = 0
+    num_clients: Optional[int] = None
+    num_workers: int = 1
+    model_parallel: int = 1
+    num_slices: int = 1
+    multihost: bool = False
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
+    do_bf16: bool = False
+    do_remat: bool = False
+    max_local_batch: int = -1
+    # where the port runs: "cuda" (the default; raises without a GPU)
+    # or "cpu" (the kernels' plain versions). The JAX package's default
+    # here is "tpu"; the flag name and destination are the same.
+    device: str = "cuda"
+    num_devices: int = 1
+    share_ps_gpu: bool = False
+    do_iid: bool = False
+    train_dataloader_workers: int = 0
+    val_dataloader_workers: int = 0
+
+    # GPT2
+    model_checkpoint: str = "gpt2"
+    num_candidates: int = 2
+    max_history: int = 2
+    local_batch_size: int = 8
+    valid_batch_size: int = 8
+    microbatch_size: int = -1
+    lm_coef: float = 1.0
+    mc_coef: float = 1.0
+    max_grad_norm: Optional[float] = None
+    personality_permutations: int = 1
+    eval_before_start: bool = False
+
+    # differential privacy
+    do_dp: bool = False
+    dp_mode: str = "worker"
+    l2_norm_clip: float = 1.0
+    noise_multiplier: float = 0.0
+
+    # compressor plugin knobs
+    powersgd_rank: int = 2
+    dp_clip: float = 1.0
+    dp_noise_mult: float = 0.0
+    dp_target_epsilon: float = 0.0
+    dp_delta: float = 1e-5
+
+    # round scheduling
+    sampler: str = "uniform"
+    explore_floor: float = 0.1
+    deadline_quantile: float = 0.0
+    deadline_min_work: float = 0.1
+    target_survivors: int = 0
+
+    # pipelining, async admission, tiered state, control plane
+    pipeline: bool = False
+    async_admit_rounds: int = 0
+    async_staleness_decay: float = 0.5
+    state_tier: str = "device"
+    state_working_set: int = 0
+    state_spill_dir: str = ""
+    plan_transport: str = ""
+    plan_controllers: int = 2
+    writer_drain_timeout_s: float = 0.0
+
+    # set after model construction (number of flat parameters)
+    grad_size: int = 0
+
+    # --- derived helpers -------------------------------------------------
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def compressor(self):
+        """The Compressor plugin for this mode (lazy import: the
+        compress package imports this module)."""
+        from commefficient_tpu_torch.compress import get_compressor
+        return get_compressor(self.mode)
+
+    @property
+    def state_shape(self) -> Tuple[int, ...]:
+        """Shape of the server accumulators (an [r, c] table for
+        sketch, [grad_size] otherwise)."""
+        return self.compressor.state_shape(self)
+
+    @property
+    def upload_floats(self) -> int:
+        return self.compressor.wire_floats(self)
+
+    @property
+    def upload_bytes(self) -> int:
+        return self.compressor.wire_bytes(self)
+
+    @property
+    def defer_sketch_encode(self) -> bool:
+        """Sketch linearity: with nothing nonlinear applied per client
+        the sum of client sketches equals the sketch of the summed
+        gradient, so the round encodes the client sum ONCE."""
+        return (self.mode == "sketch" and not self.do_dp
+                and self.max_grad_norm is None)
+
+    @property
+    def fused_client_backward(self) -> bool:
+        """Backward linearity: when every client transmit is linear in
+        its gradient, the cohort's summed transmit is the gradient of
+        the count-weighted summed loss, so the round runs ONE backward
+        over all clients. Microbatching is gated out."""
+        return (self.mode in ("sketch", "uncompressed", "true_topk")
+                and not self.do_dp and self.max_grad_norm is None
+                and self.local_momentum == 0
+                and self.error_type != "local"
+                and not self.do_topk_down
+                and self.microbatch_size <= 0)
+
+    @property
+    def robust_aggregation(self) -> bool:
+        if self.aggregator == "trimmed_mean" and self.trim_beta == 0.0:
+            return False
+        return self.aggregator != "mean"
+
+    def resolved_num_clients(self,
+                             dataset_num_clients: Optional[int] = None) -> int:
+        if self.num_clients is not None:
+            return self.num_clients
+        if dataset_num_clients is not None:
+            return dataset_num_clients
+        if self.dataset_name in DEFAULT_NUM_CLIENTS:
+            return DEFAULT_NUM_CLIENTS[self.dataset_name]
+        raise ValueError(
+            f"num_clients must be given for dataset {self.dataset_name}")
+
+    def validate(self) -> "Config":
+        """The JAX package's invariants (ValueError), then the port's
+        refusals of unported paths (NotImplementedError)."""
+        self._validate_invariants()
+        self._refuse_unported()
+        return self
+
+    def _validate_invariants(self) -> None:
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode}")
+        if self.error_type not in ERROR_TYPES:
+            raise ValueError(f"unknown error_type {self.error_type}")
+        if self.dp_mode not in DP_MODES:
+            raise ValueError(f"unknown dp_mode {self.dp_mode}")
+        if self.mode == "fedavg":
+            if self.local_batch_size != -1:
+                raise ValueError("fedavg requires local_batch_size == -1")
+            if self.local_momentum != 0:
+                raise ValueError("fedavg requires local_momentum == 0")
+            if self.error_type != "none":
+                raise ValueError("fedavg requires error_type == none")
+        if self.mode == "true_topk" and self.error_type != "virtual":
+            raise ValueError("true_topk requires error_type == virtual")
+        if self.mode == "local_topk" and self.error_type == "virtual":
+            raise ValueError("local_topk cannot use virtual error")
+        if self.mode == "sketch":
+            if self.error_type == "local" and self.virtual_momentum != 0:
+                raise ValueError(
+                    "sketch+local error requires virtual_momentum=0")
+            if self.error_type == "virtual" and self.local_momentum != 0:
+                raise ValueError(
+                    "sketch+virtual error requires local_momentum=0")
+            if self.error_type == "local":
+                raise ValueError(
+                    "sketch mode cannot use per-client local error "
+                    "accumulation")
+            if self.local_momentum != 0:
+                raise ValueError("sketch mode cannot use local momentum")
+        if self.mode == "uncompressed" and self.error_type == "local":
+            raise ValueError(
+                "uncompressed cannot use local error accumulation")
+        if not 0.0 <= self.client_dropout < 1.0:
+            raise ValueError(
+                f"client_dropout={self.client_dropout} must be in [0, 1)")
+        if not 0.0 <= self.straggler_rate <= 1.0:
+            raise ValueError(
+                f"straggler_rate={self.straggler_rate} must be in [0, 1]")
+        if self.update_screen not in SCREEN_MODES:
+            raise ValueError(f"unknown update_screen {self.update_screen!r}")
+        if self.poison_kind not in POISON_KINDS:
+            raise ValueError(f"unknown poison_kind {self.poison_kind!r}")
+        if self.aggregator not in AGGREGATORS:
+            raise ValueError(f"unknown aggregator {self.aggregator!r}")
+        if self.attack not in ATTACKS:
+            raise ValueError(f"unknown attack {self.attack!r}")
+        if self.sampler not in ("uniform", "throughput"):
+            raise ValueError(f"unknown sampler {self.sampler!r}")
+        if self.state_tier not in ("device", "host"):
+            raise ValueError(f"unknown state_tier {self.state_tier!r}")
+        if self.plan_transport not in ("", "collective", "emulated"):
+            raise ValueError(
+                f"unknown plan_transport {self.plan_transport!r}")
+        if self.kernel_backend not in ("xla", "pallas"):
+            raise ValueError(
+                f"unknown kernel_backend {self.kernel_backend!r}")
+        if self.sketch_table_dtype not in ("f32", "bf16", "int8"):
+            raise ValueError(
+                f"unknown sketch_table_dtype {self.sketch_table_dtype!r}")
+        if self.sketch_table_dtype != "f32" and self.mode != "sketch":
+            raise ValueError(
+                "--sketch_table_dtype requires --mode sketch")
+        if self.down_k < 0:
+            raise ValueError("down_k must be >= 0 (0 = share the upload k)")
+        if self.down_k > self.grad_size > 0:
+            raise ValueError(
+                f"down_k={self.down_k} exceeds grad_size={self.grad_size}")
+        if self.num_rows < 1 or self.num_cols < 1:
+            raise ValueError("num_rows and num_cols must be >= 1")
+
+    def _refuse_unported(self) -> None:
+        def refuse(what: str, where: str):
+            raise NotImplementedError(
+                f"{what} is not ported to commefficient_tpu_torch yet "
+                f"(ROADMAP.md {where})")
+
+        if self.mode not in PORTED_MODES:
+            refuse(f"--mode {self.mode}",
+                   Q_SCALE if self.mode in ("powersgd", "dp_sketch")
+                   else Q_MODES)
+        if self.local_momentum != 0:
+            refuse("--local_momentum > 0 (per-client velocity rows)",
+                   Q_MODES)
+        if self.do_topk_down:
+            refuse("--topk_down", Q_MODES)
+        if self.do_dp:
+            refuse("--dp", Q_MODES)
+        if self.max_grad_norm is not None:
+            refuse("--max_grad_norm", Q_MODES)
+        if self.do_bf16:
+            refuse("--bf16", Q_MODES)
+        if self.sketch_table_dtype != "f32":
+            refuse(f"--sketch_table_dtype {self.sketch_table_dtype}",
+                   Q_MODES)
+        for flag, on in (("--checkpoint", self.do_checkpoint),
+                         ("--checkpoint_every", self.checkpoint_every > 0),
+                         ("--resume", self.resume),
+                         ("--finetune", self.do_finetune),
+                         ("--trace", self.trace),
+                         ("--profile", self.do_profile),
+                         ("--profile_spans", bool(self.profile_spans)),
+                         ("--journal_path", bool(self.journal_path)),
+                         ("--debug_transfer_guard",
+                          self.debug_transfer_guard),
+                         ("--tensorboard", self.use_tensorboard)):
+            if on:
+                refuse(flag, Q_MODES)
+        if self.model != "ResNet9":
+            refuse(f"--model {self.model}", Q_MODELS)
+        for flag, on in (
+                ("--client_dropout", self.client_dropout > 0),
+                ("--straggler_rate", self.straggler_rate > 0),
+                ("--update_screen", self.update_screen != "off"),
+                ("--poison_rate", self.poison_rate > 0),
+                ("--byzantine_rate", self.byzantine_rate > 0),
+                ("--aggregator", self.robust_aggregation),
+                ("--target_screened_rate", self.target_screened_rate >= 0),
+                ("--sampler", self.sampler != "uniform"),
+                ("--deadline_quantile", self.deadline_quantile > 0),
+                ("--target_survivors", self.target_survivors > 0),
+                ("--scan_rounds", self.scan_rounds),
+                ("--pipeline", self.pipeline),
+                ("--async_admit_rounds", self.async_admit_rounds > 0),
+                ("--speed_match", self.speed_match),
+                ("--scan_span_palette", bool(self.scan_span_palette.strip())),
+                ("--adapt_staleness", self.adapt_staleness),
+                ("--state_tier host", self.state_tier != "device"),
+                ("--plan_transport", bool(self.plan_transport)),
+                ("--multihost", self.multihost),
+                ("--model_parallel > 1", self.model_parallel > 1),
+                ("--num_slices > 1", self.num_slices > 1)):
+            if on:
+                refuse(flag, Q_SCALE)
+
+
+def _build_parser(default_lr: Optional[float] = None) -> argparse.ArgumentParser:
+    """The same flags, names, defaults and destinations as the JAX
+    package's parser (the reference CLI surface)."""
+    p = argparse.ArgumentParser()
+    a = p.add_argument
+    a("--test", action="store_true", dest="do_test")
+    a("--mode", choices=list(MODES), default="sketch")
+    a("--tensorboard", dest="use_tensorboard", action="store_true")
+    a("--seed", type=int, default=21)
+
+    a("--model", default="ResNet9")
+    a("--finetune", action="store_true", dest="do_finetune")
+    a("--checkpoint", action="store_true", dest="do_checkpoint")
+    a("--checkpoint_path", type=str, default="./checkpoint")
+    a("--checkpoint_every", type=int, default=0)
+    a("--resume", action="store_true")
+    a("--finetune_path", type=str, default="./finetune")
+    a("--finetuned_from", type=str, choices=list(FED_DATASETS))
+    a("--num_results_train", type=int, default=2)
+    a("--num_results_val", type=int, default=2)
+    a("--dataset_name", type=str, default="CIFAR10",
+      choices=list(FED_DATASETS))
+    a("--dataset_dir", type=str, default="./dataset")
+    a("--batchnorm", action="store_true", dest="do_batchnorm")
+    a("--nan_threshold", type=float, default=999)
+    a("--profile", action="store_true", dest="do_profile")
+    a("--no_telemetry", action="store_false", dest="telemetry")
+    a("--journal_path", type=str, default="")
+    a("--profile_spans", type=str, default="")
+    a("--trace", action="store_true")
+    a("--debug_transfer_guard", action="store_true")
+
+    a("--k", type=int, default=50000)
+    a("--num_cols", type=int, default=500000)
+    a("--num_rows", type=int, default=5)
+    a("--num_blocks", type=int, default=20)
+    a("--topk_down", action="store_true", dest="do_topk_down")
+    a("--down_k", type=int, default=0)
+    a("--kernel_backend", choices=("xla", "pallas"), default="xla",
+      help="accepted for flag parity; the port routes by the tensor's "
+           "device (CUDA kernels on the card, plain versions on the CPU)")
+    a("--sketch_table_dtype", choices=("f32", "bf16", "int8"),
+      default="f32")
+
+    a("--local_momentum", type=float, default=0.9)
+    a("--virtual_momentum", type=float, default=0)
+    a("--weight_decay", type=float, default=5e-4)
+    a("--num_epochs", type=float, default=24)
+    a("--num_fedavg_epochs", type=int, default=1)
+    a("--fedavg_batch_size", type=int, default=-1)
+    a("--fedavg_lr_decay", type=float, default=1)
+    a("--error_type", choices=list(ERROR_TYPES), default="none")
+    a("--lr_scale", type=float, default=default_lr)
+    a("--pivot_epoch", type=float, default=5)
+
+    a("--client_dropout", type=float, default=0.0)
+    a("--no_donate_round_state", action="store_false",
+      dest="donate_round_state")
+    a("--straggler_rate", type=float, default=0.0)
+    a("--straggler_min_work", type=float, default=0.1)
+    a("--straggler_cutoff", type=float, default=0.0)
+    a("--update_screen", choices=list(SCREEN_MODES), default="off")
+    a("--screen_norm_mult", type=float, default=5.0)
+    a("--poison_rate", type=float, default=0.0)
+    a("--poison_kind", choices=list(POISON_KINDS), default="nan")
+    a("--aggregator", choices=list(AGGREGATORS), default="mean")
+    a("--trim_beta", type=float, default=0.2)
+    a("--byzantine_rate", type=float, default=0.0)
+    a("--attack", choices=list(ATTACKS), default="sign_flip")
+    a("--target_screened_rate", type=float, default=-1.0)
+    a("--screen_adapt_step", type=float, default=0.5)
+    a("--screen_mult_min", type=float, default=1.5)
+    a("--screen_mult_max", type=float, default=64.0)
+    a("--speed_match", action="store_true")
+    a("--speed_match_target", type=float, default=0.25)
+    a("--speed_match_step", type=float, default=0.25)
+    a("--speed_ratio", type=float, default=0.5)
+    a("--speed_ratio_min", type=float, default=0.25)
+    a("--speed_ratio_max", type=float, default=0.9)
+    a("--scan_span_palette", type=str, default="")
+    a("--adapt_staleness", action="store_true")
+    a("--staleness_target", type=float, default=0.3)
+    a("--staleness_step", type=float, default=0.25)
+    a("--staleness_decay_min", type=float, default=0.2)
+    a("--staleness_decay_max", type=float, default=0.95)
+    a("--rollback_screen_rounds", type=int, default=8)
+    a("--max_numeric_rollbacks", type=int, default=2)
+    a("--keep_checkpoints", type=int, default=3)
+    a("--ckpt_max_age_hours", type=float, default=0.0)
+    a("--ckpt_every_spans", type=int, default=1)
+
+    a("--pipeline", action="store_true")
+    a("--async_admit_rounds", type=int, default=0)
+    a("--async_staleness_decay", type=float, default=0.5)
+    a("--state_tier", choices=("device", "host"), default="device")
+    a("--state_working_set", type=int, default=0)
+    a("--state_spill_dir", type=str, default="")
+    a("--plan_transport", choices=("", "collective", "emulated"),
+      default="")
+    a("--plan_controllers", type=int, default=2)
+    a("--writer_drain_timeout_s", type=float, default=0.0)
+    a("--sampler", choices=("uniform", "throughput"), default="uniform")
+    a("--explore_floor", type=float, default=0.1)
+    a("--deadline_quantile", type=float, default=0.0)
+    a("--deadline_min_work", type=float, default=0.1)
+    a("--target_survivors", type=int, default=0)
+    a("--port", type=int, default=5315)
+    a("--num_clients", type=int)
+    a("--num_workers", type=int, default=1)
+    a("--max_local_batch", type=int, default=-1)
+    a("--device", type=str, default="cuda", choices=("cuda", "cpu"),
+      help="where the port runs: cuda (default; raises without a GPU) "
+           "or cpu (the kernels' plain versions)")
+    a("--num_devices", type=int, default=1)
+    a("--share_ps_gpu", action="store_true")
+    a("--scan_rounds", action="store_true")
+    a("--scan_span", type=int, default=0)
+    a("--model_parallel", type=int, default=1)
+    a("--num_slices", type=int, default=1)
+    a("--multihost", action="store_true")
+    a("--coordinator_address", type=str, default="")
+    a("--num_processes", type=int, default=0)
+    a("--process_id", type=int, default=-1)
+    a("--bf16", action="store_true", dest="do_bf16")
+    a("--remat", action="store_true", dest="do_remat")
+    a("--iid", action="store_true", dest="do_iid")
+    a("--train_dataloader_workers", type=int, default=0)
+    a("--val_dataloader_workers", type=int, default=0)
+
+    a("--model_checkpoint", type=str, default="gpt2")
+    a("--num_candidates", type=int, default=2)
+    a("--max_history", type=int, default=2)
+    a("--local_batch_size", type=int, default=8)
+    a("--valid_batch_size", type=int, default=8)
+    a("--microbatch_size", type=int, default=-1)
+    a("--lm_coef", type=float, default=1.0)
+    a("--mc_coef", type=float, default=1.0)
+    a("--max_grad_norm", type=float)
+    a("--personality_permutations", type=int, default=1)
+    a("--eval_before_start", action="store_true")
+
+    a("--dp", action="store_true", dest="do_dp")
+    a("--dp_mode", choices=list(DP_MODES), default="worker")
+    a("--l2_norm_clip", type=float, default=1.0)
+    a("--noise_multiplier", type=float, default=0.0)
+
+    a("--powersgd_rank", type=int, default=2)
+    a("--dp_clip", type=float, default=1.0)
+    a("--dp_noise_mult", type=float, default=0.0)
+    a("--dp_target_epsilon", type=float, default=0.0)
+    a("--dp_delta", type=float, default=1e-5)
+    return p
+
+
+def parse_args(default_lr: Optional[float] = None, argv=None) -> Config:
+    ns = _build_parser(default_lr).parse_args(argv)
+    return Config(**vars(ns)).validate()

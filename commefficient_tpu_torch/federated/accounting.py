@@ -1,0 +1,131 @@
+"""Per-client communication accounting: the port of
+commefficient_tpu/federated/accounting.py.
+
+Upload bytes per participating client per round are the mode's wire
+bytes (Config.upload_bytes: 4 x r x c for sketch, 4 x D for
+uncompressed). Download bytes per participating client are 4 x the
+number of weights that changed since that client last participated,
+with the reference's cheap path (one updated-since-init bitset when
+num_epochs <= 1 and whole-dataset batches) and its bounded-staleness
+clamp (a deque of 10 / participation-rate change sets).
+
+The device packs each round's change mask into D/32 uint32 words
+(`pack_change_bits`) so only those words come to the host; the host
+half (CommAccountant) is the JAX package's numpy code.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from commefficient_tpu_torch.config import Config
+
+DEQUE_MAXLEN_MULT = 10
+
+_POPCOUNT_TABLE = np.array([bin(i).count("1") for i in range(256)],
+                           dtype=np.uint32)
+
+
+def pack_change_bits(update: torch.Tensor) -> torch.Tensor:
+    """Pack (update != 0) into 32-bit words, bit i of word w holding
+    coordinate 32 * w + i (the JAX packing). Returned as int64 on the
+    update's device, each value < 2^32; `to_words` makes the host
+    uint32 array."""
+    d = update.shape[0]
+    n_words = -(-d // 32)
+    bits = torch.nn.functional.pad((update != 0).to(torch.int64),
+                                   (0, n_words * 32 - d))
+    shifts = torch.arange(32, device=update.device, dtype=torch.int64)
+    return (bits.view(n_words, 32) << shifts).sum(dim=1)
+
+
+def to_words(packed: torch.Tensor) -> np.ndarray:
+    return packed.cpu().numpy().astype(np.uint32)
+
+
+def _popcount(words: np.ndarray) -> int:
+    return int(_POPCOUNT_TABLE[np.ascontiguousarray(words)
+                               .view(np.uint8)].sum())
+
+
+def _prefix_or_popcounts(changes, depths, n_words: int) -> dict:
+    """{s: popcount(OR of the last s change bitsets)} for each
+    staleness s in `depths`, one shared OR-prefix walk."""
+    depths = sorted(set(int(d) for d in depths))
+    if not depths:
+        return {}
+    out = {}
+    if depths[0] == 0:
+        out[0] = 0
+    acc = np.zeros(n_words, np.uint32)
+    need = set(depths)
+    for d in range(1, depths[-1] + 1):
+        acc |= changes[-d]
+        if d in need:
+            out[d] = _popcount(acc)
+    return out
+
+
+class CommAccountant:
+    def __init__(self, cfg: Config, num_clients: int):
+        self.cfg = cfg
+        self.num_clients = num_clients
+        self.n_words = -(-cfg.grad_size // 32)
+        self.upload_floats = cfg.upload_floats
+        self.upload_bytes = float(cfg.upload_bytes)
+        self.cheap = (cfg.num_epochs <= 1 and cfg.local_batch_size == -1)
+        if self.cheap:
+            self.updated_since_init = np.zeros(self.n_words, np.uint32)
+        else:
+            participation = (cfg.num_workers / num_clients
+                             * (1.0 - cfg.client_dropout))
+            self.changes: deque = deque(
+                [], maxlen=int(DEQUE_MAXLEN_MULT / participation))
+            self.rounds_seen = 0
+            self._last_reset: dict = {}
+
+    def _check_ids(self, participating: np.ndarray) -> None:
+        if participating.size and (
+                int(participating.min()) < 0
+                or int(participating.max()) >= self.num_clients):
+            raise ValueError(
+                f"client id out of range for a {self.num_clients}-client "
+                f"population: {participating}")
+
+    def staleness(self, client_ids) -> np.ndarray:
+        ids = np.asarray(client_ids, np.int64).reshape(-1)
+        return np.array([self.rounds_seen - self._last_reset.get(int(c), 0)
+                         for c in ids], np.int64)
+
+    def record_round(self, participating: np.ndarray,
+                     prev_changed_words: Optional[np.ndarray]):
+        """Account one round. `prev_changed_words` is the packed change
+        bitset of the PREVIOUS round's update (None on the first round:
+        nothing changed since the clients were initialized). Returns
+        (download_bytes, upload_bytes), each [W] aligned with
+        `participating`."""
+        participating = np.asarray(participating).reshape(-1)
+        self._check_ids(participating)
+        W = participating.shape[0]
+        download = np.zeros(W)
+        if self.cheap:
+            if prev_changed_words is not None:
+                self.updated_since_init |= np.asarray(prev_changed_words)
+            download[:] = 4.0 * _popcount(self.updated_since_init)
+        else:
+            if prev_changed_words is not None:
+                self.changes.append(np.asarray(prev_changed_words))
+            if len(self.changes) and W:
+                stale = np.clip(self.staleness(participating), 0,
+                                len(self.changes))
+                counts = _prefix_or_popcounts(
+                    self.changes, np.unique(stale), self.n_words)
+                download[:] = [4.0 * counts[int(s)] for s in stale]
+            for c in participating:
+                self._last_reset[int(c)] = self.rounds_seen
+            self.rounds_seen += 1
+        upload = np.full(W, self.upload_bytes)
+        return download, upload

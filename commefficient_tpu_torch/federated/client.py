@@ -1,0 +1,177 @@
+"""Client-side computation: the port of
+commefficient_tpu/federated/client.py.
+
+loss_fn contract (the workload callback, as in the JAX package):
+    loss_fn(params, batch_tuple, mask) -> (masked-mean loss, metrics)
+where `params` is the {name: tensor} dict `unravel` gives (for
+`torch.func.functional_call`), `batch_tuple` one client's padded batch
+and `mask` its [B] float validity mask. Every client quantity is
+computed in the flat-vector space of ops/flat.py.
+
+The transmitted quantity is scaled by the client's valid example
+count, so the server's divide by the cohort's example total is exact
+(reference fed_worker.py:190).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from commefficient_tpu_torch.config import Config
+
+LossFn = Callable[[dict, Tuple[torch.Tensor, ...], torch.Tensor],
+                  Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]]
+
+
+class ClientResult(NamedTuple):
+    transmit: torch.Tensor       # [D] vector or [r, c] table
+    error: torch.Tensor          # updated local error state (or dummy)
+    velocity: torch.Tensor       # updated local velocity state (or dummy)
+    loss: torch.Tensor           # masked-mean loss over the client batch
+    metrics: Tuple[torch.Tensor, ...]
+    num_examples: torch.Tensor   # valid example count (f32 scalar)
+
+
+def make_flat_loss_fn(loss_fn: LossFn, unravel: Callable):
+    """loss_fn lifted to the flat weight vector:
+    flat_loss(vec, batch, mask) -> (loss, metrics). Differentiable in
+    `vec` when it requires grad. Consecutive calls on the same `vec`
+    object (the cohort's clients in fused_shard_grads) share one
+    unravel, so the backward splits the gradient once, not per client."""
+    last = [None, None]
+
+    def flat_loss(vec, batch, mask):
+        if last[0] is not vec:
+            last[:] = [vec, unravel(vec)]
+        return loss_fn(last[1], batch, mask)
+    return flat_loss
+
+
+def make_flat_grad_fn(loss_fn: LossFn, unravel: Callable):
+    """flat_grad(vec, batch, mask) -> (loss, metrics, grad [D]), the
+    gradient taken with respect to the flat vector."""
+    def flat_grad(weights, batch, mask):
+        w = weights.detach().requires_grad_(True)
+        loss, metrics = loss_fn(unravel(w), batch, mask)
+        grad, = torch.autograd.grad(loss, w)
+        return (loss.detach(), tuple(m.detach() for m in metrics), grad)
+    return flat_grad
+
+
+def _microbatch_shape(batch_size: int, microbatch_size: int):
+    mb = (batch_size if microbatch_size <= 0
+          else min(microbatch_size, batch_size))
+    return -(-batch_size // mb), mb
+
+
+def _microbatches(batch, mask, n_mb: int, mb: int):
+    """Pad [B, ...] tensors to n_mb * mb and cut them into n_mb
+    microbatches."""
+    B = mask.shape[0]
+    pad = n_mb * mb - B
+
+    def fold(x):
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        return x.reshape((n_mb, mb) + tuple(x.shape[1:]))
+
+    folded = [fold(x) for x in batch]
+    mmask = fold(mask)
+    return [(tuple(f[i] for f in folded), mmask[i]) for i in range(n_mb)]
+
+
+def forward_grad(flat_grad_fn, weights: torch.Tensor, batch,
+                 mask: torch.Tensor, cfg: Config, compute_grad: bool = True):
+    """Microbatched forward(/backward) over one client's padded batch.
+    Returns (g, loss, metrics, count): g the compressed mean gradient
+    (None when compute_grad is False, and then `flat_grad_fn` is a
+    loss-only callable, see make_flat_loss_fn), loss and metrics masked
+    means, count the valid example count."""
+    n_mb, mb = _microbatch_shape(mask.shape[0], cfg.microbatch_size)
+    grad_sum = torch.zeros_like(weights) if compute_grad else None
+    loss_sum = weights.new_zeros(())
+    metric_sums = None
+    for b, m in _microbatches(batch, mask, n_mb, mb):
+        count = m.sum()
+        if compute_grad:
+            loss, metrics, grad = flat_grad_fn(weights, b, m)
+            grad_sum = grad_sum + grad * count
+        else:
+            with torch.no_grad():
+                loss, metrics = flat_grad_fn(weights, b, m)
+        loss_sum = loss_sum + loss * count
+        weighted = [v * count for v in metrics]
+        metric_sums = (weighted if metric_sums is None
+                       else [a + v for a, v in zip(metric_sums, weighted)])
+
+    total = mask.sum()
+    denom = torch.clamp(total, min=1.0)
+    loss = loss_sum / denom
+    metrics = tuple(s / denom for s in metric_sums)
+    if not compute_grad:
+        return None, loss, metrics, total
+
+    # mean over valid examples: the gradient scale does not depend on
+    # microbatch_size
+    grad = grad_sum / denom
+    # weight decay, divided by num_workers so the summed transmission
+    # applies it once (reference utils.py:254-259)
+    if cfg.weight_decay != 0:
+        grad = grad + (cfg.weight_decay / cfg.num_workers) * weights
+    return cfg.compressor.encode(cfg, grad), loss, metrics, total
+
+
+def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
+                      mask: torch.Tensor, cfg: Config):
+    """One backward over the whole cohort (Config.fused_client_backward
+    guarantees it equals the sum of per-client local_step transmits):
+
+        sum_c transmit_c = d/dw [ sum_c count_c * mean_loss_c ]
+
+    plus the weight-decay term every client adds as
+    (wd / num_workers) * w before its count scaling.
+
+    batch / mask are the cohort's [W, B, ...] tensors. The clients'
+    forwards run one after another (each client's loss_fn sees only its
+    own batch, so batch statistics stay per client) and one backward
+    follows. Returns (grad_sum [D], losses [W], metrics, counts [W])
+    with per-client masked-mean losses and metrics."""
+    w = weights.detach().requires_grad_(True)
+    W = mask.shape[0]
+    losses, metrics = [], []
+    for c in range(W):
+        loss, mets = flat_loss_fn(w, tuple(x[c] for x in batch), mask[c])
+        losses.append(loss)
+        metrics.append(mets)
+    losses = torch.stack(losses)
+    counts = mask.sum(dim=1)
+    total = (losses * counts).sum()
+    grad_sum, = torch.autograd.grad(total, w)
+    if cfg.weight_decay != 0:
+        grad_sum = grad_sum + ((cfg.weight_decay / cfg.num_workers)
+                               * weights * counts.sum())
+    mets = tuple(torch.stack([m[i].detach() for m in metrics])
+                 for i in range(len(metrics[0])))
+    return grad_sum, losses.detach(), mets, counts
+
+
+def local_step(flat_grad_fn, weights, batch, mask, error, velocity,
+               cfg: Config) -> ClientResult:
+    """One client's single local step plus its compression bookkeeping
+    (reference local_step, fed_worker.py:184-230)."""
+    g, loss, metrics, count = forward_grad(flat_grad_fn, weights, batch,
+                                           mask, cfg)
+    # the transmit sums over examples; the server divides by the
+    # cohort's example total
+    g = g * count
+    if cfg.local_momentum > 0:
+        velocity = g + cfg.local_momentum * velocity
+    if cfg.error_type == "local":
+        error = error + (velocity if cfg.local_momentum > 0 else g)
+        to_transmit = error
+    else:
+        to_transmit = velocity if cfg.local_momentum > 0 else g
+    to_transmit, error, velocity = cfg.compressor.residual(
+        cfg, to_transmit, error, velocity)
+    return ClientResult(to_transmit, error, velocity, loss, metrics, count)

@@ -1,0 +1,211 @@
+"""The federated round engine: the port of
+commefficient_tpu/federated/round.py, single process, mask-free.
+
+One round: the cohort's clients compute on the server weights (one
+fused backward over all of them when Config.fused_client_backward
+holds, else one local_step each), their transmits are summed, the sum
+is sketched ONCE in sketch mode (kernel K1 on the card), divided by the
+cohort's example total, and handed to the server step
+(federated/server.py), whose update is applied to the weights.
+
+What the JAX engine runs as one jitted SPMD program over a `clients`
+mesh axis runs here as eager PyTorch on one device: the `lax.psum`
+over the clients axis is the identity. The dropout / straggler /
+screened program variants (RoundBatch.survivors, .work, .poison) are
+ROADMAP.md Queue 1 item 9; Config.validate refuses the options that
+would need them.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.federated import client as fclient
+from commefficient_tpu_torch.federated import server as fserver
+
+
+class ServerState(NamedTuple):
+    """All server-side mutable state."""
+    ps_weights: torch.Tensor     # [D]
+    Vvelocity: torch.Tensor      # [D] or [r, c]
+    Verror: torch.Tensor         # [D] or [r, c]
+    round_idx: int
+
+
+class ClientState(NamedTuple):
+    """Per-client persistent rows, [num_clients, D] per tracked block or
+    a [0] placeholder. The ported modes track none (local momentum,
+    local error and topk_down are ROADMAP.md Queue 1 item 6)."""
+    errors: torch.Tensor
+    velocities: torch.Tensor
+    weights: torch.Tensor
+
+
+class CohortState(NamedTuple):
+    """The participants' rows of ClientState for one round, or
+    [num_workers] dummies for untracked blocks."""
+    errors: torch.Tensor
+    velocities: torch.Tensor
+    weights: torch.Tensor
+
+
+class RoundBatch(NamedTuple):
+    """One round's input: num_workers clients, each with a padded
+    local batch and its validity mask."""
+    client_ids: torch.Tensor                 # [W] int
+    data: Tuple[torch.Tensor, ...]           # each [W, B, ...]
+    mask: torch.Tensor                       # [W, B] f32
+
+
+class RoundMetrics(NamedTuple):
+    losses: torch.Tensor                     # [W] per-client mean loss
+    metrics: Tuple[torch.Tensor, ...]        # each [W]
+    num_examples: torch.Tensor               # [W]
+
+
+def init_server_state(cfg: Config, ps_weights: torch.Tensor) -> ServerState:
+    shape = cfg.state_shape
+    dev = ps_weights.device
+    return ServerState(
+        ps_weights=ps_weights.detach().to(torch.float32).clone(),
+        Vvelocity=torch.zeros(shape, dtype=torch.float32, device=dev),
+        Verror=torch.zeros(shape, dtype=torch.float32, device=dev),
+        round_idx=0)
+
+
+def _has_errors(cfg: Config) -> bool:
+    return cfg.compressor.has_errors(cfg)
+
+
+def _has_velocities(cfg: Config) -> bool:
+    return cfg.compressor.has_velocities(cfg)
+
+
+def init_client_state(cfg: Config, num_clients: int,
+                      device="cpu") -> ClientState:
+    """Per-client rows for the blocks the config tracks; [0]
+    placeholders otherwise."""
+    D = cfg.grad_size
+
+    def block(tracked: bool):
+        shape = (num_clients, D) if tracked else (0,)
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    if cfg.do_topk_down:
+        raise NotImplementedError(
+            "per-client weight rows (--topk_down) are not ported yet "
+            "(ROADMAP.md Queue 1 item 6)")
+    return ClientState(block(_has_errors(cfg)),
+                       block(_has_velocities(cfg)), block(False))
+
+
+def gather_cohort(cfg: Config, clients: ClientState,
+                  ids: torch.Tensor) -> CohortState:
+    W = ids.shape[0]
+    dev = ids.device
+
+    def rows(block, tracked):
+        return (block[ids] if tracked
+                else torch.zeros(W, dtype=torch.float32, device=dev))
+
+    return CohortState(rows(clients.errors, _has_errors(cfg)),
+                       rows(clients.velocities, _has_velocities(cfg)),
+                       rows(clients.weights, False))
+
+
+def scatter_back(cfg: Config, clients: ClientState, ids: torch.Tensor,
+                 cohort: CohortState) -> ClientState:
+    if _has_errors(cfg):
+        clients.errors[ids] = cohort.errors
+    if _has_velocities(cfg):
+        clients.velocities[ids] = cohort.velocities
+    return clients
+
+
+def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
+    """The train-round callable:
+        train_round(server, clients, batch, lr) -> (server, clients,
+                                                    RoundMetrics)
+    `lr` is the scheduler's learning rate for this round (a float)."""
+    cfg.validate()
+    flat_grad = fclient.make_flat_grad_fn(loss_fn, unravel)
+    flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel)
+    comp = cfg.compressor
+
+    def client_phase(ps_weights, batch: RoundBatch, cohort: CohortState):
+        """The cohort's summed transmit, example counts, per-client
+        losses/metrics and updated rows."""
+        if cfg.fused_client_backward:
+            local_sum, losses, metrics, counts = fclient.fused_shard_grads(
+                flat_loss, ps_weights, batch.data, batch.mask, cfg)
+            return local_sum, counts, losses, metrics, cohort
+        results = [
+            fclient.local_step(flat_grad, ps_weights,
+                               tuple(x[c] for x in batch.data),
+                               batch.mask[c], cohort.errors[c],
+                               cohort.velocities[c], cfg)
+            for c in range(batch.mask.shape[0])]
+        local_sum = torch.stack([r.transmit for r in results]).sum(dim=0)
+        counts = torch.stack([r.num_examples for r in results])
+        losses = torch.stack([r.loss for r in results])
+        metrics = tuple(torch.stack([r.metrics[i] for r in results])
+                        for i in range(len(results[0].metrics)))
+        if _has_errors(cfg):
+            cohort = cohort._replace(
+                errors=torch.stack([r.error for r in results]))
+        if _has_velocities(cfg):
+            cohort = cohort._replace(
+                velocities=torch.stack([r.velocity for r in results]))
+        return local_sum, counts, losses, metrics, cohort
+
+    def round_step(server: ServerState, cohort: CohortState,
+                   batch: RoundBatch, lr):
+        local_sum, counts, losses, metrics, cohort = client_phase(
+            server.ps_weights, batch, cohort)
+        if cfg.defer_sketch_encode:
+            # sketch linearity: encode the cohort's sum once (K1)
+            local_sum = fserver.args2sketch(cfg).encode(local_sum)
+        # the sum over the clients axis of the JAX engine (lax.psum) is
+        # the identity on one device
+        transmit = comp.post_aggregate(cfg, local_sum)
+        total = counts.sum()
+        gradient = transmit / torch.clamp(total, min=1.0)
+        upd = fserver.get_server_update(gradient, server.Vvelocity,
+                                        server.Verror, cfg, lr)
+        new_server = ServerState(server.ps_weights - upd.update,
+                                 upd.Vvelocity, upd.Verror,
+                                 server.round_idx + 1)
+        return new_server, cohort, RoundMetrics(losses, metrics, counts)
+
+    def train_round(server: ServerState, clients: ClientState,
+                    batch: RoundBatch, lr):
+        cohort = gather_cohort(cfg, clients, batch.client_ids)
+        server, cohort, metrics = round_step(server, cohort, batch, lr)
+        clients = scatter_back(cfg, clients, batch.client_ids, cohort)
+        return server, clients, metrics
+
+    train_round.round_step = round_step
+    train_round.client_phase = client_phase
+    return train_round
+
+
+def make_eval_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
+    """eval_batch(ps_weights, data [S, vb, ...], mask [S, vb]) ->
+    per-shard (loss [S], metrics, count [S]), forward only."""
+    flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel)
+
+    @torch.no_grad()
+    def eval_batch(ps_weights, data, mask):
+        outs = [fclient.forward_grad(flat_loss, ps_weights,
+                                     tuple(x[s] for x in data), mask[s],
+                                     cfg, compute_grad=False)
+                for s in range(mask.shape[0])]
+        loss = torch.stack([o[1] for o in outs])
+        metrics = tuple(torch.stack([o[2][i] for o in outs])
+                        for i in range(len(outs[0][2])))
+        count = torch.stack([o[3] for o in outs])
+        return loss, metrics, count
+
+    return eval_batch

@@ -1,0 +1,29 @@
+"""Model registry of the port (ResNet9 only so far; the rest of the JAX
+package's family is ROADMAP.md Queue 1 item 8)."""
+from __future__ import annotations
+
+import inspect
+from typing import Callable, Dict
+
+from commefficient_tpu_torch.models.resnet9 import (  # noqa: F401
+    ResNet9, StatelessBatchNorm,
+)
+
+_REGISTRY: Dict[str, Callable] = {"ResNet9": ResNet9}
+
+
+def model_names():
+    return sorted(_REGISTRY)
+
+
+def build_model(name: str, **config):
+    """Instantiate a model by flag name, dropping config keys it does
+    not take (one shared model_config dict serves every model)."""
+    try:
+        cls = _REGISTRY[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ported: {model_names()}; "
+            "ROADMAP.md Queue 1 item 8)") from None
+    fields = set(inspect.signature(cls).parameters)
+    return cls(**{k: v for k, v in config.items() if k in fields})

@@ -1,0 +1,246 @@
+"""CV federated training driver: the port of
+commefficient_tpu/training/cv_train.py (reference cv_train.py).
+
+Same flags (config.parse_args), loss callback contract, epoch loop,
+LR schedule, table columns, communication-MiB reporting, `--test`
+smoke shrink and NaN abort. What the port does not run yet is refused
+by Config.validate: scanned spans, checkpoints, finetuning, the
+journal and scheduler layers (ROADMAP.md Queue 1).
+
+Run on the card:
+    python -m commefficient_tpu_torch.training.cv_train --mode sketch \
+        --error_type virtual --virtual_momentum 0.9 --local_momentum 0 \
+        --num_workers 8 --k 50000 --num_rows 5 --num_cols 500000
+and on the CPU with `--device cpu` (the kernels' plain versions).
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from commefficient_tpu_torch import models
+from commefficient_tpu_torch.config import (
+    Q_MODELS, Config, num_classes_of_dataset, parse_args,
+)
+from commefficient_tpu_torch.data import (
+    FedCIFAR10, FedCIFAR100, FedLoader, FedValLoader, transforms,
+)
+from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
+from commefficient_tpu_torch.utils.logging import TableLogger, Timer
+from commefficient_tpu_torch.utils.schedules import LambdaLR, PiecewiseLinear
+
+
+# ---------------- loss callback (reference cv_train.py:67-83) ------------
+
+def make_compute_loss(model: torch.nn.Module):
+    """Masked cross-entropy + accuracy under the loss contract:
+    loss_fn(params, (images, labels), mask) -> (mean loss, (mean acc,))."""
+
+    def compute_loss(params, batch, mask):
+        images, labels = batch
+        logits = torch.func.functional_call(model, params, (images,))
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = (nll * mask).sum() / denom
+        acc = ((logits.argmax(-1) == labels.long()).to(mask.dtype)
+               * mask).sum() / denom
+        return loss, (acc,)
+
+    return compute_loss
+
+
+# ---------------- data ----------------------------------------------------
+
+# name -> (dataset class, transform factory, --test synthetic sizes)
+_DATASETS = {
+    "CIFAR10": (FedCIFAR10, transforms.cifar10_transforms, (2048, 512)),
+    "CIFAR100": (FedCIFAR100, transforms.cifar100_transforms, (2048, 512)),
+}
+
+
+def get_data_loaders(cfg: Config,
+                     synthetic_examples: Optional[Tuple[int, int]] = None):
+    """Train and val loaders. `synthetic_examples=(n_train, n_val)` asks
+    for the synthetic corpus when no archives are on disk (`--test`
+    asks for (2048, 512))."""
+    try:
+        dataset_cls, transform_factory, test_sizes = \
+            _DATASETS[cfg.dataset_name]
+    except KeyError:
+        raise NotImplementedError(
+            f"dataset {cfg.dataset_name} is not ported to the port's "
+            f"cv_train yet (ROADMAP.md {Q_MODELS})") from None
+    train_t, test_t = transform_factory(seed=cfg.seed)
+    synthetic = synthetic_examples or (test_sizes if cfg.do_test else None)
+    kw = dict(do_iid=cfg.do_iid, num_clients=cfg.num_clients,
+              seed=cfg.seed, synthetic_examples=synthetic)
+    train_set = dataset_cls(cfg.dataset_dir, transform=train_t, train=True,
+                            **kw)
+    val_set = dataset_cls(cfg.dataset_dir, transform=test_t, train=False,
+                          **kw)
+    train_loader = FedLoader(train_set, cfg.num_workers,
+                             cfg.local_batch_size, seed=cfg.seed,
+                             max_local_batch=cfg.max_local_batch)
+    val_loader = FedValLoader(val_set, cfg.valid_batch_size, num_shards=1)
+    return train_loader, val_loader
+
+
+# ---------------- training loop (reference cv_train.py:85-250) -----------
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def run_eval(model: FedModel, val_loader) -> tuple:
+    model.train(False)
+    tot_loss = tot_acc = tot_n = 0.0
+    for data, mask in val_loader.batches():
+        loss, acc, count = model((data, mask))
+        tot_loss += float((loss * count).sum())
+        tot_acc += float((acc * count).sum())
+        tot_n += float(count.sum())
+    model.train(True)
+    denom = max(tot_n, 1.0)
+    return tot_loss / denom, tot_acc / denom
+
+
+def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
+          train_loader, val_loader, cfg: Config, loggers=(),
+          timer: Optional[Timer] = None,
+          on_round: Optional[Callable[[int, list], None]] = None) -> bool:
+    """The epoch loop: rounds until ceil(num_epochs * steps_per_epoch)
+    are done, an eval and a table row per epoch. `on_round(i, outputs)`
+    is called after round i's dispatch with model(batch)'s outputs (a
+    measuring caller synchronizes the device there). Returns False on a
+    NaN/divergent loss."""
+    timer = timer or Timer()
+    spe = train_loader.steps_per_epoch
+    total_rounds = math.ceil(cfg.num_epochs * spe)
+    rounds_done = 0
+    epoch = 0
+    total_down = total_up = 0.0
+    while rounds_done < total_rounds:
+        epoch += 1
+        losses, accs = [], []
+        down = up = 0.0
+
+        # metrics come to the host one round late, so the host does not
+        # wait on the round it just queued
+        def emit(p) -> bool:
+            losses.append(float(np.mean(_host(p[0]))))
+            accs.append(float(np.mean(_host(p[1]))))
+            return not np.isnan(losses[-1])
+
+        pending = None
+        stream = iter(train_loader.epoch())
+        # the round budget is checked BEFORE the next round is drawn, so
+        # ending early never draws (and discards) a round
+        while rounds_done < total_rounds:
+            try:
+                client_ids, data, mask = next(stream)
+            except StopIteration:
+                break
+            lr_scheduler.step()
+            out = model((client_ids, data, mask))
+            opt.step()
+            if on_round is not None:
+                on_round(rounds_done, out)
+            loss, acc, d, u = out
+            down += float(np.sum(d))
+            up += float(np.sum(u))
+            if pending is not None and not emit(pending):
+                pending = None
+                break
+            pending = (loss, acc)
+            rounds_done += 1
+        if pending is not None:
+            emit(pending)
+        total_down += down
+        total_up += up
+        train_time = timer()
+
+        mean_loss = float(np.mean(losses)) if losses else float("nan")
+        mean_acc = float(np.mean(accs)) if accs else float("nan")
+        if np.isnan(mean_loss) or mean_loss > cfg.nan_threshold:
+            print(f"found nan/divergent loss {mean_loss}, aborting")
+            return False
+
+        val_loss, val_acc = run_eval(model, val_loader)
+        val_time = timer()
+        row = {
+            "epoch": epoch,
+            "lr": round(float(opt.param_groups[0]["lr"]), 5),
+            "train_time": train_time,
+            "train_loss": mean_loss,
+            "train_acc": mean_acc,
+            "test_time": val_time,
+            "test_loss": val_loss,
+            "test_acc": val_acc,
+            "down (MiB)": float(total_down / (1024 ** 2)),
+            "up (MiB)": float(total_up / (1024 ** 2)),
+            "total_time": timer.total_time,
+        }
+        for logger in loggers:
+            logger.append(row)
+    return True
+
+
+def build(cfg: Config, device="cuda",
+          synthetic_examples: Optional[Tuple[int, int]] = None):
+    """Loaders, model, optimizer and LR scheduler for `cfg`: what main()
+    wires before it calls train(). `--test` shrinks the model to one
+    channel per layer and the sketch to 1 x 10 with k = 10 (reference
+    cv_train.py:329-336)."""
+    model_config = {}
+    if cfg.do_test:
+        model_config["channels"] = {"prep": 1, "layer1": 1,
+                                    "layer2": 1, "layer3": 1}
+        cfg = cfg.replace(num_cols=10, num_rows=1, k=10)
+    model_config.update(num_classes=num_classes_of_dataset(cfg.dataset_name),
+                        do_batchnorm=cfg.do_batchnorm, seed=cfg.seed)
+    train_loader, val_loader = get_data_loaders(cfg, synthetic_examples)
+    x0 = train_loader.dataset.get_client_batch(0, np.array([0]))[0]
+    model_config["initial_channels"] = int(x0.shape[-1])
+    module = models.build_model(cfg.model, **model_config)
+    model = FedModel(module, make_compute_loss(module), cfg, device=device,
+                     num_clients=train_loader.dataset.num_clients)
+    opt = FedOptimizer(model)
+    # cifar10-fast schedule: knots [0, pivot, num_epochs] -> [0, lr, 0]
+    lr_scale = cfg.lr_scale if cfg.lr_scale is not None else 0.4
+    schedule = PiecewiseLinear([0, cfg.pivot_epoch, cfg.num_epochs],
+                               [0, lr_scale, 0])
+    spe = train_loader.steps_per_epoch
+    lr_scheduler = LambdaLR(opt, lr_lambda=lambda step: schedule(step / spe))
+    return model, opt, lr_scheduler, train_loader, val_loader
+
+
+def main(argv=None) -> bool:
+    cfg = parse_args(argv=argv)
+    print(cfg)
+    timer = Timer()
+    np.random.seed(cfg.seed)
+    model, opt, lr_scheduler, train_loader, val_loader = build(
+        cfg, device=cfg.device)
+    print(f"Finished initializing in {timer():.2f} seconds")
+    t0 = time.monotonic()
+    ok = train(model, opt, lr_scheduler, train_loader, val_loader,
+               model.cfg, loggers=(TableLogger(),), timer=timer)
+    model.finalize()
+    print(f"trained in {time.monotonic() - t0:.2f} seconds")
+    return ok
+
+
+def cli() -> None:
+    raise SystemExit(0 if main() else 1)
+
+
+if __name__ == "__main__":
+    cli()

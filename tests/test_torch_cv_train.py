@@ -1,0 +1,136 @@
+"""The port's CV driver end to end on the CPU (`--test --device cpu`),
+the refusal of unported options, and the port's import isolation: no
+module of commefficient_tpu_torch may pull in jax or commefficient_tpu."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from commefficient_tpu_torch.config import Config, parse_args
+from commefficient_tpu_torch.device import resolve_device
+from commefficient_tpu_torch.training import cv_train
+
+pytestmark = pytest.mark.torch_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _argv(tmp_path, *extra):
+    return ["--test", "--device", "cpu", "--local_momentum", "0",
+            "--num_workers", "4", "--num_epochs", "1",
+            "--dataset_dir", str(tmp_path / "ds"), *extra]
+
+
+@pytest.mark.parametrize("mode_flags", [
+    ("--mode", "sketch", "--error_type", "virtual",
+     "--virtual_momentum", "0.9"),
+    ("--mode", "uncompressed"),
+], ids=["sketch", "uncompressed"])
+def test_cv_train_test_smoke_on_cpu(tmp_path, capsys, mode_flags):
+    assert cv_train.main(_argv(tmp_path, *mode_flags))
+    out = capsys.readouterr().out
+    assert "train_loss" in out and "up (MiB)" in out
+
+
+def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
+    cfg = parse_args(argv=_argv(tmp_path, "--mode", "sketch",
+                                "--error_type", "virtual"))
+    model, opt, sched, train_loader, val_loader = cv_train.build(
+        cfg, device="cpu")
+    w0 = model.ps_weights.clone()
+    seen = []
+    assert cv_train.train(model, opt, sched, train_loader, val_loader,
+                          model.cfg, on_round=lambda i, out: seen.append(
+                              (i, float(out[0].mean()), float(out[3].sum()))))
+    assert len(seen) == train_loader.steps_per_epoch
+    assert all(np.isfinite(loss) for _, loss, _ in seen)
+    # upload: 4 clients x a 1 x 10 f32 table a round
+    assert all(up == 4 * 10 * 4 for _, _, up in seen)
+    assert not np.array_equal(model.ps_weights.numpy(), w0.numpy())
+
+
+@pytest.mark.parametrize("flags,needle", [
+    (("--mode", "true_topk", "--error_type", "virtual"), "true_topk"),
+    (("--scan_rounds",), "--scan_rounds"),
+    (("--client_dropout", "0.1"), "--client_dropout"),
+    (("--checkpoint",), "--checkpoint"),
+    (("--multihost",), "--multihost"),
+    (("--sketch_table_dtype", "int8"), "--sketch_table_dtype"),
+    (("--model", "ResNet18"), "ResNet18"),
+])
+def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
+        parse_args(argv=_argv(tmp_path, *flags))
+    try:
+        parse_args(argv=_argv(tmp_path, *flags))
+    except NotImplementedError as e:
+        assert needle in str(e)
+
+
+def test_reference_invariants_still_raise_value_error():
+    with pytest.raises(ValueError, match="local momentum"):
+        Config(mode="sketch", local_momentum=0.9).validate()
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    import torch
+    assert Config().device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    # a fresh interpreter imports every module of the port, then checks
+    # sys.modules
+    code = r"""
+import importlib, pkgutil, sys
+import commefficient_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "jaxlib"
+             or n == "commefficient_tpu" or n.startswith("commefficient_tpu."))
+print("BAD", bad)
+print("N", sum(1 for n in sys.modules if n.startswith("commefficient_tpu_torch")))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("N ")[1].split()[0])
+    assert n >= 20
+
+
+def test_data_pipeline_matches_jax(tmp_path):
+    # the same numpy draws in the same order: synthetic corpus, client
+    # partition, sampler rounds and augmented batches are identical
+    from commefficient_tpu.data import FedCIFAR10 as JCIFAR, FedLoader as JLoader
+    from commefficient_tpu.data import transforms as jtransforms
+    from commefficient_tpu.data.cifar import _synthetic_cifar as j_synth
+    from commefficient_tpu_torch.data import FedCIFAR10, FedLoader, transforms
+    from commefficient_tpu_torch.data.cifar import _synthetic_cifar
+
+    for a, b in zip(j_synth(10, 300, 50, 3), _synthetic_cifar(10, 300, 50, 3)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    kw = dict(num_clients=20, synthetic_examples=(400, 40), seed=5)
+    jset = JCIFAR(str(tmp_path / "j"),
+                  transform=jtransforms.cifar10_transforms(5)[0], **kw)
+    tset = FedCIFAR10(str(tmp_path / "t"),
+                      transform=transforms.cifar10_transforms(5)[0], **kw)
+    np.testing.assert_array_equal(tset.data_per_client, jset.data_per_client)
+    jl, tl = JLoader(jset, 4, 8, seed=5), FedLoader(tset, 4, 8, seed=5)
+    assert tl.steps_per_epoch == jl.steps_per_epoch
+    jrounds, trounds = list(jl.epoch()), list(tl.epoch())
+    assert len(trounds) == len(jrounds) > 0
+    for (jid, jd, jm), (tid, td, tm) in zip(jrounds, trounds):
+        np.testing.assert_array_equal(tid, jid)
+        np.testing.assert_array_equal(tm, jm)
+        for a, b in zip(jd, td):
+            np.testing.assert_array_equal(b, a)

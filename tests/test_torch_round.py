@@ -1,0 +1,151 @@
+"""Round parity: the port's server step and FedModel rounds against the
+JAX package's, from the same weights and batches (numpy inputs made
+from a seed). JAX runs on the CPU test mesh; the port on the CPU with
+its kernels' plain versions."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from commefficient_tpu.config import Config as JConfig
+from commefficient_tpu.federated import server as jserver
+from commefficient_tpu.federated.api import (
+    FedModel as JFedModel, FedOptimizer as JFedOptimizer,
+)
+from commefficient_tpu.models.resnet9 import ResNet9 as JResNet9
+from commefficient_tpu.training.cv_train import (
+    make_compute_loss as j_make_compute_loss,
+)
+from commefficient_tpu_torch.config import Config as TConfig
+from commefficient_tpu_torch.federated import server as tserver
+from commefficient_tpu_torch.federated.api import (
+    FedModel as TFedModel, FedOptimizer as TFedOptimizer,
+)
+from commefficient_tpu_torch.federated.accounting import pack_change_bits
+from commefficient_tpu_torch.models import build_model
+from commefficient_tpu_torch.models.convert import from_jax_params
+from commefficient_tpu_torch.training.cv_train import (
+    make_compute_loss as t_make_compute_loss,
+)
+
+pytestmark = pytest.mark.torch_port
+
+TINY = {"prep": 4, "layer1": 8, "layer2": 8, "layer3": 16}
+
+
+@pytest.mark.parametrize("error_type", ["virtual", "none"])
+def test_sketched_server_step_matches_jax(error_type):
+    # identical inputs, the same estimate, top-k and scatter-add order:
+    # exact equality
+    kw = dict(mode="sketch", error_type=error_type, local_momentum=0.0,
+              virtual_momentum=0.9, k=60, num_rows=5, num_cols=200,
+              grad_size=1000)
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw, device="cpu")
+    rng = np.random.RandomState(0)
+    g, v, e = (rng.randn(5, 200).astype(np.float32) for _ in range(3))
+    ju = jserver._sketched(jnp.asarray(g), jnp.asarray(v), jnp.asarray(e),
+                           jcfg, 0.1, None)
+    tu = tserver._sketched(torch.from_numpy(g), torch.from_numpy(v),
+                           torch.from_numpy(e), tcfg, 0.1)
+    for name in ("update", "Vvelocity", "Verror"):
+        np.testing.assert_array_equal(getattr(tu, name).numpy(),
+                                      np.asarray(getattr(ju, name)),
+                                      err_msg=name)
+    assert np.count_nonzero(tu.update.numpy()) == 60
+
+
+def test_alive_gate_is_a_no_op_when_dead():
+    kw = dict(mode="uncompressed", local_momentum=0.0,
+              virtual_momentum=0.9, grad_size=50)
+    cfg = TConfig(**kw, device="cpu")
+    g, v = torch.randn(50), torch.randn(50)
+    upd = tserver.get_server_update(g, v, v, cfg, 0.1,
+                                    alive=torch.tensor(False))
+    assert torch.equal(upd.update, torch.zeros(50))
+    assert torch.equal(upd.Vvelocity, v)
+
+
+def test_pack_change_bits_matches_jax():
+    from commefficient_tpu.federated.accounting import (
+        pack_change_bits as j_pack,
+    )
+    rng = np.random.RandomState(1)
+    u = rng.randn(1000).astype(np.float32)
+    u[rng.rand(1000) < 0.7] = 0.0
+    want = np.asarray(j_pack(jnp.asarray(u)))
+    got = pack_change_bits(torch.from_numpy(u)).numpy().astype(np.uint32)
+    np.testing.assert_array_equal(got, want)
+
+
+def _batches(n_rounds, W, B, num_clients, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_rounds):
+        ids = rng.choice(num_clients, W, replace=False).astype(np.int32)
+        x = rng.randn(W, B, 32, 32, 3).astype(np.float32)
+        y = rng.randint(0, 10, size=(W, B)).astype(np.int32)
+        mask = np.ones((W, B), np.float32)
+        mask[0, -2:] = 0.0       # a short client, as the sampler makes
+        out.append((ids, (x, y), mask))
+    return out
+
+
+CASES = {
+    # the main path's mode on a tiny model: fused backward, deferred
+    # encode, table-space server step
+    "sketch": dict(mode="sketch", error_type="virtual",
+                   virtual_momentum=0.9, k=300, num_rows=5, num_cols=700),
+    # per-client backward path (microbatching gates the fused one off)
+    "sketch_microbatch": dict(mode="sketch", error_type="virtual",
+                              virtual_momentum=0.9, k=300, num_rows=5,
+                              num_cols=700, microbatch_size=3),
+    "uncompressed": dict(mode="uncompressed", virtual_momentum=0.9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fedmodel_rounds_match_jax(case):
+    # 3 rounds, 4 clients x 6 examples, from the same init. Tolerances:
+    # the client backward reduces in another order than XLA's, so
+    # weights agree to 1e-5 of their scale and losses to 1e-5 relative;
+    # the top-k picks the same coordinates, so the upload/download byte
+    # totals are IDENTICAL.
+    kw = dict(local_momentum=0.0, num_workers=4, num_clients=12,
+              local_batch_size=6, **CASES[case])
+    jcfg = JConfig(**kw)
+    tcfg = TConfig(**kw, device="cpu")
+    jm = JResNet9(num_classes=10, channels=TINY)
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((2, 32, 32, 3), jnp.float32))
+    tm = build_model("ResNet9", channels=TINY)
+    from_jax_params(tm, params)
+
+    jmodel = JFedModel(None, j_make_compute_loss(jm), jcfg, params=params,
+                       num_clients=12)
+    jopt = JFedOptimizer(jmodel)
+    tmodel = TFedModel(tm, t_make_compute_loss(tm), tcfg, device="cpu",
+                       num_clients=12)
+    topt = TFedOptimizer(tmodel)
+    np.testing.assert_array_equal(
+        tmodel.ps_weights.numpy(),
+        np.asarray(ravel_pytree(params)[0]))
+
+    j_bytes = np.zeros(2)
+    t_bytes = np.zeros(2)
+    for i, batch in enumerate(_batches(3, 4, 6, 12, seed=7)):
+        jopt.param_groups[0]["lr"] = topt.param_groups[0]["lr"] = 0.1
+        jl, _, jd, ju = jmodel(batch)
+        jopt.step()
+        tl, _, td, tu = tmodel(batch)
+        topt.step()
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+        j_bytes += [np.sum(jd), np.sum(ju)]
+        t_bytes += [np.sum(td), np.sum(tu)]
+        jw = np.asarray(jmodel.ps_weights)
+        np.testing.assert_allclose(tmodel.ps_weights.numpy(), jw, rtol=0,
+                                   atol=1e-5 * np.abs(jw).max(),
+                                   err_msg=f"round {i}")
+    np.testing.assert_array_equal(t_bytes, j_bytes)
+    assert t_bytes[1] > 0 and t_bytes[0] > 0
