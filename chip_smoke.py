@@ -55,8 +55,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet; the on-chip-measurement guide's
-# table): HBM bandwidth and float32 outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
+# outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
