@@ -9,7 +9,8 @@ the result line:
 1. device   — a CUDA card or fail; its name and power limit
                (nvidia-smi).
 2. build    — the port's CUDA kernels, built from the checkout's
-               sources into build/ (nvcc, sm_90a).
+               sources into build/ (one nvcc per source, sm_90a, all
+               started together).
 3. kernels  — K1 (count-sketch encode) and K2 (median estimate of every
                coordinate) against their plain PyTorch versions at the
                main-path shapes and three small geometries (padded tail /
@@ -31,13 +32,40 @@ the result line:
                gradient: relative error <= 2e-3 card vs CPU, the card no
                less accurate than the CPU against float64, and >= 99% of
                the top-k indices shared (PARITY_RTOL and its note).
+6. kernels  — K3a/K3b (the threshold decode's sample and mask) against
+               their plain versions at the GPT2 main-path geometry
+               (d = 124,444,417), the three threshold geometries of
+               tests/test_kernels.py (one with the stride clamped to c)
+               and the three small ones of phase 3, exact; K4 (the
+               flash-attention forward) against its plain version at
+               [192, L, 64] for the main path's L, 294, 256, 300 and
+               1024, within K4_RTOL. Times as in phase 3; K4's library
+               yardstick is scaled_dot_product_attention (f32, causal).
+7. gpt2     — the port's gpt2_train.train_gpt2() on the full-width
+               GPT2-small (D = 124,444,417, HashTokenizer(50262)),
+               BASELINE config #5 (`--mode sketch --error_type virtual
+               --virtual_momentum 0.9 --local_momentum 0 --num_workers 8`,
+               k, r, c at their defaults) with `--max_history 20` over a
+               synthetic PersonaChat of 16 personas x 2 dialogs x 24
+               utterances (L = 299), 8 clients x 8 examples a round,
+               GPT2_ROUNDS rounds. Every loss finite, the weights moved,
+               K3a and K3b once a round, K1 twice (the cohort sum and the
+               re-encode of the update), K4 12 x 8 a round. Then
+               gpt2_train.test_gpt2 on the val split (forward only,
+               through K4): its NLL finite.
+8. gparity  — one round's gradient sum, table and threshold selection
+               of a 2-layer full-width GPT2 (d = 53,564,417, so the
+               threshold route), 2 clients x 2 examples at L = 299, on
+               the card and on the CPU, beside a float64 CPU gradient:
+               the tolerances of phase 5, the selections sharing >= 99%.
 
 The line before the last holds {"kernels": [...]} and the card's name
 and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-`--profile [DIR]` additionally traces three rounds with torch.profiler
-and writes the device time by kernel to DIR/profile_rounds.txt
-(chiprun_out/ beside the script by default).
+`--profile [DIR]` additionally traces three more rounds of each path
+with torch.profiler and writes the device time by kernel to
+DIR/profile_rounds.txt (config #2) and DIR/profile_gpt2_rounds.txt
+(config #5), chiprun_out/ beside the script by default.
 """
 from __future__ import annotations
 
@@ -88,6 +116,27 @@ TOPK_OVERLAP = 0.99
 CLIENTS = 100
 EXAMPLES_PER_CLIENT = 64     # 100 x 64 / (8 x 32) = 25 rounds an epoch
 
+# the GPT2 path (BASELINE config #5)
+GPT2_D, GPT2_VOCAB = 124_444_417, 50262
+GPT2_CORPUS = (16, 2, 24)    # personas, dialogs each, utterances each
+GPT2_L = 299                 # the corpus's padded train length
+GPT2_ROUNDS = 6              # of 12 an epoch (768 examples / (8 x 8))
+CONFIG5 = ["--dataset_name", "PERSONA", "--mode", "sketch",
+           "--error_type", "virtual", "--virtual_momentum", "0.9",
+           "--local_momentum", "0", "--num_workers", "8",
+           "--max_history", "20"]
+# K3 geometries of tests/test_kernels.py:112-160 as (geometry, stride,
+# ns): the heavy-hitter and dispatch geometries at their own sample
+# geometry, and the chunk narrower than the stride (clamped to c, one
+# sample a chunk)
+K3_GEOMETRIES = [(dict(d=40000, c=10000, r=5), None),
+                 (dict(d=20000, c=5000, r=5), None),
+                 (dict(d=16384, c=256, r=5), (256, 1))]
+# K4 against its plain version: the kernel's f32 FMAs over 64-key
+# tiles vs the plain 128-key-block fold, reductions in another order
+K4_RTOL = 1e-5
+K4_LENGTHS = (GPT2_L, 294, 256, 300, 1024)
+
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
@@ -102,17 +151,21 @@ def smi_line() -> str:
 
 
 def ptxas_summary(log: str) -> str:
-    """Registers and spill bytes of K1 and K2 at r = 5 from the build's
-    `-Xptxas -v` report (empty when the library was already built)."""
+    """Registers and spill bytes of K1, K2, K3a and K3b at r = 5 and K4
+    at Dh = 64 from the build's `-Xptxas -v` report (empty when the
+    library was already built)."""
     import re
     out, fn = [], None
+    names = (("encode_kernel", "encode_kernel"),
+             ("estimate_kernelILi5E", "estimate_kernel<5>"),
+             ("threshold_sample_kernelILi5E", "threshold_sample_kernel<5>"),
+             ("threshold_mask_kernelILi5E", "threshold_mask_kernel<5>"),
+             ("flash_fwd_kernelILi64E", "flash_fwd_kernel<64>"))
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = m.group(1)
-            fn = ("encode_kernel" if "encode_kernel" in name
-                  else "estimate_kernel<5>" if "estimate_kernelILi5E" in name
-                  else None)
+            fn = next((label for key, label in names if key in m.group(1)),
+                      None)
             continue
         if fn and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
@@ -211,27 +264,31 @@ def kernel_phase(sc, CSVec):
         plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d),
         library=None, bytes=k2_bytes, ops=k2_ops))
 
-    out = []
-    for row in rows:
-        t_bytes = row["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = row["ops"] / PEAK_F32_FLOPS * 1e3
-        res = dict(
-            name=row["name"], route=row["route"], source=row["source"],
-            replaces=row["replaces"], launches=0,
-            max_abs_err=max_err[row["name"]],
-            ms=time_cuda(row["fn"], 50),
-            plain_ms=time_cuda(row["plain"], 5, warmup=1),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=(None if row["library"] is None
-                        else time_cuda(row["library"], 20)))
-        phase("kernels", f"{res['name']}: kernel_ms={res['ms']:.4f} "
-              f"plain_ms={res['plain_ms']:.4f} bound_ms="
-              f"{res['bound_ms']:.4f} ({res['bound_by']}) library_ms="
-              f"{res['library_ms']}")
-        out.append(res)
+    out = [timed_row(row, max_err[row["name"]]) for row in rows]
     del buckets, signs, flat_pos, src, lib_out
     return out
+
+
+def timed_row(row, max_abs_err):
+    """One entry of the kernels line: the kernel's, its plain version's
+    and the library call's median times, and the bound from the bytes
+    and operations the work needs (PEAK_*)."""
+    t_bytes = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = row["ops"] / PEAK_F32_FLOPS * 1e3
+    res = dict(
+        name=row["name"], route=row["route"], source=row["source"],
+        replaces=row["replaces"], launches=0, max_abs_err=max_abs_err,
+        ms=time_cuda(row["fn"], 50),
+        plain_ms=time_cuda(row["plain"], 5, warmup=1),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=(None if row["library"] is None
+                    else time_cuda(row["library"], 20)))
+    phase("kernels", f"{res['name']}: kernel_ms={res['ms']:.4f} "
+          f"plain_ms={res['plain_ms']:.4f} bound_ms="
+          f"{res['bound_ms']:.4f} ({res['bound_by']}) library_ms="
+          f"{res['library_ms']}")
+    return res
 
 
 class TimedLoader:
@@ -258,7 +315,16 @@ class TimedLoader:
             yield item
 
 
-def main_path(sc, cv_train, parse_args, data_dir):
+def reset_counts(sc, ac) -> None:
+    sc.reset_launches()
+    ac.reset_launches()
+
+
+def read_counts(sc, ac) -> dict:
+    return {**sc.LAUNCHES, **ac.LAUNCHES}
+
+
+def main_path(sc, ac, cv_train, parse_args, data_dir):
     """Drive cv_train.train() for ROUNDS rounds of config #2; returns
     (model, per-round ms, peak bytes, launches, a batch for parity)."""
     n_train = CLIENTS * EXAMPLES_PER_CLIENT
@@ -282,13 +348,13 @@ def main_path(sc, cv_train, parse_args, data_dir):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sc.reset_launches()
+    reset_counts(sc, ac)
     t0 = time.perf_counter()
     timed = TimedLoader(train_loader)
     ok = cv_train.train(model, opt, sched, timed, val_loader,
                         model.cfg, on_round=on_round)
     torch.cuda.synchronize()
-    launches = dict(sc.LAUNCHES)
+    launches = read_counts(sc, ac)
     peak = torch.cuda.max_memory_allocated()
     if not ok:
         raise AssertionError("train() reported a NaN/divergent loss")
@@ -371,7 +437,265 @@ def parity_phase(model, batch, models, fclient, fserver, flat, convert):
     return g_err, t_err, overlap
 
 
-def profile_rounds(model, train_loader, opt, path):
+def kernel_phase_gpt2(sc, ac, CSVec):
+    """K3a / K3b / K4 against their plain versions; returns their result
+    rows (launch counts filled in after the GPT2 main path). Also times
+    K1 at the GPT2 geometry (printed only: its row is config #2's)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    err = {"threshold_sample": 0.0, "threshold_mask": 0.0, "flash_fwd": 0.0}
+    for geom, sampling in (K3_GEOMETRIES
+                           + [(g, None) for g in SMALL_GEOMETRIES]
+                           + [(dict(d=GPT2_D, c=MAIN_C, r=MAIN_R), None)]):
+        sk = CSVec(**geom)
+        off, eps, delta = sk.tables(dev)
+        g = torch.Generator().manual_seed(geom["d"] + 1)
+        x = torch.randn(geom["d"], generator=g).to(dev)
+        table = sc.encode(x, off, delta, eps, sk.c)
+        stride, ns = sampling or sc.threshold_sample_geometry(sk.n_chunks,
+                                                              sk.c)
+        s_k = sc.threshold_sample(table, off, delta, eps, sk.d, stride, ns)
+        s_p = sc.threshold_sample_plain(table, off, delta, eps, sk.d, stride,
+                                        ns)
+        thr = (s_p.reshape(-1) ** 2).quantile(0.99).reshape(1)
+        m_k = sc.threshold_mask(table, off, delta, eps, thr, sk.d)
+        m_p = sc.threshold_mask_plain(table, off, delta, eps, thr, sk.d)
+        torch.cuda.synchronize()
+        for name, k, p in (("threshold_sample", s_k, s_p),
+                           ("threshold_mask", m_k, m_p)):
+            e = float((k - p).abs().max())
+            err[name] = max(err[name], e)
+            if not torch.equal(k, p):
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version at {geom}: max abs err {e}")
+        phase("kernels", f"{geom}: K3a and K3b equal to their plain "
+              f"versions (exact; stride {stride}, {ns} samples a chunk, "
+              f"{int((m_k != 0).sum())} selected)")
+    for L in K4_LENGTHS:
+        g = torch.Generator().manual_seed(L)
+        q, k, v = (torch.randn(1, 192, L, 64, generator=g).to(dev)
+                   for _ in range(3))
+        o, lse = ac.flash_fwd(q, k, v, 0.125)
+        po, plse = ac.flash_fwd_plain(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        e_o = float((o - po).abs().max())
+        e_l = float((lse - plse).abs().max())
+        err["flash_fwd"] = max(err["flash_fwd"], e_o, e_l)
+        if not (e_o <= K4_RTOL * float(po.abs().max())
+                and e_l <= K4_RTOL * float(plse.abs().max())):
+            raise AssertionError(f"flash_fwd differs from its plain version "
+                                 f"at [192, {L}, 64]: o {e_o}, lse {e_l}")
+        phase("kernels", f"[192, {L}, 64]: K4 within {K4_RTOL:g} of its "
+              f"plain version (max abs err o {e_o:.3e}, lse {e_l:.3e})")
+
+    # timing at the GPT2 main-path shapes
+    d, c, r = GPT2_D, MAIN_C, MAIN_R
+    sk = CSVec(d=d, c=c, r=r)
+    B = sk.n_chunks
+    off, eps, delta = sk.tables(dev)
+    x = torch.randn(d, generator=torch.Generator().manual_seed(2)).to(dev)
+    table = sc.encode(x, off, delta, eps, c)
+    stride, ns = sc.threshold_sample_geometry(B, c)
+    sample = sc.threshold_sample(table, off, delta, eps, d, stride, ns)
+    thr = (sample.reshape(-1) ** 2).quantile(1 - 50_000 / d).reshape(1)
+    k1_ms = time_cuda(lambda: sc.encode(x, off, delta, eps, c), 20)
+    k1_bound = (8 * d + 8 * r * c + 8 * r * B) / PEAK_BYTES_PER_S * 1e3
+    phase("kernels", f"K1 at the GPT2 geometry (d={d}): kernel_ms="
+          f"{k1_ms:.4f} bound_ms={k1_bound:.4f} (bytes)")
+    # operations per estimate: 2r multiplies, r(r-1)/2 compare-exchanges
+    # (2 each), the middle; K3b adds the square and the compare
+    est_ops = 2 * r + r * (r - 1) + 2
+    q, kk, v = (torch.randn(1, 192, GPT2_L, 64,
+                            generator=torch.Generator().manual_seed(i))
+                .to(dev) for i in range(3))
+    pairs = 192 * GPT2_L * (GPT2_L + 1) // 2     # causal (q, k) pairs
+    rows = [
+        dict(name="threshold_sample", route="cuda",
+             source="commefficient_tpu_torch/ops/csrc/sketch.cu",
+             replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:232",
+             fn=lambda: sc.threshold_sample(table, off, delta, eps, d,
+                                            stride, ns),
+             plain=lambda: sc.threshold_sample_plain(table, off, delta, eps,
+                                                     d, stride, ns),
+             library=None,
+             bytes=8 * r * c + 8 * r * B + 4 * B * ns,
+             ops=B * ns * est_ops),
+        dict(name="threshold_mask", route="cuda",
+             source="commefficient_tpu_torch/ops/csrc/sketch.cu",
+             replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:250",
+             fn=lambda: sc.threshold_mask(table, off, delta, eps, thr, d),
+             plain=lambda: sc.threshold_mask_plain(table, off, delta, eps,
+                                                   thr, d),
+             library=None,
+             bytes=8 * r * c + 8 * r * B + 4 + 4 * d,
+             ops=d * (est_ops + 2)),
+        # q, k, v read once, o and lse written once; 4 Dh operations
+        # (the score and the PV product) for each causal pair
+        dict(name="flash_fwd", route="cuda",
+             source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces="commefficient_tpu/ops/attention.py:91",
+             fn=lambda: ac.flash_fwd(q, kk, v, 0.125),
+             plain=lambda: ac.flash_fwd_plain(q, kk, v, 0.125),
+             library=lambda: F.scaled_dot_product_attention(
+                 q, kk, v, is_causal=True, scale=0.125),
+             bytes=4 * 4 * q.numel() + 4 * 192 * GPT2_L,
+             ops=4 * 64 * pairs),
+    ]
+    return [timed_row(row, err[row["name"]]) for row in rows]
+
+
+def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
+                   profile_dir=None):
+    """Drive gpt2_train.train_gpt2() for GPT2_ROUNDS rounds of config #5,
+    then test_gpt2 on the val split (and, with `profile_dir`, trace
+    three more rounds); returns (launches, round ms, peak bytes, a batch
+    for parity, the config)."""
+    spe = math.ceil(GPT2_CORPUS[0] * GPT2_CORPUS[1] * GPT2_CORPUS[2]
+                    / (8 * 8))
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5 + [
+        "--local_batch_size", "8", "--device", "cuda",
+        "--dataset_dir", data_dir, "--num_epochs", str(GPT2_ROUNDS / spe),
+        "--seed", "21"])
+    t0 = time.perf_counter()
+    model, opt, sched, train_loader, val_loader = gpt2_train.build(
+        cfg, HashTokenizer(GPT2_VOCAB), device="cuda",
+        synthetic_examples=GPT2_CORPUS)
+    phase("gpt2", f"built in {time.perf_counter() - t0:.2f} s: D="
+          f"{model.cfg.grad_size}, train L={train_loader.dataset.seq_len}, "
+          f"val L={val_loader.dataset.seq_len}, {spe} rounds an epoch")
+    assert model.cfg.grad_size == GPT2_D, model.cfg.grad_size
+    assert train_loader.dataset.seq_len == GPT2_L
+    assert train_loader.steps_per_epoch == spe
+    assert model.cfg.fused_client_backward
+    w0 = model.ps_weights.clone()
+    stamps, losses = [], []
+
+    def on_round(i, out):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(out[0])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = TimedLoader(train_loader)
+    reset_counts(sc, ac)
+    t0 = time.perf_counter()
+    ok = gpt2_train.train_gpt2(model, opt, sched, timed, model.cfg,
+                               on_round=on_round)
+    torch.cuda.synchronize()
+    launches = read_counts(sc, ac)
+    peak = torch.cuda.max_memory_allocated()
+    if not ok:
+        raise AssertionError("train_gpt2() reported a NaN/divergent loss")
+    if len(stamps) != GPT2_ROUNDS:
+        raise AssertionError(f"{len(stamps)} rounds ran, {GPT2_ROUNDS} "
+                             "expected")
+    loss_vals = torch.stack(losses).cpu()
+    if not torch.isfinite(loss_vals).all():
+        raise AssertionError(f"non-finite losses: {loss_vals}")
+    if torch.equal(model.ps_weights, w0):
+        raise AssertionError("the weights did not move")
+    want = {"threshold_sample": GPT2_ROUNDS, "threshold_mask": GPT2_ROUNDS,
+            "sketch_encode": 2 * GPT2_ROUNDS, "sketch_estimate_all": 0,
+            "flash_fwd": 12 * 8 * GPT2_ROUNDS}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {GPT2_ROUNDS} rounds ({n} expected)")
+    round_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+    phase("gpt2", f"{GPT2_ROUNDS} rounds, D={GPT2_D}, L={GPT2_L}, mean "
+          f"client loss first/last {float(loss_vals[0].mean()):.4f}/"
+          f"{float(loss_vals[-1].mean()):.4f}, launches {launches}")
+    phase("gpt2", "ms/round " + " ".join(f"{t:.2f}" for t in round_ms)
+          + f"; median (rounds 2-{GPT2_ROUNDS}) "
+          f"{statistics.median(round_ms[1:]):.2f}, of which the host "
+          f"makes the batch (data) "
+          f"{1e3 * statistics.median(timed.seconds[1:GPT2_ROUNDS]):.2f}; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated)")
+    reset_counts(sc, ac)
+    t0 = time.perf_counter()
+    stats = gpt2_train.test_gpt2(model, val_loader)
+    torch.cuda.synchronize()
+    if not math.isfinite(stats["val_nll"]):
+        raise AssertionError(f"non-finite val NLL {stats['val_nll']}")
+    phase("gpt2", f"test_gpt2: val NLL {stats['val_nll']:.4f}, acc "
+          f"{stats['val_acc']:.4f}, ppl {stats['val_ppl']:.2f} in "
+          f"{time.perf_counter() - t0:.2f} s, K4 launched "
+          f"{ac.LAUNCHES['flash_fwd']} times")
+    if ac.LAUNCHES["flash_fwd"] == 0:
+        raise AssertionError("test_gpt2 did not launch K4")
+    if profile_dir:
+        profile_rounds(model, train_loader, opt,
+                       os.path.join(profile_dir, "profile_gpt2_rounds.txt"),
+                       "gpt2 profile")
+    batch = next(iter(train_loader.epoch()))
+    cfg = model.cfg
+    del model, opt, sched, w0
+    torch.cuda.empty_cache()
+    return launches, round_ms, peak, batch, cfg
+
+
+def gpt2_parity_phase(batch, cfg, fclient, fserver, flat, gpt2_model,
+                      gpt2_train):
+    """One round's gradient sum, table and threshold selection of a
+    2-layer full-width GPT2 on the card vs the CPU, from the same
+    weights and 2 clients x 2 examples of a main-path batch, with a
+    float64 CPU gradient as the yardstick."""
+    client_ids, data, mask = batch
+    data = tuple(x[:2, :2] for x in data)
+    mask = mask[:2, :2]
+    gcfg = gpt2_model.PRESETS["gpt2"].replace(vocab_size=GPT2_VOCAB,
+                                              n_layer=2)
+    base = gpt2_model.GPT2DoubleHeads(gcfg, seed=5)
+    vec, _ = flat.flatten_params(base)
+    D = int(vec.shape[0])
+    cfg = cfg.replace(grad_size=D, num_workers=2)
+    sketch = fserver.args2sketch(cfg)
+    assert sketch._threshold_decode, D
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        module = gpt2_model.GPT2DoubleHeads(gcfg, seed=5).to(dev, dtype)
+        _, unravel = flat.flatten_params(module)
+        loss = fclient.make_flat_loss_fn(
+            gpt2_train.make_compute_loss_train(module, cfg), unravel)
+        w = vec.to(dev, dtype)
+        xs = tuple(torch.from_numpy(x).to(dev) for x in data)
+        m = torch.from_numpy(mask).to(dev, dtype)
+        g, _, _, counts = fclient.fused_shard_grads(loss, w, xs, m, cfg)
+        if dtype == torch.float64:
+            out["f64"] = g.cpu()
+            continue
+        table = sketch.encode(g) / counts.sum()
+        zeros = torch.zeros(sketch.table_shape, device=dev)
+        upd = fserver.get_server_update(table, zeros, zeros, cfg, 1.0)
+        top = set(torch.nonzero(upd.update).reshape(-1).cpu().tolist())
+        out[dev] = (g.cpu(), table.cpu(), top)
+        del module, g, table, upd
+    (gc, tc, kc), (gp, tp, kp) = out["cuda"], out["cpu"]
+    g64 = out["f64"]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    g_err, t_err = rel(gc, gp), rel(tc, tp)
+    card64, cpu64 = rel(gc, g64), rel(gp, g64)
+    overlap = len(kc & kp) / max(len(kp), 1)
+    phase("gparity", f"2-layer GPT2 (d={D}), L={data[0].shape[-1]}: card vs "
+          f"CPU grad rel err {g_err:.3e}, table rel err {t_err:.3e} "
+          f"(tolerance {PARITY_RTOL:g}); vs the float64 CPU gradient: card "
+          f"{card64:.3e}, CPU float32 {cpu64:.3e} (card <= "
+          f"{ACCURACY_RATIO:g} x max(CPU, {ACCURACY_FLOOR:g})); threshold "
+          f"selection overlap {overlap:.5f} of {len(kp)} (card selected "
+          f"{len(kc)}; >= {TOPK_OVERLAP:g})")
+    if not (g_err <= PARITY_RTOL and t_err <= PARITY_RTOL
+            and card64 <= ACCURACY_RATIO * max(cpu64, ACCURACY_FLOOR)
+            and overlap >= TOPK_OVERLAP):
+        raise AssertionError("card and CPU disagree beyond tolerance")
+    return g_err, t_err, overlap
+
+
+def profile_rounds(model, train_loader, opt, path, label="profile"):
     """Device time by kernel over three traced rounds (after one
     untraced and one warm-up round of the profiler's schedule)."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -399,7 +723,7 @@ def profile_rounds(model, train_loader, opt, path):
     with open(path, "w") as f:
         f.write(f"3 rounds, wall {wall_ms:.2f} ms (traced), device busy "
                 f"{dev_us / 1e3:.2f} ms\n{table}\n")
-    phase("profile", f"3 traced rounds: wall {wall_ms:.2f} ms, kernels on "
+    phase(label, f"3 traced rounds: wall {wall_ms:.2f} ms, kernels on "
           f"the device {dev_us / 1e3:.2f} ms (busy share "
           f"{dev_us / 1e3 / wall_ms:.3f}); table in {path}")
 
@@ -408,8 +732,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
                     const=os.path.join(HERE, "chiprun_out"),
-                    help="trace three more rounds with torch.profiler and "
-                         "write profile_rounds.txt into DIR (default "
+                    help="trace three more rounds of each path with "
+                         "torch.profiler and write profile_rounds.txt and "
+                         "profile_gpt2_rounds.txt into DIR (default "
                          "chiprun_out/ beside this script)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -421,12 +746,16 @@ def main(argv=None) -> int:
     from commefficient_tpu_torch.config import parse_args
     from commefficient_tpu_torch.device import resolve_device
     from commefficient_tpu_torch.federated import client as fclient
+    from commefficient_tpu_torch.data.persona import HashTokenizer
     from commefficient_tpu_torch.federated import server as fserver
     from commefficient_tpu_torch.models import convert
+    from commefficient_tpu_torch.models import gpt2 as gpt2_model
     from commefficient_tpu_torch.ops import flat
+    from commefficient_tpu_torch.ops.kernels import _build
+    from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
     from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
     from commefficient_tpu_torch.ops.sketch import CSVec
-    from commefficient_tpu_torch.training import cv_train
+    from commefficient_tpu_torch.training import cv_train, gpt2_train
 
     resolve_device("cuda")
     smi = smi_line()
@@ -435,23 +764,35 @@ def main(argv=None) -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    sc.build()
-    phase("build", f"nvcc sm_90a build of {sorted(sc.SOURCES)} in "
+    _build.build()
+    ptxas = ptxas_summary("\n".join(_build.BUILD_LOG.values()))
+    phase("build", f"nvcc sm_90a build of {sorted(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s (0 when already built); "
-          f"ptxas: {ptxas_summary(sc.BUILD_LOG.get('sketch', ''))}")
+          f"ptxas: {ptxas}")
 
     kernels = kernel_phase(sc, CSVec)
     data_dir = os.path.join(HERE, "build", "chip_smoke_data")
     model, round_ms, peak, launches, batch = main_path(
-        sc, cv_train, parse_args, data_dir)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+        sc, ac, cv_train, parse_args, data_dir)
     parity_phase(model, batch, models, fclient, fserver, flat, convert)
     if args.profile:
         profile_rounds(model, cv_train.get_data_loaders(
             model.cfg, (CLIENTS * EXAMPLES_PER_CLIENT, 512))[0],
             model._optimizer, os.path.join(args.profile,
                                            "profile_rounds.txt"))
+    del model
+    torch.cuda.empty_cache()
+
+    kernels += kernel_phase_gpt2(sc, ac, CSVec)
+    g_launches, _, _, g_batch, g_cfg = gpt2_main_path(
+        sc, ac, gpt2_train, parse_args, HashTokenizer,
+        os.path.join(HERE, "build", "chip_smoke_gpt2_data"), args.profile)
+    gpt2_parity_phase(g_batch, g_cfg, fclient, fserver, flat, gpt2_model,
+                      gpt2_train)
+    # launches: the count over the two main paths' runs (config #2's
+    # for K1 and K2, config #5's for K1, K3a, K3b and K4)
+    for k in kernels:
+        k["launches"] = launches[k["name"]] + g_launches[k["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)

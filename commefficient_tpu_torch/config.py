@@ -52,6 +52,8 @@ DEFAULT_NUM_CLIENTS = {
 Q_MODES = "Queue 1 item 6 (remaining modes and per-client state)"
 Q_MODELS = "Queue 1 item 8 (other models and datasets)"
 Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
+Q_GPT2 = ("Queue 1 item 7 (what the GPT2 path leaves: pretrained "
+          "weights, --finetune, --remat, --model_parallel)")
 
 
 def num_classes_of_dataset(dataset_name: str) -> int:
@@ -390,7 +392,6 @@ class Config:
         for flag, on in (("--checkpoint", self.do_checkpoint),
                          ("--checkpoint_every", self.checkpoint_every > 0),
                          ("--resume", self.resume),
-                         ("--finetune", self.do_finetune),
                          ("--trace", self.trace),
                          ("--profile", self.do_profile),
                          ("--profile_spans", bool(self.profile_spans)),
@@ -402,6 +403,11 @@ class Config:
                 refuse(flag, Q_MODES)
         if self.model != "ResNet9":
             refuse(f"--model {self.model}", Q_MODELS)
+        for flag, on in (("--finetune", self.do_finetune),
+                         ("--remat", self.do_remat),
+                         ("--model_parallel > 1", self.model_parallel > 1)):
+            if on:
+                refuse(flag, Q_GPT2)
         for flag, on in (
                 ("--client_dropout", self.client_dropout > 0),
                 ("--straggler_rate", self.straggler_rate > 0),
@@ -422,7 +428,6 @@ class Config:
                 ("--state_tier host", self.state_tier != "device"),
                 ("--plan_transport", bool(self.plan_transport)),
                 ("--multihost", self.multihost),
-                ("--model_parallel > 1", self.model_parallel > 1),
                 ("--num_slices > 1", self.num_slices > 1)):
             if on:
                 refuse(flag, Q_SCALE)

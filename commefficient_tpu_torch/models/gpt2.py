@@ -1,0 +1,324 @@
+"""GPT-2 with double heads (LM + multiple-choice): the port of
+commefficient_tpu/models/gpt2.py.
+
+The same architecture and the same parameter tree:
+  * pre-LN transformer blocks (eps 1e-5) with a fused QKV projection
+    (`c_attn`, one [E, 3E] product a block);
+  * the candidate axis folded into the batch before the transformer
+    ([B, C, L] -> [B*C, L]);
+  * token types looked up in the SAME token embedding, and the LM head
+    tied to it (one [V, E] parameter);
+  * attention: below FLASH_ATTENTION_MIN_LEN the product form with a
+    -1e9 causal fill and a float32 softmax; at and above it
+    `ops/attention.flash_attention` (kernel K4 on the card), which never
+    materializes [B, H, L, L];
+  * the MC head reads the hidden state at `mc_token_ids` and projects to
+    one scalar a candidate.
+
+Submodules carry the flax names (transformer, h_0 .. h_{n-1}, attn,
+c_attn, ln_1, mc_head, ...) so `jax_layout()` can state where each
+parameter sits in the JAX package's flat vector (ops/flat.py): keys
+sort as strings (h_0, h_1, h_10, h_11, h_2, ...), `bias` before
+`kernel` and `scale`, `mc_head` before `transformer`; Dense kernels are
+[in, out] (a torch Linear weight transposed), LayerNorm's weight is
+flax's `scale`, and the tied `wte` is one entry.
+
+Pretrained weights are not imported (ROADMAP.md Queue 1 item 7): only
+the writing half of the HF bridge is here, for the artifact `main`
+saves.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from commefficient_tpu_torch.ops.attention import flash_attention
+from commefficient_tpu_torch.ops.flat import LayoutEntry
+from commefficient_tpu_torch.utils.atomic_io import atomic_write_text
+
+_IO_TO_OI = (1, 0)
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_epsilon: float = 1e-5
+    initializer_range: float = 0.02
+
+    def replace(self, **kw) -> "GPT2Config":
+        return dataclasses.replace(self, **kw)
+
+
+# GPT2-family presets (model_checkpoint flag values)
+PRESETS = {
+    "gpt2": GPT2Config(),
+    "gpt2-medium": GPT2Config(n_embd=1024, n_layer=24, n_head=16),
+    "gpt2-large": GPT2Config(n_embd=1280, n_layer=36, n_head=20),
+    "gpt2-xl": GPT2Config(n_embd=1600, n_layer=48, n_head=25),
+}
+
+# sequences at/above this length route through flash attention
+# (ops/attention.py) instead of materializing [B, H, L, L]; read at call
+# time
+FLASH_ATTENTION_MIN_LEN = 256
+
+
+class SelfAttention(nn.Module):
+    """Causal multi-head self-attention with a fused QKV projection."""
+
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        E = cfg.n_embd
+        self.c_attn = nn.Linear(E, 3 * E)
+        self.c_proj = nn.Linear(E, E)
+
+    def forward(self, h):
+        B, L, E = h.shape
+        H = self.cfg.n_head
+        hd = E // H
+        q, k, v = self.c_attn(h).split(E, dim=-1)
+
+        def heads(x):  # [B, L, E] -> [B, H, L, hd]
+            return x.reshape(B, L, H, hd).transpose(1, 2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        if L >= FLASH_ATTENTION_MIN_LEN:
+            out = flash_attention(q, k, v)
+        else:
+            att = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+            causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                           device=h.device))
+            att = att.masked_fill(~causal, -1e9)
+            att = torch.softmax(att.float(), dim=-1).to(v.dtype)
+            out = torch.matmul(att, v)
+        out = out.transpose(1, 2).reshape(B, L, E)
+        return self.c_proj(out)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        E = cfg.n_embd
+        self.c_fc = nn.Linear(E, 4 * E)
+        self.c_proj = nn.Linear(4 * E, E)
+
+    def forward(self, h):
+        return self.c_proj(F.gelu(self.c_fc(h), approximate="tanh"))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block (GPT-2 ordering)."""
+
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        eps = cfg.layer_norm_epsilon
+        self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=eps)
+        self.attn = SelfAttention(cfg)
+        self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=eps)
+        self.mlp = MLP(cfg)
+
+    def forward(self, h):
+        h = h + self.attn(self.ln_1(h))
+        return h + self.mlp(self.ln_2(h))
+
+
+class GPT2Transformer(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd)
+        self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd)
+        for i in range(cfg.n_layer):
+            self.add_module(f"h_{i}", Block(cfg))
+        self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon)
+
+    def forward(self, input_ids, token_type_ids=None):
+        L = input_ids.shape[-1]
+        h = self.wte(input_ids) + self.wpe(
+            torch.arange(L, device=input_ids.device))
+        if token_type_ids is not None:
+            # token types are ordinary special-token ids of the SAME
+            # embedding
+            h = h + self.wte(token_type_ids)
+        for i in range(self.cfg.n_layer):
+            h = getattr(self, f"h_{i}")(h)
+        h = self.ln_f(h)
+        # weight-tied LM logits
+        return h, F.linear(h, self.wte.weight)
+
+
+class GPT2DoubleHeads(nn.Module):
+    """LM head + multiple-choice head over candidate sequences.
+
+    forward(input_ids [..., C, L], token_type_ids [..., C, L],
+            mc_token_ids [..., C]) ->
+        (lm_logits [..., C, L, V], mc_logits [..., C])
+    """
+
+    def __init__(self, cfg: GPT2Config, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.transformer = GPT2Transformer(cfg)
+        self.mc_head = nn.Linear(cfg.n_embd, 1)
+        self.reset_parameters(seed)
+
+    def forward(self, input_ids, token_type_ids=None, mc_token_ids=None):
+        lead = input_ids.shape[:-1]
+        L = input_ids.shape[-1]
+        flat_ids = input_ids.reshape(-1, L).long()
+        flat_tt = (token_type_ids.reshape(-1, L).long()
+                   if token_type_ids is not None else None)
+        h, lm_logits = self.transformer(flat_ids, flat_tt)
+        if mc_token_ids is None:
+            mc_pos = torch.full((h.shape[0],), L - 1, dtype=torch.long,
+                                device=h.device)
+        else:
+            mc_pos = mc_token_ids.reshape(-1).long()
+        summary = h[torch.arange(h.shape[0], device=h.device), mc_pos]
+        mc_logits = self.mc_head(summary)[:, 0]
+        return (lm_logits.reshape(lead + (L, lm_logits.shape[-1])),
+                mc_logits.reshape(lead))
+
+    def jax_layout(self) -> List[LayoutEntry]:
+        """Where each parameter sits in the JAX package's flat vector:
+        its flax path and flax shape (Dense kernels [in, out])."""
+        out = []
+        for mod_name, mod in self.named_modules():
+            prefix = tuple(mod_name.split(".")) if mod_name else ()
+            for pname, p in mod.named_parameters(recurse=False):
+                name = ".".join(prefix + (pname,))
+                if isinstance(mod, nn.Linear) and pname == "weight":
+                    o, i = p.shape
+                    out.append(LayoutEntry(prefix + ("kernel",), name,
+                                           (i, o), _IO_TO_OI))
+                    continue
+                flax = {(nn.LayerNorm, "weight"): "scale",
+                        (nn.Embedding, "weight"): "embedding"}.get(
+                            (type(mod), pname), pname)
+                out.append(LayoutEntry(prefix + (flax,), name,
+                                       tuple(p.shape)))
+        return out
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        """Random weights from numpy `RandomState(seed)` with the JAX
+        model's initializers: N(0, initializer_range) for Dense kernels
+        and embeddings, zeros for biases, ones for LayerNorm scales. Not
+        the JAX package's random numbers (tests load those through
+        models/convert.py)."""
+        rng = np.random.RandomState(seed)
+        params = dict(self.named_parameters())
+        std = self.cfg.initializer_range
+        for e in sorted(self.jax_layout(), key=lambda e: e.path):
+            p = params[e.name]
+            if e.path[-1] in ("kernel", "embedding"):
+                t = torch.from_numpy(
+                    (rng.standard_normal(e.flat_shape) * std)
+                    .astype(np.float32))
+                if e.to_torch is not None:
+                    t = t.permute(*e.to_torch)
+                p.copy_(t)
+            elif e.path[-1] == "scale":
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
+def build_gpt2(model_checkpoint: str = "gpt2", seed: int = 0,
+               **overrides) -> GPT2DoubleHeads:
+    """Resolve a GPT2 preset by flag name, with config overrides."""
+    cfg = PRESETS.get(model_checkpoint, PRESETS["gpt2"])
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return GPT2DoubleHeads(cfg, seed=seed)
+
+
+# ---- the HF-style artifact (write only) ---------------------------------
+
+def hf_state_dict_from_params(params, cfg: GPT2Config
+                              ) -> Dict[str, np.ndarray]:
+    """A HuggingFace GPT2DoubleHeadsModel-style state dict (numpy
+    values) from a flax-shaped parameter tree ({'params': ...}, as
+    models/convert.to_jax_params gives it). Projection kernels keep the
+    Conv1D [in, out] layout; the MC head transposes to torch Linear
+    [out, in]; `lm_head.weight` aliases the tied token embedding."""
+    def a(x):
+        return np.asarray(x)
+
+    p = params["params"]
+    tr = p["transformer"]
+    sd: Dict[str, np.ndarray] = {
+        "transformer.wte.weight": a(tr["wte"]["embedding"]),
+        "transformer.wpe.weight": a(tr["wpe"]["embedding"]),
+        "transformer.ln_f.weight": a(tr["ln_f"]["scale"]),
+        "transformer.ln_f.bias": a(tr["ln_f"]["bias"]),
+        "lm_head.weight": a(tr["wte"]["embedding"]),
+        "multiple_choice_head.summary.weight": a(p["mc_head"]["kernel"]).T,
+        "multiple_choice_head.summary.bias": a(p["mc_head"]["bias"]),
+    }
+    for i in range(cfg.n_layer):
+        b = tr[f"h_{i}"]
+        pre = f"transformer.h.{i}."
+        sd[pre + "ln_1.weight"] = a(b["ln_1"]["scale"])
+        sd[pre + "ln_1.bias"] = a(b["ln_1"]["bias"])
+        sd[pre + "ln_2.weight"] = a(b["ln_2"]["scale"])
+        sd[pre + "ln_2.bias"] = a(b["ln_2"]["bias"])
+        sd[pre + "attn.c_attn.weight"] = a(b["attn"]["c_attn"]["kernel"])
+        sd[pre + "attn.c_attn.bias"] = a(b["attn"]["c_attn"]["bias"])
+        sd[pre + "attn.c_proj.weight"] = a(b["attn"]["c_proj"]["kernel"])
+        sd[pre + "attn.c_proj.bias"] = a(b["attn"]["c_proj"]["bias"])
+        sd[pre + "mlp.c_fc.weight"] = a(b["mlp"]["c_fc"]["kernel"])
+        sd[pre + "mlp.c_fc.bias"] = a(b["mlp"]["c_fc"]["bias"])
+        sd[pre + "mlp.c_proj.weight"] = a(b["mlp"]["c_proj"]["kernel"])
+        sd[pre + "mlp.c_proj.bias"] = a(b["mlp"]["c_proj"]["bias"])
+    return sd
+
+
+def save_pretrained(log_dir: str, params, cfg: GPT2Config,
+                    tokenizer=None) -> str:
+    """HF-style final artifact: `pytorch_model.bin` (the state dict in HF
+    double-heads naming), `config.json`, and the tokenizer's own files
+    when it can save itself (a HashTokenizer records its class and
+    vocabulary size)."""
+    os.makedirs(log_dir, exist_ok=True)
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in hf_state_dict_from_params(params, cfg).items()}
+    torch.save(sd, os.path.join(log_dir, "pytorch_model.bin"))
+    conf = {
+        "model_type": "gpt2",
+        "architectures": ["GPT2DoubleHeadsModel"],
+        "vocab_size": cfg.vocab_size,
+        "n_positions": cfg.n_positions,
+        "n_ctx": cfg.n_positions,
+        "n_embd": cfg.n_embd,
+        "n_layer": cfg.n_layer,
+        "n_head": cfg.n_head,
+        "layer_norm_epsilon": cfg.layer_norm_epsilon,
+        "initializer_range": cfg.initializer_range,
+    }
+    atomic_write_text(os.path.join(log_dir, "config.json"),
+                      json.dumps(conf, indent=1))
+    if tokenizer is not None:
+        inner = getattr(tokenizer, "tok", tokenizer)
+        if hasattr(inner, "save_pretrained"):
+            inner.save_pretrained(log_dir)
+        else:
+            atomic_write_text(
+                os.path.join(log_dir, "tokenizer_config.json"),
+                json.dumps({"tokenizer_class": "HashTokenizer",
+                            "vocab_size": len(tokenizer)}))
+    return log_dir

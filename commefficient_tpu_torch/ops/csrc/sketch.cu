@@ -36,10 +36,28 @@
 // Bound: bytes (table once, eps once, the [B, c] estimate once: about
 // 48 MB at the main-path shapes), roughly 14 us at 3.35 TB/s.
 //
+// K3 (K3a cct_sketch_threshold_sample + K3b cct_sketch_threshold_mask)
+// replaces sketch_pallas.py pallas_threshold_decode's two kernels,
+// _sample_kernel and _mask_kernel: the large-d decode (d > 32M) that
+// selects every estimate whose square reaches a threshold priced from a
+// strided sample, without materializing the [B, c] estimate. Both
+// reuse K2's per-cell device code (estimate_at), so each estimate is
+// bitwise K2's. K3a: one thread per (chunk b, sample s) at chunk
+// position p = s * stride, the tail (b * c + p >= d) written as 0.
+// Bound: bytes, about 24 MB at d = 124.4M (r = 5, c = 500k: the table,
+// eps and the [B, ns] sample), some 7 us; the gathers are strided, so
+// the sectors fetched are several times the bytes used and the bound
+// is optimistic. K3b: one thread per (b, p) with b * c + p < d; it
+// reads the threshold from device memory (no host round trip) and
+// writes est if est * est >= thr else 0 (>= keeps ties, as _mask_kernel
+// does) straight into the [d] output: no [B, c] buffer, no padded copy
+// to cut. Bound: bytes, the 498 MB output write (the table and eps,
+// 20 MB, stay in the 50 MB L2 across chunks), some 0.155 ms.
+//
 // Arithmetic is written with __fmul_rn / __fadd_rn so nvcc cannot
 // contract it into FMAs (the build passes -fmad=false as well): the
 // product order is (eps * x) * delta for K1 and (table * eps) * delta
-// for K2, the same as the plain versions.
+// for K2 and K3, the same as the plain versions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +88,39 @@ __global__ void encode_kernel(const float* __restrict__ x, long long d,
   table[(long long)j * c + p] = acc;
 }
 
+// median-of-rows estimate of cell (b, p): the r signed values
+// table[j, (p + off[j, b]) mod c] * eps[j, p] * delta[j, b], sorted by
+// the bubble compare-exchange network _median_rows traces, then the
+// middle (odd R) or 0.5f * (a + b) of the two middles (even R)
+template <int R>
+__device__ __forceinline__ float estimate_at(const float* __restrict__ table,
+                                             const int* __restrict__ off,
+                                             const float* __restrict__ delta,
+                                             const float* __restrict__ eps,
+                                             int c, int B, int b, int p) {
+  float v[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    int q = p + off[(long long)j * B + b];
+    if (q >= c) q -= c;
+    v[j] = __fmul_rn(__fmul_rn(table[(long long)j * c + q],
+                               eps[(long long)j * c + p]),
+                     delta[(long long)j * B + b]);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int k = 0; k < R - 1 - i; ++k) {
+      const float lo = fminf(v[k], v[k + 1]);
+      const float hi = fmaxf(v[k], v[k + 1]);
+      v[k] = lo;
+      v[k + 1] = hi;
+    }
+  }
+  return (R % 2) ? v[R / 2]
+                 : __fmul_rn(0.5f, __fadd_rn(v[R / 2 - 1], v[R / 2]));
+}
+
 template <int R>
 __global__ void estimate_kernel(const float* __restrict__ table,
                                 const int* __restrict__ off,
@@ -81,32 +132,44 @@ __global__ void estimate_kernel(const float* __restrict__ table,
   const int b = blockIdx.y;
   if (p >= c) return;
   const long long gi = (long long)b * c + p;
-  if (gi >= d) {
-    est[gi] = 0.0f;
-    return;
-  }
-  float v[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    int q = p + off[(long long)j * B + b];
-    if (q >= c) q -= c;
-    v[j] = __fmul_rn(__fmul_rn(table[(long long)j * c + q],
-                               eps[(long long)j * c + p]),
-                     delta[(long long)j * B + b]);
-  }
-  // bubble compare-exchange network, the same one _median_rows traces
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int k = 0; k < R - 1 - i; ++k) {
-      const float lo = fminf(v[k], v[k + 1]);
-      const float hi = fmaxf(v[k], v[k + 1]);
-      v[k] = lo;
-      v[k + 1] = hi;
-    }
-  }
-  est[gi] = (R % 2) ? v[R / 2]
-                    : __fmul_rn(0.5f, __fadd_rn(v[R / 2 - 1], v[R / 2]));
+  est[gi] = gi < d ? estimate_at<R>(table, off, delta, eps, c, B, b, p)
+                   : 0.0f;
+}
+
+// K3a: the estimate at chunk positions 0, stride, ..., (ns - 1) * stride
+template <int R>
+__global__ void threshold_sample_kernel(const float* __restrict__ table,
+                                        const int* __restrict__ off,
+                                        const float* __restrict__ delta,
+                                        const float* __restrict__ eps,
+                                        float* __restrict__ sample, int c,
+                                        int B, long long d, int stride,
+                                        int ns) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (s >= ns) return;
+  const int p = s * stride;
+  const long long gi = (long long)b * c + p;
+  sample[(long long)b * ns + s] =
+      gi < d ? estimate_at<R>(table, off, delta, eps, c, B, b, p) : 0.0f;
+}
+
+// K3b: est if est * est >= *thr else 0, written at global index b*c + p
+template <int R>
+__global__ void threshold_mask_kernel(const float* __restrict__ table,
+                                      const int* __restrict__ off,
+                                      const float* __restrict__ delta,
+                                      const float* __restrict__ eps,
+                                      const float* __restrict__ thr,
+                                      float* __restrict__ out, int c, int B,
+                                      long long d) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (p >= c) return;
+  const long long gi = (long long)b * c + p;
+  if (gi >= d) return;
+  const float e = estimate_at<R>(table, off, delta, eps, c, B, b, p);
+  out[gi] = __fmul_rn(e, e) >= __ldg(thr) ? e : 0.0f;
 }
 
 template <int R>
@@ -118,7 +181,52 @@ void launch_estimate(const float* table, const int* off, const float* delta,
                                                     est, c, B, d);
 }
 
+template <int R>
+void launch_sample(const float* table, const int* off, const float* delta,
+                   const float* eps, float* sample, int c, int B,
+                   long long d, int stride, int ns, cudaStream_t stream) {
+  dim3 grid((ns + kThreads - 1) / kThreads, B);
+  threshold_sample_kernel<R><<<grid, kThreads, 0, stream>>>(
+      table, off, delta, eps, sample, c, B, d, stride, ns);
+}
+
+template <int R>
+void launch_mask(const float* table, const int* off, const float* delta,
+                 const float* eps, const float* thr, float* out, int c, int B,
+                 long long d, cudaStream_t stream) {
+  dim3 grid((c + kThreads - 1) / kThreads, B);
+  threshold_mask_kernel<R><<<grid, kThreads, 0, stream>>>(
+      table, off, delta, eps, thr, out, c, B, d);
+}
+
 }  // namespace
+
+// one case per compile-time row count 1..16; any other r is refused
+#define CCT_ROWS_CASE(R, LAUNCH) \
+  case R:                        \
+    LAUNCH(R);                   \
+    break;
+#define CCT_ROWS_SWITCH(r, LAUNCH)                                     \
+  switch (r) {                                                         \
+    CCT_ROWS_CASE(1, LAUNCH) CCT_ROWS_CASE(2, LAUNCH)                  \
+    CCT_ROWS_CASE(3, LAUNCH) CCT_ROWS_CASE(4, LAUNCH)                  \
+    CCT_ROWS_CASE(5, LAUNCH) CCT_ROWS_CASE(6, LAUNCH)                  \
+    CCT_ROWS_CASE(7, LAUNCH) CCT_ROWS_CASE(8, LAUNCH)                  \
+    CCT_ROWS_CASE(9, LAUNCH) CCT_ROWS_CASE(10, LAUNCH)                 \
+    CCT_ROWS_CASE(11, LAUNCH) CCT_ROWS_CASE(12, LAUNCH)                \
+    CCT_ROWS_CASE(13, LAUNCH) CCT_ROWS_CASE(14, LAUNCH)                \
+    CCT_ROWS_CASE(15, LAUNCH) CCT_ROWS_CASE(16, LAUNCH)                \
+    default:                                                           \
+      return (int)cudaErrorInvalidValue;                               \
+  }
+
+#define LAUNCH_ESTIMATE(R) \
+  launch_estimate<R>(table, off, delta, eps, est, c, B, d, (cudaStream_t)stream)
+#define LAUNCH_SAMPLE(R)                                         \
+  launch_sample<R>(table, off, delta, eps, sample, c, B, d, stride, ns, \
+                   (cudaStream_t)stream)
+#define LAUNCH_MASK(R) \
+  launch_mask<R>(table, off, delta, eps, thr, out, c, B, d, (cudaStream_t)stream)
 
 extern "C" {
 
@@ -141,26 +249,32 @@ int cct_sketch_estimate_all(const float* table, const int* off,
                             const float* delta, const float* eps, float* est,
                             int r, int c, int B, long long d, void* stream) {
   if (c < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (r) {
-    case 1: launch_estimate<1>(table, off, delta, eps, est, c, B, d, s); break;
-    case 2: launch_estimate<2>(table, off, delta, eps, est, c, B, d, s); break;
-    case 3: launch_estimate<3>(table, off, delta, eps, est, c, B, d, s); break;
-    case 4: launch_estimate<4>(table, off, delta, eps, est, c, B, d, s); break;
-    case 5: launch_estimate<5>(table, off, delta, eps, est, c, B, d, s); break;
-    case 6: launch_estimate<6>(table, off, delta, eps, est, c, B, d, s); break;
-    case 7: launch_estimate<7>(table, off, delta, eps, est, c, B, d, s); break;
-    case 8: launch_estimate<8>(table, off, delta, eps, est, c, B, d, s); break;
-    case 9: launch_estimate<9>(table, off, delta, eps, est, c, B, d, s); break;
-    case 10: launch_estimate<10>(table, off, delta, eps, est, c, B, d, s); break;
-    case 11: launch_estimate<11>(table, off, delta, eps, est, c, B, d, s); break;
-    case 12: launch_estimate<12>(table, off, delta, eps, est, c, B, d, s); break;
-    case 13: launch_estimate<13>(table, off, delta, eps, est, c, B, d, s); break;
-    case 14: launch_estimate<14>(table, off, delta, eps, est, c, B, d, s); break;
-    case 15: launch_estimate<15>(table, off, delta, eps, est, c, B, d, s); break;
-    case 16: launch_estimate<16>(table, off, delta, eps, est, c, B, d, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  CCT_ROWS_SWITCH(r, LAUNCH_ESTIMATE)
+  return (int)cudaGetLastError();
+}
+
+// sample[B, ns] <- the estimates at chunk positions s * stride (K3a).
+// Returns cudaGetLastError().
+int cct_sketch_threshold_sample(const float* table, const int* off,
+                                const float* delta, const float* eps,
+                                float* sample, int r, int c, int B,
+                                long long d, int stride, int ns,
+                                void* stream) {
+  if (c < 1 || B < 1 || B > 65535 || stride < 1 || ns < 1 ||
+      (long long)(ns - 1) * stride >= c)
+    return (int)cudaErrorInvalidValue;
+  CCT_ROWS_SWITCH(r, LAUNCH_SAMPLE)
+  return (int)cudaGetLastError();
+}
+
+// out[d] <- est where est * est >= *thr, else 0 (K3b). `thr` is one
+// float in device memory. Returns cudaGetLastError().
+int cct_sketch_threshold_mask(const float* table, const int* off,
+                              const float* delta, const float* eps,
+                              const float* thr, float* out, int r, int c,
+                              int B, long long d, void* stream) {
+  if (c < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  CCT_ROWS_SWITCH(r, LAUNCH_MASK)
   return (int)cudaGetLastError();
 }
 

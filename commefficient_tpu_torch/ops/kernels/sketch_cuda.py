@@ -1,21 +1,20 @@
-"""Count-sketch encode (K1) and estimate-all (K2): CUDA kernels for
-Hopper with their plain PyTorch versions.
+"""Count-sketch kernels K1-K3: CUDA kernels for Hopper with their plain
+PyTorch versions.
 
 K1 `encode` replaces commefficient_tpu/ops/kernels/sketch_pallas.py
 `pallas_encode` (`_encode_kernel`); K2 `estimate_all` replaces
 `pallas_estimate_all` (`_estimate_kernel`, `_chunk_estimate_rows`,
-`_masked_est`, `_median_rows`). The kernels live in ../csrc/sketch.cu,
-whose header says how each is designed for the card and what bounds
-it (bytes: about 46 MB and 48 MB at d = 6.57M, r = 5, c = 500k).
+`_masked_est`, `_median_rows`); K3 replaces the two kernels of
+`pallas_threshold_decode`: K3a `threshold_sample` (`_sample_kernel`)
+and K3b `threshold_mask` (`_mask_kernel`). The kernels live in
+../csrc/sketch.cu, whose header says how each is designed for the card
+and what bounds it.
 
 Routing is by device, per call: a CPU tensor takes the plain version
 (the CPU tests' path); a CUDA tensor launches the kernel or raises.
 There is no fallback from the card to the plain version.
 
-Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into a shared
-library with a plain C interface (loaded with ctypes), at first use,
-into the checkout's `build/` directory. The library's name carries a
-hash of the source and flags, so an edited source is rebuilt.
+Build: ops/kernels/_build.py (nvcc for sm_90a into `build/`, ctypes).
 
 Counts: `LAUNCHES[name]` adds one each time the wrapper launches the
 kernel, and nowhere else (chip_smoke.py reads them around the main
@@ -24,37 +23,22 @@ path).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Tuple
 
 import torch
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_REPO = Path(__file__).resolve().parents[3]
-BUILD_DIR = _REPO / "build"
-
-# one shared library per source file; each is built by its own nvcc
-SOURCES = {"sketch": _CSRC / "sketch.cu"}
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+from commefficient_tpu_torch.ops.kernels import _build
 
 # kernel name -> launches through its wrapper (plain versions never count)
-LAUNCHES: Dict[str, int] = {"sketch_encode": 0, "sketch_estimate_all": 0}
+LAUNCHES: Dict[str, int] = {"sketch_encode": 0, "sketch_estimate_all": 0,
+                            "threshold_sample": 0, "threshold_mask": 0}
 
-# the largest row count K2's register sort network is instantiated for
+# the largest row count the register sort network is instantiated for
 MAX_ROWS = 16
 
-_libs: Dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()
-# what each build printed (nvcc / ptxas register and spill report)
-BUILD_LOG: Dict[str, str] = {}
+# strided-sample size target of the threshold decode (the JAX package's
+# sketch_pallas._SAMPLE_TARGET, the ~1M-point quantile estimator)
+_SAMPLE_TARGET = 1024 * 1024
 
 
 def reset_launches() -> None:
@@ -62,81 +46,23 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
-            "and PATH): the CUDA kernels are built from source at first use")
-    return found
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.cct_sketch_encode.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i, vp]
+    lib.cct_sketch_estimate_all.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll,
+                                            vp]
+    lib.cct_sketch_threshold_sample.argtypes = [vp, vp, vp, vp, vp, i, i, i,
+                                                ll, i, i, vp]
+    lib.cct_sketch_threshold_mask.argtypes = [vp, vp, vp, vp, vp, vp, i, i,
+                                              i, ll, vp]
+    for fn in (lib.cct_sketch_encode, lib.cct_sketch_estimate_all,
+               lib.cct_sketch_threshold_sample,
+               lib.cct_sketch_threshold_mask):
+        fn.restype = i
 
 
-def _lib_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libcct_{name}_{digest}.so"
-
-
-def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
-    """Compile the named sources (all by default) that are not built
-    yet, one nvcc process per source, all started together. Returns
-    the library paths. Raises RuntimeError with nvcc's output if a
-    build fails."""
-    names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
-    procs = {}
-    for n, p in todo.items():
-        tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp)
-    errors = []
-    for n, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        BUILD_LOG[n] = out
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {SOURCES[n].name} "
-                          f"(exit {proc.returncode}):\n{out}")
-            continue
-        os.replace(tmp, todo[n])
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return paths
-
-
-def _load(name: str) -> ctypes.CDLL:
-    with _build_lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        path = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "sketch":
-            lib.cct_sketch_encode.argtypes = [vp, ll, vp, vp, vp, vp,
-                                              i, i, i, vp]
-            lib.cct_sketch_encode.restype = i
-            lib.cct_sketch_estimate_all.argtypes = [vp, vp, vp, vp, vp,
-                                                    i, i, i, ll, vp]
-            lib.cct_sketch_estimate_all.restype = i
-            lib.cct_error_string.argtypes = [i]
-            lib.cct_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-        return lib
-
-
-def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.cct_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+def _load() -> ctypes.CDLL:
+    return _build.load("sketch", _declare)
 
 
 def _check_args(tensors: Dict[str, torch.Tensor],
@@ -203,14 +129,14 @@ def encode(x: torch.Tensor, off: torch.Tensor, delta: torch.Tensor,
         return encode_plain(x, off, delta, eps, c)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = _load("sketch")
+    lib = _load()
     table = torch.empty((r, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cct_sketch_encode(
             x.data_ptr(), d, off.data_ptr(), delta.data_ptr(),
             eps.data_ptr(), table.data_ptr(), r, c, B, stream)
-    _check(lib, code, "cct_sketch_encode")
+    _build.check(lib, code, "cct_sketch_encode")
     LAUNCHES["sketch_encode"] += 1
     return table
 
@@ -250,11 +176,10 @@ def estimate_all_plain(table: torch.Tensor, off: torch.Tensor,
     return est
 
 
-def estimate_all(table: torch.Tensor, off: torch.Tensor,
-                 delta: torch.Tensor, eps: torch.Tensor,
-                 d: int) -> torch.Tensor:
-    """[B, c] median-of-rows estimates (tail zeroed): K2 on a CUDA
-    tensor, `estimate_all_plain` on a CPU tensor."""
+def _check_estimate_args(what: str, table: torch.Tensor, off: torch.Tensor,
+                         delta: torch.Tensor, eps: torch.Tensor,
+                         d: int) -> torch.device:
+    """The operand checks K2 and K3 share; returns the device."""
     r, c = table.shape
     B = off.shape[1]
     dev = _check_args({"table": table, "off": off, "delta": delta,
@@ -265,19 +190,131 @@ def estimate_all(table: torch.Tensor, off: torch.Tensor,
         raise ValueError(f"off has {B} chunks, d={d}, c={c} needs "
                          f"{-(-d // c)}")
     if not 1 <= r <= MAX_ROWS:
-        raise ValueError(f"estimate_all takes 1 <= r <= {MAX_ROWS} rows, "
+        raise ValueError(f"{what} takes 1 <= r <= {MAX_ROWS} rows, "
                          f"got {r}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def estimate_all(table: torch.Tensor, off: torch.Tensor,
+                 delta: torch.Tensor, eps: torch.Tensor,
+                 d: int) -> torch.Tensor:
+    """[B, c] median-of-rows estimates (tail zeroed): K2 on a CUDA
+    tensor, `estimate_all_plain` on a CPU tensor."""
+    r, c = table.shape
+    B = off.shape[1]
+    dev = _check_estimate_args("estimate_all", table, off, delta, eps, d)
     if dev.type == "cpu":
         return estimate_all_plain(table, off, delta, eps, d)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    lib = _load("sketch")
+    lib = _load()
     est = torch.empty((B, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cct_sketch_estimate_all(
             table.data_ptr(), off.data_ptr(), delta.data_ptr(),
             eps.data_ptr(), est.data_ptr(), r, c, B, d, stream)
-    _check(lib, code, "cct_sketch_estimate_all")
+    _build.check(lib, code, "cct_sketch_estimate_all")
     LAUNCHES["sketch_estimate_all"] += 1
     return est
+
+
+# ---------------------------------------------------------------------------
+# K3: the sampled-threshold decode (K3a sample, K3b mask)
+
+
+def threshold_sample_geometry(n_chunks: int, c: int) -> Tuple[int, int]:
+    """(stride, per-chunk sample count) of the threshold decode's
+    quantile sample: the JAX package's global stride over the padded
+    vector, restricted to each chunk. The stride is clamped to c, so
+    ns * stride <= c always holds (a chunk narrower than the global
+    stride still gives its position-0 element)."""
+    padded = n_chunks * c
+    stride = min(max(1, padded // _SAMPLE_TARGET), c)
+    return stride, c // stride
+
+
+def threshold_sample_plain(table: torch.Tensor, off: torch.Tensor,
+                           delta: torch.Tensor, eps: torch.Tensor, d: int,
+                           stride: int, ns: int) -> torch.Tensor:
+    """sample[b, s] = the estimate of coordinate b * c + s * stride (0
+    at or past d): the gathered signed rows (table * eps) * delta, then
+    the median as `median_rows` takes it — K2's arithmetic at the
+    sampled positions only."""
+    r, c = table.shape
+    B = off.shape[1]
+    pos = torch.arange(ns, device=table.device) * stride          # [ns]
+    q = (pos[None, None, :] + off[:, :, None].long()) % c         # [r,B,ns]
+    rows = torch.arange(r, device=table.device)[:, None, None]
+    vals = table[rows, q] * eps[:, pos][:, None, :] * delta[:, :, None]
+    sample = median_rows(vals)                                    # [B, ns]
+    gidx = (torch.arange(B, device=table.device)[:, None] * c
+            + pos[None, :])
+    return torch.where(gidx < d, sample, torch.zeros_like(sample))
+
+
+def threshold_sample(table: torch.Tensor, off: torch.Tensor,
+                     delta: torch.Tensor, eps: torch.Tensor, d: int,
+                     stride: int, ns: int) -> torch.Tensor:
+    """[B, ns] estimates at chunk positions 0, stride, ...,
+    (ns - 1) * stride, the tail zeroed: K3a on a CUDA tensor,
+    `threshold_sample_plain` on a CPU tensor."""
+    r, c = table.shape
+    B = off.shape[1]
+    dev = _check_estimate_args("threshold_sample", table, off, delta, eps,
+                               d)
+    if stride < 1 or ns < 1 or (ns - 1) * stride >= c:
+        raise ValueError(f"stride={stride}, ns={ns} leave chunk positions "
+                         f"[0, {c})")
+    if dev.type == "cpu":
+        return threshold_sample_plain(table, off, delta, eps, d, stride, ns)
+    lib = _load()
+    sample = torch.empty((B, ns), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.cct_sketch_threshold_sample(
+            table.data_ptr(), off.data_ptr(), delta.data_ptr(),
+            eps.data_ptr(), sample.data_ptr(), r, c, B, d, stride, ns,
+            stream)
+    _build.check(lib, code, "cct_sketch_threshold_sample")
+    LAUNCHES["threshold_sample"] += 1
+    return sample
+
+
+def threshold_mask_plain(table: torch.Tensor, off: torch.Tensor,
+                         delta: torch.Tensor, eps: torch.Tensor,
+                         thr: torch.Tensor, d: int) -> torch.Tensor:
+    """[d] vector: every estimate whose square is >= thr (ties kept),
+    zero elsewhere — K2's estimate, then the select."""
+    est = estimate_all_plain(table, off, delta, eps, d).reshape(-1)[:d]
+    return torch.where(est * est >= thr, est, torch.zeros_like(est))
+
+
+def threshold_mask(table: torch.Tensor, off: torch.Tensor,
+                   delta: torch.Tensor, eps: torch.Tensor,
+                   thr: torch.Tensor, d: int) -> torch.Tensor:
+    """The thresholded [d] update: K3b on a CUDA tensor (it reads `thr`,
+    a one-element f32 tensor, from device memory: no host sync),
+    `threshold_mask_plain` on a CPU tensor."""
+    r, c = table.shape
+    B = off.shape[1]
+    dev = _check_estimate_args("threshold_mask", table, off, delta, eps, d)
+    if not isinstance(thr, torch.Tensor) or thr.numel() != 1:
+        raise ValueError("thr must be a one-element tensor")
+    if thr.dtype != torch.float32 or thr.device != dev:
+        raise ValueError(f"thr must be float32 on {dev}, got {thr.dtype} "
+                         f"on {thr.device}")
+    if dev.type == "cpu":
+        return threshold_mask_plain(table, off, delta, eps, thr, d)
+    lib = _load()
+    thr = thr.reshape(1).contiguous()
+    out = torch.empty((d,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.cct_sketch_threshold_mask(
+            table.data_ptr(), off.data_ptr(), delta.data_ptr(),
+            eps.data_ptr(), thr.data_ptr(), out.data_ptr(), r, c, B, d,
+            stream)
+    _build.check(lib, code, "cct_sketch_threshold_mask")
+    LAUNCHES["threshold_mask"] += 1
+    return out

@@ -11,8 +11,10 @@ then delta — never from a torch.Generator, so both packages build
 identical tables.
 
 The dense hot-path ops run on hand-written CUDA kernels when the
-tensor is on the card (ops/kernels/sketch_cuda.py): `encode` (K1) and
-`estimate_all` (K2). On the CPU they take the kernels' plain versions.
+tensor is on the card (ops/kernels/sketch_cuda.py): `encode` (K1),
+`estimate_all` (K2) and the threshold decode of `decode_topk_dense`
+(K3a sample, K3b mask). On the CPU they take the kernels' plain
+versions.
 The sparse ops (hash_indices, estimate, encode_sparse) are gathers and
 scatter-adds, as in the JAX package, which has no kernel for them
 either.
@@ -21,8 +23,7 @@ Route gates keep the JAX values: STATIC_UNROLL_LIMIT and
 DECODE_MATERIALIZE_LIMIT decide whether `decode_topk_sparse` may
 materialize the full estimate (the blockwise route past them is not
 ported), THRESHOLD_DECODE_MIN_D routes `decode_topk_dense` to the
-sampled-threshold decode (not ported: it needs kernel K3, ROADMAP.md
-Queue 2).
+sampled-threshold decode (kernel K3).
 """
 from __future__ import annotations
 
@@ -32,7 +33,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from commefficient_tpu_torch.ops.flat import topk_indices
+from commefficient_tpu_torch.ops.flat import (
+    threshold_from_sq_sample, topk_indices,
+)
 from commefficient_tpu_torch.ops.kernels import sketch_cuda
 
 STATIC_UNROLL_LIMIT = 2048
@@ -185,14 +188,34 @@ class CSVec:
 
     def decode_topk_dense(self, table: torch.Tensor, k: int) -> torch.Tensor:
         """decode_topk for callers that need only the dense update. Past
-        THRESHOLD_DECODE_MIN_D the JAX package selects by sampled
-        threshold through kernel K3, which is not ported yet."""
-        if self._threshold_decode:
-            raise NotImplementedError(
-                f"decode_topk_dense at d={self.d} > THRESHOLD_DECODE_MIN_D "
-                "needs the sampled-threshold decode (kernel K3), not "
-                "ported yet (ROADMAP.md Queue 2)")
-        return self.decode_topk(table, k)
+        THRESHOLD_DECODE_MIN_D (with a padded d the estimate could be
+        materialized at) the selection is by sampled threshold: every
+        coordinate whose estimate squared reaches the k-th largest
+        square priced from a ~1M-point sample, so about k are kept
+        (ties at the threshold all are).
+
+        The threshold route is the JAX package's Pallas route
+        (`pallas_threshold_decode`): K3a draws the sample per chunk, at
+        the positions 0, stride, ... of every chunk; the threshold is
+        priced on the device (`threshold_from_sq_sample`, no host
+        sync); K3b re-derives the estimates and writes the [d] update.
+        The JAX package's `xla` route samples the materialized estimate
+        at one global stride instead; the two selections differ within
+        sampling noise (~1% of k). `--kernel_backend` stays accepted
+        for parity and changes nothing here."""
+        if not self._threshold_decode:
+            return self.decode_topk(table, k)
+        k = min(k, self.d)
+        off, eps, delta = self.tables(table.device)
+        table = table.float().contiguous()
+        stride, ns = sketch_cuda.threshold_sample_geometry(self.n_chunks,
+                                                           self.c)
+        sample = sketch_cuda.threshold_sample(table, off, delta, eps, self.d,
+                                              stride, ns)
+        thr = threshold_from_sq_sample((sample * sample).reshape(-1), k,
+                                       self.n_chunks * self.c)
+        return sketch_cuda.threshold_mask(table, off, delta, eps, thr,
+                                          self.d)
 
     def decode_topk_sparse(self, table: torch.Tensor, k: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -206,7 +229,7 @@ class CSVec:
                 "decode_topk_sparse's blockwise route (r * B > "
                 f"{STATIC_UNROLL_LIMIT} or a padded d past "
                 "DECODE_MATERIALIZE_LIMIT) is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
+                "(ROADMAP.md Queue 1 item 1)")
         flat = self._flat_estimates(table)
         idx = topk_indices(flat * flat, k)
         vals = flat[idx]

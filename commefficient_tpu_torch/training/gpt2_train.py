@@ -1,0 +1,309 @@
+"""GPT2 / PersonaChat federated training driver: the port of
+commefficient_tpu/training/gpt2_train.py (reference gpt2_train.py).
+
+Same flags (config.parse_args, default lr 4e-2), the double-heads loss
+callbacks with the same normalisation, the one-round-lag metric emit,
+the NaN abort, the epoch-1-only communication totals, the HF-style
+artifact and the final validation. The round underneath is the same
+engine cv_train drives; at config #5 it takes the fused client backward
+(Config.fused_client_backward) and the threshold decode (kernel K3),
+and sequences of 256 tokens or more take flash attention (kernel K4).
+What the port does not run yet is refused by Config.validate or here:
+scanned spans, checkpoints, the journal (ROADMAP.md Queue 1 item 6),
+pretrained weights, --finetune, --remat and --model_parallel (item 7).
+
+Run on the card:
+    python -m commefficient_tpu_torch.training.gpt2_train \\
+        --dataset_name PERSONA --mode sketch --error_type virtual \\
+        --virtual_momentum 0.9 --local_momentum 0 --num_workers 8
+and on the CPU with `--device cpu` (the kernels' plain versions), e.g.
+`--test --device cpu` for the smoke size.
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from commefficient_tpu_torch.config import Q_GPT2, Config, parse_args
+from commefficient_tpu_torch.data.loader import FedLoader, FedValLoader
+from commefficient_tpu_torch.data.persona import (
+    IGNORE_INDEX, FedPERSONA, make_tokenizer,
+)
+from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
+from commefficient_tpu_torch.models.convert import load_flat, to_jax_params
+from commefficient_tpu_torch.models.gpt2 import (
+    PRESETS, GPT2Config, GPT2DoubleHeads, save_pretrained,
+)
+from commefficient_tpu_torch.utils.logging import (
+    TableLogger, Timer, make_logdir,
+)
+from commefficient_tpu_torch.utils.schedules import LambdaLR, PiecewiseLinear
+
+DEFAULT_LR = 4e-2
+
+
+# ---------------- loss callbacks (reference gpt2_train.py:77-99) ---------
+
+def _lm_nll(lm_logits, lm_labels, mask):
+    """Shifted next-token NLL over the non-ignored labels of valid
+    examples: sum(nll * valid) / max(sum(valid), 1)."""
+    logits = lm_logits[..., :-1, :]
+    labels = lm_labels[..., 1:].long()
+    valid = (labels != IGNORE_INDEX).to(mask.dtype) * mask[:, None, None]
+    safe = labels.clamp(min=0)
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def _mc_loss_acc(mc_logits, mc_labels, mask):
+    """Candidate-choice cross-entropy and accuracy (the double head)."""
+    labels = mc_labels.long()
+    logp = F.log_softmax(mc_logits, dim=-1)
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((mc_logits.argmax(-1) == labels).to(mask.dtype)
+           * mask).sum() / denom
+    return loss, acc
+
+
+def make_compute_loss_train(model: GPT2DoubleHeads, cfg: Config):
+    def compute_loss(params, batch, mask):
+        input_ids, mc_token_ids, lm_labels, mc_labels, token_type_ids = batch
+        lm_logits, mc_logits = torch.func.functional_call(
+            model, params, (input_ids, token_type_ids, mc_token_ids))
+        lm = _lm_nll(lm_logits, lm_labels, mask)
+        mc, _ = _mc_loss_acc(mc_logits, mc_labels, mask)
+        return lm * cfg.lm_coef + mc * cfg.mc_coef, (lm, mc)
+    return compute_loss
+
+
+def make_compute_loss_val(model: GPT2DoubleHeads):
+    """Val = (NLL, (accuracy,)); perplexity is exp(mean NLL), computed
+    by the caller over the whole val set."""
+    def compute_loss(params, batch, mask):
+        input_ids, mc_token_ids, lm_labels, mc_labels, token_type_ids = batch
+        lm_logits, mc_logits = torch.func.functional_call(
+            model, params, (input_ids, token_type_ids, mc_token_ids))
+        nll = _lm_nll(lm_logits, lm_labels, mask)
+        _, acc = _mc_loss_acc(mc_logits, mc_labels, mask)
+        return nll, (acc,)
+    return compute_loss
+
+
+# ---------------- data (reference gpt2_train.py:315-355) -----------------
+
+def get_data_loaders(cfg: Config, tokenizer,
+                     synthetic_examples: Optional[Tuple[int, int, int]]
+                     = None):
+    """Train and val loaders. `synthetic_examples=(personas,
+    dialogs_per_persona, utterances_per_dialog)` asks for the synthetic
+    corpus when no PersonaChat JSON is on disk (`--test` asks for (8, 2,
+    3)). One val shard: the port runs on one device."""
+    synthetic = synthetic_examples or ((8, 2, 3) if cfg.do_test else None)
+    common = dict(dataset_dir=cfg.dataset_dir, tokenizer=tokenizer,
+                  num_candidates=cfg.num_candidates,
+                  max_history=cfg.max_history, do_iid=cfg.do_iid,
+                  seed=cfg.seed, synthetic_examples=synthetic)
+    train_set = FedPERSONA(
+        personality_permutations=cfg.personality_permutations,
+        num_clients=cfg.num_clients, train=True, **common)
+    val_set = FedPERSONA(
+        personality_permutations=cfg.personality_permutations,
+        train=False, **common)
+    train_loader = FedLoader(train_set, cfg.num_workers,
+                             cfg.local_batch_size, seed=cfg.seed,
+                             max_local_batch=cfg.max_local_batch)
+    val_loader = FedValLoader(val_set, cfg.valid_batch_size, num_shards=1)
+    return train_loader, val_loader
+
+
+# ---------------- eval (reference test_gpt2, gpt2_train.py:149-167) ------
+
+def run_eval(model: FedModel, val_loader):
+    model.train(False)
+    tot_nll = tot_acc = tot_n = 0.0
+    for data, mask in val_loader.batches():
+        nll, acc, count = model((data, mask))
+        tot_nll += float((nll * count).sum())
+        tot_acc += float((acc * count).sum())
+        tot_n += float(count.sum())
+    model.train(True)
+    denom = max(tot_n, 1.0)
+    nll = tot_nll / denom
+    return nll, tot_acc / denom, float(np.exp(min(nll, 50.0)))
+
+
+# ---------------- training loop (reference run_batches, :169-253) --------
+
+def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
+               train_loader, cfg: Config, logger=None,
+               timer: Optional[Timer] = None,
+               on_round: Optional[Callable[[int, list], None]] = None
+               ) -> bool:
+    """ceil(num_epochs) epochs of rounds, the last one cut to its
+    fraction; a table row per round, emitted one round late so the host
+    never waits on the round it just queued. `on_round(i, outputs)` is
+    called after round i's dispatch with model(batch)'s outputs (a
+    measuring caller synchronizes the device there). Returns False on a
+    NaN/divergent loss."""
+    timer = timer or Timer()
+    logger = logger or TableLogger()
+    spe = train_loader.steps_per_epoch
+    epoch_download = epoch_upload = 0.0
+    batch_idx = 0
+    losses = []
+
+    def emit(p) -> bool:
+        bidx, lr_v, l_, lm_, mc_ = p
+        losses.append(float(l_.mean()))
+        logger.append({
+            "batch_idx": bidx,
+            "lr": round(lr_v, 5),
+            "train_time": timer(),
+            "train_loss": losses[-1],
+            "lm_loss": float(lm_.mean()),
+            "mc_loss": float(mc_.mean()),
+            "total_time": timer.total_time,
+        })
+        return not (np.isnan(losses[-1]) or losses[-1] > cfg.nan_threshold)
+
+    for epoch in range(math.ceil(cfg.num_epochs)):
+        frac = (cfg.num_epochs - epoch
+                if epoch == math.ceil(cfg.num_epochs) - 1 else 1.0)
+        pending = None
+        aborted = False
+        stream = iter(train_loader.epoch())
+        while batch_idx - epoch * spe < spe * frac:
+            try:
+                client_ids, data, mask = next(stream)
+            except StopIteration:
+                break
+            lr_scheduler.step()
+            out = model((client_ids, data, mask))
+            opt.step()
+            if on_round is not None:
+                on_round(batch_idx, out)
+            loss, lm, mc, down, up = out
+            batch_idx += 1
+            if epoch == 0:
+                # download totals are only trusted for epoch 1
+                # (reference gpt2_train.py:132-137)
+                epoch_download += float(np.sum(down)) / (1024 ** 2)
+                epoch_upload += float(np.sum(up)) / (1024 ** 2)
+            if pending is not None and not emit(pending):
+                pending = None
+                aborted = True
+                break
+            pending = (batch_idx, float(opt.param_groups[0]["lr"]),
+                       loss, lm, mc)
+        if pending is not None and not emit(pending):
+            aborted = True
+        if aborted:
+            print(f"found nan/divergent loss {losses[-1]}, aborting")
+            return False
+
+    n_clients = model.num_clients
+    print(f"Total Download (MiB): {epoch_download:0.2f} (only epoch 1)")
+    print(f"Total Upload (MiB): {epoch_upload:0.2f} (only epoch 1)")
+    print(f"Avg Download Per Client: {epoch_download / n_clients:0.2f}"
+          f" (only epoch 1)")
+    print(f"Avg Upload Per Client: {epoch_upload / n_clients:0.2f}"
+          f" (only epoch 1)")
+    return True
+
+
+def test_gpt2(model: FedModel, val_loader, timer: Optional[Timer] = None,
+              logger=None) -> dict:
+    timer = timer or Timer()
+    nll, acc, ppl = run_eval(model, val_loader)
+    stats = {"val_nll": nll, "val_acc": acc, "val_ppl": ppl,
+             "val_time": timer(), "total_time": timer.total_time}
+    (logger or TableLogger()).append(stats)
+    return stats
+
+
+# ---------------- main (reference train(), gpt2_train.py:255-313) --------
+
+def build_model_and_params(cfg: Config, tokenizer,
+                           seq_len: int) -> GPT2DoubleHeads:
+    """The GPT2 sized for the tokenizer and corpus, with random weights
+    from `cfg.seed`: the `--test` smoke model (2 layers of width 32), or
+    the `model_checkpoint` preset trained from scratch, its embedding
+    sized to the tokenizer. A pretrained artifact is refused, not
+    loaded."""
+    vocab = len(tokenizer)
+    source = cfg.model_checkpoint
+    if os.path.isfile(os.path.join(source, "config.json")):
+        raise NotImplementedError(
+            f"loading the pretrained artifact at {source!r} is not ported "
+            f"to commefficient_tpu_torch yet (ROADMAP.md {Q_GPT2})")
+    if cfg.do_test:
+        gcfg = GPT2Config(vocab_size=vocab, n_positions=max(seq_len, 8),
+                          n_embd=32, n_layer=2, n_head=2)
+    else:
+        base = PRESETS.get(source, PRESETS["gpt2"])
+        gcfg = base.replace(n_positions=max(base.n_positions, seq_len),
+                            vocab_size=vocab)
+    return GPT2DoubleHeads(gcfg, seed=cfg.seed)
+
+
+def build(cfg: Config, tokenizer, device="cuda",
+          synthetic_examples: Optional[Tuple[int, int, int]] = None):
+    """Loaders, model, optimizer and LR scheduler for `cfg`: what main()
+    wires before it calls train_gpt2()."""
+    train_loader, val_loader = get_data_loaders(cfg, tokenizer,
+                                                synthetic_examples)
+    # each split pads to its own corpus max; the position table must
+    # cover both
+    seq_len = max(train_loader.dataset.seq_len, val_loader.dataset.seq_len)
+    module = build_model_and_params(cfg, tokenizer, seq_len)
+    model = FedModel(module, make_compute_loss_train(module, cfg), cfg,
+                     loss_val=make_compute_loss_val(module), device=device,
+                     num_clients=train_loader.dataset.num_clients)
+    opt = FedOptimizer(model)
+    spe = train_loader.steps_per_epoch
+    lr = cfg.lr_scale if cfg.lr_scale is not None else DEFAULT_LR
+    schedule = PiecewiseLinear([0, cfg.num_epochs * spe], [lr, 0.0])
+    lr_scheduler = LambdaLR(opt, lr_lambda=schedule)
+    return model, opt, lr_scheduler, train_loader, val_loader
+
+
+def main(argv=None) -> bool:
+    cfg = parse_args(default_lr=DEFAULT_LR, argv=argv)
+    if cfg.do_test:
+        # smoke shrink of the compression geometry
+        cfg = cfg.replace(num_rows=1, num_cols=1000, k=10, num_blocks=1)
+    print(cfg)
+    timer = Timer()
+    np.random.seed(cfg.seed)
+    tokenizer = make_tokenizer(cfg.model_checkpoint,
+                               fallback_vocab=500 if cfg.do_test else 5000)
+    model, opt, lr_scheduler, train_loader, val_loader = build(
+        cfg, tokenizer, device=cfg.device)
+    print("Steps per epoch", train_loader.steps_per_epoch)
+    log_dir = make_logdir(cfg)
+    print(f"Finished initializing in {timer():.2f} seconds")
+    ok = train_gpt2(model, opt, lr_scheduler, train_loader, model.cfg,
+                    timer=timer)
+    # HF-style final artifact: tokenizer + config + weights
+    module = model.module
+    load_flat(module, model.ps_weights)
+    save_pretrained(log_dir, to_jax_params(module), module.cfg, tokenizer)
+    test_gpt2(model, val_loader, timer=timer)
+    model.finalize()
+    return ok
+
+
+def cli() -> None:
+    raise SystemExit(0 if main() else 1)
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,9 +1,11 @@
-"""Run logging for the port's drivers: the stdout table and the
-interval timer of commefficient_tpu/utils/logging.py (reference
-utils.py:14-99)."""
+"""Run logging for the port's drivers: the stdout table, the interval
+timer and the run directory name of commefficient_tpu/utils/logging.py
+(reference utils.py:14-99)."""
 from __future__ import annotations
 
+import os
 import time
+from datetime import datetime
 
 import numpy as np
 
@@ -48,3 +50,18 @@ class Timer:
         if include_in_total:
             self.total_time += dt
         return dt
+
+
+def make_logdir(cfg) -> str:
+    """runs/<time>_<workers>/<clients>_<mode geometry>_<k>: the
+    reference's run directory name (its literal slash nests it two
+    deep)."""
+    mode = cfg.mode
+    sketch_str = (f"{mode}: {cfg.num_rows} x {cfg.num_cols}"
+                  if mode == "sketch" else f"{mode}")
+    k_str = (f"k: {cfg.k}"
+             if mode in ("sketch", "true_topk", "local_topk") else "")
+    clients_str = f"{cfg.num_workers}/{cfg.num_clients}"
+    now = datetime.now().strftime("%b%d_%H-%M-%S")
+    return os.path.join(
+        "runs", f"{now}_{clients_str}_{sketch_str}_{k_str}")

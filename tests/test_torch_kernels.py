@@ -1,6 +1,7 @@
 """The port's CUDA kernel wrappers (commefficient_tpu_torch/ops/kernels/
-sketch_cuda.py): argument checks, the CPU route to the plain versions,
-and — on a CUDA card only — each kernel against its plain version.
+sketch_cuda.py and attention_cuda.py): argument checks, the CPU route
+to the plain versions, and — on a CUDA card only — each kernel against
+its plain version.
 The card cases carry the `gpu` marker and skip here with a reason; on
 the card: `python -m pytest tests/test_torch_kernels.py -m gpu
 --noconftest` (tests/conftest.py imports jax)."""
@@ -8,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
 from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
 from commefficient_tpu_torch.ops.sketch import CSVec
 
@@ -20,6 +22,11 @@ GEOMETRIES = [
     dict(d=1000, c=200, r=6),       # padded tail, even r
 ]
 MAIN_PATH = dict(d=6_568_640, c=500_000, r=5)   # full-width ResNet9
+GPT2_PATH = dict(d=124_444_417, c=500_000, r=5)  # full-width GPT2-small
+# the threshold-decode geometries of tests/test_kernels.py:112-160
+THRESHOLD_GEOMETRIES = [dict(d=40000, c=10000, r=5),
+                        dict(d=20000, c=5000, r=5),
+                        dict(d=16384, c=256, r=5)]
 
 
 def _operands(geom, device="cpu", seed=0):
@@ -48,8 +55,20 @@ def test_cpu_tensors_take_the_plain_versions():
     e = sc.estimate_all(t, off, delta, eps, sk.d)
     torch.testing.assert_close(
         e, sc.estimate_all_plain(t, off, delta, eps, sk.d), rtol=0, atol=0)
+    stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
+    smp = sc.threshold_sample(t, off, delta, eps, sk.d, stride, ns)
+    torch.testing.assert_close(
+        smp, sc.threshold_sample_plain(t, off, delta, eps, sk.d, stride, ns),
+        rtol=0, atol=0)
+    thr = torch.tensor(0.5)
+    torch.testing.assert_close(
+        sc.threshold_mask(t, off, delta, eps, thr, sk.d),
+        sc.threshold_mask_plain(t, off, delta, eps, thr, sk.d),
+        rtol=0, atol=0)
     # plain-version calls launch nothing and count nothing
-    assert sc.LAUNCHES == {"sketch_encode": 0, "sketch_estimate_all": 0}
+    assert sc.LAUNCHES == {name: 0 for name in sc.LAUNCHES}
+    assert set(sc.LAUNCHES) == {"sketch_encode", "sketch_estimate_all",
+                                "threshold_sample", "threshold_mask"}
 
 
 def test_wrappers_check_dtype_shape_contiguity_and_device():
@@ -73,12 +92,36 @@ def test_wrappers_check_dtype_shape_contiguity_and_device():
         sc.estimate_all(torch.zeros(17, 10), o, dl, e, 100)
     with pytest.raises(TypeError, match="Tensor"):
         sc.encode(np.zeros(d, np.float32), off, delta, eps, c)
+    table = torch.zeros(sk.r, c)
+    with pytest.raises(ValueError, match="stride"):
+        sc.threshold_sample(table, off, delta, eps, d, c, 2)
+    with pytest.raises(ValueError, match="one-element"):
+        sc.threshold_mask(table, off, delta, eps, torch.zeros(2), d)
+    with pytest.raises(ValueError, match="float32"):
+        sc.threshold_mask(table, off, delta, eps, torch.tensor(0.5).double(),
+                          d)
+
+
+def test_threshold_sample_plain_is_k2_at_the_sampled_positions():
+    # K3a's plain version gathers K2's estimate at chunk positions
+    # 0, stride, ... (the tail at or past d zeroed): exact
+    for geom in GEOMETRIES:
+        sk, x, off, eps, delta = _operands(geom, seed=2)
+        t = sc.encode(x, off, delta, eps, sk.c)
+        est = sc.estimate_all(t, off, delta, eps, sk.d)
+        for stride in (1, 3, sk.c):
+            ns = sk.c // stride
+            got = sc.threshold_sample(t, off, delta, eps, sk.d, stride, ns)
+            assert torch.equal(got, est[:, :ns * stride:stride])
 
 
 def test_build_names_the_library_by_source_hash():
     # edited sources rebuild: the library name carries the source digest
-    p = sc._lib_path("sketch")
-    assert p.parent == sc.BUILD_DIR and p.name.startswith("libcct_sketch_")
+    from commefficient_tpu_torch.ops.kernels import _build
+    for name in ("sketch", "flash_fwd"):
+        p = _build.lib_path(name)
+        assert p.parent == _build.BUILD_DIR
+        assert p.name.startswith(f"libcct_{name}_")
 
 
 @pytest.mark.gpu
@@ -97,3 +140,48 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, geom):
     assert sc.LAUNCHES["sketch_encode"] == before["sketch_encode"] + 1
     assert (sc.LAUNCHES["sketch_estimate_all"]
             == before["sketch_estimate_all"] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", GEOMETRIES + THRESHOLD_GEOMETRIES
+                         + [GPT2_PATH],
+                         ids=["tail-odd", "exact-even", "single-chunk",
+                              "tail-even", "heavy-hitters", "dispatch",
+                              "stride-clamped", "gpt2-path"])
+def test_threshold_kernels_match_plain_versions_on_the_card(cuda_device,
+                                                            geom):
+    # K3a and K3b compute K2's estimate with K2's device code: exact
+    sk, x, off, eps, delta = _operands(geom, cuda_device, seed=3)
+    t = sc.encode(x, off, delta, eps, sk.c)
+    stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
+    if geom["c"] == 256:
+        stride, ns = sk.c, 1        # the stride clamped to c
+    before = dict(sc.LAUNCHES)
+    smp = sc.threshold_sample(t, off, delta, eps, sk.d, stride, ns)
+    assert torch.equal(smp, sc.threshold_sample_plain(t, off, delta, eps,
+                                                      sk.d, stride, ns))
+    thr = (smp.reshape(-1) ** 2).median().reshape(1)
+    m = sc.threshold_mask(t, off, delta, eps, thr, sk.d)
+    assert torch.equal(m, sc.threshold_mask_plain(t, off, delta, eps, thr,
+                                                  sk.d))
+    torch.cuda.synchronize()
+    for name in ("threshold_sample", "threshold_mask"):
+        assert sc.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BH,L", [(192, 299), (192, 294), (4, 256),
+                                  (4, 300), (4, 1024)])
+def test_flash_kernel_matches_plain_on_the_card(cuda_device, BH, L):
+    # the kernel's own f32 FMAs in 64-key tiles vs the plain 128-key
+    # fold: 1e-5 of the output's scale
+    g = torch.Generator().manual_seed(L)
+    q, k, v = (torch.randn(1, BH, L, 64, generator=g).to(cuda_device)
+               for _ in range(3))
+    before = ac.LAUNCHES["flash_fwd"]
+    o, lse = ac.flash_fwd(q, k, v, 0.125)
+    po, plse = ac.flash_fwd_plain(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES["flash_fwd"] == before + 1
+    assert float((o - po).abs().max()) <= 1e-5 * float(po.abs().max())
+    assert float((lse - plse).abs().max()) <= 1e-5 * float(plse.abs().max())

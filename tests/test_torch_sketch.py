@@ -158,11 +158,105 @@ def test_encode_k_sparse_route_pinned_by_dense():
 
 
 def test_threshold_decode_is_refused_until_k3():
-    # d past THRESHOLD_DECODE_MIN_D needs kernel K3 (ROADMAP Queue 2)
-    ts = TCSVec(d=tsketch.THRESHOLD_DECODE_MIN_D + 1, c=2 ** 22, r=1)
+    # kernel K3 is ported: past THRESHOLD_DECODE_MIN_D (no monkeypatch)
+    # decode_topk_dense takes the sampled-threshold route and recovers a
+    # 3-sparse vector exactly (the threshold floors at f32 tiny, so
+    # exactly the nonzero estimates are kept)
+    ts = TCSVec(d=tsketch.THRESHOLD_DECODE_MIN_D + 1, c=2 ** 22, r=3)
     assert ts._threshold_decode
-    with pytest.raises(NotImplementedError, match="K3"):
-        ts.decode_topk_dense(ts.zeros(), 10)
+    hot = torch.tensor([5, 20_000_000, ts.d - 1])
+    vals = torch.tensor([7.0, -6.0, 5.0])
+    out = ts.decode_topk_dense(ts.encode_sparse(hot, vals), 10)
+    assert out.shape == (ts.d,)
+    assert torch.equal(torch.nonzero(out).reshape(-1), hot)
+    assert torch.equal(out[hot], vals)
+
+
+# threshold-regime geometries: the tests/test_kernels.py heavy-hitter
+# and dispatch geometries, an even r, and a ragged last chunk
+THRESHOLD_GEOMETRIES = [
+    dict(d=40000, c=10000, r=5),
+    dict(d=20000, c=5000, r=5),
+    dict(d=20000, c=5000, r=4),
+    dict(d=30001, c=7000, r=3),
+]
+
+
+def _heavy(d, n_hot, seed):
+    rng = np.random.RandomState(seed)
+    v = rng.randn(d).astype(np.float32) * 0.01
+    hot = rng.choice(d, n_hot, replace=False)
+    v[hot] = rng.choice([-1.0, 1.0], n_hot) * (5.0 + rng.rand(n_hot))
+    return v, hot
+
+
+@pytest.fixture
+def threshold_regime(monkeypatch):
+    # both packages' gate lowered, as tests/test_kernels.py:129-143 does
+    import commefficient_tpu.ops.sketch as jsk
+    monkeypatch.setattr(jsk, "THRESHOLD_DECODE_MIN_D", 1000)
+    monkeypatch.setattr(tsketch, "THRESHOLD_DECODE_MIN_D", 1000)
+
+
+@pytest.mark.parametrize("geom", THRESHOLD_GEOMETRIES)
+def test_threshold_decode_matches_jax_pallas(threshold_regime, geom):
+    # the same per-chunk sample (bitwise K2 estimates), the same k-th
+    # largest square (exact top-k on the CPU), the same >= select:
+    # exact equality with JAX pallas_threshold_decode
+    from commefficient_tpu.ops.kernels import pallas_threshold_decode
+    js, ts = _pair(geom, "pallas")
+    assert js._threshold_decode and js._pallas("estimate")
+    assert ts._threshold_decode
+    v, _ = _heavy(geom["d"], 50, seed=8)
+    t = np.array(js.encode(jnp.asarray(v)))
+    k = 2000
+    want = np.asarray(pallas_threshold_decode(js, jnp.asarray(t), k))
+    got = ts.decode_topk_dense(torch.from_numpy(t), k).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.asarray(js.decode_topk_dense(jnp.asarray(t), k)))
+
+
+@pytest.mark.parametrize("geom", THRESHOLD_GEOMETRIES[:2])
+def test_threshold_decode_within_band_of_jax_xla(threshold_regime, geom):
+    # the XLA route samples the flat estimate at one global stride, the
+    # port per chunk: both keep the hot coordinates, both land within
+    # the sampling band of k (tests/test_kernels.py:126), and every
+    # coordinate both keep carries the same value
+    js, ts = _pair(geom, "xla")
+    v, hot = _heavy(geom["d"], 50, seed=8)
+    t = np.array(js.encode(jnp.asarray(v)))
+    k = 2000
+    want = np.asarray(js.decode_topk_dense(jnp.asarray(t), k))
+    got = ts.decode_topk_dense(torch.from_numpy(t), k).numpy()
+    for out in (want, got):
+        nz = np.nonzero(out)[0]
+        assert set(hot).issubset(set(nz))
+        assert 0.75 * k <= len(nz) <= 1.25 * k, len(nz)
+    both = (want != 0) & (got != 0)
+    np.testing.assert_array_equal(got[both], want[both])
+
+
+def test_threshold_decode_stride_clamped_to_chunk(threshold_regime,
+                                                  monkeypatch):
+    # a chunk narrower than the global sample stride clamps the stride
+    # to c (one sample a chunk), in both packages alike
+    import commefficient_tpu.ops.kernels.sketch_pallas as sp
+    from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
+    monkeypatch.setattr(sp, "_SAMPLE_TARGET", 32)
+    monkeypatch.setattr(sc, "_SAMPLE_TARGET", 32)
+    geom = dict(d=16384, c=256, r=5)
+    js, ts = _pair(geom, "pallas")
+    assert sc.threshold_sample_geometry(ts.n_chunks, ts.c) == (256, 1)
+    assert sp.threshold_sample_geometry(js) == (256, 1)
+    v = np.zeros(geom["d"], np.float32)
+    hot = [5, 900, 14000]
+    v[hot] = [7.0, -6.0, 5.0]
+    t = np.array(js.encode(jnp.asarray(v)))
+    want = np.asarray(sp.pallas_threshold_decode(js, jnp.asarray(t), 3))
+    got = ts.decode_topk_dense(torch.from_numpy(t), 3).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got[hot], v[hot], atol=1e-4)
 
 
 @pytest.mark.parametrize("d,k", [(1000, 37), (4 * 1024 * 1024 + 64, 5000)],
