@@ -32,11 +32,12 @@ the result line:
                gradient: relative error <= 2e-3 card vs CPU, the card no
                less accurate than the CPU against float64, and >= 99% of
                the top-k indices shared (PARITY_RTOL and its note).
-6. kernels  — K3a/K3b (the threshold decode's sample and mask) against
-               their plain versions at the GPT2 main-path geometry
-               (d = 124,444,417), the three threshold geometries of
-               tests/test_kernels.py (one with the stride clamped to c)
-               and the three small ones of phase 3, exact; K4 (the
+6. kernels  — K1 and K3a/K3b (the threshold decode's sample and mask)
+               against their plain versions at the GPT2 main-path
+               geometry (d = 124,444,417), the three threshold
+               geometries of tests/test_kernels.py (one with the stride
+               clamped to c) and the three small ones of phase 3,
+               exact; K1 timed again at the GPT2 geometry; K4 (the
                flash-attention forward) against its plain version at
                [192, L, 64] for the main path's L, 294, 256, 300 and
                1024, within K4_RTOL. Times as in phase 3; K4's library
@@ -54,12 +55,18 @@ the result line:
                gpt2_train.test_gpt2 on the val split (forward only,
                through K4): its NLL finite.
 8. gparity  — one round's gradient sum, table and threshold selection
-               of a 2-layer full-width GPT2 (d = 53,564,417, so the
+               of a 2-layer full-width GPT2 (d = 53,565,697, so the
                threshold route), 2 clients x 2 examples at L = 299, on
                the card and on the CPU, beside a float64 CPU gradient:
-               the tolerances of phase 5, the selections sharing >= 99%.
+               phase 5's checks at this model's own tolerances
+               (GPT2_PARITY_RTOL, GPT2_ACCURACY_FLOOR), the selections
+               sharing >= 99%; and a control run of the card with TF32
+               matmuls, which those limits must refuse.
 
-The line before the last holds {"kernels": [...]} and the card's name
+Before the last two lines comes {"kernels": [...]}, one entry per
+kernel and main path: K1 twice (sketch_encode at config #2's shapes,
+sketch_encode_gpt2 at config #5's), each with the launches of its own
+path's run ("path"). The line before the last holds the card's name
 and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 `--profile [DIR]` additionally traces three more rounds of each path
@@ -136,6 +143,14 @@ K3_GEOMETRIES = [(dict(d=40000, c=10000, r=5), None),
 # tiles vs the plain 128-key-block fold, reductions in another order
 K4_RTOL = 1e-5
 K4_LENGTHS = (GPT2_L, 294, 256, 300, 1024)
+# GPT2 card-vs-CPU tolerances, its own: the 2-layer GPT2's float32
+# gradient sits about 2e-6 (relative L2) from float64 on either device,
+# three orders below ResNet9's, so ResNet9's limits would let the card
+# be ~100x less accurate than the CPU. These sit ~10x above those
+# readings and below the error of the same round with TF32 matmuls
+# (the control run of phase 8, which they must refuse).
+GPT2_PARITY_RTOL = 2e-5
+GPT2_ACCURACY_FLOOR = 1e-5
 
 
 def phase(name: str, msg: str) -> None:
@@ -230,53 +245,63 @@ def kernel_phase(sc, CSVec):
     off, eps, delta = sk.tables(dev)
     x = torch.randn(d, generator=torch.Generator().manual_seed(1)).to(dev)
     table = sc.encode(x, off, delta, eps, c)
-    rows = []
-
-    # K1: read x once, eps once, off/delta once; write the table once.
-    # Operations: r * d * (2 multiplies + 1 add) in f32.
-    k1_bytes = 4 * d + 4 * r * c + 8 * r * B + 4 * r * c
-    k1_ops = 3 * r * d
-    # library yardstick: one index_add_ of the pre-hashed, pre-signed
-    # [r * d] values into the flat table (hash and signs precomputed)
-    buckets, signs = sk.hash_indices(torch.arange(d, device=dev))
-    flat_pos = (torch.arange(r, device=dev)[:, None] * c
-                + buckets).reshape(-1)
-    src = (signs * x[None, :]).reshape(-1)
-    lib_out = torch.zeros(r * c, device=dev)
-    rows.append(dict(
-        name="sketch_encode", route="cuda",
-        source="commefficient_tpu_torch/ops/csrc/sketch.cu",
-        replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:146",
-        fn=lambda: sc.encode(x, off, delta, eps, c),
-        plain=lambda: sc.encode_plain(x, off, delta, eps, c),
-        library=lambda: lib_out.zero_().index_add_(0, flat_pos, src),
-        bytes=k1_bytes, ops=k1_ops))
+    rows = [encode_row(sc, sk, x, "sketch_encode", "config2")]
     # K2: read the table, eps, off/delta once; write the [B, c]
     # estimate once. Operations per estimate: 2r multiplies, the
     # r(r-1)/2 compare-exchanges (2 each), the middle.
     k2_bytes = 4 * r * c + 4 * r * c + 8 * r * B + 4 * B * c
     k2_ops = B * c * (2 * r + r * (r - 1) + 2)
     rows.append(dict(
-        name="sketch_estimate_all", route="cuda",
+        name="sketch_estimate_all", counter="sketch_estimate_all",
+        path="config2", route="cuda",
         source="commefficient_tpu_torch/ops/csrc/sketch.cu",
         replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:191",
         fn=lambda: sc.estimate_all(table, off, delta, eps, d),
         plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d),
         library=None, bytes=k2_bytes, ops=k2_ops))
+    return [timed_row(row, max_err[row["counter"]]) for row in rows]
 
-    out = [timed_row(row, max_err[row["name"]]) for row in rows]
-    del buckets, signs, flat_pos, src, lib_out
-    return out
+
+def k1_bytes(d: int, r: int, c: int, B: int) -> int:
+    """K1 reads x, eps [r, c] and off/delta [r, B] once and writes the
+    [r, c] table once."""
+    return 4 * d + 4 * r * c + 8 * r * B + 4 * r * c
+
+
+def encode_row(sc, sk, x, name, path):
+    """The K1 row at `sk`'s geometry on `x` (on the card). Operations:
+    r * d * (2 multiplies + 1 add) in f32. Library yardstick: one
+    index_add_ of the pre-hashed, pre-signed [r * d] values into the
+    flat table (hash and signs precomputed, not timed)."""
+    d, c, r = sk.d, sk.c, sk.r
+    off, eps, delta = sk.tables(x.device)
+    buckets, signs = sk.hash_indices(torch.arange(d, device=x.device))
+    flat_pos = (torch.arange(r, device=x.device)[:, None] * c
+                + buckets).reshape(-1)
+    del buckets
+    src = (signs * x[None, :]).reshape(-1)
+    del signs
+    lib_out = torch.zeros(r * c, device=x.device)
+    return dict(
+        name=name, counter="sketch_encode", path=path, route="cuda",
+        source="commefficient_tpu_torch/ops/csrc/sketch.cu",
+        replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:146",
+        fn=lambda: sc.encode(x, off, delta, eps, c),
+        plain=lambda: sc.encode_plain(x, off, delta, eps, c),
+        library=lambda: lib_out.zero_().index_add_(0, flat_pos, src),
+        bytes=k1_bytes(d, r, c, sk.n_chunks), ops=3 * r * d)
 
 
 def timed_row(row, max_abs_err):
     """One entry of the kernels line: the kernel's, its plain version's
     and the library call's median times, and the bound from the bytes
-    and operations the work needs (PEAK_*)."""
+    and operations the work needs (PEAK_*). `counter` names the launch
+    counter and `path` the main path whose count the entry takes."""
     t_bytes = row["bytes"] / PEAK_BYTES_PER_S * 1e3
     t_ops = row["ops"] / PEAK_F32_FLOPS * 1e3
     res = dict(
-        name=row["name"], route=row["route"], source=row["source"],
+        name=row["name"], counter=row["counter"], path=row["path"],
+        route=row["route"], source=row["source"],
         replaces=row["replaces"], launches=0, max_abs_err=max_abs_err,
         ms=time_cuda(row["fn"], 50),
         plain_ms=time_cuda(row["plain"], 5, warmup=1),
@@ -386,64 +411,91 @@ def main_path(sc, ac, cv_train, parse_args, data_dir):
     return model, round_ms, peak, launches, batch
 
 
-def parity_phase(model, batch, models, fclient, fserver, flat, convert):
-    """One round's gradient sum, table and top-k on the card vs the
-    CPU, from the same weights and batch, with a float64 CPU gradient
-    as the yardstick of float32 reduction-order noise."""
-    from commefficient_tpu_torch.training.cv_train import make_compute_loss
-    cfg = model.cfg
-    client_ids, data, mask = batch
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
+                 fclient, fserver, flat, tf32_control=False):
+    """One round's client gradient sum, sketch table and server selection
+    (top-k, or the threshold route's) on the card vs the CPU, from the
+    same flat weights `w` and batch (`data` numpy arrays, floating ones
+    cast to the run's dtype), with a float64 CPU gradient as the
+    yardstick of float32 rounding. `build()` makes a fresh module and
+    `make_loss(module)` its loss. It passes when card and CPU agree
+    within `rtol`, the card lies within ACCURACY_RATIO x max(the CPU's
+    float32 error, `floor`) of float64, and the selections share
+    TOPK_OVERLAP of theirs. With `tf32_control` the card runs the round
+    once more with TF32 matmuls and convolutions: the gradient limits
+    must refuse that run, or they could not tell TF32 from float32."""
+    sketch = fserver.args2sketch(cfg)
+    runs = [("cuda", torch.float32, False), ("cpu", torch.float32, False),
+            ("cpu", torch.float64, False)]
+    if tf32_control:
+        runs.append(("cuda", torch.float32, True))
+    tf32_flags = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
     out = {}
-    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
-                       ("cpu", torch.float64)):
-        module = models.build_model("ResNet9", num_classes=10)
-        convert.load_flat(module, model.ps_weights.detach().cpu())
-        module = module.to(dev, dtype)
+    for dev, dtype, tf32 in runs:
+        module = build().to(dev, dtype)
         _, unravel = flat.flatten_params(module)
-        loss = fclient.make_flat_loss_fn(make_compute_loss(module), unravel)
-        w = model.ps_weights.detach().to(dev, dtype)
-        xs = (torch.from_numpy(data[0]).to(dev, dtype),
-              torch.from_numpy(data[1]).to(dev))
+        loss = fclient.make_flat_loss_fn(make_loss(module), unravel)
+        xs = tuple(t.to(dtype) if t.is_floating_point() else t
+                   for t in (torch.from_numpy(a).to(dev) for a in data))
         m = torch.from_numpy(mask).to(dev, dtype)
-        g, _, _, counts = fclient.fused_shard_grads(loss, w, xs, m, cfg)
-        if dtype == torch.float64:
-            out["f64"] = (g.cpu(), None, None)
-            continue
-        table = fserver.args2sketch(cfg).encode(g) / counts.sum()
-        r, c = cfg.num_rows, cfg.num_cols
-        zeros = torch.zeros((r, c), device=dev)
-        upd = fserver.get_server_update(table, zeros, zeros, cfg, 1.0)
-        top = set(torch.nonzero(upd.update).reshape(-1).cpu().tolist())
-        out[dev] = (g.cpu(), table.cpu(), top)
-    (gc, tc, kc), (gp, tp, kp) = out["cuda"], out["cpu"]
-    g64 = out["f64"][0]
-
-    def rel(a, b):
-        return float((a.double() - b.double()).norm() / b.double().norm())
-
-    g_err, t_err = rel(gc, gp), rel(tc, tp)
-    card64, cpu64 = rel(gc, g64), rel(gp, g64)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            g, _, _, counts = fclient.fused_shard_grads(
+                loss, w.detach().to(dev, dtype), xs, m, cfg)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32_flags
+        key = "f64" if dtype == torch.float64 else "tf32" if tf32 else dev
+        if key != "f64":
+            table = sketch.encode(g) / counts.sum()
+            zeros = torch.zeros(sketch.table_shape, device=dev)
+            upd = fserver.get_server_update(table, zeros, zeros, cfg, 1.0)
+            top = set(torch.nonzero(upd.update).reshape(-1).cpu().tolist())
+            out[key] = (g.cpu(), table.cpu(), top)
+            del table, upd
+        else:
+            out[key] = g.cpu()
+        del module, g
+    (gc, tc, kc), (gp, tp, kp), g64 = out["cuda"], out["cpu"], out["f64"]
+    g_err, t_err = _rel(gc, gp), _rel(tc, tp)
+    card64, cpu64 = _rel(gc, g64), _rel(gp, g64)
     overlap = len(kc & kp) / max(len(kp), 1)
-    phase("parity", f"card vs CPU: grad rel err {g_err:.3e}, table rel "
-          f"err {t_err:.3e} (tolerance {PARITY_RTOL:g}); vs the float64 "
-          f"CPU gradient: card {card64:.3e}, CPU float32 {cpu64:.3e} "
-          f"(card <= {ACCURACY_RATIO:g} x max(CPU, {ACCURACY_FLOOR:g})); "
-          f"top-k overlap "
-          f"{overlap:.5f} of {len(kp)} (>= {TOPK_OVERLAP:g})")
-    if not (g_err <= PARITY_RTOL and t_err <= PARITY_RTOL
-            and card64 <= ACCURACY_RATIO * max(cpu64, ACCURACY_FLOOR)
+    accuracy_limit = ACCURACY_RATIO * max(cpu64, floor)
+    phase(label, f"card vs CPU: grad rel err {g_err:.3e}, table rel "
+          f"err {t_err:.3e} (tolerance {rtol:g}); vs the float64 CPU "
+          f"gradient: card {card64:.3e}, CPU float32 {cpu64:.3e} (card <= "
+          f"{ACCURACY_RATIO:g} x max(CPU, {floor:g})); selection overlap "
+          f"{overlap:.5f} of {len(kp)} (card selected {len(kc)}; >= "
+          f"{TOPK_OVERLAP:g})")
+    if not (g_err <= rtol and t_err <= rtol and card64 <= accuracy_limit
             and overlap >= TOPK_OVERLAP):
         raise AssertionError("card and CPU disagree beyond tolerance")
+    if tf32_control:
+        gt = out["tf32"][0]
+        tf_err, tf64 = _rel(gt, gp), _rel(gt, g64)
+        phase(label, f"control, the card with TF32: grad rel err vs CPU "
+              f"{tf_err:.3e}, vs float64 {tf64:.3e} (must exceed {rtol:g} "
+              f"or {accuracy_limit:.3e})")
+        if tf_err <= rtol and tf64 <= accuracy_limit:
+            raise AssertionError("the limits pass a TF32 round: they cannot "
+                                 "tell TF32 from float32")
     return g_err, t_err, overlap
 
 
 def kernel_phase_gpt2(sc, ac, CSVec):
-    """K3a / K3b / K4 against their plain versions; returns their result
-    rows (launch counts filled in after the GPT2 main path). Also times
-    K1 at the GPT2 geometry (printed only: its row is config #2's)."""
+    """K1 at the GPT2 geometry, K3a / K3b / K4 against their plain
+    versions; returns their result rows (launch counts filled in after
+    the GPT2 main path)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    err = {"threshold_sample": 0.0, "threshold_mask": 0.0, "flash_fwd": 0.0}
+    err = {"sketch_encode": 0.0, "threshold_sample": 0.0,
+           "threshold_mask": 0.0, "flash_fwd": 0.0}
     for geom, sampling in (K3_GEOMETRIES
                            + [(g, None) for g in SMALL_GEOMETRIES]
                            + [(dict(d=GPT2_D, c=MAIN_C, r=MAIN_R), None)]):
@@ -452,6 +504,7 @@ def kernel_phase_gpt2(sc, ac, CSVec):
         g = torch.Generator().manual_seed(geom["d"] + 1)
         x = torch.randn(geom["d"], generator=g).to(dev)
         table = sc.encode(x, off, delta, eps, sk.c)
+        t_p = sc.encode_plain(x, off, delta, eps, sk.c)
         stride, ns = sampling or sc.threshold_sample_geometry(sk.n_chunks,
                                                               sk.c)
         s_k = sc.threshold_sample(table, off, delta, eps, sk.d, stride, ns)
@@ -461,16 +514,18 @@ def kernel_phase_gpt2(sc, ac, CSVec):
         m_k = sc.threshold_mask(table, off, delta, eps, thr, sk.d)
         m_p = sc.threshold_mask_plain(table, off, delta, eps, thr, sk.d)
         torch.cuda.synchronize()
-        for name, k, p in (("threshold_sample", s_k, s_p),
+        for name, k, p in (("sketch_encode", table, t_p),
+                           ("threshold_sample", s_k, s_p),
                            ("threshold_mask", m_k, m_p)):
             e = float((k - p).abs().max())
             err[name] = max(err[name], e)
             if not torch.equal(k, p):
                 raise AssertionError(f"{name} differs from its plain "
                                      f"version at {geom}: max abs err {e}")
-        phase("kernels", f"{geom}: K3a and K3b equal to their plain "
+        phase("kernels", f"{geom}: K1, K3a and K3b equal to their plain "
               f"versions (exact; stride {stride}, {ns} samples a chunk, "
               f"{int((m_k != 0).sum())} selected)")
+        del x, table, t_p, s_k, s_p, m_k, m_p
     for L in K4_LENGTHS:
         g = torch.Generator().manual_seed(L)
         q, k, v = (torch.randn(1, 192, L, 64, generator=g).to(dev)
@@ -498,10 +553,6 @@ def kernel_phase_gpt2(sc, ac, CSVec):
     stride, ns = sc.threshold_sample_geometry(B, c)
     sample = sc.threshold_sample(table, off, delta, eps, d, stride, ns)
     thr = (sample.reshape(-1) ** 2).quantile(1 - 50_000 / d).reshape(1)
-    k1_ms = time_cuda(lambda: sc.encode(x, off, delta, eps, c), 20)
-    k1_bound = (8 * d + 8 * r * c + 8 * r * B) / PEAK_BYTES_PER_S * 1e3
-    phase("kernels", f"K1 at the GPT2 geometry (d={d}): kernel_ms="
-          f"{k1_ms:.4f} bound_ms={k1_bound:.4f} (bytes)")
     # operations per estimate: 2r multiplies, r(r-1)/2 compare-exchanges
     # (2 each), the middle; K3b adds the square and the compare
     est_ops = 2 * r + r * (r - 1) + 2
@@ -510,7 +561,12 @@ def kernel_phase_gpt2(sc, ac, CSVec):
                 .to(dev) for i in range(3))
     pairs = 192 * GPT2_L * (GPT2_L + 1) // 2     # causal (q, k) pairs
     rows = [
-        dict(name="threshold_sample", route="cuda",
+        encode_row(sc, sk, x, "sketch_encode_gpt2", "config5"),
+        # K3a reads the whole table (its r * B * ns gathers cover it),
+        # eps only at the ns sampled positions, off/delta once, and
+        # writes the [B, ns] sample once
+        dict(name="threshold_sample", counter="threshold_sample",
+             path="config5", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/sketch.cu",
              replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:232",
              fn=lambda: sc.threshold_sample(table, off, delta, eps, d,
@@ -518,9 +574,10 @@ def kernel_phase_gpt2(sc, ac, CSVec):
              plain=lambda: sc.threshold_sample_plain(table, off, delta, eps,
                                                      d, stride, ns),
              library=None,
-             bytes=8 * r * c + 8 * r * B + 4 * B * ns,
+             bytes=4 * r * c + 4 * r * ns + 8 * r * B + 4 * B * ns,
              ops=B * ns * est_ops),
-        dict(name="threshold_mask", route="cuda",
+        dict(name="threshold_mask", counter="threshold_mask",
+             path="config5", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/sketch.cu",
              replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:250",
              fn=lambda: sc.threshold_mask(table, off, delta, eps, thr, d),
@@ -531,7 +588,8 @@ def kernel_phase_gpt2(sc, ac, CSVec):
              ops=d * (est_ops + 2)),
         # q, k, v read once, o and lse written once; 4 Dh operations
         # (the score and the PV product) for each causal pair
-        dict(name="flash_fwd", route="cuda",
+        dict(name="flash_fwd", counter="flash_fwd", path="config5",
+             route="cuda",
              source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="commefficient_tpu/ops/attention.py:91",
              fn=lambda: ac.flash_fwd(q, kk, v, 0.125),
@@ -541,7 +599,7 @@ def kernel_phase_gpt2(sc, ac, CSVec):
              bytes=4 * 4 * q.numel() + 4 * 192 * GPT2_L,
              ops=4 * 64 * pairs),
     ]
-    return [timed_row(row, err[row["name"]]) for row in rows]
+    return [timed_row(row, err[row["counter"]]) for row in rows]
 
 
 def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
@@ -635,66 +693,6 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
     return launches, round_ms, peak, batch, cfg
 
 
-def gpt2_parity_phase(batch, cfg, fclient, fserver, flat, gpt2_model,
-                      gpt2_train):
-    """One round's gradient sum, table and threshold selection of a
-    2-layer full-width GPT2 on the card vs the CPU, from the same
-    weights and 2 clients x 2 examples of a main-path batch, with a
-    float64 CPU gradient as the yardstick."""
-    client_ids, data, mask = batch
-    data = tuple(x[:2, :2] for x in data)
-    mask = mask[:2, :2]
-    gcfg = gpt2_model.PRESETS["gpt2"].replace(vocab_size=GPT2_VOCAB,
-                                              n_layer=2)
-    base = gpt2_model.GPT2DoubleHeads(gcfg, seed=5)
-    vec, _ = flat.flatten_params(base)
-    D = int(vec.shape[0])
-    cfg = cfg.replace(grad_size=D, num_workers=2)
-    sketch = fserver.args2sketch(cfg)
-    assert sketch._threshold_decode, D
-    out = {}
-    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
-                       ("cpu", torch.float64)):
-        module = gpt2_model.GPT2DoubleHeads(gcfg, seed=5).to(dev, dtype)
-        _, unravel = flat.flatten_params(module)
-        loss = fclient.make_flat_loss_fn(
-            gpt2_train.make_compute_loss_train(module, cfg), unravel)
-        w = vec.to(dev, dtype)
-        xs = tuple(torch.from_numpy(x).to(dev) for x in data)
-        m = torch.from_numpy(mask).to(dev, dtype)
-        g, _, _, counts = fclient.fused_shard_grads(loss, w, xs, m, cfg)
-        if dtype == torch.float64:
-            out["f64"] = g.cpu()
-            continue
-        table = sketch.encode(g) / counts.sum()
-        zeros = torch.zeros(sketch.table_shape, device=dev)
-        upd = fserver.get_server_update(table, zeros, zeros, cfg, 1.0)
-        top = set(torch.nonzero(upd.update).reshape(-1).cpu().tolist())
-        out[dev] = (g.cpu(), table.cpu(), top)
-        del module, g, table, upd
-    (gc, tc, kc), (gp, tp, kp) = out["cuda"], out["cpu"]
-    g64 = out["f64"]
-
-    def rel(a, b):
-        return float((a.double() - b.double()).norm() / b.double().norm())
-
-    g_err, t_err = rel(gc, gp), rel(tc, tp)
-    card64, cpu64 = rel(gc, g64), rel(gp, g64)
-    overlap = len(kc & kp) / max(len(kp), 1)
-    phase("gparity", f"2-layer GPT2 (d={D}), L={data[0].shape[-1]}: card vs "
-          f"CPU grad rel err {g_err:.3e}, table rel err {t_err:.3e} "
-          f"(tolerance {PARITY_RTOL:g}); vs the float64 CPU gradient: card "
-          f"{card64:.3e}, CPU float32 {cpu64:.3e} (card <= "
-          f"{ACCURACY_RATIO:g} x max(CPU, {ACCURACY_FLOOR:g})); threshold "
-          f"selection overlap {overlap:.5f} of {len(kp)} (card selected "
-          f"{len(kc)}; >= {TOPK_OVERLAP:g})")
-    if not (g_err <= PARITY_RTOL and t_err <= PARITY_RTOL
-            and card64 <= ACCURACY_RATIO * max(cpu64, ACCURACY_FLOOR)
-            and overlap >= TOPK_OVERLAP):
-        raise AssertionError("card and CPU disagree beyond tolerance")
-    return g_err, t_err, overlap
-
-
 def profile_rounds(model, train_loader, opt, path, label="profile"):
     """Device time by kernel over three traced rounds (after one
     untraced and one warm-up round of the profiler's schedule)."""
@@ -774,7 +772,16 @@ def main(argv=None) -> int:
     data_dir = os.path.join(HERE, "build", "chip_smoke_data")
     model, round_ms, peak, launches, batch = main_path(
         sc, ac, cv_train, parse_args, data_dir)
-    parity_phase(model, batch, models, fclient, fserver, flat, convert)
+    w = model.ps_weights.detach().cpu()
+
+    def build_resnet9():
+        module = models.build_model("ResNet9", num_classes=10)
+        convert.load_flat(module, w)
+        return module
+
+    parity_phase("parity", build_resnet9, w, batch[1], batch[2], model.cfg,
+                 cv_train.make_compute_loss, PARITY_RTOL, ACCURACY_FLOOR,
+                 fclient, fserver, flat)
     if args.profile:
         profile_rounds(model, cv_train.get_data_loaders(
             model.cfg, (CLIENTS * EXAMPLES_PER_CLIENT, 512))[0],
@@ -783,16 +790,33 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
-    kernels += kernel_phase_gpt2(sc, ac, CSVec)
+    g_kernels = kernel_phase_gpt2(sc, ac, CSVec)
     g_launches, _, _, g_batch, g_cfg = gpt2_main_path(
         sc, ac, gpt2_train, parse_args, HashTokenizer,
         os.path.join(HERE, "build", "chip_smoke_gpt2_data"), args.profile)
-    gpt2_parity_phase(g_batch, g_cfg, fclient, fserver, flat, gpt2_model,
-                      gpt2_train)
-    # launches: the count over the two main paths' runs (config #2's
-    # for K1 and K2, config #5's for K1, K3a, K3b and K4)
+
+    # a 2-layer full-width GPT2 (threshold route), 2 clients x 2
+    # examples of a main-path batch
+    gcfg = gpt2_model.PRESETS["gpt2"].replace(vocab_size=GPT2_VOCAB,
+                                              n_layer=2)
+    g_w, _ = flat.flatten_params(gpt2_model.GPT2DoubleHeads(gcfg, seed=5))
+    g_cfg = g_cfg.replace(grad_size=int(g_w.shape[0]), num_workers=2)
+    assert fserver.args2sketch(g_cfg)._threshold_decode, g_cfg.grad_size
+    phase("gparity", f"2-layer GPT2, d={g_cfg.grad_size}, "
+          f"L={g_batch[1][0].shape[-1]}, 2 clients x 2 examples")
+    parity_phase("gparity",
+                 lambda: gpt2_model.GPT2DoubleHeads(gcfg, seed=5), g_w,
+                 tuple(a[:2, :2] for a in g_batch[1]), g_batch[2][:2, :2],
+                 g_cfg,
+                 lambda m: gpt2_train.make_compute_loss_train(m, g_cfg),
+                 GPT2_PARITY_RTOL, GPT2_ACCURACY_FLOOR, fclient, fserver,
+                 flat, tf32_control=True)
+    # launches: each entry's count from its own main path's run
     for k in kernels:
-        k["launches"] = launches[k["name"]] + g_launches[k["name"]]
+        k["launches"] = launches[k.pop("counter")]
+    for k in g_kernels:
+        k["launches"] = g_launches[k.pop("counter")]
+    kernels += g_kernels
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)

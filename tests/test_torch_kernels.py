@@ -150,9 +150,11 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, geom):
                               "stride-clamped", "gpt2-path"])
 def test_threshold_kernels_match_plain_versions_on_the_card(cuda_device,
                                                             geom):
-    # K3a and K3b compute K2's estimate with K2's device code: exact
+    # K3a and K3b compute K2's estimate with K2's device code: exact;
+    # K1 builds their table, exact at these geometries too
     sk, x, off, eps, delta = _operands(geom, cuda_device, seed=3)
     t = sc.encode(x, off, delta, eps, sk.c)
+    assert torch.equal(t, sc.encode_plain(x, off, delta, eps, sk.c))
     stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
     if geom["c"] == 256:
         stride, ns = sk.c, 1        # the stride clamped to c
