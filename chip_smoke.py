@@ -17,8 +17,9 @@ the result line:
                odd r, exact fit / even r, one chunk with c > d). Tolerance:
                exact equality (bitwise up to the sign of zero). Times with
                CUDA events (median after warm-up, L2 flushed between
-               launches), next to the least time the card needs for the
-               same bytes and operations.
+               launches): the kernel's device time, and the wrapper call
+               with its host work beside it (host_ms), next to the least
+               time the card needs for the same bytes and operations.
 4. main     — the port's cv_train.train() on the full-width ResNet9
                (D = 6,568,640), BASELINE config #2 (`--mode sketch
                --error_type virtual --virtual_momentum 0.9 --local_momentum
@@ -38,10 +39,15 @@ the result line:
                geometries of tests/test_kernels.py (one with the stride
                clamped to c) and the three small ones of phase 3,
                exact; K1 timed again at the GPT2 geometry; K4 (the
-               flash-attention forward) against its plain version at
-               [192, L, 64] for the main path's L, 294, 256, 300 and
-               1024, within K4_RTOL. Times as in phase 3; K4's library
-               yardstick is scaled_dot_product_attention (f32, causal).
+               flash-attention forward) against its plain version on
+               the main path's layout, the [16, 12, L, 64] head views
+               of one fused [16, L, 3 * 768] QKV projection, for the
+               main path's L, 294, 256, 300 and 1024, within K4_RTOL.
+               Times as in phase 3, K4's on those views; its library
+               yardstick is scaled_dot_product_attention (f32, causal)
+               pinned to the memory-efficient backend, on the same
+               views, and its bound counts the products at the TF32
+               tensor-core rate in three passes.
 7. gpt2     — the port's gpt2_train.train_gpt2() on the full-width
                GPT2-small (D = 124,444,417, HashTokenizer(50262)),
                BASELINE config #5 (`--mode sketch --error_type virtual
@@ -90,10 +96,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside
+# the tensor cores, and dense TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 MAIN_D, MAIN_C, MAIN_R = 6_568_640, 500_000, 5
 SMALL_GEOMETRIES = [
@@ -139,10 +146,14 @@ CONFIG5 = ["--dataset_name", "PERSONA", "--mode", "sketch",
 K3_GEOMETRIES = [(dict(d=40000, c=10000, r=5), None),
                  (dict(d=20000, c=5000, r=5), None),
                  (dict(d=16384, c=256, r=5), (256, 1))]
-# K4 against its plain version: the kernel's f32 FMAs over 64-key
-# tiles vs the plain 128-key-block fold, reductions in another order
+# K4 against its plain version: the kernel's 3xTF32 tensor-core
+# products over 64-key tiles (f32-accurate to ~2^-22 a product) vs the
+# plain f32 128-key-block fold, reductions in another order
 K4_RTOL = 1e-5
 K4_LENGTHS = (GPT2_L, 294, 256, 300, 1024)
+# the main path's attention operands: GPT2-small's fused QKV projection
+# of 16 sequences (8 clients x 2 candidates), 12 heads of 64
+K4_BATCH, K4_HEADS, K4_DH = 16, 12, 64
 # GPT2 card-vs-CPU tolerances, its own: the 2-layer GPT2's float32
 # gradient sits about 2e-6 (relative L2) from float64 on either device,
 # three orders below ResNet9's, so ResNet9's limits would let the card
@@ -166,16 +177,20 @@ def smi_line() -> str:
 
 
 def ptxas_summary(log: str) -> str:
-    """Registers and spill bytes of K1, K2, K3a and K3b at r = 5 and K4
-    at Dh = 64 from the build's `-Xptxas -v` report (empty when the
-    library was already built)."""
+    """Registers, spill bytes and static shared memory of K1, K2, K3a
+    and K3b at r = 5 (K1 at r = 16 too) and K4 at each Dh from the
+    build's `-Xptxas -v` report (empty when the library was already
+    built). K4's tiles are dynamic shared memory, printed beside it."""
     import re
     out, fn = [], None
-    names = (("encode_kernel", "encode_kernel"),
+    names = (("encode_rows_kernelILi5E", "encode_rows_kernel<5>"),
+             ("encode_rows_kernelILi16E", "encode_rows_kernel<16>"),
              ("estimate_kernelILi5E", "estimate_kernel<5>"),
              ("threshold_sample_kernelILi5E", "threshold_sample_kernel<5>"),
              ("threshold_mask_kernelILi5E", "threshold_mask_kernel<5>"),
-             ("flash_fwd_kernelILi64E", "flash_fwd_kernel<64>"))
+             ("flash_fwd_mma_kernelILi16E", "flash_fwd_mma_kernel<16>"),
+             ("flash_fwd_mma_kernelILi32E", "flash_fwd_mma_kernel<32>"),
+             ("flash_fwd_mma_kernelILi64E", "flash_fwd_mma_kernel<64>"))
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -186,15 +201,30 @@ def ptxas_summary(log: str) -> str:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         if fn and "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{fn}: {regs} registers, {spill} bytes spilled")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{fn}: {regs} registers, {spill} bytes spilled, "
+                       f"{smem.group(1) if smem else 0} bytes static smem")
             fn = None
     return "; ".join(out)
 
 
-def time_cuda(fn, iters: int, warmup: int = 3, flush: bool = True) -> float:
+def k4_smem_bytes(dh: int) -> int:
+    """flash_fwd_mma_kernel's dynamic shared memory a block (flash_fwd.cu
+    `Tile`): K and V tiles of 64 rows of Dh + 4 floats, 3 stages."""
+    return 4 * 2 * 3 * 64 * (dh + 4)
+
+
+def time_cuda(fn, iters: int, warmup: int = 3, flush: bool = True,
+              wait: bool = True) -> float:
     """Median ms of `fn` over `iters` launches, CUDA events around each,
     the 50 MB L2 overwritten before each (the round finds its inputs
-    cold: they are written by other kernels in between)."""
+    cold: they are written by other kernels in between). With `wait`, a
+    0.2 ms device-side wait before the first event keeps the card busy
+    while the host enqueues the event and `fn`'s launches, so the time
+    is the device's and not the host's launch overhead (a wrapper's
+    Python checks take some tens of microseconds). Without it the card
+    has only the flush to run while the host enqueues, so the reading
+    also holds the wrapper's host time beyond the flush's ~30 us."""
     scratch = torch.empty(96 * 2 ** 20 // 4, device="cuda")
     for _ in range(warmup):
         fn()
@@ -202,6 +232,8 @@ def time_cuda(fn, iters: int, warmup: int = 3, flush: bool = True) -> float:
     for _ in range(iters):
         if flush:
             scratch.zero_()
+        if wait:
+            torch.cuda._sleep(400_000)      # ~0.2 ms at the H100's clock
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -222,7 +254,7 @@ def kernel_phase(sc, CSVec):
         off, eps, delta = sk.tables(dev)
         g = torch.Generator().manual_seed(geom["d"])
         x = torch.randn(geom["d"], generator=g).to(dev)
-        t_k = sc.encode(x, off, delta, eps, sk.c)
+        t_k = sk.encode(x)
         t_p = sc.encode_plain(x, off, delta, eps, sk.c)
         e_k = sc.estimate_all(t_k, off, delta, eps, sk.d)
         e_p = sc.estimate_all_plain(t_k, off, delta, eps, sk.d)
@@ -244,7 +276,7 @@ def kernel_phase(sc, CSVec):
     B = sk.n_chunks
     off, eps, delta = sk.tables(dev)
     x = torch.randn(d, generator=torch.Generator().manual_seed(1)).to(dev)
-    table = sc.encode(x, off, delta, eps, c)
+    table = sk.encode(x)
     rows = [encode_row(sc, sk, x, "sketch_encode", "config2")]
     # K2: read the table, eps, off/delta once; write the [B, c]
     # estimate once. Operations per estimate: 2r multiplies, the
@@ -263,9 +295,12 @@ def kernel_phase(sc, CSVec):
 
 
 def k1_bytes(d: int, r: int, c: int, B: int) -> int:
-    """K1 reads x, eps [r, c] and off/delta [r, B] once and writes the
-    [r, c] table once."""
-    return 4 * d + 4 * r * c + 8 * r * B + 4 * r * c
+    """K1 reads x, off [r, B] and the sign bits of eps [r, c] and delta
+    [r, B] once (the +-1 tables as the packed int32 words the wrapper
+    takes) and writes the [r, c] table once."""
+    words = lambda n: -(-n // 32)        # noqa: E731
+    return 4 * d + 4 * r * B + 4 * words(r * c) + 4 * words(r * B) \
+        + 4 * r * c
 
 
 def encode_row(sc, sk, x, name, path):
@@ -275,6 +310,7 @@ def encode_row(sc, sk, x, name, path):
     flat table (hash and signs precomputed, not timed)."""
     d, c, r = sk.d, sk.c, sk.r
     off, eps, delta = sk.tables(x.device)
+    eps_bits, delta_bits = sk.sign_bits(x.device)
     buckets, signs = sk.hash_indices(torch.arange(d, device=x.device))
     flat_pos = (torch.arange(r, device=x.device)[:, None] * c
                 + buckets).reshape(-1)
@@ -286,7 +322,7 @@ def encode_row(sc, sk, x, name, path):
         name=name, counter="sketch_encode", path=path, route="cuda",
         source="commefficient_tpu_torch/ops/csrc/sketch.cu",
         replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:146",
-        fn=lambda: sc.encode(x, off, delta, eps, c),
+        fn=lambda: sc.encode(x, off, delta_bits, eps_bits, c),
         plain=lambda: sc.encode_plain(x, off, delta, eps, c),
         library=lambda: lib_out.zero_().index_add_(0, flat_pos, src),
         bytes=k1_bytes(d, r, c, sk.n_chunks), ops=3 * r * d)
@@ -295,21 +331,27 @@ def encode_row(sc, sk, x, name, path):
 def timed_row(row, max_abs_err):
     """One entry of the kernels line: the kernel's, its plain version's
     and the library call's median times, and the bound from the bytes
-    and operations the work needs (PEAK_*). `counter` names the launch
+    and operations the work needs (PEAK_*: the operations at the row's
+    `peak_flops`, f32 outside the tensor cores unless it says
+    otherwise). `ms` is the kernel's device time; `host_ms` times the
+    same wrapper call with no device-side wait, so it also holds the
+    wrapper's host time beyond the L2 flush. `counter` names the launch
     counter and `path` the main path whose count the entry takes."""
     t_bytes = row["bytes"] / PEAK_BYTES_PER_S * 1e3
-    t_ops = row["ops"] / PEAK_F32_FLOPS * 1e3
+    t_ops = row["ops"] / row.get("peak_flops", PEAK_F32_FLOPS) * 1e3
     res = dict(
         name=row["name"], counter=row["counter"], path=row["path"],
         route=row["route"], source=row["source"],
         replaces=row["replaces"], launches=0, max_abs_err=max_abs_err,
         ms=time_cuda(row["fn"], 50),
+        host_ms=time_cuda(row["fn"], 50, wait=False),
         plain_ms=time_cuda(row["plain"], 5, warmup=1),
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=(None if row["library"] is None
                     else time_cuda(row["library"], 20)))
     phase("kernels", f"{res['name']}: kernel_ms={res['ms']:.4f} "
+          f"host_ms={res['host_ms']:.4f} "
           f"plain_ms={res['plain_ms']:.4f} bound_ms="
           f"{res['bound_ms']:.4f} ({res['bound_by']}) library_ms="
           f"{res['library_ms']}")
@@ -492,7 +534,6 @@ def kernel_phase_gpt2(sc, ac, CSVec):
     """K1 at the GPT2 geometry, K3a / K3b / K4 against their plain
     versions; returns their result rows (launch counts filled in after
     the GPT2 main path)."""
-    import torch.nn.functional as F
     dev = torch.device("cuda")
     err = {"sketch_encode": 0.0, "threshold_sample": 0.0,
            "threshold_mask": 0.0, "flash_fwd": 0.0}
@@ -503,7 +544,7 @@ def kernel_phase_gpt2(sc, ac, CSVec):
         off, eps, delta = sk.tables(dev)
         g = torch.Generator().manual_seed(geom["d"] + 1)
         x = torch.randn(geom["d"], generator=g).to(dev)
-        table = sc.encode(x, off, delta, eps, sk.c)
+        table = sk.encode(x)
         t_p = sc.encode_plain(x, off, delta, eps, sk.c)
         stride, ns = sampling or sc.threshold_sample_geometry(sk.n_chunks,
                                                               sk.c)
@@ -526,10 +567,9 @@ def kernel_phase_gpt2(sc, ac, CSVec):
               f"versions (exact; stride {stride}, {ns} samples a chunk, "
               f"{int((m_k != 0).sum())} selected)")
         del x, table, t_p, s_k, s_p, m_k, m_p
+    shape = f"[{K4_BATCH}, {K4_HEADS}, L, {K4_DH}]"
     for L in K4_LENGTHS:
-        g = torch.Generator().manual_seed(L)
-        q, k, v = (torch.randn(1, 192, L, 64, generator=g).to(dev)
-                   for _ in range(3))
+        q, k, v = k4_operands(L, seed=L)
         o, lse = ac.flash_fwd(q, k, v, 0.125)
         po, plse = ac.flash_fwd_plain(q, k, v, 0.125)
         torch.cuda.synchronize()
@@ -539,9 +579,11 @@ def kernel_phase_gpt2(sc, ac, CSVec):
         if not (e_o <= K4_RTOL * float(po.abs().max())
                 and e_l <= K4_RTOL * float(plse.abs().max())):
             raise AssertionError(f"flash_fwd differs from its plain version "
-                                 f"at [192, {L}, 64]: o {e_o}, lse {e_l}")
-        phase("kernels", f"[192, {L}, 64]: K4 within {K4_RTOL:g} of its "
-              f"plain version (max abs err o {e_o:.3e}, lse {e_l:.3e})")
+                                 f"at {shape}, L={L}: o {e_o}, lse {e_l}")
+        phase("kernels", f"{shape}, L={L}, head views of the fused QKV "
+              f"projection: K4 within {K4_RTOL:g} of its plain version "
+              f"(max abs err o {e_o:.3e}, lse {e_l:.3e})")
+        del q, k, v, o, lse, po, plse
 
     # timing at the GPT2 main-path shapes
     d, c, r = GPT2_D, MAIN_C, MAIN_R
@@ -549,17 +591,17 @@ def kernel_phase_gpt2(sc, ac, CSVec):
     B = sk.n_chunks
     off, eps, delta = sk.tables(dev)
     x = torch.randn(d, generator=torch.Generator().manual_seed(2)).to(dev)
-    table = sc.encode(x, off, delta, eps, c)
+    table = sk.encode(x)
     stride, ns = sc.threshold_sample_geometry(B, c)
     sample = sc.threshold_sample(table, off, delta, eps, d, stride, ns)
     thr = (sample.reshape(-1) ** 2).quantile(1 - 50_000 / d).reshape(1)
     # operations per estimate: 2r multiplies, r(r-1)/2 compare-exchanges
     # (2 each), the middle; K3b adds the square and the compare
     est_ops = 2 * r + r * (r - 1) + 2
-    q, kk, v = (torch.randn(1, 192, GPT2_L, 64,
-                            generator=torch.Generator().manual_seed(i))
-                .to(dev) for i in range(3))
-    pairs = 192 * GPT2_L * (GPT2_L + 1) // 2     # causal (q, k) pairs
+    q, kk, v = k4_operands(GPT2_L, seed=3)
+    bh = K4_BATCH * K4_HEADS
+    pairs = bh * GPT2_L * (GPT2_L + 1) // 2      # causal (q, k) pairs
+    sdpa = sdpa_efficient(ac, q, kk, v)
     rows = [
         encode_row(sc, sk, x, "sketch_encode_gpt2", "config5"),
         # K3a reads the whole table (its r * B * ns gathers cover it),
@@ -586,20 +628,59 @@ def kernel_phase_gpt2(sc, ac, CSVec):
              library=None,
              bytes=8 * r * c + 8 * r * B + 4 + 4 * d,
              ops=d * (est_ops + 2)),
-        # q, k, v read once, o and lse written once; 4 Dh operations
-        # (the score and the PV product) for each causal pair
+        # q, k, v (the fused projection) read once, o and lse written
+        # once; 4 Dh operations (the score and the PV product) for each
+        # causal pair, f32-accurate, so on the TF32 tensor cores in
+        # three passes: 3x the operations at the TF32 rate (the route
+        # SDPA's own f32 kernel takes too), against which the bytes are
+        # the bound
         dict(name="flash_fwd", counter="flash_fwd", path="config5",
              route="cuda",
              source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="commefficient_tpu/ops/attention.py:91",
              fn=lambda: ac.flash_fwd(q, kk, v, 0.125),
              plain=lambda: ac.flash_fwd_plain(q, kk, v, 0.125),
-             library=lambda: F.scaled_dot_product_attention(
-                 q, kk, v, is_causal=True, scale=0.125),
-             bytes=4 * 4 * q.numel() + 4 * 192 * GPT2_L,
-             ops=4 * 64 * pairs),
+             library=sdpa,
+             bytes=4 * 4 * q.numel() + 4 * bh * GPT2_L,
+             ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
     ]
     return [timed_row(row, err[row["counter"]]) for row in rows]
+
+
+def k4_operands(L: int, seed: int):
+    """q, k, v as the GPT2 main path hands them to K4: the [B, H, L, Dh]
+    head views of one fused [K4_BATCH, L, 3 * 768] QKV projection (row
+    stride 3 * 768, no copy)."""
+    E = K4_HEADS * K4_DH
+    qkv = torch.randn(K4_BATCH, L, 3 * E,
+                      generator=torch.Generator().manual_seed(seed)
+                      ).to("cuda")
+    return tuple(t.reshape(K4_BATCH, L, K4_HEADS, K4_DH).transpose(1, 2)
+                 for t in qkv.split(E, dim=-1))
+
+
+def sdpa_efficient(ac, q, k, v):
+    """K4's library yardstick: scaled_dot_product_attention (f32,
+    causal) pinned to the memory-efficient backend, on the same views;
+    checked once against the plain version so the yardstick computes
+    the same function."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=0.125)
+    o = call()
+    po, _ = ac.flash_fwd_plain(q, k, v, 0.125)
+    e = float((o - po).abs().max() / po.abs().max())
+    phase("kernels", f"library yardstick: scaled_dot_product_attention, "
+          f"backend {SDPBackend.EFFICIENT_ATTENTION.name} (pinned), on "
+          f"the head views; relative max err vs the plain version {e:.3e}")
+    if not e <= K4_RTOL:
+        raise AssertionError("the SDPA yardstick does not compute K4's "
+                             "function")
+    return call
 
 
 def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
@@ -766,7 +847,9 @@ def main(argv=None) -> int:
     ptxas = ptxas_summary("\n".join(_build.BUILD_LOG.values()))
     phase("build", f"nvcc sm_90a build of {sorted(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s (0 when already built); "
-          f"ptxas: {ptxas}")
+          f"ptxas: {ptxas}; flash_fwd_mma_kernel dynamic smem a block: "
+          + ", ".join(f"Dh {dh}: {k4_smem_bytes(dh)} bytes"
+                      for dh in ac.SUPPORTED_DH))
 
     kernels = kernel_phase(sc, CSVec)
     data_dir = os.path.join(HERE, "build", "chip_smoke_data")

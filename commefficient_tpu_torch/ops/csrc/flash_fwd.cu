@@ -7,31 +7,64 @@
 // q-block, k-block) runs in order and carries the online-softmax state
 // (running max m, denominator l, accumulator acc) in VMEM scratch from
 // one k step to the next. Hopper blocks run in no order, so the k steps
-// become a loop inside the block: one block owns one (batch*head,
-// 64-query tile); each of its 64 threads owns one query row and keeps
-// that row's scaled q, its m, l and acc in registers. The block walks
-// the 64-key tiles up to the causal diagonal only (tiles above it are
-// never loaded, where the TPU grid still streams them), staging each
-// K and V tile in shared memory (2 x 64 x Dh f32 = 32 KB at Dh = 64),
-// where every thread reads the same key at once (a broadcast, no bank
-// conflicts). Per tile the fold is attention.py:113-132's: scores into
-// registers, masked to NEG_INF above the diagonal, the tile max, m_new,
-// p = exp(s - m_new), rescale = exp(m - m_new), l = l * rescale +
-// sum p, acc = acc * rescale + p V; the end is :134-138's: l_safe =
-// max(l, 1e-30), o = acc / l_safe, lse = m + log(l_safe). The ragged
-// last tile is masked here (rows >= L are neither read nor written;
-// keys >= L load as 0 and sit above the diagonal of every real row),
-// so the wrapper makes no padded copy.
+// become a loop inside the block (FlashAttention-2's forward).
 //
-// The score and PV products are the kernel's own f32 FMAs: no tensor
-// cores (TF32 or bf16 would break parity with the float32 reference).
-// Bound: operations, about 2.1 GFLOP per launch at [192, 294, 64]
-// causal, ~32 us at 67 TFLOP/s f32 (58 MB of q, k, v, o, lse move in
-// ~17 us). This simple design issues one shared-memory load per FMA
-// and runs 64 threads a block; register tiles of several rows per
-// thread, wgmma and TMA are later work. The wrapper takes [B, H, L, Dh]
-// and makes q, k, v contiguous (three copies a layer); passing strides
-// instead is later work too.
+// What bounds it. At the GPT2-small main path ([16, 12, 299, 64]
+// causal) a launch moves 59.0 MB (q, k, v read once, o and lse written
+// once: 17.6 us at 3.35 TB/s) and does 2.2 GFLOP of f32-accurate
+// products. On the SIMT f32 pipe (67 TFLOP/s) those products alone
+// take 33 us; on the TF32 tensor cores in three passes (3 x 2.2 GFLOP
+// at 495 TFLOP/s) 13 us. So the least time is the bytes', and the
+// design puts the products on the tensor cores:
+//
+// * Layout. A block has 4 warps and owns 64 query rows of one
+//   (batch, head), 16 rows (one m16 fragment) per warp, and walks the
+//   64-key tiles up to the causal diagonal (tiles above it are never
+//   loaded). The grid (query tiles, B*H) is issued heaviest query tile
+//   first: the last tile has the most keys.
+// * Products. mma.sync m16n8k8 TF32 with f32 accumulators, in three
+//   passes (CUTLASS's OpMultiplyAddFastF32): each operand is split once
+//   into big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and
+//   each product is small*big + big*small, then big*big, into the
+//   accumulator. The dropped small*small term and the rounding of small
+//   leave about 2^-22 of each product: f32 accuracy, where one TF32
+//   pass is ~1e-3 off. q is split once when loaded; each warp splits
+//   the K and V fragments it reads once per tile, and P once.
+// * P as an operand. The m16n8k8 C fragment (thread (g, t) holds
+//   columns 2t, 2t + 1 of rows g, g + 8) is not the A fragment (columns
+//   t, t + 4). Rather than move P between lanes, the P.V product
+//   relabels its reduction index inside each group of 8 keys: A column
+//   t is key 2t and column t + 4 is key 2t + 1, and V's B fragment is
+//   read from the same keys. The sum is over the same keys, so P stays
+//   in the registers the score product wrote.
+// * Staging. K and V tiles go to shared memory with cp.async (16 bytes
+//   a thread), three stages deep, so tiles j + 1 and j + 2 load while
+//   tile j computes (the head views' rows lie 3E floats apart, and the
+//   scattered reads want the latency hidden); q is staged once through
+//   the last stage's buffer. Rows are padded to Dh + 4 floats, so every
+//   fragment load (K's rows g, V's keys 2t and 2t + 1) hits 32 distinct
+//   banks. At Dh = 64 that is 102 KB of dynamic shared memory a block;
+//   the registers (about 200 a thread) allow 2 blocks an SM, and two
+//   such blocks fit in the SM's shared memory.
+// * Softmax fold. attention.py:113-132's, on the accumulator fragments:
+//   the row max and row sum across the 4 lanes that share a row
+//   (__shfl_xor_sync), m_new = max(m, tile max), p = expf(s - m_new),
+//   rescale = expf(m - m_new), l = l * rescale + sum p, acc = acc *
+//   rescale + P V; the end is :134-138's: l_safe = max(l, 1e-30),
+//   o = acc / l_safe, lse = m + log(l_safe).
+// * Masking. The causal mask is applied on the diagonal tile only.
+//   Rows and keys at or past L load as 0 (cp.async zero fill): keys
+//   past L sit above the diagonal of every real row, and rows past L
+//   are never written. No padded copy is made.
+// * Strides. q, k and v each come with their own strides for B, H and
+//   L (unit stride in Dh, rows 16-byte aligned), so the head views of
+//   GPT2's fused QKV projection reach the kernel as they are. o is
+//   written head-merged, [B, L, H, Dh], which the model's head merge
+//   then reshapes without a copy; lse is [B, H, L].
+//
+// Left for later: wgmma. For TF32 it takes both operands K-major, so V
+// would have to be transposed in shared memory first; with TMA and a
+// producer warp it is the route to the tensor cores' full rate.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,141 +72,314 @@
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per block (one per thread)
-constexpr int kBK = 64;   // keys per staged tile
+constexpr int kBQ = 64;              // query rows per block
+constexpr int kBK = 64;              // keys per staged tile
+constexpr int kWarps = kBQ / 16;     // one m16 fragment of rows a warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 3;           // K/V tiles in flight
 constexpr float kNegInf = -1e30f;
 
 template <int DH>
-__global__ void __launch_bounds__(kBQ)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int L, float sm_scale) {
-  constexpr int V4 = DH / 4;
-  __shared__ float4 ks[kBK * V4];
-  __shared__ float4 vs[kBK * V4];
+struct Tile {
+  static constexpr int kStride = DH + 4;          // padded row, floats
+  static constexpr int kFloats = kBK * kStride;   // one K or V tile
+  static constexpr int kBytes = 4 * 2 * kStages * kFloats;  // K, V
+};
 
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * kBQ;
-  const int row = q0 + t;
-  const long long base = (long long)blockIdx.y * L * DH;
-  const bool live = row < L;
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
 
-  float qr[DH];
-  float acc[DH];
-  if (live) {
-    const float4* q4 = reinterpret_cast<const float4*>(q + base +
-                                                       (long long)row * DH);
-#pragma unroll
-    for (int c = 0; c < V4; ++c) {
-      const float4 x = q4[c];
-      qr[4 * c] = x.x * sm_scale;
-      qr[4 * c + 1] = x.y * sm_scale;
-      qr[4 * c + 2] = x.z * sm_scale;
-      qr[4 * c + 3] = x.w * sm_scale;
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = 0.0f;
+// x = big + small (+ what TF32 cannot hold of the remainder)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in three TF32 passes: small*big + big*small, then big*big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;   // 0: nothing read, 16 bytes of zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + 63 of a [L, DH] head (row stride sl floats) into a
+// padded shared tile; rows at or past L are zero-filled
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long sl, int r0, int L) {
+  constexpr int kVec = DH / 4;
+  for (int i = threadIdx.x; i < kBK * kVec; i += kThreads) {
+    const int r = i / kVec;
+    const int c4 = i - r * kVec;
+    const bool ok = r0 + r < L;
+    const float* g = ok ? src + (long long)(r0 + r) * sl + 4 * c4 : src;
+    cp_async16(dst + r * Tile<DH>::kStride + 4 * c4, g, ok);
   }
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.0f;
-  float m = kNegInf;
-  float l = 0.0f;
-
-  const int last = min(q0 + kBQ, L) - 1;      // last real query row
-  const int n_tiles = last / kBK + 1;         // tiles up to the diagonal
-  const float4* k4 = reinterpret_cast<const float4*>(k + base);
-  const float4* v4 = reinterpret_cast<const float4*>(v + base);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile is no longer read
-    for (int i = t; i < kBK * V4; i += kBQ) {
-      const int key = k0 + i / V4;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      ks[i] = key < L ? k4[(long long)k0 * V4 + i] : zero;
-      vs[i] = key < L ? v4[(long long)k0 * V4 + i] : zero;
-    }
-    __syncthreads();
-    if (!live) continue;
-
-    float s[kBK];
-    float smax = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      float dot = 0.0f;
-#pragma unroll
-      for (int c = 0; c < V4; ++c) {
-        const float4 kv = ks[j * V4 + c];
-        dot = fmaf(qr[4 * c], kv.x, dot);
-        dot = fmaf(qr[4 * c + 1], kv.y, dot);
-        dot = fmaf(qr[4 * c + 2], kv.z, dot);
-        dot = fmaf(qr[4 * c + 3], kv.w, dot);
-      }
-      s[j] = (k0 + j <= row) ? dot : kNegInf;
-      smax = fmaxf(smax, s[j]);
-    }
-    const float m_new = fmaxf(m, smax);
-    const float rescale = expf(m - m_new);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      s[j] = expf(s[j] - m_new);
-      psum += s[j];
-    }
-    l = l * rescale + psum;
-    m = m_new;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= rescale;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = s[j];
-#pragma unroll
-      for (int c = 0; c < V4; ++c) {
-        const float4 vv = vs[j * V4 + c];
-        acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
-      }
-    }
-  }
-  if (!live) return;
-  const float l_safe = fmaxf(l, 1e-30f);
-  float4* o4 = reinterpret_cast<float4*>(o + base + (long long)row * DH);
-#pragma unroll
-  for (int c = 0; c < V4; ++c)
-    o4[c] = make_float4(acc[4 * c] / l_safe, acc[4 * c + 1] / l_safe,
-                        acc[4 * c + 2] / l_safe, acc[4 * c + 3] / l_safe);
-  lse[(long long)blockIdx.y * L + row] = m + logf(l_safe);
 }
 
 template <int DH>
-void launch(const float* q, const float* k, const float* v, float* o,
-            float* lse, int BH, int L, float sm_scale, cudaStream_t stream) {
-  dim3 grid((L + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<DH><<<grid, kBQ, 0, stream>>>(q, k, v, o, lse, L,
-                                                 sm_scale);
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_mma_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, long long qsb, long long qsh,
+    long long qsl, long long ksb, long long ksh, long long ksl,
+    long long vsb, long long vsh, long long vsl, float* __restrict__ o,
+    float* __restrict__ lse, int H, int L, int n_bh, float sm_scale) {
+  constexpr int S = Tile<DH>::kStride;
+  constexpr int TF = Tile<DH>::kFloats;
+  constexpr int KS = DH / 8;   // k steps of the score product
+  constexpr int ND = DH / 8;   // n tiles of the PV product
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);   // [stage][K | V]
+
+  // heaviest query tiles first, across all heads
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int qt = gridDim.x - 1 - lin / n_bh;
+  const int bh = lin - (lin / n_bh) * n_bh;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const float* qp = q + b * qsb + h * qsh;
+  const float* kp = k + b * ksb + h * ksh;
+  const float* vp = v + b * vsb + h * vsh;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;   // fragment row (and B column) of this lane
+  const int t = lane & 3;    // fragment column group of this lane
+  const int q0 = qt * kBQ;
+  const int n_kt = qt + 1;   // key tiles up to the diagonal
+
+  // q through the last stage's K buffer, tiles 0 and 1 into stages 0
+  // and 1; one commit group each, empty past the last tile, so that
+  // wait_group<kStages - 1> always means "q, or tile kt, has landed"
+  load_tile<DH>(smem + (kStages - 1) * 2 * TF, qp, qsl, q0, L);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_kt) {
+      load_tile<DH>(smem + st * 2 * TF, kp, ksl, st * kBK, L);
+      load_tile<DH>(smem + st * 2 * TF + TF, vp, vsl, st * kBK, L);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+
+  uint32_t qb[KS][4], qs[KS][4];
+  {
+    const float* qw = smem + (kStages - 1) * 2 * TF + warp * 16 * S;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      split(qw[g * S + 8 * kk + t] * sm_scale, qb[kk][0], qs[kk][0]);
+      split(qw[(g + 8) * S + 8 * kk + t] * sm_scale, qb[kk][1], qs[kk][1]);
+      split(qw[g * S + 8 * kk + t + 4] * sm_scale, qb[kk][2], qs[kk][2]);
+      split(qw[(g + 8) * S + 8 * kk + t + 4] * sm_scale, qb[kk][3],
+            qs[kk][3]);
+    }
+  }
+  __syncthreads();   // the last stage is free for tile kStages - 1
+
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf;   // rows g and g + 8 of the warp
+  float l0 = 0.0f, l1 = 0.0f;
+  const int row0 = q0 + warp * 16 + g;
+  const int row1 = row0 + 8;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int ahead = kt + kStages - 1;
+    if (ahead < n_kt) {
+      float* nxt = smem + (ahead % kStages) * 2 * TF;
+      load_tile<DH>(nxt, kp, ksl, ahead * kBK, L);
+      load_tile<DH>(nxt + TF, vp, vsl, ahead * kBK, L);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float* ks = smem + (kt % kStages) * 2 * TF;
+    const float* vs = ks + TF;
+
+    // s = (q * sm_scale) k^T over this tile: 8 n-tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t bb[2], bs[2];
+        const float* kr = ks + (8 * nt + g) * S + 8 * kk + t;
+        split(kr[0], bb[0], bs[0]);
+        split(kr[4], bb[1], bs[1]);
+        mma_3xtf32(s[nt], qb[kk], qs[kk], bb, bs);
+      }
+    }
+    if (kt == qt) {   // the diagonal tile: keys after the row masked
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int key = kt * kBK + 8 * nt + 2 * t;
+        if (key > row0) s[nt][0] = kNegInf;
+        if (key + 1 > row0) s[nt][1] = kNegInf;
+        if (key > row1) s[nt][2] = kNegInf;
+        if (key + 1 > row1) s[nt][3] = kNegInf;
+      }
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    const float r0 = expf(m0 - mx0);
+    const float r1 = expf(m1 - mx1);
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = expf(s[nt][0] - mx0);
+      s[nt][1] = expf(s[nt][1] - mx0);
+      s[nt][2] = expf(s[nt][2] - mx1);
+      s[nt][3] = expf(s[nt][3] - mx1);
+      ps0 += s[nt][0] + s[nt][1];
+      ps1 += s[nt][2] + s[nt][3];
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, w);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, w);
+    }
+    l0 = l0 * r0 + ps0;
+    l1 = l1 * r1 + ps1;
+    m0 = mx0;
+    m1 = mx1;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      acc[nd][0] *= r0;
+      acc[nd][1] *= r0;
+      acc[nd][2] *= r1;
+      acc[nd][3] *= r1;
+    }
+
+    // acc += P V, the reduction index relabelled inside each group of 8
+    // keys (A column t = key 2t, column t + 4 = key 2t + 1), so the
+    // score fragment is P's A fragment as it stands
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t pb[4], psm[4];
+      split(s[kk][0], pb[0], psm[0]);   // row g,     key 2t
+      split(s[kk][2], pb[1], psm[1]);   // row g + 8, key 2t
+      split(s[kk][1], pb[2], psm[2]);   // row g,     key 2t + 1
+      split(s[kk][3], pb[3], psm[3]);   // row g + 8, key 2t + 1
+      const float* vr = vs + (8 * kk + 2 * t) * S + g;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t bb[2], bs[2];
+        split(vr[8 * nd], bb[0], bs[0]);
+        split(vr[S + 8 * nd], bb[1], bs[1]);
+        mma_3xtf32(acc[nd], pb, psm, bb, bs);
+      }
+    }
+    __syncthreads();   // this stage is refilled on the next tile
+  }
+
+  const float ls0 = fmaxf(l0, 1e-30f);
+  const float ls1 = fmaxf(l1, 1e-30f);
+  if (row0 < L) {
+    float* orow = o + ((long long)(b * L + row0) * H + h) * DH + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(orow + 8 * nd) =
+          make_float2(acc[nd][0] / ls0, acc[nd][1] / ls0);
+    if (t == 0) lse[(long long)bh * L + row0] = m0 + logf(ls0);
+  }
+  if (row1 < L) {
+    float* orow = o + ((long long)(b * L + row1) * H + h) * DH + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(orow + 8 * nd) =
+          make_float2(acc[nd][2] / ls1, acc[nd][3] / ls1);
+    if (t == 0) lse[(long long)bh * L + row1] = m1 + logf(ls1);
+  }
+}
+
+template <int DH>
+int launch(const float* q, const float* k, const float* v,
+           const long long* st, float* o, float* lse, int B, int H, int L,
+           float sm_scale, cudaStream_t stream) {
+  const int bytes = Tile<DH>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((L + kBQ - 1) / kBQ, B * H);
+  flash_fwd_mma_kernel<DH><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], o, lse, H, L, B * H, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// o[BH, L, Dh], lse[BH, L] <- causal attention of q, k, v [BH, L, Dh]
-// (contiguous, 16-byte aligned), Dh in {16, 32, 64}. Returns
+// o [B, L, H, Dh] (head-merged, contiguous), lse [B, H, L] <- causal
+// attention of q, k, v [B, H, L, Dh] given by their element strides
+// `strides` = (q's B, H, L; k's B, H, L; v's B, H, L), unit stride in
+// Dh, every row 16-byte aligned; Dh in {16, 32, 64}. Returns
 // cudaGetLastError() after the launch (0 = launched).
-int cct_flash_fwd(const float* q, const float* k, const float* v, float* o,
-                  float* lse, int BH, int L, int dh, float sm_scale,
-                  void* stream) {
-  if (BH < 1 || BH > 65535 || L < 1) return (int)cudaErrorInvalidValue;
+int cct_flash_fwd(const float* q, const float* k, const float* v,
+                  const long long* strides, float* o, float* lse, int B,
+                  int H, int L, int dh, float sm_scale, void* stream) {
+  if (B < 1 || H < 1 || (long long)B * H > 65535 || L < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dh) {
-    case 16: launch<16>(q, k, v, o, lse, BH, L, sm_scale, s); break;
-    case 32: launch<32>(q, k, v, o, lse, BH, L, sm_scale, s); break;
-    case 64: launch<64>(q, k, v, o, lse, BH, L, sm_scale, s); break;
+    case 16: return launch<16>(q, k, v, strides, o, lse, B, H, L, sm_scale, s);
+    case 32: return launch<32>(q, k, v, strides, o, lse, B, H, L, sm_scale, s);
+    case 64: return launch<64>(q, k, v, strides, o, lse, B, H, L, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 const char* cct_error_string(int code) {

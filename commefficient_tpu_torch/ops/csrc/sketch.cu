@@ -11,18 +11,44 @@
 // sketch_pallas.py _encode_kernel / pallas_encode. On the TPU a row's
 // [c] accumulator stays resident in VMEM across a sequential (r, B)
 // grid; a 500k-column row is 2 MB, far above a Hopper block's 227 KB
-// of shared memory, and Hopper blocks run in no order. So the design
-// turns the grid around: one thread owns one output cell (j, p) and
-// loops b = 0..B-1 in ascending order, gathering the source element
-// s = (p - off[j, b]) mod c of each chunk. No atomics, no shared
-// memory, and the summation order is the JAX static path's
-// (ops/sketch.py encode), so the result is bitwise the plain version's.
-// Reads of x are coalesced except at the one wrap point per (j, b);
-// the zero-padded tail is a masked read at >= d, so no padded copy of
-// x is ever made. Bound: bytes (x once, eps once, table once: about
-// 46 MB at d = 6.57M, r = 5, c = 500k), roughly 14 us at 3.35 TB/s.
-// This simple design re-reads eps and x per row (r passes over x,
-// B passes over eps), which the 50 MB L2 absorbs in part.
+// of shared memory, and Hopper blocks run in no order. So one thread
+// owns output position p for all r rows (r accumulators in registers,
+// the row count a template parameter 1..16 as in K2) and walks the
+// chunks b = 0..B-1 in ascending order, adding for each row j the
+// source element s = (p - off[j, b]) mod c of chunk b. No atomics, and
+// the summation order is the JAX static path's (ops/sketch.py encode),
+// so the table is bitwise the plain version's.
+//
+// What bounds it: bytes. x is read once (498 MB at d = 124.4M), the
+// sign bits and off once (0.3 MB), the table written once (10 MB):
+// 0.152 ms at the data sheet's 3.35 TB/s. The design keeps x to one
+// pass from HBM: every thread takes kEncPositions = 4 consecutive
+// positions, so the whole [0, c) is resident at once (489 blocks of
+// 256 threads at c = 500k; at most 64 registers a thread for r <= 6
+// gives 4 blocks an SM, 528 slots), and every resident thread walks the
+// chunks in the same order. Chunk b (2 MB) then comes from HBM once and
+// its r re-reads hit the 50 MB L2, which holds ~25 chunks, so blocks
+// that drift a few chunks apart cost nothing. That budget leaves about
+// 17 registers a position, r of them accumulators, so the work per term
+// is cut instead: as c % 4 == 0 makes the rotation's offset mod 4 the
+// same in every thread, a thread reads its 4 source values of a row as
+// one aligned float4 load, a second behind a branch that every thread
+// of the block takes alike (offset 0 needs none), picks them by that
+// offset, and takes their 4 eps signs from one funnel-shifted 32-bit
+// window. eps and delta are +-1, so they are read as packed sign bits
+// (bit j * c + s of eps, j * B + b of delta; ops/sketch.py packs them
+// once per CSVec and device): the term is x with its sign bit XORed by
+// eps's and delta's, which for +-1 factors is bitwise
+// __fmul_rn(__fmul_rn(eps, x), delta), signed zeros and subnormals
+// included (no -ftz). off and the delta bits are staged in shared
+// memory kEncWindow chunks at a time. Where the 4 values wrap at c, meet
+// the zero-padded tail (a masked read at >= d: no padded copy of x), or
+// c % 4 != 0, the thread takes them element by element.
+//
+// Left for later: the r-fold re-read of x from L2 (2.49 GB at
+// d = 124.4M, r = 5). Every (row, element) pair travels from L2 to an
+// SM once, so the L2's rate, not the HBM's, is this design's floor; any
+// design that keeps one thread's additions in chunk order pays it.
 //
 // K2 cct_sketch_estimate_all replaces sketch_pallas.py
 // _estimate_kernel / pallas_estimate_all (with its helpers
@@ -56,8 +82,8 @@
 //
 // Arithmetic is written with __fmul_rn / __fadd_rn so nvcc cannot
 // contract it into FMAs (the build passes -fmad=false as well): the
-// product order is (eps * x) * delta for K1 and (table * eps) * delta
-// for K2 and K3, the same as the plain versions.
+// product order is (table * eps) * delta for K2 and K3, the same as
+// the plain versions; K1's sign flips are exact, its sums __fadd_rn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,26 +92,120 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void encode_kernel(const float* __restrict__ x, long long d,
-                              const int* __restrict__ off,
-                              const float* __restrict__ delta,
-                              const float* __restrict__ eps,
-                              float* __restrict__ table, int c, int B) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  if (p >= c) return;
-  const int* off_j = off + (long long)j * B;
-  const float* delta_j = delta + (long long)j * B;
-  const float* eps_j = eps + (long long)j * c;
-  float acc = 0.0f;
-  for (int b = 0; b < B; ++b) {
-    int s = p - off_j[b];
-    if (s < 0) s += c;
-    const long long gi = (long long)b * c + s;
-    const float xv = gi < d ? x[gi] : 0.0f;
-    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(eps_j[s], xv), delta_j[b]));
+constexpr int kEncThreads = 256;
+constexpr int kEncPositions = 4;   // consecutive positions a K1 thread owns
+constexpr int kEncWindow = 64;     // chunks of off / delta staged at once
+
+// x[s], or 0 at or past lim (the zero-padded tail)
+__device__ __forceinline__ float x_at(const float* __restrict__ xb, int s,
+                                      int lim) {
+  return s < lim ? __ldg(xb + s) : 0.0f;
+}
+
+// +-x as a bit pattern: x's sign bit XORed with the sign bits es and ds
+__device__ __forceinline__ float flip(float x, uint32_t es, uint32_t ds) {
+  return __uint_as_float(__float_as_uint(x) ^ (es & 0x80000000u) ^ ds);
+}
+
+// K1: table[j, p] = sum over b ascending of +-x[b * c + s], s = (p -
+// off[j, b]) mod c, the sign eps[j, s] * delta[j, b] from the bits.
+// Needs r * c < 2^31 (checked by the entry point). `vec`: c % 4 == 0
+// and x 16-byte aligned, so that the rotation's offset mod 4 is the
+// same for every thread and x can be read as aligned float4s.
+template <int R>
+__global__ void __launch_bounds__(kEncThreads, (R <= 6) ? 4 : 2)
+    encode_rows_kernel(const float* __restrict__ x, long long d,
+                       const int* __restrict__ off,
+                       const uint32_t* __restrict__ delta_bits,
+                       const uint32_t* __restrict__ eps_bits,
+                       float* __restrict__ table, int c, int B, int vec) {
+  constexpr int NP = kEncPositions;
+  constexpr int NQ = NP / 4 + 1;   // float4s that hold NP values at any s mod 4
+  __shared__ int s_off[R][kEncWindow];
+  __shared__ uint32_t s_dsign[R][kEncWindow];   // delta's sign bit
+  const int p = (blockIdx.x * kEncThreads + threadIdx.x) * NP;
+  const int pc = p < c ? p : 0;   // threads past c walk along, write nothing
+  const int last_word = (R * c - 1) >> 5;
+  float acc[R][NP];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int k = 0; k < NP; ++k) acc[j][k] = 0.0f;
+
+  for (int w0 = 0; w0 < B; w0 += kEncWindow) {
+    const int nw = min(kEncWindow, B - w0);
+    __syncthreads();   // the previous window is no longer read
+    for (int i = threadIdx.x; i < R * nw; i += kEncThreads) {
+      const int j = i / nw;
+      const int w = i - j * nw;
+      const long long e = (long long)j * B + w0 + w;
+      s_off[j][w] = off[e];
+      s_dsign[j][w] = (delta_bits[e >> 5] >> (e & 31)) << 31;
+    }
+    __syncthreads();
+    for (int w = 0; w < nw; ++w) {
+      const long long chunk = (long long)(w0 + w) * c;
+      const float* xb = x + chunk;
+      const int lim = (int)min((long long)c, d - chunk);   // tail: 0 past d
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const uint32_t ds = s_dsign[j][w];
+        int s = pc - s_off[j][w];
+        if (s < 0) s += c;
+        const int a = s & ~3;
+        if (vec && a + 4 * NQ <= lim) {
+          // s .. s + NP - 1 in one chunk, before the tail: NQ aligned
+          // float4 loads (the last skipped at offset 0 mod 4), the values
+          // picked by s mod 4 (the same in every thread), the NP eps bits
+          // from one 32-bit window
+          const int e = j * c + s;
+          const uint32_t win = __funnelshift_r(
+              __ldg(eps_bits + (e >> 5)),
+              __ldg(eps_bits + min((e >> 5) + 1, last_word)), e);
+          float q[4 * NQ];
+#pragma unroll
+          for (int i = 0; i < NQ; ++i) {
+            if (i == NQ - 1 && (s & 3) == 0) break;
+            const float4 t =
+                __ldg(reinterpret_cast<const float4*>(xb + a + 4 * i));
+            q[4 * i] = t.x;
+            q[4 * i + 1] = t.y;
+            q[4 * i + 2] = t.z;
+            q[4 * i + 3] = t.w;
+          }
+          float xs[NP];
+          switch (s & 3) {
+#define CCT_PICK(K0)                                       \
+  case K0:                                                 \
+    _Pragma("unroll") for (int k = 0; k < NP; ++k) xs[k] = \
+        q[K0 + k];                                         \
+    break;
+            CCT_PICK(0) CCT_PICK(1) CCT_PICK(2) CCT_PICK(3)
+#undef CCT_PICK
+          }
+#pragma unroll
+          for (int k = 0; k < NP; ++k)
+            acc[j][k] = __fadd_rn(acc[j][k], flip(xs[k], win << (31 - k), ds));
+        } else {
+          // the general case: element by element, with the wrap at c
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            int sk = s + k;
+            if (sk >= c) sk -= c;
+            const int e = j * c + sk;
+            const uint32_t es = __ldg(eps_bits + (e >> 5)) << (31 - (e & 31));
+            acc[j][k] = __fadd_rn(acc[j][k], flip(x_at(xb, sk, lim), es, ds));
+          }
+        }
+      }
+    }
   }
-  table[(long long)j * c + p] = acc;
+  if (p >= c) return;
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+      if (p + k < c) table[(long long)j * c + p + k] = acc[j][k];
 }
 
 // median-of-rows estimate of cell (b, p): the r signed values
@@ -173,6 +293,17 @@ __global__ void threshold_mask_kernel(const float* __restrict__ table,
 }
 
 template <int R>
+void launch_encode(const float* x, long long d, const int* off,
+                   const uint32_t* delta_bits, const uint32_t* eps_bits,
+                   float* table, int c, int B, cudaStream_t stream) {
+  const int per_block = kEncThreads * kEncPositions;
+  const int vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  encode_rows_kernel<R><<<(c + per_block - 1) / per_block, kEncThreads, 0,
+                          stream>>>(x, d, off, delta_bits, eps_bits, table,
+                                    c, B, vec);
+}
+
+template <int R>
 void launch_estimate(const float* table, const int* off, const float* delta,
                      const float* eps, float* est, int c, int B, long long d,
                      cudaStream_t stream) {
@@ -220,6 +351,9 @@ void launch_mask(const float* table, const int* off, const float* delta,
       return (int)cudaErrorInvalidValue;                               \
   }
 
+#define LAUNCH_ENCODE(R)                                              \
+  launch_encode<R>(x, d, off, delta_bits, eps_bits, table, c, B,       \
+                   (cudaStream_t)stream)
 #define LAUNCH_ESTIMATE(R) \
   launch_estimate<R>(table, off, delta, eps, est, c, B, d, (cudaStream_t)stream)
 #define LAUNCH_SAMPLE(R)                                         \
@@ -230,16 +364,16 @@ void launch_mask(const float* table, const int* off, const float* delta,
 
 extern "C" {
 
-// table[r, c] <- sketch of x[d]. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// table[r, c] <- sketch of x[d]; eps and delta as packed sign bits
+// (bit j * c + s set iff eps[j, s] < 0, bit j * B + b iff delta[j, b]
+// < 0), 1 <= r <= 16. Returns cudaGetLastError() after the launch
+// (0 = launched).
 int cct_sketch_encode(const float* x, long long d, const int* off,
-                      const float* delta, const float* eps, float* table,
-                      int r, int c, int B, void* stream) {
-  if (r < 1 || c < 1 || B < 1 || r > 65535 || B > 65535)
+                      const uint32_t* delta_bits, const uint32_t* eps_bits,
+                      float* table, int r, int c, int B, void* stream) {
+  if (c < 1 || B < 1 || (long long)r * c >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((c + kThreads - 1) / kThreads, r);
-  encode_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, d, off, delta, eps, table, c, B);
+  CCT_ROWS_SWITCH(r, LAUNCH_ENCODE)
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,18 @@ plain PyTorch version.
 
 K4 `flash_fwd` replaces commefficient_tpu/ops/attention.py
 `_flash_fwd_kernel` / `_flash_fwd_pallas`. The kernel lives in
-../csrc/flash_fwd.cu, whose header says how it is designed for the card
-and what bounds it (operations: ~2.1 GFLOP a launch at the GPT2-small
-main path, [192, 294, 64]).
+../csrc/flash_fwd.cu, whose header gives its design. At the GPT2-small
+main path ([16, 12, 299, 64]) it is bound by bytes (59.0 MB: 17.6 us
+at 3.35 TB/s); its f32-accurate products run on the TF32 tensor cores
+in three passes (mma.sync, 13 us of operations at 495 TFLOP/s), where
+the SIMT f32 pipe would take 33 us. Left for later: wgmma.
+
+The kernel reads q, k and v through their strides (unit stride in Dh,
+rows 16-byte aligned), so the head views of GPT2's fused QKV
+projection reach it without a copy; it writes o head-merged into a
+[B, L, H, Dh] buffer, and the wrapper returns that buffer's
+`transpose(1, 2)` view, which the model's head merge reshapes without
+a copy. lse is [B, H, L].
 
 Routing is by device, per call: a CPU tensor takes the plain version
 (`flash_fwd_plain`, the online-softmax fold of ops/attention.py); a
@@ -38,7 +47,7 @@ def reset_launches() -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.cct_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i,
+    lib.cct_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i,
                                   ctypes.c_float, vp]
     lib.cct_flash_fwd.restype = i
 
@@ -48,17 +57,25 @@ def _declare(lib: ctypes.CDLL) -> None:
 flash_fwd_plain = _flash_fwd_plain
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernel reads float4s)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+def _strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
+    """(B, H, L) element strides of a [B, H, L, Dh] operand; raises
+    unless its Dh stride is 1 and every row is 16-byte aligned (the
+    kernel loads 16 bytes a thread)."""
+    sb, sh, sl, sd = t.stride()
+    if sd != 1 or t.data_ptr() % 16 or sb % 4 or sh % 4 or sl % 4:
+        raise ValueError(f"{name} must have unit stride in Dh and 16-byte "
+                         f"aligned rows, got strides {t.stride()} at "
+                         f"address {t.data_ptr():#x}")
+    return sb, sh, sl
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal attention forward of q, k, v [B, H, L, Dh]: (o like q, lse
-    [B, H, L]). K4 on CUDA tensors (float32), `flash_fwd_plain` on CPU
-    tensors (float32, or float64 for a float64 reference)."""
+    """Causal attention forward of q, k, v [B, H, L, Dh]: (o [B, H, L,
+    Dh], lse [B, H, L]). K4 on CUDA tensors (float32, any strides with
+    unit stride in Dh and 16-byte aligned rows; o is the [B, H, L, Dh]
+    view of a head-merged [B, L, H, Dh] buffer), `flash_fwd_plain` on
+    CPU tensors (float32, or float64 for a float64 reference)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -86,15 +103,16 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {dh}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
+    strides = (ctypes.c_longlong * 9)(*_strides("q", q), *_strides("k", k),
+                                      *_strides("v", v))
     lib = _build.load("flash_fwd", _declare)
-    qc, kc, vc = _aligned(q), _aligned(k), _aligned(v)
-    o = torch.empty_like(qc)
+    o = torch.empty((B, L, H, dh), dtype=torch.float32, device=dev)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.cct_flash_fwd(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), B * H, L, dh,
-                                 float(sm_scale), stream)
+        code = lib.cct_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 strides, o.data_ptr(), lse.data_ptr(), B, H,
+                                 L, dh, float(sm_scale), stream)
     _build.check(lib, code, "cct_flash_fwd")
     LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    return o.transpose(1, 2), lse

@@ -2,9 +2,18 @@
 PyTorch versions.
 
 K1 `encode` replaces commefficient_tpu/ops/kernels/sketch_pallas.py
-`pallas_encode` (`_encode_kernel`); K2 `estimate_all` replaces
-`pallas_estimate_all` (`_estimate_kernel`, `_chunk_estimate_rows`,
-`_masked_est`, `_median_rows`); K3 replaces the two kernels of
+`pallas_encode` (`_encode_kernel`). It is bound by bytes: x read once
+from HBM (498 MB at the GPT2-small geometry; with the table and the
+sign bits, 0.152 ms at 3.35 TB/s).
+A thread owns 4 table positions for all r rows and every resident
+thread walks the chunks in the same order, so x streams from HBM once
+and its r-fold re-read hits the L2; that re-read is what is left for
+later. eps and delta come as packed sign bits (`pack_sign_bits`, built
+once per CSVec and device by `CSVec.sign_bits`), so a term is x with
+its sign bit flipped, bitwise the plain version's product.
+
+K2 `estimate_all` replaces `pallas_estimate_all` (`_estimate_kernel`,
+`_chunk_estimate_rows`, `_masked_est`, `_median_rows`); K3 replaces the two kernels of
 `pallas_threshold_decode`: K3a `threshold_sample` (`_sample_kernel`)
 and K3b `threshold_mask` (`_mask_kernel`). The kernels live in
 ../csrc/sketch.cu, whose header says how each is designed for the card
@@ -73,7 +82,8 @@ def _check_args(tensors: Dict[str, torch.Tensor],
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
-        want = torch.int32 if name == "off" else torch.float32
+        want = (torch.int32 if name == "off" or name.endswith("_bits")
+                else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if tuple(t.shape) != shapes[name]:
@@ -113,29 +123,71 @@ def encode_plain(x: torch.Tensor, off: torch.Tensor, delta: torch.Tensor,
     return torch.stack(rows)
 
 
-def encode(x: torch.Tensor, off: torch.Tensor, delta: torch.Tensor,
-           eps: torch.Tensor, c: int) -> torch.Tensor:
-    """[r, c] sketch table of the dense [d] vector `x`: K1 on a CUDA
-    tensor, `encode_plain` on a CPU tensor."""
+def _words(n: int) -> int:
+    """int32 words that hold n sign bits"""
+    return -(-n // 32)
+
+
+def pack_sign_bits(t: torch.Tensor) -> torch.Tensor:
+    """The signs of a +-1 table as bits, little-endian in int32 words:
+    bit i of the flattened table (word i // 32, bit i % 32) is set iff
+    its value is -1. Raises ValueError if any value is not exactly +-1."""
+    flat = t.reshape(-1)
+    if not bool(((flat == 1.0) | (flat == -1.0)).all()):
+        raise ValueError("sign tables must hold exactly +-1")
+    n = flat.numel()
+    words = _words(n)
+    bits = torch.nn.functional.pad((flat < 0).to(torch.int64),
+                                   (0, 32 * words - n)).view(words, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=t.device)
+    packed = (bits << shifts).sum(dim=1)                   # in [0, 2^32)
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32,
+                       packed).to(torch.int32)
+
+
+def unpack_sign_bits(bits: torch.Tensor, shape: Tuple[int, ...]
+                     ) -> torch.Tensor:
+    """The +-1 float32 table of `shape` whose signs `bits` holds: the
+    inverse of `pack_sign_bits`."""
+    n = 1
+    for s in shape:
+        n *= s
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    neg = ((bits[:, None] >> shifts) & 1).reshape(-1)[:n]
+    return (1.0 - 2.0 * neg.to(torch.float32)).reshape(shape)
+
+
+def encode(x: torch.Tensor, off: torch.Tensor, delta_bits: torch.Tensor,
+           eps_bits: torch.Tensor, c: int) -> torch.Tensor:
+    """[r, c] sketch table of the dense [d] vector `x`. The signs come
+    as `pack_sign_bits` of delta [r, B] and eps [r, c] (`CSVec.sign_bits`
+    keeps them, packed once per device). K1 on a CUDA tensor reads the
+    bits; on a CPU tensor `encode_plain` takes the tables they unpack to."""
     r, B = off.shape
     d = x.shape[0]
-    dev = _check_args({"x": x, "off": off, "delta": delta, "eps": eps},
-                      {"x": (d,), "off": (r, B), "delta": (r, B),
-                       "eps": (r, c)})
+    dev = _check_args({"x": x, "off": off, "delta_bits": delta_bits,
+                       "eps_bits": eps_bits},
+                      {"x": (d,), "off": (r, B),
+                       "delta_bits": (_words(r * B),),
+                       "eps_bits": (_words(r * c),)})
     if B != -(-d // c):
         raise ValueError(f"off has {B} chunks, d={d}, c={c} needs "
                          f"{-(-d // c)}")
     if dev.type == "cpu":
-        return encode_plain(x, off, delta, eps, c)
+        return encode_plain(x, off, unpack_sign_bits(delta_bits, (r, B)),
+                            unpack_sign_bits(eps_bits, (r, c)), c)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if not 1 <= r <= MAX_ROWS or r * c >= 2 ** 31:
+        raise ValueError(f"encode takes 1 <= r <= {MAX_ROWS} rows and "
+                         f"r * c < 2^31 on the card, got r={r}, c={c}")
     lib = _load()
     table = torch.empty((r, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cct_sketch_encode(
-            x.data_ptr(), d, off.data_ptr(), delta.data_ptr(),
-            eps.data_ptr(), table.data_ptr(), r, c, B, stream)
+            x.data_ptr(), d, off.data_ptr(), delta_bits.data_ptr(),
+            eps_bits.data_ptr(), table.data_ptr(), r, c, B, stream)
     _build.check(lib, code, "cct_sketch_encode")
     LAUNCHES["sketch_encode"] += 1
     return table

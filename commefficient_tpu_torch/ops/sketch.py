@@ -76,6 +76,9 @@ class CSVec:
         self._delta = rng.choice([-1.0, 1.0], size=(self.r, B)).astype(
             np.float32)
         self._on_device: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self._bits_on_device: Dict[torch.device,
+                                   Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.sign_packs = 0
 
     # --- geometry --------------------------------------------------------
     @property
@@ -110,6 +113,20 @@ class CSVec:
             self._on_device[dev] = got
         return got
 
+    def sign_bits(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(eps bits, delta bits) on `device`: the signs of eps and delta
+        packed by `sketch_cuda.pack_sign_bits` (bit j * c + s of eps,
+        j * B + b of delta), the form `sketch_cuda.encode` takes. Packed
+        once per device; `sign_packs` counts the packings."""
+        _, eps, delta = self.tables(device)
+        got = self._bits_on_device.get(eps.device)
+        if got is None:
+            got = (sketch_cuda.pack_sign_bits(eps),
+                   sketch_cuda.pack_sign_bits(delta))
+            self._bits_on_device[eps.device] = got
+            self.sign_packs += 1
+        return got
+
     def zeros(self, device="cpu") -> torch.Tensor:
         return torch.zeros(self.table_shape, dtype=torch.float32,
                            device=device)
@@ -131,9 +148,10 @@ class CSVec:
     # --- encode ----------------------------------------------------------
     def encode(self, vec: torch.Tensor) -> torch.Tensor:
         """[r, c] table of a dense [d] vector (kernel K1 on the card)."""
-        off, eps, delta = self.tables(vec.device)
-        return sketch_cuda.encode(vec.float().contiguous(), off, delta, eps,
-                                  self.c)
+        off = self.tables(vec.device)[0]
+        eps_bits, delta_bits = self.sign_bits(vec.device)
+        return sketch_cuda.encode(vec.float().contiguous(), off, delta_bits,
+                                  eps_bits, self.c)
 
     def encode_sparse(self, indices: torch.Tensor,
                       values: torch.Tensor) -> torch.Tensor:

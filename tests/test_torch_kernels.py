@@ -48,8 +48,9 @@ def cuda_device():
 
 def test_cpu_tensors_take_the_plain_versions():
     sk, x, off, eps, delta = _operands(GEOMETRIES[0])
+    eps_bits, delta_bits = sk.sign_bits("cpu")
     sc.reset_launches()
-    t = sc.encode(x, off, delta, eps, sk.c)
+    t = sc.encode(x, off, delta_bits, eps_bits, sk.c)
     torch.testing.assert_close(t, sc.encode_plain(x, off, delta, eps, sk.c),
                                rtol=0, atol=0)
     e = sc.estimate_all(t, off, delta, eps, sk.d)
@@ -74,24 +75,25 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_wrappers_check_dtype_shape_contiguity_and_device():
     sk, x, off, eps, delta = _operands(GEOMETRIES[0])
     c, d = sk.c, sk.d
+    eps_bits, delta_bits = sk.sign_bits("cpu")
     with pytest.raises(TypeError, match="float32"):
-        sc.encode(x.double(), off, delta, eps, c)
+        sc.encode(x.double(), off, delta_bits, eps_bits, c)
     with pytest.raises(TypeError, match="int32"):
-        sc.encode(x, off.long(), delta, eps, c)
+        sc.encode(x, off.long(), delta_bits, eps_bits, c)
     with pytest.raises(ValueError, match="shape"):
-        sc.encode(x, off, delta, eps[:, :-1], c)
+        sc.encode(x, off, delta_bits, eps_bits[:-1], c)
     with pytest.raises(ValueError, match="chunks"):
-        sc.encode(x[:100].contiguous(), off, delta, eps, c)
+        sc.encode(x[:100].contiguous(), off, delta_bits, eps_bits, c)
     with pytest.raises(ValueError, match="contiguous"):
         sc.estimate_all(torch.zeros(c, sk.r).t(), off, delta, eps, d)
     with pytest.raises(ValueError, match="device"):
-        sc.encode(x.to("meta"), off, delta, eps, c)
+        sc.encode(x.to("meta"), off, delta_bits, eps_bits, c)
     with pytest.raises(ValueError, match="rows"):
         big = CSVec(d=100, c=10, r=17)
         o, e, dl = big.tables("cpu")
         sc.estimate_all(torch.zeros(17, 10), o, dl, e, 100)
     with pytest.raises(TypeError, match="Tensor"):
-        sc.encode(np.zeros(d, np.float32), off, delta, eps, c)
+        sc.encode(np.zeros(d, np.float32), off, delta_bits, eps_bits, c)
     table = torch.zeros(sk.r, c)
     with pytest.raises(ValueError, match="stride"):
         sc.threshold_sample(table, off, delta, eps, d, c, 2)
@@ -107,7 +109,7 @@ def test_threshold_sample_plain_is_k2_at_the_sampled_positions():
     # 0, stride, ... (the tail at or past d zeroed): exact
     for geom in GEOMETRIES:
         sk, x, off, eps, delta = _operands(geom, seed=2)
-        t = sc.encode(x, off, delta, eps, sk.c)
+        t = sk.encode(x)
         est = sc.estimate_all(t, off, delta, eps, sk.d)
         for stride in (1, 3, sk.c):
             ns = sk.c // stride
@@ -132,7 +134,7 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, geom):
     # the same additions in the same order, no FMA contraction: exact
     sk, x, off, eps, delta = _operands(geom, cuda_device, seed=1)
     before = dict(sc.LAUNCHES)
-    t = sc.encode(x, off, delta, eps, sk.c)
+    t = sk.encode(x)
     assert torch.equal(t, sc.encode_plain(x, off, delta, eps, sk.c))
     e = sc.estimate_all(t, off, delta, eps, sk.d)
     assert torch.equal(e, sc.estimate_all_plain(t, off, delta, eps, sk.d))
@@ -153,7 +155,7 @@ def test_threshold_kernels_match_plain_versions_on_the_card(cuda_device,
     # K3a and K3b compute K2's estimate with K2's device code: exact;
     # K1 builds their table, exact at these geometries too
     sk, x, off, eps, delta = _operands(geom, cuda_device, seed=3)
-    t = sc.encode(x, off, delta, eps, sk.c)
+    t = sk.encode(x)
     assert torch.equal(t, sc.encode_plain(x, off, delta, eps, sk.c))
     stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
     if geom["c"] == 256:
@@ -175,8 +177,8 @@ def test_threshold_kernels_match_plain_versions_on_the_card(cuda_device,
 @pytest.mark.parametrize("BH,L", [(192, 299), (192, 294), (4, 256),
                                   (4, 300), (4, 1024)])
 def test_flash_kernel_matches_plain_on_the_card(cuda_device, BH, L):
-    # the kernel's own f32 FMAs in 64-key tiles vs the plain 128-key
-    # fold: 1e-5 of the output's scale
+    # 3xTF32 tensor-core products in 64-key tiles vs the plain 128-key
+    # f32 fold: 1e-5 of the output's scale
     g = torch.Generator().manual_seed(L)
     q, k, v = (torch.randn(1, BH, L, 64, generator=g).to(cuda_device)
                for _ in range(3))
@@ -187,3 +189,152 @@ def test_flash_kernel_matches_plain_on_the_card(cuda_device, BH, L):
     assert ac.LAUNCHES["flash_fwd"] == before + 1
     assert float((o - po).abs().max()) <= 1e-5 * float(po.abs().max())
     assert float((lse - plse).abs().max()) <= 1e-5 * float(plse.abs().max())
+
+
+def _bit(words: torch.Tensor, i: int) -> int:
+    return (int(words[i // 32]) >> (i % 32)) & 1
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=["tail-odd", "exact-even",
+                                                  "single-chunk",
+                                                  "tail-even"])
+def test_sign_bits_pack_eps_and_delta_flat(geom):
+    # K1 reads the signs as bits: bit j * c + s iff eps[j, s] < 0, bit
+    # j * B + b iff delta[j, b] < 0, 32 to an int32 word
+    sk = CSVec(**geom)
+    _, eps, delta = sk.tables("cpu")
+    eps_bits, delta_bits = sk.sign_bits("cpu")
+    r, c, B = sk.r, sk.c, sk.n_chunks
+    assert eps_bits.dtype == delta_bits.dtype == torch.int32
+    assert eps_bits.shape == (-(-r * c // 32),)
+    assert delta_bits.shape == (-(-r * B // 32),)
+    for j in range(r):
+        for s in range(c):
+            assert _bit(eps_bits, j * c + s) == int(eps[j, s] < 0)
+        for b in range(B):
+            assert _bit(delta_bits, j * B + b) == int(delta[j, b] < 0)
+    # the padding bits of the last word are clear
+    assert all(_bit(eps_bits, i) == 0
+               for i in range(r * c, 32 * eps_bits.numel()))
+
+
+def test_sign_bits_refuse_values_other_than_plus_minus_one():
+    for bad in (0.5, 0.0, -0.0, float("nan"), 2.0):
+        t = torch.ones(3, 40)
+        t[1, 7] = bad
+        with pytest.raises(ValueError, match="exactly"):
+            sc.pack_sign_bits(t)
+    assert torch.equal(sc.pack_sign_bits(-torch.ones(33)),
+                       torch.tensor([-1, 1], dtype=torch.int32))
+
+
+def test_sign_bits_are_packed_once_per_sketch_and_device():
+    sk, x, off, eps, delta = _operands(GEOMETRIES[0])
+    assert sk.sign_packs == 0
+    first = sk.sign_bits("cpu")
+    for _ in range(3):
+        sk.encode(x)
+    assert sk.sign_packs == 1
+    assert sk.sign_bits("cpu")[0] is first[0]
+
+
+def test_encode_takes_sign_bits_and_checks_them():
+    sk, x, off, eps, delta = _operands(GEOMETRIES[0], seed=4)
+    x[::7] = 0.0
+    x[1::11] = -0.0
+    eps_bits, delta_bits = sk.sign_bits("cpu")
+    t = sc.encode(x, off, delta_bits, eps_bits, sk.c)
+    p = sc.encode_plain(x, off, delta, eps, sk.c)
+    assert torch.equal(t, p) and torch.equal(torch.signbit(t),
+                                             torch.signbit(p))
+    assert torch.equal(sk.encode(x), p)
+    # the CPU route reads the bits: they unpack to the tables
+    assert torch.equal(sc.unpack_sign_bits(eps_bits, (sk.r, sk.c)), eps)
+    assert torch.equal(sc.unpack_sign_bits(delta_bits, (sk.r, sk.n_chunks)),
+                       delta)
+    with pytest.raises(ValueError, match="eps_bits"):
+        sc.encode(x, off, delta_bits, eps_bits[:-1], sk.c)
+    with pytest.raises(TypeError, match="delta_bits"):
+        sc.encode(x, off, delta_bits.long(), eps_bits, sk.c)
+    with pytest.raises(TypeError, match="int32"):   # the tables, not bits
+        sc.encode(x, off, delta, eps, sk.c)
+
+
+# K1 geometries on the card: the existing ones, r = 16 (the largest the
+# kernel is instantiated for) and both main paths
+K1_CARD_GEOMETRIES = GEOMETRIES + [dict(d=5000, c=300, r=16), MAIN_PATH,
+                                   GPT2_PATH]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", K1_CARD_GEOMETRIES,
+                         ids=["tail-odd", "exact-even", "single-chunk",
+                              "tail-even", "sixteen-rows", "main-path",
+                              "gpt2-path"])
+def test_encode_kernel_is_exact_on_the_card(cuda_device, geom):
+    # one thread a position for all rows, chunks ascending, signs by
+    # XOR: bitwise the plain version, signed zeros and subnormals too
+    sk, x, off, eps, delta = _operands(geom, cuda_device, seed=6)
+    x[::7] = 0.0
+    x[1::11] = -0.0
+    x[2::13] = 1e-40
+    before = sc.LAUNCHES["sketch_encode"]
+    t = sk.encode(x)
+    p = sc.encode_plain(x, off, delta, eps, sk.c)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["sketch_encode"] == before + 1
+    assert torch.equal(t, p)
+    assert torch.equal(torch.signbit(t), torch.signbit(p))
+
+
+@pytest.mark.gpu
+def test_encode_kernel_needs_the_sign_bits_built_once(cuda_device):
+    sk, x, off, eps, delta = _operands(GEOMETRIES[0], cuda_device)
+    with pytest.raises(TypeError, match="int32"):   # the tables, not bits
+        sc.encode(x, off, delta, eps, sk.c)
+    for _ in range(3):
+        sk.encode(x)
+    torch.cuda.synchronize()
+    assert sk.sign_packs == 1
+    sk.sign_bits("cpu")
+    assert sk.sign_packs == 2      # one packing per device
+
+
+def _head_views(x, H):
+    B, L, E3 = x.shape
+    dh = E3 // (3 * H)
+    return tuple(t.reshape(B, L, H, dh).transpose(1, 2)
+                 for t in x.split(H * dh, dim=-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["head-views", "contiguous"])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("L", [65, 299])
+def test_flash_kernel_on_strided_head_views(cuda_device, layout, dh, L):
+    # 3xTF32 tensor-core products vs the plain f32 fold: 1e-5 of the
+    # output's scale; L = 65 leaves a last query tile of one row
+    g = torch.Generator().manual_seed(L + dh)
+    x = torch.randn(2, L, 3 * 3 * dh, generator=g).to(cuda_device)
+    q, k, v = _head_views(x, 3)
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    before = ac.LAUNCHES["flash_fwd"]
+    o, lse = ac.flash_fwd(q, k, v, dh ** -0.5)
+    po, plse = ac.flash_fwd_plain(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES["flash_fwd"] == before + 1
+    assert o.shape == (2, 3, L, dh) and lse.shape == (2, 3, L)
+    # o is the view of a head-merged buffer: the head merge is free
+    assert o.transpose(1, 2).is_contiguous()
+    assert float((o - po).abs().max()) <= 1e-5 * float(po.abs().max())
+    assert float((lse - plse).abs().max()) <= 1e-5 * float(plse.abs().max())
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_unaligned_rows(cuda_device):
+    x = torch.randn(1, 70, 3 * 2 * 16 + 1, device=cuda_device)
+    q, k, v = (t.reshape(1, 70, 2, 16).transpose(1, 2)
+               for t in x[..., :96].split(32, dim=-1))
+    with pytest.raises(ValueError, match="16-byte"):
+        ac.flash_fwd(q, k, v, 0.25)
