@@ -13,8 +13,9 @@ the result line:
                started together).
 3. kernels  — K1 (count-sketch encode) and K2 (median estimate of every
                coordinate) against their plain PyTorch versions at the
-               main-path shapes and three small geometries (padded tail /
-               odd r, exact fit / even r, one chunk with c > d). Tolerance:
+               main-path shapes and four small geometries (padded tail /
+               odd r, exact fit / even r, one chunk with c > d, c % 4 !=
+               0 with a ragged last chunk). Tolerance:
                exact equality (bitwise up to the sign of zero). Times with
                CUDA events (median after warm-up, L2 flushed between
                launches): the kernel's device time, and the wrapper call
@@ -37,8 +38,12 @@ the result line:
                against their plain versions at the GPT2 main-path
                geometry (d = 124,444,417), the three threshold
                geometries of tests/test_kernels.py (one with the stride
-               clamped to c) and the three small ones of phase 3,
-               exact; K1 timed again at the GPT2 geometry; K4 (the
+               clamped to c) and the four small ones of phase 3,
+               exact, K3b at three thresholds each (K3_THRESHOLDS); K1
+               timed again at the GPT2 geometry; the share of
+               coordinates whose first r // 2 + 1 rows all square under
+               the timed threshold, and of 8-position sectors all of
+               whose coordinates do (plain torch on the card); K4 (the
                flash-attention forward) against its plain version on
                the main path's layout, the [16, 12, L, 64] head views
                of one fused [16, L, 3 * 768] QKV projection, for the
@@ -78,7 +83,8 @@ and power limit; the last line is
 `--profile [DIR]` additionally traces three more rounds of each path
 with torch.profiler and writes the device time by kernel to
 DIR/profile_rounds.txt (config #2) and DIR/profile_gpt2_rounds.txt
-(config #5), chiprun_out/ beside the script by default.
+(config #5), chiprun_out/ beside the script by default, and prints
+K3b's mean device time a launch on the GPT2 rounds' own tables.
 """
 from __future__ import annotations
 
@@ -107,6 +113,7 @@ SMALL_GEOMETRIES = [
     dict(d=1000, c=200, r=5),       # padded tail, odd r
     dict(d=512, c=128, r=4),        # exact fit, even r
     dict(d=300, c=400, r=3),        # single chunk, c > d
+    dict(d=5000, c=301, r=5),       # c % 4 != 0, ragged last chunk
 ]
 CONFIG2 = ["--mode", "sketch", "--error_type", "virtual",
            "--virtual_momentum", "0.9", "--local_momentum", "0",
@@ -146,6 +153,12 @@ CONFIG5 = ["--dataset_name", "PERSONA", "--mode", "sketch",
 K3_GEOMETRIES = [(dict(d=40000, c=10000, r=5), None),
                  (dict(d=20000, c=5000, r=5), None),
                  (dict(d=16384, c=256, r=5), (256, 1))]
+# K3b is held at three thresholds a geometry: the main path's share of
+# coordinates kept (k = 50,000 of GPT2_D, as the sample's quantile), the
+# median of the sample squares (about half kept) and the square of a
+# value the median keeps (a tie, which >= keeps)
+K3_THRESHOLDS = ("main-path", "median", "tie")
+MAIN_KEEP = 50_000 / GPT2_D
 # K4 against its plain version: the kernel's 3xTF32 tensor-core
 # products over 64-key tiles (f32-accurate to ~2^-22 a product) vs the
 # plain f32 128-key-block fold, reductions in another order
@@ -178,16 +191,20 @@ def smi_line() -> str:
 
 def ptxas_summary(log: str) -> str:
     """Registers, spill bytes and static shared memory of K1, K2, K3a
-    and K3b at r = 5 (K1 at r = 16 too) and K4 at each Dh from the
-    build's `-Xptxas -v` report (empty when the library was already
-    built). K4's tiles are dynamic shared memory, printed beside it."""
+    and K3b at r = 5 (K1, K3a and K3b at r = 16 too) and K4 at each Dh
+    from the build's `-Xptxas -v` report (empty when the library was
+    already built). K4's tiles are dynamic shared memory, printed beside
+    it."""
     import re
     out, fn = [], None
     names = (("encode_rows_kernelILi5E", "encode_rows_kernel<5>"),
              ("encode_rows_kernelILi16E", "encode_rows_kernel<16>"),
              ("estimate_kernelILi5E", "estimate_kernel<5>"),
              ("threshold_sample_kernelILi5E", "threshold_sample_kernel<5>"),
+             ("threshold_sample_kernelILi16E",
+              "threshold_sample_kernel<16>"),
              ("threshold_mask_kernelILi5E", "threshold_mask_kernel<5>"),
+             ("threshold_mask_kernelILi16E", "threshold_mask_kernel<16>"),
              ("flash_fwd_mma_kernelILi16E", "flash_fwd_mma_kernel<16>"),
              ("flash_fwd_mma_kernelILi32E", "flash_fwd_mma_kernel<32>"),
              ("flash_fwd_mma_kernelILi64E", "flash_fwd_mma_kernel<64>"))
@@ -294,12 +311,16 @@ def kernel_phase(sc, CSVec):
     return [timed_row(row, max_err[row["counter"]]) for row in rows]
 
 
+def bits_bytes(n: int) -> int:
+    """Bytes of the int32 words that hold n packed sign bits: the form
+    in which K1, K3a and K3b read the +-1 tables eps and delta."""
+    return 4 * -(-n // 32)
+
+
 def k1_bytes(d: int, r: int, c: int, B: int) -> int:
     """K1 reads x, off [r, B] and the sign bits of eps [r, c] and delta
-    [r, B] once (the +-1 tables as the packed int32 words the wrapper
-    takes) and writes the [r, c] table once."""
-    words = lambda n: -(-n // 32)        # noqa: E731
-    return 4 * d + 4 * r * B + 4 * words(r * c) + 4 * words(r * B) \
+    [r, B] once and writes the [r, c] table once."""
+    return 4 * d + 4 * r * B + bits_bytes(r * c) + bits_bytes(r * B) \
         + 4 * r * c
 
 
@@ -542,31 +563,42 @@ def kernel_phase_gpt2(sc, ac, CSVec):
                            + [(dict(d=GPT2_D, c=MAIN_C, r=MAIN_R), None)]):
         sk = CSVec(**geom)
         off, eps, delta = sk.tables(dev)
+        eps_bits, delta_bits = sk.sign_bits(dev)
         g = torch.Generator().manual_seed(geom["d"] + 1)
         x = torch.randn(geom["d"], generator=g).to(dev)
         table = sk.encode(x)
         t_p = sc.encode_plain(x, off, delta, eps, sk.c)
         stride, ns = sampling or sc.threshold_sample_geometry(sk.n_chunks,
                                                               sk.c)
-        s_k = sc.threshold_sample(table, off, delta, eps, sk.d, stride, ns)
+        s_k = sc.threshold_sample(table, off, delta_bits, eps_bits, sk.d,
+                                  stride, ns)
         s_p = sc.threshold_sample_plain(table, off, delta, eps, sk.d, stride,
                                         ns)
-        thr = (s_p.reshape(-1) ** 2).quantile(0.99).reshape(1)
-        m_k = sc.threshold_mask(table, off, delta, eps, thr, sk.d)
-        m_p = sc.threshold_mask_plain(table, off, delta, eps, thr, sk.d)
+        pairs = [("sketch_encode", "", table, t_p),
+                 ("threshold_sample", "", s_k, s_p)]
+        selected = []
+        for label, thr in zip(K3_THRESHOLDS, k3_thresholds(
+                sc, s_p, table, off, delta, eps, sk.d)):
+            m_k = sc.threshold_mask(table, off, delta_bits, eps_bits, thr,
+                                    sk.d)
+            m_p = sc.threshold_mask_plain(table, off, delta, eps, thr, sk.d)
+            selected.append(int((m_p != 0).sum()))
+            pairs.append(("threshold_mask", f" at the {label} threshold",
+                          m_k, m_p))
         torch.cuda.synchronize()
-        for name, k, p in (("sketch_encode", table, t_p),
-                           ("threshold_sample", s_k, s_p),
-                           ("threshold_mask", m_k, m_p)):
+        for name, where, k, p in pairs:
             e = float((k - p).abs().max())
             err[name] = max(err[name], e)
             if not torch.equal(k, p):
                 raise AssertionError(f"{name} differs from its plain "
-                                     f"version at {geom}: max abs err {e}")
+                                     f"version at {geom}{where}: max abs "
+                                     f"err {e}")
         phase("kernels", f"{geom}: K1, K3a and K3b equal to their plain "
-              f"versions (exact; stride {stride}, {ns} samples a chunk, "
-              f"{int((m_k != 0).sum())} selected)")
-        del x, table, t_p, s_k, s_p, m_k, m_p
+              f"versions (exact; stride {stride}, {ns} samples a chunk; "
+              "selected at the " + ", ".join(
+                  f"{t} threshold {n}" for t, n in zip(K3_THRESHOLDS,
+                                                       selected)) + ")")
+        del x, table, t_p, s_k, s_p, m_k, m_p, pairs
     shape = f"[{K4_BATCH}, {K4_HEADS}, L, {K4_DH}]"
     for L in K4_LENGTHS:
         q, k, v = k4_operands(L, seed=L)
@@ -590,11 +622,14 @@ def kernel_phase_gpt2(sc, ac, CSVec):
     sk = CSVec(d=d, c=c, r=r)
     B = sk.n_chunks
     off, eps, delta = sk.tables(dev)
+    eps_bits, delta_bits = sk.sign_bits(dev)
     x = torch.randn(d, generator=torch.Generator().manual_seed(2)).to(dev)
     table = sk.encode(x)
     stride, ns = sc.threshold_sample_geometry(B, c)
-    sample = sc.threshold_sample(table, off, delta, eps, d, stride, ns)
-    thr = (sample.reshape(-1) ** 2).quantile(1 - 50_000 / d).reshape(1)
+    sample = sc.threshold_sample(table, off, delta_bits, eps_bits, d, stride,
+                                 ns)
+    thr = (sample.reshape(-1) ** 2).quantile(1 - MAIN_KEEP).reshape(1)
+    early_out_shares(sk, table, off, thr)
     # operations per estimate: 2r multiplies, r(r-1)/2 compare-exchanges
     # (2 each), the middle; K3b adds the square and the compare
     est_ops = 2 * r + r * (r - 1) + 2
@@ -605,28 +640,33 @@ def kernel_phase_gpt2(sc, ac, CSVec):
     rows = [
         encode_row(sc, sk, x, "sketch_encode_gpt2", "config5"),
         # K3a reads the whole table (its r * B * ns gathers cover it),
-        # eps only at the ns sampled positions, off/delta once, and
-        # writes the [B, ns] sample once
+        # the sign bits of eps at the r * ns sampled positions and of
+        # delta [r, B], off once, and writes the [B, ns] sample once
         dict(name="threshold_sample", counter="threshold_sample",
              path="config5", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/sketch.cu",
              replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:232",
-             fn=lambda: sc.threshold_sample(table, off, delta, eps, d,
-                                            stride, ns),
+             fn=lambda: sc.threshold_sample(table, off, delta_bits, eps_bits,
+                                            d, stride, ns),
              plain=lambda: sc.threshold_sample_plain(table, off, delta, eps,
                                                      d, stride, ns),
              library=None,
-             bytes=4 * r * c + 4 * r * ns + 8 * r * B + 4 * B * ns,
+             bytes=4 * r * c + bits_bytes(r * ns) + 4 * r * B
+             + bits_bytes(r * B) + 4 * B * ns,
              ops=B * ns * est_ops),
+        # K3b reads the table, off, the sign bits of eps and delta and
+        # the threshold once, and writes the [d] output once
         dict(name="threshold_mask", counter="threshold_mask",
              path="config5", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/sketch.cu",
              replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:250",
-             fn=lambda: sc.threshold_mask(table, off, delta, eps, thr, d),
+             fn=lambda: sc.threshold_mask(table, off, delta_bits, eps_bits,
+                                          thr, d),
              plain=lambda: sc.threshold_mask_plain(table, off, delta, eps,
                                                    thr, d),
              library=None,
-             bytes=8 * r * c + 8 * r * B + 4 + 4 * d,
+             bytes=4 * r * c + 4 * r * B + bits_bytes(r * c)
+             + bits_bytes(r * B) + 4 + 4 * d,
              ops=d * (est_ops + 2)),
         # q, k, v (the fused projection) read once, o and lse written
         # once; 4 Dh operations (the score and the PV product) for each
@@ -645,6 +685,45 @@ def kernel_phase_gpt2(sc, ac, CSVec):
              ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
     ]
     return [timed_row(row, err[row["counter"]]) for row in rows]
+
+
+def k3_thresholds(sc, sample, table, off, delta, eps, d):
+    """K3b's thresholds at one geometry, in K3_THRESHOLDS' order, from
+    the plain sample and the plain mask."""
+    sq = (sample * sample).reshape(-1)
+    main = sq.quantile(1 - MAIN_KEEP).reshape(1)
+    median = sq.median().reshape(1)
+    kept = sc.threshold_mask_plain(table, off, delta, eps, median, d)
+    kept = kept[kept != 0]
+    tie = (kept[kept.numel() // 2] ** 2).reshape(1)
+    return main, median, tie
+
+
+def early_out_shares(sk, table, off, thr) -> None:
+    """Print the share of coordinates whose first m = r // 2 + 1 row
+    values all square under `thr`, and of 8-position sectors (32 bytes
+    of the output; their table reads share sectors too) all of whose
+    coordinates do: what an early-out of K3b after m rows would skip.
+    Plain torch on the card, from the same table (the signs do not
+    change a square)."""
+    d, c, B = sk.d, sk.c, sk.n_chunks
+    pos = torch.arange(c, device=table.device)
+    small = torch.ones(B, c, dtype=torch.bool, device=table.device)
+    for j in range(sk.r // 2 + 1):
+        v = table[j][(pos[None, :] + off[j][:, None].long()) % c]
+        small &= v * v < thr
+        del v
+    # the tail (and any padding to whole sectors) needs no rows
+    small = torch.cat([small.reshape(-1),
+                       small.new_ones(-(-B * c // 8) * 8 - B * c)])
+    small[d:] = True
+    coords = float(small[:d].float().mean())
+    sectors = float(small.reshape(-1, 8).all(dim=1)[:-(-d // 8)]
+                    .float().mean())
+    phase("kernels", f"at d={d}, r={sk.r} and the timed threshold: "
+          f"{coords:.4f} of the coordinates have their first "
+          f"{sk.r // 2 + 1} rows all under it, and {sectors:.4f} of the "
+          "8-position sectors hold only such coordinates (plain torch)")
 
 
 def k4_operands(L: int, seed: int):
@@ -766,7 +845,7 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
     if profile_dir:
         profile_rounds(model, train_loader, opt,
                        os.path.join(profile_dir, "profile_gpt2_rounds.txt"),
-                       "gpt2 profile")
+                       "gpt2 profile", per_launch=("threshold_mask_kernel",))
     batch = next(iter(train_loader.epoch()))
     cfg = model.cfg
     del model, opt, sched, w0
@@ -774,9 +853,12 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
     return launches, round_ms, peak, batch, cfg
 
 
-def profile_rounds(model, train_loader, opt, path, label="profile"):
+def profile_rounds(model, train_loader, opt, path, label="profile",
+                   per_launch=()):
     """Device time by kernel over three traced rounds (after one
-    untraced and one warm-up round of the profiler's schedule)."""
+    untraced and one warm-up round of the profiler's schedule); for each
+    kernel whose name holds a string of `per_launch`, its mean device
+    time a launch."""
     from torch.profiler import ProfilerActivity, profile, schedule
     it = iter(train_loader.epoch())
     batches = [next(it) for _ in range(5)]
@@ -805,6 +887,16 @@ def profile_rounds(model, train_loader, opt, path, label="profile"):
     phase(label, f"3 traced rounds: wall {wall_ms:.2f} ms, kernels on "
           f"the device {dev_us / 1e3:.2f} ms (busy share "
           f"{dev_us / 1e3 / wall_ms:.3f}); table in {path}")
+    for name in per_launch:
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.key]
+        n = sum(e.count for e in hits)
+        if n == 0:
+            raise AssertionError(f"no {name} launch in the traced rounds")
+        us = sum(e.self_device_time_total for e in hits)
+        phase(label, f"{name} on the rounds' own tables: "
+              f"{us / 1e3 / n:.4f} ms a launch (device time, mean of {n})")
 
 
 def main(argv=None) -> int:

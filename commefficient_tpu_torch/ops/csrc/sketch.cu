@@ -64,26 +64,59 @@
 //
 // K3 (K3a cct_sketch_threshold_sample + K3b cct_sketch_threshold_mask)
 // replaces sketch_pallas.py pallas_threshold_decode's two kernels,
-// _sample_kernel and _mask_kernel: the large-d decode (d > 32M) that
-// selects every estimate whose square reaches a threshold priced from a
-// strided sample, without materializing the [B, c] estimate. Both
-// reuse K2's per-cell device code (estimate_at), so each estimate is
-// bitwise K2's. K3a: one thread per (chunk b, sample s) at chunk
-// position p = s * stride, the tail (b * c + p >= d) written as 0.
-// Bound: bytes, about 24 MB at d = 124.4M (r = 5, c = 500k: the table,
-// eps and the [B, ns] sample), some 7 us; the gathers are strided, so
-// the sectors fetched are several times the bytes used and the bound
-// is optimistic. K3b: one thread per (b, p) with b * c + p < d; it
-// reads the threshold from device memory (no host round trip) and
-// writes est if est * est >= thr else 0 (>= keeps ties, as _mask_kernel
-// does) straight into the [d] output: no [B, c] buffer, no padded copy
-// to cut. Bound: bytes, the 498 MB output write (the table and eps,
-// 20 MB, stay in the 50 MB L2 across chunks), some 0.155 ms.
+// _sample_kernel (K3a) and _mask_kernel (K3b): the large-d decode
+// (d > 32M) that keeps every estimate whose square reaches a threshold
+// priced from a strided sample, without materializing the [B, c]
+// estimate. Both read eps and delta as K1 does, as packed sign bits: a
+// row's value is the table cell with its sign bit XORed by eps's and
+// delta's, which for +-1 factors and any non-NaN cell is bitwise
+// __fmul_rn(__fmul_rn(t, eps), delta), K2's product (signed zeros,
+// infinities and subnormals included: no -ftz). Both take the median
+// with K2's network (median_of), so every estimate is bitwise K2's.
+//
+// K3a: a thread owns one sample position p = s * stride for kSmpRun
+// chunks. It loads its r eps bits once, the block stages off and the
+// delta bits of its chunks in shared memory, and the r gathers of
+// kSmpFlight chunks are in flight before any is used; sample[b, s] is
+// written coalesced across s, 0 at or past d. What bounds it: the
+// gathered sectors. Every sample reads r table cells, each in a 32-byte
+// sector of its own (one chunk's positions lie stride floats apart and
+// the rotations are random): r * B * ns sectors, 169 MB at d = 124.4M
+// (r = 5, ns = 4237), against a byte bound that counts the 10 MB table
+// once.
+//
+// K3b: a thread owns kMaskPositions = 8 consecutive positions of one
+// chunk, a block 1024. As in K1, c % 4 == 0 makes the rotation's offset
+// mod 4 the same in every thread of a (row, chunk), so a row's 8 values
+// come from three aligned float4 loads picked by that offset, and their
+// eps bits from one funnel-shifted word; off and the delta bit are
+// loaded once a row for 8 estimates, and every row's loads are issued
+// before any value is used. The wrap at c (each float4 at its own place
+// mod c), the ragged tail at d and c % 4 != 0 (element by element) are
+// handled in the kernel, with no padded copy. The threshold is read from
+// device memory (no host round trip); est is kept where est * est >= thr
+// (>= keeps ties, as _mask_kernel does), and the 8 results leave as two
+// 16-byte streaming stores (__stcs), so that the 498 MB output, nearly
+// all zeros, does not push the table out of the L2. Its byte bound is
+// the output write (0.152 ms at 3.35 TB/s), but any design that keeps
+// the function exact gathers each table row once per chunk: r * d * 4 B
+// = 2.49 GB from L2 at d = 124.4M, r = 5. That L2 rate, not the HBM's,
+// is its floor. An early-out was tried and not kept: gather the first
+// r / 2 + 1 rows and write 0 where all of their squares fall under the
+// threshold (exact, since those values then hold the median; it saves
+// nothing at r <= 2). It ran slower: a warp takes the long path whenever
+// one of its lanes needs it, so only the loads of lanes that leave are
+// saved (at the main path's threshold, about 27% of 8-position sectors
+// pass: chip_smoke.py prints the share), while the test and a second
+// round trip to the L2 cost every thread.
+//
+// Left for later: K3b's r-fold gather from L2, as K1's r-fold re-read
+// of x; K3a's sector-per-cell gathers.
 //
 // Arithmetic is written with __fmul_rn / __fadd_rn so nvcc cannot
-// contract it into FMAs (the build passes -fmad=false as well): the
-// product order is (table * eps) * delta for K2 and K3, the same as
-// the plain versions; K1's sign flips are exact, its sums __fadd_rn.
+// contract it into FMAs (the build passes -fmad=false as well): K2's
+// product order is (table * eps) * delta, the plain versions'; K1's and
+// K3's sign flips are exact, K1's sums __fadd_rn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +128,15 @@ constexpr int kThreads = 256;
 constexpr int kEncThreads = 256;
 constexpr int kEncPositions = 4;   // consecutive positions a K1 thread owns
 constexpr int kEncWindow = 64;     // chunks of off / delta staged at once
+
+constexpr int kSmpThreads = 256;
+constexpr int kSmpRun = 8;         // chunks a K3a thread walks
+constexpr int kSmpFlight = 2;      // chunks whose K3a gathers fly together
+
+constexpr int kMaskThreads = 128;
+constexpr int kMaskPositions = 8;  // consecutive positions a K3b thread owns
+static_assert(kMaskPositions % 4 == 0 && kMaskPositions <= 28,
+              "K3b stores float4s and reads its eps bits from one window");
 
 // x[s], or 0 at or past lim (the zero-padded tail)
 __device__ __forceinline__ float x_at(const float* __restrict__ xb, int s,
@@ -208,10 +250,28 @@ __global__ void __launch_bounds__(kEncThreads, (R <= 6) ? 4 : 2)
       if (p + k < c) table[(long long)j * c + p + k] = acc[j][k];
 }
 
+// the median of v[0..R) as _median_rows takes it: sorted by its bubble
+// compare-exchange network, then the middle (odd R) or 0.5f * (a + b)
+// of the two middles (even R). v is sorted in place.
+template <int R>
+__device__ __forceinline__ float median_of(float (&v)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int k = 0; k < R - 1 - i; ++k) {
+      const float lo = fminf(v[k], v[k + 1]);
+      const float hi = fmaxf(v[k], v[k + 1]);
+      v[k] = lo;
+      v[k + 1] = hi;
+    }
+  }
+  return (R % 2) ? v[R / 2]
+                 : __fmul_rn(0.5f, __fadd_rn(v[R / 2 - 1], v[R / 2]));
+}
+
 // median-of-rows estimate of cell (b, p): the r signed values
-// table[j, (p + off[j, b]) mod c] * eps[j, p] * delta[j, b], sorted by
-// the bubble compare-exchange network _median_rows traces, then the
-// middle (odd R) or 0.5f * (a + b) of the two middles (even R)
+// table[j, (p + off[j, b]) mod c] * eps[j, p] * delta[j, b], then
+// median_of
 template <int R>
 __device__ __forceinline__ float estimate_at(const float* __restrict__ table,
                                              const int* __restrict__ off,
@@ -227,18 +287,7 @@ __device__ __forceinline__ float estimate_at(const float* __restrict__ table,
                                eps[(long long)j * c + p]),
                      delta[(long long)j * B + b]);
   }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int k = 0; k < R - 1 - i; ++k) {
-      const float lo = fminf(v[k], v[k + 1]);
-      const float hi = fmaxf(v[k], v[k + 1]);
-      v[k] = lo;
-      v[k + 1] = hi;
-    }
-  }
-  return (R % 2) ? v[R / 2]
-                 : __fmul_rn(0.5f, __fadd_rn(v[R / 2 - 1], v[R / 2]));
+  return median_of<R>(v);
 }
 
 template <int R>
@@ -256,40 +305,191 @@ __global__ void estimate_kernel(const float* __restrict__ table,
                    : 0.0f;
 }
 
-// K3a: the estimate at chunk positions 0, stride, ..., (ns - 1) * stride
+// K3a: the estimates at chunk positions p = s * stride. A thread owns
+// one sample s for kSmpRun chunks: its r eps bits are loaded once, the
+// block stages off and the delta bits of its chunks in shared memory,
+// and the r gathers of kSmpFlight chunks are issued before any is used.
 template <int R>
-__global__ void threshold_sample_kernel(const float* __restrict__ table,
-                                        const int* __restrict__ off,
-                                        const float* __restrict__ delta,
-                                        const float* __restrict__ eps,
-                                        float* __restrict__ sample, int c,
-                                        int B, long long d, int stride,
-                                        int ns) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
+__global__ void __launch_bounds__(kSmpThreads)
+    threshold_sample_kernel(const float* __restrict__ table,
+                            const int* __restrict__ off,
+                            const uint32_t* __restrict__ delta_bits,
+                            const uint32_t* __restrict__ eps_bits,
+                            float* __restrict__ sample, int c, int B,
+                            long long d, int stride, int ns) {
+  __shared__ int s_off[R][kSmpRun];
+  __shared__ uint32_t s_dsign[R][kSmpRun];   // delta's sign bit
+  const int b0 = blockIdx.y * kSmpRun;
+  const int nb = min(kSmpRun, B - b0);
+  for (int i = threadIdx.x; i < R * nb; i += kSmpThreads) {
+    const int j = i / nb;
+    const int w = i - j * nb;
+    const long long e = (long long)j * B + b0 + w;
+    s_off[j][w] = off[e];
+    s_dsign[j][w] = (delta_bits[e >> 5] >> (e & 31)) << 31;
+  }
+  __syncthreads();
+  const int s = blockIdx.x * kSmpThreads + threadIdx.x;
   if (s >= ns) return;
   const int p = s * stride;
-  const long long gi = (long long)b * c + p;
-  sample[(long long)b * ns + s] =
-      gi < d ? estimate_at<R>(table, off, delta, eps, c, B, b, p) : 0.0f;
+  uint32_t es[R];   // eps[j, p]'s sign in bit 31
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int e = j * c + p;
+    es[j] = __ldg(eps_bits + (e >> 5)) << (31 - (e & 31));
+  }
+  for (int w0 = 0; w0 < nb; w0 += kSmpFlight) {
+    float t[kSmpFlight][R];
+#pragma unroll
+    for (int g = 0; g < kSmpFlight; ++g) {
+      const int w = min(w0 + g, nb - 1);   // past the run: loaded, unused
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        int q = p + s_off[j][w];
+        if (q >= c) q -= c;
+        t[g][j] = __ldg(table + (long long)j * c + q);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kSmpFlight; ++g) {
+      const int w = w0 + g;
+      if (w >= nb) break;
+      float v[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) v[j] = flip(t[g][j], es[j], s_dsign[j][w]);
+      const float e = median_of<R>(v);
+      const long long gi = (long long)(b0 + w) * c + p;
+      sample[(long long)(b0 + w) * ns + s] = gi < d ? e : 0.0f;
+    }
+  }
 }
 
-// K3b: est if est * est >= *thr else 0, written at global index b*c + p
+// K3b's gather: the signed values of rows 0 .. R - 1 at chunk positions
+// p .. p + NP - 1 of chunk b into v[j][0..NP), every row's loads issued
+// before any value is used. `vec`: c % 4 == 0, c >= 16 and the table
+// 16-byte aligned, so q = (p + off[j, b]) mod c has the same value mod 4
+// in every thread of the block (p % 4 == 0) and the NP values lie in
+// NQ = NP / 4 + 1 aligned float4s of row j, each at its own place mod c
+// (the last one at the first's where q % 4 == 0: a second read of the
+// same line, in place of a branch), picked by q mod 4, their eps bits
+// from one funnel-shifted 32-bit window. Otherwise element by element;
+// positions at or past c are left unset.
+template <int R, int NP>
+__device__ __forceinline__ void mask_gather(
+    const float* __restrict__ table, const int* __restrict__ off,
+    const uint32_t* __restrict__ delta_bits,
+    const uint32_t* __restrict__ eps_bits, int c, int B, int b, int p,
+    int vec, float (&v)[R][NP]) {
+  constexpr int NQ = NP / 4 + 1;
+  int q[R];
+  uint32_t ds[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int db = j * B + b;
+    ds[j] = (__ldg(delta_bits + (db >> 5)) >> (db & 31)) << 31;
+    q[j] = p + __ldg(off + db);
+    if (q[j] >= c) q[j] -= c;
+  }
+  if (!vec) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float* row = table + (long long)j * c;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int pk = p + k;
+        if (pk >= c) break;
+        int qk = q[j] + k;
+        if (qk >= c) qk -= c;
+        const int e = j * c + pk;
+        const uint32_t es = __ldg(eps_bits + (e >> 5)) << (31 - (e & 31));
+        v[j][k] = flip(__ldg(row + qk), es, ds[j]);
+      }
+    }
+    return;
+  }
+  const int last_word = (R * c - 1) >> 5;
+  float4 t[R][NQ];
+  uint32_t win[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float* row = table + (long long)j * c;
+    const int a = q[j] & ~3;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      int ai = a + 4 * i;
+      if (ai >= c) ai -= c;
+      if (i == NQ - 1 && (q[j] & 3) == 0) ai = a;
+      t[j][i] = __ldg(reinterpret_cast<const float4*>(row + ai));
+    }
+    const int e = j * c + p;
+    const uint32_t lo = __ldg(eps_bits + (e >> 5));
+    // e % 4 == 0, so 4 bits never cross a word; 8 may
+    const uint32_t hi =
+        NP > 4 ? __ldg(eps_bits + min((e >> 5) + 1, last_word)) : 0u;
+    win[j] = __funnelshift_r(lo, hi, e);
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    float w[4 * NQ];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      w[4 * i] = t[j][i].x;
+      w[4 * i + 1] = t[j][i].y;
+      w[4 * i + 2] = t[j][i].z;
+      w[4 * i + 3] = t[j][i].w;
+    }
+    switch (q[j] & 3) {   // the same case in every thread of the block
+#define CCT_PICK(K0)                                                        \
+  case K0:                                                                  \
+    _Pragma("unroll") for (int k = 0; k < NP; ++k) v[j][k] =                \
+        flip(w[K0 + k], win[j] << (31 - k), ds[j]);                         \
+    break;
+      CCT_PICK(0) CCT_PICK(1) CCT_PICK(2) CCT_PICK(3)
+#undef CCT_PICK
+    }
+  }
+}
+
+// K3b: out[b * c + p + k] = est if est * est >= *thr else 0, for the
+// kMaskPositions positions p + k of chunk b a thread owns.
 template <int R>
-__global__ void threshold_mask_kernel(const float* __restrict__ table,
-                                      const int* __restrict__ off,
-                                      const float* __restrict__ delta,
-                                      const float* __restrict__ eps,
-                                      const float* __restrict__ thr,
-                                      float* __restrict__ out, int c, int B,
-                                      long long d) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kMaskThreads)
+    threshold_mask_kernel(const float* __restrict__ table,
+                          const int* __restrict__ off,
+                          const uint32_t* __restrict__ delta_bits,
+                          const uint32_t* __restrict__ eps_bits,
+                          const float* __restrict__ thr,
+                          float* __restrict__ out, int c, int B, long long d,
+                          int vec) {
+  constexpr int NP = kMaskPositions;
+  const int p = (blockIdx.x * kMaskThreads + threadIdx.x) * NP;
   const int b = blockIdx.y;
   if (p >= c) return;
   const long long gi = (long long)b * c + p;
   if (gi >= d) return;
-  const float e = estimate_at<R>(table, off, delta, eps, c, B, b, p);
-  out[gi] = __fmul_rn(e, e) >= __ldg(thr) ? e : 0.0f;
+  const float th = __ldg(thr);
+  float v[R][NP];
+  mask_gather<R, NP>(table, off, delta_bits, eps_bits, c, B, b, p, vec, v);
+  float res[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    float col[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) col[j] = v[j][k];
+    const float e = median_of<R>(col);
+    res[k] = __fmul_rn(e, e) >= th ? e : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < NP; i += 4) {
+    if (vec && p + i + 4 <= c && gi + i + 4 <= d) {
+      __stcs(reinterpret_cast<float4*>(out + gi + i),
+             make_float4(res[i], res[i + 1], res[i + 2], res[i + 3]));
+    } else {
+#pragma unroll
+      for (int k = i; k < i + 4; ++k)
+        if (p + k < c && gi + k < d) out[gi + k] = res[k];
+    }
+  }
 }
 
 template <int R>
@@ -313,21 +513,27 @@ void launch_estimate(const float* table, const int* off, const float* delta,
 }
 
 template <int R>
-void launch_sample(const float* table, const int* off, const float* delta,
-                   const float* eps, float* sample, int c, int B,
-                   long long d, int stride, int ns, cudaStream_t stream) {
-  dim3 grid((ns + kThreads - 1) / kThreads, B);
-  threshold_sample_kernel<R><<<grid, kThreads, 0, stream>>>(
-      table, off, delta, eps, sample, c, B, d, stride, ns);
+void launch_sample(const float* table, const int* off,
+                   const uint32_t* delta_bits, const uint32_t* eps_bits,
+                   float* sample, int c, int B, long long d, int stride,
+                   int ns, cudaStream_t stream) {
+  dim3 grid((ns + kSmpThreads - 1) / kSmpThreads,
+            (B + kSmpRun - 1) / kSmpRun);
+  threshold_sample_kernel<R><<<grid, kSmpThreads, 0, stream>>>(
+      table, off, delta_bits, eps_bits, sample, c, B, d, stride, ns);
 }
 
 template <int R>
-void launch_mask(const float* table, const int* off, const float* delta,
-                 const float* eps, const float* thr, float* out, int c, int B,
-                 long long d, cudaStream_t stream) {
-  dim3 grid((c + kThreads - 1) / kThreads, B);
-  threshold_mask_kernel<R><<<grid, kThreads, 0, stream>>>(
-      table, off, delta, eps, thr, out, c, B, d);
+void launch_mask(const float* table, const int* off,
+                 const uint32_t* delta_bits, const uint32_t* eps_bits,
+                 const float* thr, float* out, int c, int B, long long d,
+                 cudaStream_t stream) {
+  const int per_block = kMaskThreads * kMaskPositions;
+  dim3 grid((c + per_block - 1) / per_block, B);
+  const int vec = c % 4 == 0 && c >= 16 &&
+                  reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  threshold_mask_kernel<R><<<grid, kMaskThreads, 0, stream>>>(
+      table, off, delta_bits, eps_bits, thr, out, c, B, d, vec);
 }
 
 }  // namespace
@@ -356,11 +562,12 @@ void launch_mask(const float* table, const int* off, const float* delta,
                    (cudaStream_t)stream)
 #define LAUNCH_ESTIMATE(R) \
   launch_estimate<R>(table, off, delta, eps, est, c, B, d, (cudaStream_t)stream)
-#define LAUNCH_SAMPLE(R)                                         \
-  launch_sample<R>(table, off, delta, eps, sample, c, B, d, stride, ns, \
-                   (cudaStream_t)stream)
-#define LAUNCH_MASK(R) \
-  launch_mask<R>(table, off, delta, eps, thr, out, c, B, d, (cudaStream_t)stream)
+#define LAUNCH_SAMPLE(R)                                                  \
+  launch_sample<R>(table, off, delta_bits, eps_bits, sample, c, B, d,    \
+                   stride, ns, (cudaStream_t)stream)
+#define LAUNCH_MASK(R)                                                    \
+  launch_mask<R>(table, off, delta_bits, eps_bits, thr, out, c, B, d,    \
+                 (cudaStream_t)stream)
 
 extern "C" {
 
@@ -387,27 +594,31 @@ int cct_sketch_estimate_all(const float* table, const int* off,
   return (int)cudaGetLastError();
 }
 
-// sample[B, ns] <- the estimates at chunk positions s * stride (K3a).
-// Returns cudaGetLastError().
+// sample[B, ns] <- the estimates at chunk positions s * stride (K3a),
+// eps and delta as packed sign bits (as for cct_sketch_encode). Returns
+// cudaGetLastError().
 int cct_sketch_threshold_sample(const float* table, const int* off,
-                                const float* delta, const float* eps,
-                                float* sample, int r, int c, int B,
-                                long long d, int stride, int ns,
-                                void* stream) {
+                                const uint32_t* delta_bits,
+                                const uint32_t* eps_bits, float* sample,
+                                int r, int c, int B, long long d, int stride,
+                                int ns, void* stream) {
   if (c < 1 || B < 1 || B > 65535 || stride < 1 || ns < 1 ||
-      (long long)(ns - 1) * stride >= c)
+      (long long)(ns - 1) * stride >= c || (long long)r * c >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   CCT_ROWS_SWITCH(r, LAUNCH_SAMPLE)
   return (int)cudaGetLastError();
 }
 
-// out[d] <- est where est * est >= *thr, else 0 (K3b). `thr` is one
-// float in device memory. Returns cudaGetLastError().
+// out[d] <- est where est * est >= *thr, else 0 (K3b), eps and delta as
+// packed sign bits. `thr` is one float in device memory. Returns
+// cudaGetLastError().
 int cct_sketch_threshold_mask(const float* table, const int* off,
-                              const float* delta, const float* eps,
-                              const float* thr, float* out, int r, int c,
-                              int B, long long d, void* stream) {
-  if (c < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+                              const uint32_t* delta_bits,
+                              const uint32_t* eps_bits, const float* thr,
+                              float* out, int r, int c, int B, long long d,
+                              void* stream) {
+  if (c < 1 || B < 1 || B > 65535 || (long long)r * c >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   CCT_ROWS_SWITCH(r, LAUNCH_MASK)
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,25 @@ once per CSVec and device by `CSVec.sign_bits`), so a term is x with
 its sign bit flipped, bitwise the plain version's product.
 
 K2 `estimate_all` replaces `pallas_estimate_all` (`_estimate_kernel`,
-`_chunk_estimate_rows`, `_masked_est`, `_median_rows`); K3 replaces the two kernels of
-`pallas_threshold_decode`: K3a `threshold_sample` (`_sample_kernel`)
-and K3b `threshold_mask` (`_mask_kernel`). The kernels live in
-../csrc/sketch.cu, whose header says how each is designed for the card
-and what bounds it.
+`_chunk_estimate_rows`, `_masked_est`, `_median_rows`).
+
+K3 replaces the two kernels of `pallas_threshold_decode`: K3a
+`threshold_sample` (`_sample_kernel`) and K3b `threshold_mask`
+(`_mask_kernel`). Both take eps and delta as the packed sign bits K1
+takes, so a row's value is the table cell with its sign bit flipped,
+bitwise the plain versions' float product, and both take K2's median.
+K3b is a thread per 8 consecutive positions of a chunk, streaming its
+output; its byte bound is the [d] output write (498 MB at the GPT2-small
+geometry), but an exact decode gathers every table row once per chunk
+from L2 (2.49 GB), and that is its floor. K3a is a thread per sample
+position for a run of chunks, bound by the gathered sectors, one per
+table cell it reads. An early-out of K3b (skip the last rows where the
+first r / 2 + 1 square under the threshold: exact) measured slower on
+the card and is not kept. Left for later: both kernels' gathers from
+L2.
+
+The kernels live in ../csrc/sketch.cu, whose header says how each is
+designed for the card and what bounds it.
 
 Routing is by device, per call: a CPU tensor takes the plain version
 (the CPU tests' path); a CUDA tensor launches the kernel or raises.
@@ -228,16 +242,17 @@ def estimate_all_plain(table: torch.Tensor, off: torch.Tensor,
     return est
 
 
-def _check_estimate_args(what: str, table: torch.Tensor, off: torch.Tensor,
-                         delta: torch.Tensor, eps: torch.Tensor,
-                         d: int) -> torch.device:
-    """The operand checks K2 and K3 share; returns the device."""
+def _check_decode_args(what: str, table: torch.Tensor, off: torch.Tensor,
+                       signs: Dict[str, torch.Tensor], d: int) -> torch.device:
+    """The operand checks K2 and K3 share; `signs` holds the sign
+    operands by name: the eps and delta tables (K2) or their packed bits
+    (K3). Returns the device."""
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_args({"table": table, "off": off, "delta": delta,
-                       "eps": eps},
-                      {"table": (r, c), "off": (r, B), "delta": (r, B),
-                       "eps": (r, c)})
+    shapes = {"table": (r, c), "off": (r, B), "eps": (r, c),
+              "delta": (r, B), "eps_bits": (_words(r * c),),
+              "delta_bits": (_words(r * B),)}
+    dev = _check_args({"table": table, "off": off, **signs}, shapes)
     if B != -(-d // c):
         raise ValueError(f"off has {B} chunks, d={d}, c={c} needs "
                          f"{-(-d // c)}")
@@ -256,7 +271,8 @@ def estimate_all(table: torch.Tensor, off: torch.Tensor,
     tensor, `estimate_all_plain` on a CPU tensor."""
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_estimate_args("estimate_all", table, off, delta, eps, d)
+    dev = _check_decode_args("estimate_all", table, off,
+                             {"delta": delta, "eps": eps}, d)
     if dev.type == "cpu":
         return estimate_all_plain(table, off, delta, eps, d)
     lib = _load()
@@ -306,27 +322,31 @@ def threshold_sample_plain(table: torch.Tensor, off: torch.Tensor,
 
 
 def threshold_sample(table: torch.Tensor, off: torch.Tensor,
-                     delta: torch.Tensor, eps: torch.Tensor, d: int,
-                     stride: int, ns: int) -> torch.Tensor:
+                     delta_bits: torch.Tensor, eps_bits: torch.Tensor,
+                     d: int, stride: int, ns: int) -> torch.Tensor:
     """[B, ns] estimates at chunk positions 0, stride, ...,
-    (ns - 1) * stride, the tail zeroed: K3a on a CUDA tensor,
-    `threshold_sample_plain` on a CPU tensor."""
+    (ns - 1) * stride, the tail zeroed. The signs come as in `encode`:
+    K3a on a CUDA tensor reads the bits; on a CPU tensor
+    `threshold_sample_plain` takes the tables they unpack to."""
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_estimate_args("threshold_sample", table, off, delta, eps,
-                               d)
+    dev = _check_decode_args("threshold_sample", table, off,
+                             {"delta_bits": delta_bits, "eps_bits": eps_bits},
+                             d)
     if stride < 1 or ns < 1 or (ns - 1) * stride >= c:
         raise ValueError(f"stride={stride}, ns={ns} leave chunk positions "
                          f"[0, {c})")
     if dev.type == "cpu":
-        return threshold_sample_plain(table, off, delta, eps, d, stride, ns)
+        return threshold_sample_plain(
+            table, off, unpack_sign_bits(delta_bits, (r, B)),
+            unpack_sign_bits(eps_bits, (r, c)), d, stride, ns)
     lib = _load()
     sample = torch.empty((B, ns), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cct_sketch_threshold_sample(
-            table.data_ptr(), off.data_ptr(), delta.data_ptr(),
-            eps.data_ptr(), sample.data_ptr(), r, c, B, d, stride, ns,
+            table.data_ptr(), off.data_ptr(), delta_bits.data_ptr(),
+            eps_bits.data_ptr(), sample.data_ptr(), r, c, B, d, stride, ns,
             stream)
     _build.check(lib, code, "cct_sketch_threshold_sample")
     LAUNCHES["threshold_sample"] += 1
@@ -343,29 +363,34 @@ def threshold_mask_plain(table: torch.Tensor, off: torch.Tensor,
 
 
 def threshold_mask(table: torch.Tensor, off: torch.Tensor,
-                   delta: torch.Tensor, eps: torch.Tensor,
+                   delta_bits: torch.Tensor, eps_bits: torch.Tensor,
                    thr: torch.Tensor, d: int) -> torch.Tensor:
-    """The thresholded [d] update: K3b on a CUDA tensor (it reads `thr`,
-    a one-element f32 tensor, from device memory: no host sync),
-    `threshold_mask_plain` on a CPU tensor."""
+    """The thresholded [d] update, the signs as in `encode`: K3b on a
+    CUDA tensor (it reads the bits, and `thr`, a one-element f32 tensor,
+    from device memory: no host sync); on a CPU tensor
+    `threshold_mask_plain` takes the tables the bits unpack to."""
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_estimate_args("threshold_mask", table, off, delta, eps, d)
+    dev = _check_decode_args("threshold_mask", table, off,
+                             {"delta_bits": delta_bits, "eps_bits": eps_bits},
+                             d)
     if not isinstance(thr, torch.Tensor) or thr.numel() != 1:
         raise ValueError("thr must be a one-element tensor")
     if thr.dtype != torch.float32 or thr.device != dev:
         raise ValueError(f"thr must be float32 on {dev}, got {thr.dtype} "
                          f"on {thr.device}")
     if dev.type == "cpu":
-        return threshold_mask_plain(table, off, delta, eps, thr, d)
+        return threshold_mask_plain(
+            table, off, unpack_sign_bits(delta_bits, (r, B)),
+            unpack_sign_bits(eps_bits, (r, c)), thr, d)
     lib = _load()
     thr = thr.reshape(1).contiguous()
     out = torch.empty((d,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cct_sketch_threshold_mask(
-            table.data_ptr(), off.data_ptr(), delta.data_ptr(),
-            eps.data_ptr(), thr.data_ptr(), out.data_ptr(), r, c, B, d,
+            table.data_ptr(), off.data_ptr(), delta_bits.data_ptr(),
+            eps_bits.data_ptr(), thr.data_ptr(), out.data_ptr(), r, c, B, d,
             stream)
     _build.check(lib, code, "cct_sketch_threshold_mask")
     LAUNCHES["threshold_mask"] += 1

@@ -224,16 +224,17 @@ class CSVec:
         if not self._threshold_decode:
             return self.decode_topk(table, k)
         k = min(k, self.d)
-        off, eps, delta = self.tables(table.device)
+        off = self.tables(table.device)[0]
+        eps_bits, delta_bits = self.sign_bits(table.device)
         table = table.float().contiguous()
         stride, ns = sketch_cuda.threshold_sample_geometry(self.n_chunks,
                                                            self.c)
-        sample = sketch_cuda.threshold_sample(table, off, delta, eps, self.d,
-                                              stride, ns)
+        sample = sketch_cuda.threshold_sample(table, off, delta_bits,
+                                              eps_bits, self.d, stride, ns)
         thr = threshold_from_sq_sample((sample * sample).reshape(-1), k,
                                        self.n_chunks * self.c)
-        return sketch_cuda.threshold_mask(table, off, delta, eps, thr,
-                                          self.d)
+        return sketch_cuda.threshold_mask(table, off, delta_bits, eps_bits,
+                                          thr, self.d)
 
     def decode_topk_sparse(self, table: torch.Tensor, k: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:

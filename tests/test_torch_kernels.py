@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from commefficient_tpu_torch.ops.flat import threshold_from_sq_sample
 from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
 from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
 from commefficient_tpu_torch.ops.sketch import CSVec
@@ -27,6 +28,33 @@ GPT2_PATH = dict(d=124_444_417, c=500_000, r=5)  # full-width GPT2-small
 THRESHOLD_GEOMETRIES = [dict(d=40000, c=10000, r=5),
                         dict(d=20000, c=5000, r=5),
                         dict(d=16384, c=256, r=5)]
+
+
+# the main path's share of coordinates kept: k = 50,000 of GPT2_PATH's d
+MAIN_PATH_KEEP = 50_000 / GPT2_PATH["d"]
+
+
+def _k3_thresholds(sk, sample, mask):
+    """The three thresholds K3b is held at: the main path's (its keep
+    share priced from the sample as decode_topk_dense prices it), the
+    median of the sample squares (about half kept) and the square of a
+    value the median keeps (a tie). `mask(thr)` is the plain K3b."""
+    k = max(1, round(sk.d * MAIN_PATH_KEEP))
+    sq = (sample * sample).reshape(-1)
+    main = threshold_from_sq_sample(sq, k, sk.n_chunks * sk.c).reshape(1)
+    median = sq.median().reshape(1)
+    kept = mask(median)
+    kept = kept[kept != 0]
+    tie = (kept[kept.numel() // 2] ** 2).reshape(1)
+    return {"main-path": main, "median": median, "tie": tie}
+
+
+def _exact(a, b) -> bool:
+    """torch.equal, with NaN matching NaN (an even-r median of -inf and
+    +inf is NaN in both versions)"""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb)
+            and torch.equal(a.masked_fill(na, 0.0), b.masked_fill(nb, 0.0)))
 
 
 def _operands(geom, device="cpu", seed=0):
@@ -57,13 +85,13 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(
         e, sc.estimate_all_plain(t, off, delta, eps, sk.d), rtol=0, atol=0)
     stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
-    smp = sc.threshold_sample(t, off, delta, eps, sk.d, stride, ns)
+    smp = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d, stride, ns)
     torch.testing.assert_close(
         smp, sc.threshold_sample_plain(t, off, delta, eps, sk.d, stride, ns),
         rtol=0, atol=0)
     thr = torch.tensor(0.5)
     torch.testing.assert_close(
-        sc.threshold_mask(t, off, delta, eps, thr, sk.d),
+        sc.threshold_mask(t, off, delta_bits, eps_bits, thr, sk.d),
         sc.threshold_mask_plain(t, off, delta, eps, thr, sk.d),
         rtol=0, atol=0)
     # plain-version calls launch nothing and count nothing
@@ -96,12 +124,12 @@ def test_wrappers_check_dtype_shape_contiguity_and_device():
         sc.encode(np.zeros(d, np.float32), off, delta_bits, eps_bits, c)
     table = torch.zeros(sk.r, c)
     with pytest.raises(ValueError, match="stride"):
-        sc.threshold_sample(table, off, delta, eps, d, c, 2)
+        sc.threshold_sample(table, off, delta_bits, eps_bits, d, c, 2)
     with pytest.raises(ValueError, match="one-element"):
-        sc.threshold_mask(table, off, delta, eps, torch.zeros(2), d)
+        sc.threshold_mask(table, off, delta_bits, eps_bits, torch.zeros(2), d)
     with pytest.raises(ValueError, match="float32"):
-        sc.threshold_mask(table, off, delta, eps, torch.tensor(0.5).double(),
-                          d)
+        sc.threshold_mask(table, off, delta_bits, eps_bits,
+                          torch.tensor(0.5).double(), d)
 
 
 def test_threshold_sample_plain_is_k2_at_the_sampled_positions():
@@ -109,12 +137,61 @@ def test_threshold_sample_plain_is_k2_at_the_sampled_positions():
     # 0, stride, ... (the tail at or past d zeroed): exact
     for geom in GEOMETRIES:
         sk, x, off, eps, delta = _operands(geom, seed=2)
+        eps_bits, delta_bits = sk.sign_bits("cpu")
         t = sk.encode(x)
         est = sc.estimate_all(t, off, delta, eps, sk.d)
         for stride in (1, 3, sk.c):
             ns = sk.c // stride
-            got = sc.threshold_sample(t, off, delta, eps, sk.d, stride, ns)
+            got = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d,
+                                      stride, ns)
             assert torch.equal(got, est[:, :ns * stride:stride])
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES + THRESHOLD_GEOMETRIES,
+                         ids=["tail-odd", "exact-even", "single-chunk",
+                              "tail-even", "heavy-hitters", "dispatch",
+                              "stride-clamped"])
+def test_threshold_wrappers_read_sign_bits_on_cpu(geom):
+    # K3a and K3b take eps and delta as the packed bits K1 takes; a CPU
+    # tensor unpacks them for the float-table plain versions: exact
+    sk, x, off, eps, delta = _operands(geom, seed=7)
+    eps_bits, delta_bits = sk.sign_bits("cpu")
+    t = sk.encode(x)
+    stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
+    sc.reset_launches()
+    smp = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d, stride, ns)
+    assert torch.equal(smp, sc.threshold_sample_plain(t, off, delta, eps,
+                                                      sk.d, stride, ns))
+
+    def plain(thr):
+        return sc.threshold_mask_plain(t, off, delta, eps, thr, sk.d)
+    for thr in _k3_thresholds(sk, smp, plain).values():
+        got = sc.threshold_mask(t, off, delta_bits, eps_bits, thr, sk.d)
+        assert torch.equal(got, plain(thr))
+    assert sc.LAUNCHES == {name: 0 for name in sc.LAUNCHES}
+
+
+def test_threshold_wrappers_check_the_sign_bits():
+    sk, x, off, eps, delta = _operands(GEOMETRIES[0], seed=8)
+    eps_bits, delta_bits = sk.sign_bits("cpu")
+    t = sk.encode(x)
+    stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
+    thr = torch.tensor([0.5])
+    with pytest.raises(ValueError, match="eps_bits"):
+        sc.threshold_sample(t, off, delta_bits, eps_bits[:-1], sk.d, stride,
+                            ns)
+    with pytest.raises(ValueError, match="delta_bits"):
+        sc.threshold_mask(t, off, delta_bits[:0], eps_bits, thr, sk.d)
+    with pytest.raises(TypeError, match="delta_bits"):
+        sc.threshold_mask(t, off, delta_bits.long(), eps_bits, thr, sk.d)
+    with pytest.raises(TypeError, match="eps_bits"):
+        sc.threshold_sample(t, off, delta_bits, eps_bits.float(), sk.d,
+                            stride, ns)
+    with pytest.raises(TypeError, match="int32"):   # the tables, not bits
+        sc.threshold_mask(t, off, delta, eps, thr, sk.d)
+    with pytest.raises(ValueError, match="device"):
+        sc.threshold_sample(t, off, delta_bits.to("meta"), eps_bits, sk.d,
+                            stride, ns)
 
 
 def test_build_names_the_library_by_source_hash():
@@ -155,17 +232,18 @@ def test_threshold_kernels_match_plain_versions_on_the_card(cuda_device,
     # K3a and K3b compute K2's estimate with K2's device code: exact;
     # K1 builds their table, exact at these geometries too
     sk, x, off, eps, delta = _operands(geom, cuda_device, seed=3)
+    eps_bits, delta_bits = sk.sign_bits(cuda_device)
     t = sk.encode(x)
     assert torch.equal(t, sc.encode_plain(x, off, delta, eps, sk.c))
     stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
     if geom["c"] == 256:
         stride, ns = sk.c, 1        # the stride clamped to c
     before = dict(sc.LAUNCHES)
-    smp = sc.threshold_sample(t, off, delta, eps, sk.d, stride, ns)
+    smp = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d, stride, ns)
     assert torch.equal(smp, sc.threshold_sample_plain(t, off, delta, eps,
                                                       sk.d, stride, ns))
     thr = (smp.reshape(-1) ** 2).median().reshape(1)
-    m = sc.threshold_mask(t, off, delta, eps, thr, sk.d)
+    m = sc.threshold_mask(t, off, delta_bits, eps_bits, thr, sk.d)
     assert torch.equal(m, sc.threshold_mask_plain(t, off, delta, eps, thr,
                                                   sk.d))
     torch.cuda.synchronize()
@@ -338,3 +416,88 @@ def test_flash_kernel_refuses_unaligned_rows(cuda_device):
                for t in x[..., :96].split(32, dim=-1))
     with pytest.raises(ValueError, match="16-byte"):
         ac.flash_fwd(q, k, v, 0.25)
+
+
+def _k3_card_check(sk, t, off, eps, delta, cuda_device, sampling=None):
+    """K3a and K3b on the card against their plain versions, exact, at
+    the three thresholds of `_k3_thresholds`; each launched once a call."""
+    eps_bits, delta_bits = sk.sign_bits(cuda_device)
+    stride, ns = sampling or sc.threshold_sample_geometry(sk.n_chunks, sk.c)
+    before = dict(sc.LAUNCHES)
+    smp = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d, stride, ns)
+    plain_smp = sc.threshold_sample_plain(t, off, delta, eps, sk.d, stride,
+                                          ns)
+    assert _exact(smp, plain_smp)
+
+    def plain(thr):
+        return sc.threshold_mask_plain(t, off, delta, eps, thr, sk.d)
+    thresholds = _k3_thresholds(sk, plain_smp.nan_to_num(0.0), plain)
+    for name, thr in thresholds.items():
+        got = sc.threshold_mask(t, off, delta_bits, eps_bits, thr, sk.d)
+        assert _exact(got, plain(thr)), name
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["threshold_sample"] == before["threshold_sample"] + 1
+    assert (sc.LAUNCHES["threshold_mask"]
+            == before["threshold_mask"] + len(thresholds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8, 16])
+def test_threshold_kernels_are_exact_at_every_row_count(cuda_device, r):
+    # odd and even r, up to the largest instantiated; d = 5000 leaves a
+    # ragged last chunk of c = 300
+    sk, x, off, eps, delta = _operands(dict(d=5000, c=300, r=r), cuda_device,
+                                       seed=r)
+    _k3_card_check(sk, sk.encode(x), off, eps, delta, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [4, 5])
+def test_threshold_kernels_with_infinite_cells_and_an_equal_row(cuda_device,
+                                                                r):
+    # +-inf cells (an even-r median of -inf and +inf is NaN in both
+    # versions) and a row of one value, whose estimates tie everywhere
+    sk, x, off, eps, delta = _operands(dict(d=5000, c=300, r=r), cuda_device,
+                                       seed=10 + r)
+    t = sk.encode(x)
+    t[0, ::17] = float("inf")
+    t[r - 1, 5::23] = float("-inf")
+    t[1] = 0.75
+    _k3_card_check(sk, t, off, eps, delta, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", [dict(d=5000, c=301, r=5),
+                                  dict(d=1999, c=250, r=4)],
+                         ids=["c301-odd", "c250-even"])
+def test_kernels_are_exact_where_c_is_not_a_multiple_of_four(cuda_device,
+                                                             geom):
+    # every term of K1 and K3b takes the element-by-element path here,
+    # and the last chunk is ragged
+    sk, x, off, eps, delta = _operands(geom, cuda_device, seed=12)
+    x[::7] = 0.0
+    x[1::11] = -0.0
+    t = sk.encode(x)
+    assert torch.equal(t, sc.encode_plain(x, off, delta, eps, sk.c))
+    _k3_card_check(sk, t, off, eps, delta, cuda_device)
+
+
+@pytest.mark.gpu
+def test_threshold_decode_at_the_gpt2_path_threshold(cuda_device):
+    # decode_topk_dense at config #5's geometry and k: K3a, the threshold
+    # priced on the device, K3b; exact against the plain pipeline
+    sk, x, off, eps, delta = _operands(GPT2_PATH, cuda_device, seed=13)
+    t = sk.encode(x)
+    before = dict(sc.LAUNCHES)
+    got = sk.decode_topk_dense(t, 50_000)
+    stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
+    smp = sc.threshold_sample_plain(t, off, delta, eps, sk.d, stride, ns)
+    thr = threshold_from_sq_sample((smp * smp).reshape(-1), 50_000,
+                                   sk.n_chunks * sk.c)
+    want = sc.threshold_mask_plain(t, off, delta, eps, thr, sk.d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 40_000 <= int((got != 0).sum()) <= 60_000
+    for name in ("threshold_sample", "threshold_mask"):
+        assert sc.LAUNCHES[name] == before[name] + 1
+    assert sk.sign_packs == 1
