@@ -12,10 +12,11 @@ the result line:
                sources into build/ (one nvcc per source, sm_90a, all
                started together).
 3. kernels  — K1 (count-sketch encode) and K2 (median estimate of every
-               coordinate) against their plain PyTorch versions at the
-               main-path shapes and four small geometries (padded tail /
-               odd r, exact fit / even r, one chunk with c > d, c % 4 !=
-               0 with a ragged last chunk). Tolerance:
+               coordinate), both reading eps and delta as packed sign
+               bits, against their plain PyTorch versions (float sign
+               tables) at the main-path shapes and four small geometries
+               (padded tail / odd r, exact fit / even r, one chunk with
+               c > d, c % 4 != 0 with a ragged last chunk). Tolerance:
                exact equality (bitwise up to the sign of zero). Times with
                CUDA events (median after warm-up, L2 flushed between
                launches): the kernel's device time, and the wrapper call
@@ -191,7 +192,7 @@ def smi_line() -> str:
 
 def ptxas_summary(log: str) -> str:
     """Registers, spill bytes and static shared memory of K1, K2, K3a
-    and K3b at r = 5 (K1, K3a and K3b at r = 16 too) and K4 at each Dh
+    and K3b at r = 5 and r = 16 and of K4 at each Dh
     from the build's `-Xptxas -v` report (empty when the library was
     already built). K4's tiles are dynamic shared memory, printed beside
     it."""
@@ -199,7 +200,8 @@ def ptxas_summary(log: str) -> str:
     out, fn = [], None
     names = (("encode_rows_kernelILi5E", "encode_rows_kernel<5>"),
              ("encode_rows_kernelILi16E", "encode_rows_kernel<16>"),
-             ("estimate_kernelILi5E", "estimate_kernel<5>"),
+             ("estimate_all_kernelILi5E", "estimate_all_kernel<5>"),
+             ("estimate_all_kernelILi16E", "estimate_all_kernel<16>"),
              ("threshold_sample_kernelILi5E", "threshold_sample_kernel<5>"),
              ("threshold_sample_kernelILi16E",
               "threshold_sample_kernel<16>"),
@@ -269,11 +271,12 @@ def kernel_phase(sc, CSVec):
     for geom in SMALL_GEOMETRIES + [dict(d=MAIN_D, c=MAIN_C, r=MAIN_R)]:
         sk = CSVec(**geom)
         off, eps, delta = sk.tables(dev)
+        eps_bits, delta_bits = sk.sign_bits(dev)
         g = torch.Generator().manual_seed(geom["d"])
         x = torch.randn(geom["d"], generator=g).to(dev)
         t_k = sk.encode(x)
         t_p = sc.encode_plain(x, off, delta, eps, sk.c)
-        e_k = sc.estimate_all(t_k, off, delta, eps, sk.d)
+        e_k = sc.estimate_all(t_k, off, delta_bits, eps_bits, sk.d)
         e_p = sc.estimate_all_plain(t_k, off, delta, eps, sk.d)
         torch.cuda.synchronize()
         for name, k, p in (("sketch_encode", t_k, t_p),
@@ -292,23 +295,30 @@ def kernel_phase(sc, CSVec):
     sk = CSVec(d=d, c=c, r=r)
     B = sk.n_chunks
     off, eps, delta = sk.tables(dev)
+    eps_bits, delta_bits = sk.sign_bits(dev)
     x = torch.randn(d, generator=torch.Generator().manual_seed(1)).to(dev)
     table = sk.encode(x)
     rows = [encode_row(sc, sk, x, "sketch_encode", "config2")]
-    # K2: read the table, eps, off/delta once; write the [B, c]
-    # estimate once. Operations per estimate: 2r multiplies, the
-    # r(r-1)/2 compare-exchanges (2 each), the middle.
-    k2_bytes = 4 * r * c + 4 * r * c + 8 * r * B + 4 * B * c
+    # K2: read the table, off and the sign bits of eps [r, c] and delta
+    # [r, B] once; write the [B, c] estimate once. Operations per
+    # estimate: 2r sign flips, the r(r-1)/2 compare-exchanges (2 each),
+    # the middle.
+    k2_bytes = (4 * r * c + bits_bytes(r * c) + 4 * r * B
+                + bits_bytes(r * B) + 4 * B * c)
     k2_ops = B * c * (2 * r + r * (r - 1) + 2)
     rows.append(dict(
         name="sketch_estimate_all", counter="sketch_estimate_all",
         path="config2", route="cuda",
         source="commefficient_tpu_torch/ops/csrc/sketch.cu",
         replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:191",
-        fn=lambda: sc.estimate_all(table, off, delta, eps, d),
+        fn=lambda: sc.estimate_all(table, off, delta_bits, eps_bits, d),
         plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d),
         library=None, bytes=k2_bytes, ops=k2_ops))
-    return [timed_row(row, max_err[row["counter"]]) for row in rows]
+    out = [timed_row(row, max_err[row["counter"]]) for row in rows]
+    phase("kernels", "sketch_estimate_all store policy: plain write-back "
+          "float4 stores (not K3b's streaming __stcs: the [B, c] output "
+          "and the table fit in the L2 together; sketch.cu header)")
+    return out
 
 
 def bits_bytes(n: int) -> int:

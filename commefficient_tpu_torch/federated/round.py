@@ -84,7 +84,7 @@ def _has_velocities(cfg: Config) -> bool:
 
 
 def init_client_state(cfg: Config, num_clients: int,
-                      device="cpu") -> ClientState:
+                      device) -> ClientState:
     """Per-client rows for the blocks the config tracks; [0]
     placeholders otherwise."""
     D = cfg.grad_size

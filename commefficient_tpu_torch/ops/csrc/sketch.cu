@@ -52,15 +52,33 @@
 //
 // K2 cct_sketch_estimate_all replaces sketch_pallas.py
 // _estimate_kernel / pallas_estimate_all (with its helpers
-// _chunk_estimate_rows, _masked_est and _median_rows). One thread owns
-// one estimate (b, p): it gathers the r signed values
-// table[j, (p + off[j, b]) mod c] * eps[j, p] * delta[j, b] into
-// registers, sorts them with a compare-exchange network unrolled for
-// the compile-time row count R (1 <= R <= 16), and writes the middle
-// value, or 0.5f * (a + b) of the two middles for even R, exactly as
-// _median_rows does; cells at global index >= d are written as 0.
-// Bound: bytes (table once, eps once, the [B, c] estimate once: about
-// 48 MB at the main-path shapes), roughly 14 us at 3.35 TB/s.
+// _chunk_estimate_rows, _masked_est and _median_rows): the estimate
+// median_j(table[j, (p + off[j, b]) mod c] * eps[j, p] * delta[j, b])
+// of every coordinate b * c + p as a [B, c] array, 0 at or past d. It
+// is K3b's estimate without the select, and it runs K3b's body
+// (estimate_run, below): a thread owns kMaskPositions = 8 consecutive
+// positions of one chunk, a block 128 threads, eps and delta come as
+// packed sign bits, and the r signed values of each position are sorted
+// by a compare-exchange network unrolled for the compile-time row count
+// R (1 <= R <= 16); the middle value, or 0.5f * (a + b) of the two
+// middles for even R, is written, exactly as _median_rows takes it. The
+// 8 results leave as two 16-byte stores; a thread whose 8 positions all
+// lie at or past d writes zeros and gathers nothing, and the positions
+// of a ragged last chunk at or past d are written as 0. Its byte bound
+// counts the table, off and the sign bits once and the [B, c] estimate
+// once (38.3 MB at the ResNet9 geometry, 0.0114 ms at 3.35 TB/s); as
+// for K3b, its floor is the r-fold gather of the table from L2 (r * B *
+// c * 4 B = 140 MB there) with the output.
+// Its stores are plain write-back stores, not K3b's streaming __stcs:
+// the 28 MB output and the 10 MB table fit in the 50 MB L2 together, so
+// the output need not leave it early, and the server step reads it at
+// once (flat * flat before the top-k). The two were timed against each
+// other on an H100 80GB HBM3 (700 W) at the ResNet9 geometry, L2
+// flushed: the plain stores were faster, alone and followed by that
+// square. Timed there too and not kept: a register cap for 6 blocks an
+// SM (barely faster at r = 5, spills at r = 16), chunk-major block
+// order (no faster), warp-coalesced stores by shuffles and 4 positions
+// a thread (both slower).
 //
 // K3 (K3a cct_sketch_threshold_sample + K3b cct_sketch_threshold_mask)
 // replaces sketch_pallas.py pallas_threshold_decode's two kernels,
@@ -70,9 +88,10 @@
 // estimate. Both read eps and delta as K1 does, as packed sign bits: a
 // row's value is the table cell with its sign bit XORed by eps's and
 // delta's, which for +-1 factors and any non-NaN cell is bitwise
-// __fmul_rn(__fmul_rn(t, eps), delta), K2's product (signed zeros,
-// infinities and subnormals included: no -ftz). Both take the median
-// with K2's network (median_of), so every estimate is bitwise K2's.
+// __fmul_rn(__fmul_rn(t, eps), delta), the plain versions' product
+// (signed zeros, infinities and subnormals included: no -ftz). Both
+// take the median with K2's network (median_of), so every estimate is
+// bitwise K2's; K3b runs K2's whole body (estimate_run).
 //
 // K3a: a thread owns one sample position p = s * stride for kSmpRun
 // chunks. It loads its r eps bits once, the block stages off and the
@@ -114,16 +133,15 @@
 // of x; K3a's sector-per-cell gathers.
 //
 // Arithmetic is written with __fmul_rn / __fadd_rn so nvcc cannot
-// contract it into FMAs (the build passes -fmad=false as well): K2's
-// product order is (table * eps) * delta, the plain versions'; K1's and
-// K3's sign flips are exact, K1's sums __fadd_rn.
+// contract it into FMAs (the build passes -fmad=false as well): the sign
+// flips of K1, K2 and K3 are exact, K1's sums __fadd_rn, and the even-R
+// median's mean is __fadd_rn then __fmul_rn by 0.5f, as in the plain
+// versions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 constexpr int kEncThreads = 256;
 constexpr int kEncPositions = 4;   // consecutive positions a K1 thread owns
@@ -134,9 +152,9 @@ constexpr int kSmpRun = 8;         // chunks a K3a thread walks
 constexpr int kSmpFlight = 2;      // chunks whose K3a gathers fly together
 
 constexpr int kMaskThreads = 128;
-constexpr int kMaskPositions = 8;  // consecutive positions a K3b thread owns
+constexpr int kMaskPositions = 8;  // positions a K2 / K3b thread owns
 static_assert(kMaskPositions % 4 == 0 && kMaskPositions <= 28,
-              "K3b stores float4s and reads its eps bits from one window");
+              "K2 and K3b store float4s and read eps bits from one window");
 
 // x[s], or 0 at or past lim (the zero-padded tail)
 __device__ __forceinline__ float x_at(const float* __restrict__ xb, int s,
@@ -269,42 +287,6 @@ __device__ __forceinline__ float median_of(float (&v)[R]) {
                  : __fmul_rn(0.5f, __fadd_rn(v[R / 2 - 1], v[R / 2]));
 }
 
-// median-of-rows estimate of cell (b, p): the r signed values
-// table[j, (p + off[j, b]) mod c] * eps[j, p] * delta[j, b], then
-// median_of
-template <int R>
-__device__ __forceinline__ float estimate_at(const float* __restrict__ table,
-                                             const int* __restrict__ off,
-                                             const float* __restrict__ delta,
-                                             const float* __restrict__ eps,
-                                             int c, int B, int b, int p) {
-  float v[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    int q = p + off[(long long)j * B + b];
-    if (q >= c) q -= c;
-    v[j] = __fmul_rn(__fmul_rn(table[(long long)j * c + q],
-                               eps[(long long)j * c + p]),
-                     delta[(long long)j * B + b]);
-  }
-  return median_of<R>(v);
-}
-
-template <int R>
-__global__ void estimate_kernel(const float* __restrict__ table,
-                                const int* __restrict__ off,
-                                const float* __restrict__ delta,
-                                const float* __restrict__ eps,
-                                float* __restrict__ est, int c, int B,
-                                long long d) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (p >= c) return;
-  const long long gi = (long long)b * c + p;
-  est[gi] = gi < d ? estimate_at<R>(table, off, delta, eps, c, B, b, p)
-                   : 0.0f;
-}
-
 // K3a: the estimates at chunk positions p = s * stride. A thread owns
 // one sample s for kSmpRun chunks: its r eps bits are loaded once, the
 // block stages off and the delta bits of its chunks in shared memory,
@@ -364,23 +346,25 @@ __global__ void __launch_bounds__(kSmpThreads)
   }
 }
 
-// K3b's gather: the signed values of rows 0 .. R - 1 at chunk positions
-// p .. p + NP - 1 of chunk b into v[j][0..NP), every row's loads issued
-// before any value is used. `vec`: c % 4 == 0, c >= 16 and the table
-// 16-byte aligned, so q = (p + off[j, b]) mod c has the same value mod 4
-// in every thread of the block (p % 4 == 0) and the NP values lie in
-// NQ = NP / 4 + 1 aligned float4s of row j, each at its own place mod c
-// (the last one at the first's where q % 4 == 0: a second read of the
+// K2's and K3b's body: the estimates of chunk positions p .. p + NP - 1
+// of chunk b into est[0..NP): the signed values of rows 0 .. R - 1 are
+// gathered, every row's loads issued before any value is used, then
+// median_of takes each position's. `vec`: c % 4 == 0, c >= 16 and the
+// table 16-byte aligned, so q = (p + off[j, b]) mod c has the same value
+// mod 4 in every thread of the block (p % 4 == 0) and the NP values lie
+// in NQ = NP / 4 + 1 aligned float4s of row j, each at its own place mod
+// c (the last one at the first's where q % 4 == 0: a second read of the
 // same line, in place of a branch), picked by q mod 4, their eps bits
-// from one funnel-shifted 32-bit window. Otherwise element by element;
-// positions at or past c are left unset.
+// from one funnel-shifted 32-bit window. Otherwise element by element.
+// The estimates at or past c are not defined.
 template <int R, int NP>
-__device__ __forceinline__ void mask_gather(
+__device__ __forceinline__ void estimate_run(
     const float* __restrict__ table, const int* __restrict__ off,
     const uint32_t* __restrict__ delta_bits,
     const uint32_t* __restrict__ eps_bits, int c, int B, int b, int p,
-    int vec, float (&v)[R][NP]) {
+    int vec, float (&est)[NP]) {
   constexpr int NQ = NP / 4 + 1;
+  float v[R][NP];
   int q[R];
   uint32_t ds[R];
 #pragma unroll
@@ -405,47 +389,89 @@ __device__ __forceinline__ void mask_gather(
         v[j][k] = flip(__ldg(row + qk), es, ds[j]);
       }
     }
-    return;
-  }
-  const int last_word = (R * c - 1) >> 5;
-  float4 t[R][NQ];
-  uint32_t win[R];
+  } else {
+    const int last_word = (R * c - 1) >> 5;
+    float4 t[R][NQ];
+    uint32_t win[R];
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const float* row = table + (long long)j * c;
-    const int a = q[j] & ~3;
+    for (int j = 0; j < R; ++j) {
+      const float* row = table + (long long)j * c;
+      const int a = q[j] & ~3;
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      int ai = a + 4 * i;
-      if (ai >= c) ai -= c;
-      if (i == NQ - 1 && (q[j] & 3) == 0) ai = a;
-      t[j][i] = __ldg(reinterpret_cast<const float4*>(row + ai));
+      for (int i = 0; i < NQ; ++i) {
+        int ai = a + 4 * i;
+        if (ai >= c) ai -= c;
+        if (i == NQ - 1 && (q[j] & 3) == 0) ai = a;
+        t[j][i] = __ldg(reinterpret_cast<const float4*>(row + ai));
+      }
+      const int e = j * c + p;
+      const uint32_t lo = __ldg(eps_bits + (e >> 5));
+      // e % 4 == 0, so 4 bits never cross a word; 8 may
+      const uint32_t hi =
+          NP > 4 ? __ldg(eps_bits + min((e >> 5) + 1, last_word)) : 0u;
+      win[j] = __funnelshift_r(lo, hi, e);
     }
-    const int e = j * c + p;
-    const uint32_t lo = __ldg(eps_bits + (e >> 5));
-    // e % 4 == 0, so 4 bits never cross a word; 8 may
-    const uint32_t hi =
-        NP > 4 ? __ldg(eps_bits + min((e >> 5) + 1, last_word)) : 0u;
-    win[j] = __funnelshift_r(lo, hi, e);
-  }
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    float w[4 * NQ];
+    for (int j = 0; j < R; ++j) {
+      float w[4 * NQ];
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      w[4 * i] = t[j][i].x;
-      w[4 * i + 1] = t[j][i].y;
-      w[4 * i + 2] = t[j][i].z;
-      w[4 * i + 3] = t[j][i].w;
-    }
-    switch (q[j] & 3) {   // the same case in every thread of the block
+      for (int i = 0; i < NQ; ++i) {
+        w[4 * i] = t[j][i].x;
+        w[4 * i + 1] = t[j][i].y;
+        w[4 * i + 2] = t[j][i].z;
+        w[4 * i + 3] = t[j][i].w;
+      }
+      switch (q[j] & 3) {   // the same case in every thread of the block
 #define CCT_PICK(K0)                                                        \
   case K0:                                                                  \
     _Pragma("unroll") for (int k = 0; k < NP; ++k) v[j][k] =                \
         flip(w[K0 + k], win[j] << (31 - k), ds[j]);                         \
     break;
-      CCT_PICK(0) CCT_PICK(1) CCT_PICK(2) CCT_PICK(3)
+        CCT_PICK(0) CCT_PICK(1) CCT_PICK(2) CCT_PICK(3)
 #undef CCT_PICK
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    float col[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) col[j] = v[j][k];
+    est[k] = median_of<R>(col);
+  }
+}
+
+// K2: est[b * c + p + k] for the kMaskPositions positions p + k of
+// chunk b a thread owns, 0 at or past d.
+template <int R>
+__global__ void __launch_bounds__(kMaskThreads)
+    estimate_all_kernel(const float* __restrict__ table,
+                        const int* __restrict__ off,
+                        const uint32_t* __restrict__ delta_bits,
+                        const uint32_t* __restrict__ eps_bits,
+                        float* __restrict__ est, int c, int B, long long d,
+                        int vec) {
+  constexpr int NP = kMaskPositions;
+  const int p = (blockIdx.x * kMaskThreads + threadIdx.x) * NP;
+  const int b = blockIdx.y;
+  if (p >= c) return;
+  const long long gi = (long long)b * c + p;
+  float res[NP];
+  if (gi < d)   // else all NP positions lie in the tail: nothing to gather
+    estimate_run<R, NP>(table, off, delta_bits, eps_bits, c, B, b, p, vec,
+                        res);
+#pragma unroll
+  for (int k = 0; k < NP; ++k)
+    if (gi + k >= d) res[k] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NP; i += 4) {
+    if (vec && p + i + 4 <= c) {
+      *reinterpret_cast<float4*>(est + gi + i) =
+          make_float4(res[i], res[i + 1], res[i + 2], res[i + 3]);
+    } else {
+#pragma unroll
+      for (int k = i; k < i + 4; ++k)
+        if (p + k < c) est[gi + k] = res[k];
     }
   }
 }
@@ -468,17 +494,12 @@ __global__ void __launch_bounds__(kMaskThreads)
   const long long gi = (long long)b * c + p;
   if (gi >= d) return;
   const float th = __ldg(thr);
-  float v[R][NP];
-  mask_gather<R, NP>(table, off, delta_bits, eps_bits, c, B, b, p, vec, v);
   float res[NP];
+  estimate_run<R, NP>(table, off, delta_bits, eps_bits, c, B, b, p, vec,
+                      res);
 #pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    float col[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) col[j] = v[j][k];
-    const float e = median_of<R>(col);
-    res[k] = __fmul_rn(e, e) >= th ? e : 0.0f;
-  }
+  for (int k = 0; k < NP; ++k)   // a NaN estimate is not kept
+    res[k] = __fmul_rn(res[k], res[k]) >= th ? res[k] : 0.0f;
 #pragma unroll
   for (int i = 0; i < NP; i += 4) {
     if (vec && p + i + 4 <= c && gi + i + 4 <= d) {
@@ -504,15 +525,6 @@ void launch_encode(const float* x, long long d, const int* off,
 }
 
 template <int R>
-void launch_estimate(const float* table, const int* off, const float* delta,
-                     const float* eps, float* est, int c, int B, long long d,
-                     cudaStream_t stream) {
-  dim3 grid((c + kThreads - 1) / kThreads, B);
-  estimate_kernel<R><<<grid, kThreads, 0, stream>>>(table, off, delta, eps,
-                                                    est, c, B, d);
-}
-
-template <int R>
 void launch_sample(const float* table, const int* off,
                    const uint32_t* delta_bits, const uint32_t* eps_bits,
                    float* sample, int c, int B, long long d, int stride,
@@ -523,17 +535,41 @@ void launch_sample(const float* table, const int* off,
       table, off, delta_bits, eps_bits, sample, c, B, d, stride, ns);
 }
 
+// K2's and K3b's grid.x: one block for kMaskThreads * kMaskPositions
+// positions of a chunk
+int run_blocks(int c) {
+  const int per_block = kMaskThreads * kMaskPositions;
+  return (c + per_block - 1) / per_block;
+}
+
+// estimate_run's `vec`, with the output 16-byte aligned for the float4
+// stores at b * c + p (p % 8 == 0)
+int run_vec(const float* table, const float* out, int c) {
+  return c % 4 == 0 && c >= 16 &&
+         reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
 template <int R>
 void launch_mask(const float* table, const int* off,
                  const uint32_t* delta_bits, const uint32_t* eps_bits,
                  const float* thr, float* out, int c, int B, long long d,
                  cudaStream_t stream) {
-  const int per_block = kMaskThreads * kMaskPositions;
-  dim3 grid((c + per_block - 1) / per_block, B);
-  const int vec = c % 4 == 0 && c >= 16 &&
-                  reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  dim3 grid(run_blocks(c), B);
   threshold_mask_kernel<R><<<grid, kMaskThreads, 0, stream>>>(
-      table, off, delta_bits, eps_bits, thr, out, c, B, d, vec);
+      table, off, delta_bits, eps_bits, thr, out, c, B, d,
+      run_vec(table, out, c));
+}
+
+template <int R>
+void launch_estimate_all(const float* table, const int* off,
+                         const uint32_t* delta_bits,
+                         const uint32_t* eps_bits, float* est, int c, int B,
+                         long long d, cudaStream_t stream) {
+  dim3 grid(run_blocks(c), B);
+  estimate_all_kernel<R><<<grid, kMaskThreads, 0, stream>>>(
+      table, off, delta_bits, eps_bits, est, c, B, d,
+      run_vec(table, est, c));
 }
 
 }  // namespace
@@ -560,8 +596,9 @@ void launch_mask(const float* table, const int* off,
 #define LAUNCH_ENCODE(R)                                              \
   launch_encode<R>(x, d, off, delta_bits, eps_bits, table, c, B,       \
                    (cudaStream_t)stream)
-#define LAUNCH_ESTIMATE(R) \
-  launch_estimate<R>(table, off, delta, eps, est, c, B, d, (cudaStream_t)stream)
+#define LAUNCH_ESTIMATE(R)                                                \
+  launch_estimate_all<R>(table, off, delta_bits, eps_bits, est, c, B, d,  \
+                         (cudaStream_t)stream)
 #define LAUNCH_SAMPLE(R)                                                  \
   launch_sample<R>(table, off, delta_bits, eps_bits, sample, c, B, d,    \
                    stride, ns, (cudaStream_t)stream)
@@ -585,11 +622,14 @@ int cct_sketch_encode(const float* x, long long d, const int* off,
 }
 
 // est[B, c] <- median-of-rows estimate of every coordinate of the
-// sketched vector, the tail at >= d zeroed. Returns cudaGetLastError().
+// sketched vector, the tail at >= d zeroed (K2), eps and delta as
+// packed sign bits. Returns cudaGetLastError().
 int cct_sketch_estimate_all(const float* table, const int* off,
-                            const float* delta, const float* eps, float* est,
-                            int r, int c, int B, long long d, void* stream) {
-  if (c < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+                            const uint32_t* delta_bits,
+                            const uint32_t* eps_bits, float* est, int r,
+                            int c, int B, long long d, void* stream) {
+  if (c < 1 || B < 1 || B > 65535 || (long long)r * c >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   CCT_ROWS_SWITCH(r, LAUNCH_ESTIMATE)
   return (int)cudaGetLastError();
 }

@@ -13,22 +13,26 @@ once per CSVec and device by `CSVec.sign_bits`), so a term is x with
 its sign bit flipped, bitwise the plain version's product.
 
 K2 `estimate_all` replaces `pallas_estimate_all` (`_estimate_kernel`,
-`_chunk_estimate_rows`, `_masked_est`, `_median_rows`).
+`_chunk_estimate_rows`, `_masked_est`, `_median_rows`). It takes eps
+and delta as K1's packed sign bits and runs K3b's body (a thread per 8
+consecutive positions of a chunk) without the select, writing the
+[B, c] estimate with its tail zeroed. Its byte bound counts the table
+and the estimate once (38.3 MB at the ResNet9 geometry); the r-fold
+gather of the table from L2 (140 MB there) is its floor, as for K3b.
 
 K3 replaces the two kernels of `pallas_threshold_decode`: K3a
 `threshold_sample` (`_sample_kernel`) and K3b `threshold_mask`
 (`_mask_kernel`). Both take eps and delta as the packed sign bits K1
 takes, so a row's value is the table cell with its sign bit flipped,
 bitwise the plain versions' float product, and both take K2's median.
-K3b is a thread per 8 consecutive positions of a chunk, streaming its
-output; its byte bound is the [d] output write (498 MB at the GPT2-small
-geometry), but an exact decode gathers every table row once per chunk
-from L2 (2.49 GB), and that is its floor. K3a is a thread per sample
-position for a run of chunks, bound by the gathered sectors, one per
-table cell it reads. An early-out of K3b (skip the last rows where the
-first r / 2 + 1 square under the threshold: exact) measured slower on
-the card and is not kept. Left for later: both kernels' gathers from
-L2.
+K3b is K2's body and a select, streaming its output; its byte bound
+is the [d] output write (498 MB at the GPT2-small geometry), but an
+exact decode gathers every table row once per chunk from L2 (2.49 GB),
+and that is its floor. K3a is a thread per sample position for a run
+of chunks, bound by the gathered sectors, one per table cell it reads.
+An early-out of K3b (skip the last rows where the first r / 2 + 1
+square under the threshold: exact) measured slower on the card and is
+not kept. Left for later: the three kernels' gathers from L2.
 
 The kernels live in ../csrc/sketch.cu, whose header says how each is
 designed for the card and what bounds it.
@@ -243,16 +247,17 @@ def estimate_all_plain(table: torch.Tensor, off: torch.Tensor,
 
 
 def _check_decode_args(what: str, table: torch.Tensor, off: torch.Tensor,
-                       signs: Dict[str, torch.Tensor], d: int) -> torch.device:
-    """The operand checks K2 and K3 share; `signs` holds the sign
-    operands by name: the eps and delta tables (K2) or their packed bits
-    (K3). Returns the device."""
+                       delta_bits: torch.Tensor, eps_bits: torch.Tensor,
+                       d: int) -> torch.device:
+    """The operand checks K2 and K3 share, the signs as packed bits.
+    Returns the device."""
     r, c = table.shape
     B = off.shape[1]
-    shapes = {"table": (r, c), "off": (r, B), "eps": (r, c),
-              "delta": (r, B), "eps_bits": (_words(r * c),),
-              "delta_bits": (_words(r * B),)}
-    dev = _check_args({"table": table, "off": off, **signs}, shapes)
+    dev = _check_args({"table": table, "off": off, "delta_bits": delta_bits,
+                       "eps_bits": eps_bits},
+                      {"table": (r, c), "off": (r, B),
+                       "delta_bits": (_words(r * B),),
+                       "eps_bits": (_words(r * c),)})
     if B != -(-d // c):
         raise ValueError(f"off has {B} chunks, d={d}, c={c} needs "
                          f"{-(-d // c)}")
@@ -265,23 +270,26 @@ def _check_decode_args(what: str, table: torch.Tensor, off: torch.Tensor,
 
 
 def estimate_all(table: torch.Tensor, off: torch.Tensor,
-                 delta: torch.Tensor, eps: torch.Tensor,
+                 delta_bits: torch.Tensor, eps_bits: torch.Tensor,
                  d: int) -> torch.Tensor:
-    """[B, c] median-of-rows estimates (tail zeroed): K2 on a CUDA
-    tensor, `estimate_all_plain` on a CPU tensor."""
+    """[B, c] median-of-rows estimates (tail zeroed), the signs as in
+    `encode`: K2 on a CUDA tensor reads the bits; on a CPU tensor
+    `estimate_all_plain` takes the tables they unpack to."""
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_decode_args("estimate_all", table, off,
-                             {"delta": delta, "eps": eps}, d)
+    dev = _check_decode_args("estimate_all", table, off, delta_bits,
+                             eps_bits, d)
     if dev.type == "cpu":
-        return estimate_all_plain(table, off, delta, eps, d)
+        return estimate_all_plain(table, off,
+                                  unpack_sign_bits(delta_bits, (r, B)),
+                                  unpack_sign_bits(eps_bits, (r, c)), d)
     lib = _load()
     est = torch.empty((B, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cct_sketch_estimate_all(
-            table.data_ptr(), off.data_ptr(), delta.data_ptr(),
-            eps.data_ptr(), est.data_ptr(), r, c, B, d, stream)
+            table.data_ptr(), off.data_ptr(), delta_bits.data_ptr(),
+            eps_bits.data_ptr(), est.data_ptr(), r, c, B, d, stream)
     _build.check(lib, code, "cct_sketch_estimate_all")
     LAUNCHES["sketch_estimate_all"] += 1
     return est
@@ -330,9 +338,8 @@ def threshold_sample(table: torch.Tensor, off: torch.Tensor,
     `threshold_sample_plain` takes the tables they unpack to."""
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_decode_args("threshold_sample", table, off,
-                             {"delta_bits": delta_bits, "eps_bits": eps_bits},
-                             d)
+    dev = _check_decode_args("threshold_sample", table, off, delta_bits,
+                             eps_bits, d)
     if stride < 1 or ns < 1 or (ns - 1) * stride >= c:
         raise ValueError(f"stride={stride}, ns={ns} leave chunk positions "
                          f"[0, {c})")
@@ -371,9 +378,8 @@ def threshold_mask(table: torch.Tensor, off: torch.Tensor,
     `threshold_mask_plain` takes the tables the bits unpack to."""
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_decode_args("threshold_mask", table, off,
-                             {"delta_bits": delta_bits, "eps_bits": eps_bits},
-                             d)
+    dev = _check_decode_args("threshold_mask", table, off, delta_bits,
+                             eps_bits, d)
     if not isinstance(thr, torch.Tensor) or thr.numel() != 1:
         raise ValueError("thr must be a one-element tensor")
     if thr.dtype != torch.float32 or thr.device != dev:

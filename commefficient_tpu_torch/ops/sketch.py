@@ -116,8 +116,9 @@ class CSVec:
     def sign_bits(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(eps bits, delta bits) on `device`: the signs of eps and delta
         packed by `sketch_cuda.pack_sign_bits` (bit j * c + s of eps,
-        j * B + b of delta), the form `sketch_cuda.encode` takes. Packed
-        once per device; `sign_packs` counts the packings."""
+        j * B + b of delta), the form in which `sketch_cuda.encode`,
+        `estimate_all` and the threshold decode take them. Packed once
+        per device; `sign_packs` counts the packings."""
         _, eps, delta = self.tables(device)
         got = self._bits_on_device.get(eps.device)
         if got is None:
@@ -127,7 +128,7 @@ class CSVec:
             self.sign_packs += 1
         return got
 
-    def zeros(self, device="cpu") -> torch.Tensor:
+    def zeros(self, device) -> torch.Tensor:
         return torch.zeros(self.table_shape, dtype=torch.float32,
                            device=device)
 
@@ -192,9 +193,10 @@ class CSVec:
     def estimate_all(self, table: torch.Tensor) -> torch.Tensor:
         """[B, c] estimates of every coordinate, the tail (>= d) zeroed
         (kernel K2 on the card)."""
-        off, eps, delta = self.tables(table.device)
+        off = self.tables(table.device)[0]
+        eps_bits, delta_bits = self.sign_bits(table.device)
         return sketch_cuda.estimate_all(table.float().contiguous(), off,
-                                        delta, eps, self.d)
+                                        delta_bits, eps_bits, self.d)
 
     def _flat_estimates(self, table: torch.Tensor) -> torch.Tensor:
         return self.estimate_all(table).reshape(-1)

@@ -81,7 +81,7 @@ def test_cpu_tensors_take_the_plain_versions():
     t = sc.encode(x, off, delta_bits, eps_bits, sk.c)
     torch.testing.assert_close(t, sc.encode_plain(x, off, delta, eps, sk.c),
                                rtol=0, atol=0)
-    e = sc.estimate_all(t, off, delta, eps, sk.d)
+    e = sc.estimate_all(t, off, delta_bits, eps_bits, sk.d)
     torch.testing.assert_close(
         e, sc.estimate_all_plain(t, off, delta, eps, sk.d), rtol=0, atol=0)
     stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
@@ -113,13 +113,15 @@ def test_wrappers_check_dtype_shape_contiguity_and_device():
     with pytest.raises(ValueError, match="chunks"):
         sc.encode(x[:100].contiguous(), off, delta_bits, eps_bits, c)
     with pytest.raises(ValueError, match="contiguous"):
-        sc.estimate_all(torch.zeros(c, sk.r).t(), off, delta, eps, d)
+        sc.estimate_all(torch.zeros(c, sk.r).t(), off, delta_bits, eps_bits,
+                        d)
     with pytest.raises(ValueError, match="device"):
         sc.encode(x.to("meta"), off, delta_bits, eps_bits, c)
     with pytest.raises(ValueError, match="rows"):
         big = CSVec(d=100, c=10, r=17)
-        o, e, dl = big.tables("cpu")
-        sc.estimate_all(torch.zeros(17, 10), o, dl, e, 100)
+        e_bits, dl_bits = big.sign_bits("cpu")
+        sc.estimate_all(torch.zeros(17, 10), big.tables("cpu")[0], dl_bits,
+                        e_bits, 100)
     with pytest.raises(TypeError, match="Tensor"):
         sc.encode(np.zeros(d, np.float32), off, delta_bits, eps_bits, c)
     table = torch.zeros(sk.r, c)
@@ -139,7 +141,7 @@ def test_threshold_sample_plain_is_k2_at_the_sampled_positions():
         sk, x, off, eps, delta = _operands(geom, seed=2)
         eps_bits, delta_bits = sk.sign_bits("cpu")
         t = sk.encode(x)
-        est = sc.estimate_all(t, off, delta, eps, sk.d)
+        est = sc.estimate_all(t, off, delta_bits, eps_bits, sk.d)
         for stride in (1, 3, sk.c):
             ns = sk.c // stride
             got = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d,
@@ -194,6 +196,45 @@ def test_threshold_wrappers_check_the_sign_bits():
                             stride, ns)
 
 
+@pytest.mark.parametrize("geom", GEOMETRIES + THRESHOLD_GEOMETRIES,
+                         ids=["tail-odd", "exact-even", "single-chunk",
+                              "tail-even", "heavy-hitters", "dispatch",
+                              "stride-clamped"])
+def test_estimate_all_reads_sign_bits_on_cpu(geom):
+    # K2 takes eps and delta as the packed bits K1 and K3 take; a CPU
+    # tensor unpacks them for the float-table plain version: exact, the
+    # padded tail zeroed
+    sk, x, off, eps, delta = _operands(geom, seed=9)
+    eps_bits, delta_bits = sk.sign_bits("cpu")
+    t = sk.encode(x)
+    sc.reset_launches()
+    est = sc.estimate_all(t, off, delta_bits, eps_bits, sk.d)
+    assert est.shape == (sk.n_chunks, sk.c)
+    assert torch.equal(est, sc.estimate_all_plain(t, off, delta, eps, sk.d))
+    assert torch.equal(sk.estimate_all(t), est)
+    assert not est.reshape(-1)[sk.d:].any()
+    assert sc.LAUNCHES == {name: 0 for name in sc.LAUNCHES}
+    assert sk.sign_packs == 1
+
+
+def test_estimate_all_checks_the_sign_bits():
+    sk, x, off, eps, delta = _operands(GEOMETRIES[0], seed=10)
+    eps_bits, delta_bits = sk.sign_bits("cpu")
+    t = sk.encode(x)
+    with pytest.raises(TypeError, match="int32"):   # the tables, not bits
+        sc.estimate_all(t, off, delta, eps, sk.d)
+    with pytest.raises(ValueError, match="eps_bits"):
+        sc.estimate_all(t, off, delta_bits, eps_bits[:-1], sk.d)
+    with pytest.raises(ValueError, match="delta_bits"):
+        sc.estimate_all(t, off, delta_bits[:0], eps_bits, sk.d)
+    with pytest.raises(TypeError, match="delta_bits"):
+        sc.estimate_all(t, off, delta_bits.long(), eps_bits, sk.d)
+    with pytest.raises(TypeError, match="eps_bits"):
+        sc.estimate_all(t, off, delta_bits, eps_bits.float(), sk.d)
+    with pytest.raises(ValueError, match="device"):
+        sc.estimate_all(t, off, delta_bits, eps_bits.to("meta"), sk.d)
+
+
 def test_build_names_the_library_by_source_hash():
     # edited sources rebuild: the library name carries the source digest
     from commefficient_tpu_torch.ops.kernels import _build
@@ -213,7 +254,8 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, geom):
     before = dict(sc.LAUNCHES)
     t = sk.encode(x)
     assert torch.equal(t, sc.encode_plain(x, off, delta, eps, sk.c))
-    e = sc.estimate_all(t, off, delta, eps, sk.d)
+    eps_bits, delta_bits = sk.sign_bits(cuda_device)
+    e = sc.estimate_all(t, off, delta_bits, eps_bits, sk.d)
     assert torch.equal(e, sc.estimate_all_plain(t, off, delta, eps, sk.d))
     torch.cuda.synchronize()
     assert sc.LAUNCHES["sketch_encode"] == before["sketch_encode"] + 1
@@ -419,11 +461,14 @@ def test_flash_kernel_refuses_unaligned_rows(cuda_device):
 
 
 def _k3_card_check(sk, t, off, eps, delta, cuda_device, sampling=None):
-    """K3a and K3b on the card against their plain versions, exact, at
-    the three thresholds of `_k3_thresholds`; each launched once a call."""
+    """K2, K3a and K3b on the card against their plain versions, exact,
+    K3b at the three thresholds of `_k3_thresholds`; each launched once a
+    call, all from the one packing of the sketch's sign bits."""
     eps_bits, delta_bits = sk.sign_bits(cuda_device)
     stride, ns = sampling or sc.threshold_sample_geometry(sk.n_chunks, sk.c)
     before = dict(sc.LAUNCHES)
+    est = sc.estimate_all(t, off, delta_bits, eps_bits, sk.d)
+    assert _exact(est, sc.estimate_all_plain(t, off, delta, eps, sk.d))
     smp = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d, stride, ns)
     plain_smp = sc.threshold_sample_plain(t, off, delta, eps, sk.d, stride,
                                           ns)
@@ -436,9 +481,12 @@ def _k3_card_check(sk, t, off, eps, delta, cuda_device, sampling=None):
         got = sc.threshold_mask(t, off, delta_bits, eps_bits, thr, sk.d)
         assert _exact(got, plain(thr)), name
     torch.cuda.synchronize()
+    assert (sc.LAUNCHES["sketch_estimate_all"]
+            == before["sketch_estimate_all"] + 1)
     assert sc.LAUNCHES["threshold_sample"] == before["threshold_sample"] + 1
     assert (sc.LAUNCHES["threshold_mask"]
             == before["threshold_mask"] + len(thresholds))
+    assert sk.sign_packs == 1
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ from commefficient_tpu.training.cv_train import (
     make_compute_loss as j_make_compute_loss,
 )
 from commefficient_tpu_torch.config import Config as TConfig
+from commefficient_tpu_torch.federated import round as tround
 from commefficient_tpu_torch.federated import server as tserver
 from commefficient_tpu_torch.federated.api import (
     FedModel as TFedModel, FedOptimizer as TFedOptimizer,
@@ -26,6 +27,7 @@ from commefficient_tpu_torch.federated.api import (
 from commefficient_tpu_torch.federated.accounting import pack_change_bits
 from commefficient_tpu_torch.models import build_model
 from commefficient_tpu_torch.models.convert import from_jax_params
+from commefficient_tpu_torch.ops.sketch import CSVec
 from commefficient_tpu_torch.training.cv_train import (
     make_compute_loss as t_make_compute_loss,
 )
@@ -149,3 +151,14 @@ def test_fedmodel_rounds_match_jax(case):
                                    err_msg=f"round {i}")
     np.testing.assert_array_equal(t_bytes, j_bytes)
     assert t_bytes[1] > 0 and t_bytes[0] > 0
+
+
+def test_state_allocators_need_the_callers_device():
+    # the port runs on the card unless its caller asks for the CPU, so no
+    # internal allocator picks a device of its own
+    sk = CSVec(d=100, c=10, r=3)
+    with pytest.raises(TypeError, match="device"):
+        sk.zeros()
+    with pytest.raises(TypeError, match="device"):
+        tround.init_client_state(None, 2)
+    assert sk.zeros("cpu").shape == (3, 10)
