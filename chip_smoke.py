@@ -34,7 +34,8 @@ the result line:
                (plain kernel versions, TF32 off), beside a float64 CPU
                gradient: relative error <= 2e-3 card vs CPU, the card no
                less accurate than the CPU against float64, and >= 99% of
-               the top-k indices shared (PARITY_RTOL and its note).
+               the top-k indices shared (PARITY_RTOL and its note); and a
+               control run of the card with TF32, which they must refuse.
 6. kernels  — K1 and K3a/K3b (the threshold decode's sample and mask)
                against their plain versions at the GPT2 main-path
                geometry (d = 124,444,417), the three threshold
@@ -74,6 +75,27 @@ the result line:
                (GPT2_PARITY_RTOL, GPT2_ACCURACY_FLOOR), the selections
                sharing >= 99%; and a control run of the card with TF32
                matmuls, which those limits must refuse.
+9. fedavg   — BASELINE config #1 through cv_train.train(): ResNet9 FedAvg
+               (`--mode fedavg --local_batch_size -1 --fedavg_batch_size
+               16`), 8 clients x 4 local steps of 16 a round, FEDAVG_ROUNDS
+               rounds.
+10. ttopk   — `--mode true_topk --error_type virtual --virtual_momentum
+               0.9 --local_momentum 0.9 --k 50000` on ResNet9, TTOPK_ROUNDS
+               rounds; the last round's participants' velocity rows zero
+               at the coordinates sent.
+11. ltopk   — BASELINE config #3: ResNet18/CIFAR100, `--mode local_topk
+               --error_type local --local_momentum 0.9`, 100 non-IID
+               clients, 8 x 32 a round, LTOPK_ROUNDS rounds (CONFIG3's
+               note on its learning rate); nonzero error rows and the
+               realized nonzeros of the aggregate beside 8 k.
+12. lparity — one config #3 client step of 2 clients on the card and on
+               the CPU beside float64 (ltopk_parity), with a TF32 control.
+Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
+prints its ms/round, the host's batch ms, peak memory, the client-state
+bytes and one per-client masked_topk at its D timed on the card, and
+fails if a sketch or attention kernel launched. Every path's rounds
+(4, 7, 9-11) run beside a background nvidia-smi reading the SM clock and
+power draw every 200 ms, and the host's load average before and after.
 
 Before the last two lines comes {"kernels": [...]}, one entry per
 kernel and main path: K1 twice (sketch_encode at config #2's shapes,
@@ -83,9 +105,10 @@ and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 `--profile [DIR]` additionally traces three more rounds of each path
 with torch.profiler and writes the device time by kernel to
-DIR/profile_rounds.txt (config #2) and DIR/profile_gpt2_rounds.txt
-(config #5), chiprun_out/ beside the script by default, and prints
-K3b's mean device time a launch on the GPT2 rounds' own tables.
+DIR/profile_rounds.txt (config #2), DIR/profile_gpt2_rounds.txt
+(config #5) and DIR/profile_{fedavg,ttopk,ltopk}_rounds.txt,
+chiprun_out/ beside the script by default, and prints K3b's mean device
+time a launch on the GPT2 rounds' own tables.
 """
 from __future__ import annotations
 
@@ -98,6 +121,7 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import NamedTuple
 
 import torch
 
@@ -176,6 +200,36 @@ K4_BATCH, K4_HEADS, K4_DH = 16, 12, 64
 # (the control run of phase 8, which they must refuse).
 GPT2_PARITY_RTOL = 2e-5
 GPT2_ACCURACY_FLOOR = 1e-5
+
+# the remaining modes (phases 9-12), each on the synthetic CIFAR of
+# CLIENTS x EXAMPLES_PER_CLIENT at full width. Config #1: ResNet9
+# FedAvg, whole-client batches of 64 cut into 4 local steps of 16.
+CONFIG1 = ["--mode", "fedavg", "--error_type", "none",
+           "--local_momentum", "0", "--virtual_momentum", "0",
+           "--local_batch_size", "-1", "--num_workers", "8",
+           "--num_fedavg_epochs", "1", "--fedavg_batch_size", "16"]
+# true_topk with local momentum: per-client velocity rows, masked at
+# the coordinates the server sends
+TTOPK = ["--mode", "true_topk", "--error_type", "virtual",
+         "--virtual_momentum", "0.9", "--local_momentum", "0.9",
+         "--k", "50000", "--num_workers", "8", "--local_batch_size", "32"]
+# config #3: ResNet18 on CIFAR100, non-IID (one class a client),
+# per-client top-k with local error and velocity rows. Its learning
+# rate is cut to 0.04: on this synthetic one-class-a-client corpus the
+# round diverges to a NaN loss within 10 rounds at the driver's default
+# 0.4 and at 0.1, and the JAX package's round diverges the same way
+# (the same losses at a tiny width on the CPU), so the cut is of the
+# workload's step size, not of a fault
+CONFIG3 = ["--dataset_name", "CIFAR100", "--model", "ResNet18",
+           "--mode", "local_topk", "--error_type", "local",
+           "--local_momentum", "0.9", "--virtual_momentum", "0",
+           "--k", "50000", "--num_workers", "8", "--local_batch_size", "32",
+           "--lr_scale", "0.04"]
+CONFIG3_D = 5_252_388
+FEDAVG_ROUNDS, TTOPK_ROUNDS, LTOPK_ROUNDS = 5, 3, 10
+# counters of the kernels no path of these modes may launch
+SKETCH_AND_ATTENTION = ("sketch_encode", "sketch_estimate_all",
+                        "threshold_sample", "threshold_mask", "flash_fwd")
 
 
 def phase(name: str, msg: str) -> None:
@@ -391,11 +445,13 @@ def timed_row(row, max_abs_err):
 
 class TimedLoader:
     """The train loader with the host time spent producing each round's
-    batch recorded (sampling, fetch, augmentation, stacking)."""
+    batch recorded (sampling, fetch, augmentation, stacking), and the
+    client ids of the last round drawn."""
 
     def __init__(self, inner):
         self.inner = inner
         self.seconds = []
+        self.last_ids = None
 
     @property
     def steps_per_epoch(self):
@@ -410,7 +466,54 @@ class TimedLoader:
             except StopIteration:
                 return
             self.seconds.append(time.perf_counter() - t)
+            self.last_ids = item[0]
             yield item
+
+
+class CardSampler:
+    """SM clock and power draw read by one background `nvidia-smi -lms
+    200` while a path's rounds run, and the host's load average
+    (os.getloadavg) before and after. A context manager: the process is
+    stopped on the way out, whatever happened inside."""
+
+    def __enter__(self):
+        self.load = [os.getloadavg()]
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.load.append(os.getloadavg())
+        self.clocks, self.power = [], []
+        for line in out.splitlines():
+            try:
+                clock, power = (float(v) for v in line.split(","))
+            except ValueError:
+                continue
+            self.clocks.append(clock)
+            self.power.append(power)
+        return False
+
+    def summary(self) -> str:
+        if not self.clocks:
+            samples = "SM clock and power: not measured (no nvidia-smi samples)"
+        else:
+            samples = (f"SM clock median {statistics.median(self.clocks):.0f} "
+                       f"min {min(self.clocks):.0f} MHz, power draw median "
+                       f"{statistics.median(self.power):.2f} min "
+                       f"{min(self.power):.2f} W ({len(self.clocks)} samples "
+                       "at 200 ms)")
+        return (samples + "; host load average (1/5/15 min) before "
+                + "/".join(f"{v:.2f}" for v in self.load[0]) + ", after "
+                + "/".join(f"{v:.2f}" for v in self.load[1]))
 
 
 def reset_counts(sc, ac) -> None:
@@ -420,6 +523,60 @@ def reset_counts(sc, ac) -> None:
 
 def read_counts(sc, ac) -> dict:
     return {**sc.LAUNCHES, **ac.LAUNCHES}
+
+
+class RoundsRun(NamedTuple):
+    round_ms: list          # host ms of each round, ended by a synchronize
+    losses: torch.Tensor    # [rounds, W] per-client losses, on the host
+    launches: dict          # every kernel's launches over the rounds
+    peak: int               # max_memory_allocated over the rounds
+    timed: TimedLoader
+    card: CardSampler
+
+
+def drive_rounds(label, sc, ac, model, loader, rounds, run) -> RoundsRun:
+    """A main path's timed rounds: `run(timed_loader, on_round)` calls
+    the driver's train loop over `loader`, each round ended by a
+    synchronize. Every launch counter is set to 0 just before and read
+    just after; the card is sampled beside the rounds. Fails unless the
+    driver ran `rounds` rounds with finite losses and moved the
+    weights; prints the ms/round line and the samples."""
+    w0 = model.ps_weights.clone()
+    stamps, losses = [], []
+
+    def on_round(i, out):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(out[0])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = TimedLoader(loader)
+    reset_counts(sc, ac)
+    t0 = time.perf_counter()
+    with CardSampler() as card:
+        ok = run(timed, on_round)
+        torch.cuda.synchronize()
+    launches = read_counts(sc, ac)
+    peak = torch.cuda.max_memory_allocated()
+    if not ok:
+        raise AssertionError("the driver reported a NaN/divergent loss")
+    if len(stamps) != rounds:
+        raise AssertionError(f"{len(stamps)} rounds ran, {rounds} expected")
+    loss_vals = torch.stack(losses).cpu()
+    if not torch.isfinite(loss_vals).all():
+        raise AssertionError(f"non-finite losses: {loss_vals}")
+    if torch.equal(model.ps_weights, w0):
+        raise AssertionError("the weights did not move")
+    round_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+    phase(label, "ms/round " + " ".join(f"{t:.2f}" for t in round_ms)
+          + f"; median (rounds 2-{rounds}) "
+          f"{statistics.median(round_ms[1:]):.2f}, of which the host makes "
+          "the batch (data) "
+          f"{1e3 * statistics.median(timed.seconds[1:rounds]):.2f}; peak "
+          f"memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated)")
+    phase(label, card.summary())
+    return RoundsRun(round_ms, loss_vals, launches, peak, timed, card)
 
 
 def main_path(sc, ac, cv_train, parse_args, data_dir):
@@ -436,52 +593,20 @@ def main_path(sc, ac, cv_train, parse_args, data_dir):
         cfg, device="cuda", synthetic_examples=(n_train, 512))
     assert model.cfg.grad_size == MAIN_D, model.cfg.grad_size
     assert train_loader.steps_per_epoch == spe
-    w0 = model.ps_weights.clone()
-    stamps, losses = [], []
-
-    def on_round(i, out):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        losses.append(out[0])
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(sc, ac)
-    t0 = time.perf_counter()
-    timed = TimedLoader(train_loader)
-    ok = cv_train.train(model, opt, sched, timed, val_loader,
-                        model.cfg, on_round=on_round)
-    torch.cuda.synchronize()
-    launches = read_counts(sc, ac)
-    peak = torch.cuda.max_memory_allocated()
-    if not ok:
-        raise AssertionError("train() reported a NaN/divergent loss")
-    if len(stamps) != ROUNDS:
-        raise AssertionError(f"{len(stamps)} rounds ran, {ROUNDS} expected")
-    loss_vals = torch.stack(losses).cpu()
-    if not torch.isfinite(loss_vals).all():
-        raise AssertionError(f"non-finite losses: {loss_vals}")
-    if torch.equal(model.ps_weights, w0):
-        raise AssertionError("the weights did not move")
+    rr = drive_rounds("main", sc, ac, model, train_loader, ROUNDS,
+                      lambda timed, on_round: cv_train.train(
+                          model, opt, sched, timed, val_loader, model.cfg,
+                          on_round=on_round))
     for name in ("sketch_encode", "sketch_estimate_all"):
-        if launches[name] != ROUNDS:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {ROUNDS} rounds (one a round "
+        if rr.launches[name] != ROUNDS:
+            raise AssertionError(f"{name} launched {rr.launches[name]} "
+                                 f"times in {ROUNDS} rounds (one a round "
                                  "expected)")
-    round_ms = [1e3 * (b - a) for a, b in
-                zip([t0] + stamps[:-1], stamps)]
     phase("main", f"{ROUNDS} rounds, D={MAIN_D}, mean client loss "
-          f"first/last {float(loss_vals[0].mean()):.4f}/"
-          f"{float(loss_vals[-1].mean()):.4f}, launches {launches}")
-    phase("main", "ms/round " + " ".join(f"{t:.2f}" for t in round_ms)
-          + f"; median (rounds 2-{ROUNDS}) "
-          f"{statistics.median(round_ms[1:]):.2f}, of which the host "
-          f"makes the batch (data) "
-          f"{1e3 * statistics.median(timed.seconds[1:ROUNDS]):.2f}; peak "
-          "memory "
-          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated)")
+          f"first/last {float(rr.losses[0].mean()):.4f}/"
+          f"{float(rr.losses[-1].mean()):.4f}, launches {rr.launches}")
     batch = next(iter(train_loader.epoch()))
-    return model, round_ms, peak, launches, batch
+    return model, rr.round_ms, rr.peak, rr.launches, batch
 
 
 def _rel(a, b) -> float:
@@ -795,34 +920,11 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
     assert train_loader.dataset.seq_len == GPT2_L
     assert train_loader.steps_per_epoch == spe
     assert model.cfg.fused_client_backward
-    w0 = model.ps_weights.clone()
-    stamps, losses = [], []
-
-    def on_round(i, out):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        losses.append(out[0])
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    timed = TimedLoader(train_loader)
-    reset_counts(sc, ac)
-    t0 = time.perf_counter()
-    ok = gpt2_train.train_gpt2(model, opt, sched, timed, model.cfg,
-                               on_round=on_round)
-    torch.cuda.synchronize()
-    launches = read_counts(sc, ac)
-    peak = torch.cuda.max_memory_allocated()
-    if not ok:
-        raise AssertionError("train_gpt2() reported a NaN/divergent loss")
-    if len(stamps) != GPT2_ROUNDS:
-        raise AssertionError(f"{len(stamps)} rounds ran, {GPT2_ROUNDS} "
-                             "expected")
-    loss_vals = torch.stack(losses).cpu()
-    if not torch.isfinite(loss_vals).all():
-        raise AssertionError(f"non-finite losses: {loss_vals}")
-    if torch.equal(model.ps_weights, w0):
-        raise AssertionError("the weights did not move")
+    rr = drive_rounds("gpt2", sc, ac, model, train_loader, GPT2_ROUNDS,
+                      lambda timed, on_round: gpt2_train.train_gpt2(
+                          model, opt, sched, timed, model.cfg,
+                          on_round=on_round))
+    launches = rr.launches
     want = {"threshold_sample": GPT2_ROUNDS, "threshold_mask": GPT2_ROUNDS,
             "sketch_encode": 2 * GPT2_ROUNDS, "sketch_estimate_all": 0,
             "flash_fwd": 12 * 8 * GPT2_ROUNDS}
@@ -830,16 +932,9 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {GPT2_ROUNDS} rounds ({n} expected)")
-    round_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
     phase("gpt2", f"{GPT2_ROUNDS} rounds, D={GPT2_D}, L={GPT2_L}, mean "
-          f"client loss first/last {float(loss_vals[0].mean()):.4f}/"
-          f"{float(loss_vals[-1].mean()):.4f}, launches {launches}")
-    phase("gpt2", "ms/round " + " ".join(f"{t:.2f}" for t in round_ms)
-          + f"; median (rounds 2-{GPT2_ROUNDS}) "
-          f"{statistics.median(round_ms[1:]):.2f}, of which the host "
-          f"makes the batch (data) "
-          f"{1e3 * statistics.median(timed.seconds[1:GPT2_ROUNDS]):.2f}; "
-          f"peak memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated)")
+          f"client loss first/last {float(rr.losses[0].mean()):.4f}/"
+          f"{float(rr.losses[-1].mean()):.4f}, launches {launches}")
     reset_counts(sc, ac)
     t0 = time.perf_counter()
     stats = gpt2_train.test_gpt2(model, val_loader)
@@ -858,9 +953,9 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
                        "gpt2 profile", per_launch=("threshold_mask_kernel",))
     batch = next(iter(train_loader.epoch()))
     cfg = model.cfg
-    del model, opt, sched, w0
+    del model, opt, sched
     torch.cuda.empty_cache()
-    return launches, round_ms, peak, batch, cfg
+    return launches, rr.round_ms, rr.peak, batch, cfg
 
 
 def profile_rounds(model, train_loader, opt, path, label="profile",
@@ -909,14 +1004,195 @@ def profile_rounds(model, train_loader, opt, path, label="profile",
               f"{us / 1e3 / n:.4f} ms a launch (device time, mean of {n})")
 
 
+def mode_path(label, sc, ac, cv_train, flat, parse_args, flags, rounds,
+              spe, want_d, data_dir):
+    """Drive cv_train.train() for `rounds` rounds of one of the remaining
+    modes at full width, with the SM clock, power and host load sampled
+    beside them; no sketch or attention kernel may launch. Returns (the
+    model, the timed loader, the train loader)."""
+    n_train = CLIENTS * EXAMPLES_PER_CLIENT
+    cfg = parse_args(argv=flags + [
+        "--num_clients", str(CLIENTS), "--device", "cuda",
+        "--dataset_dir", data_dir, "--num_epochs", str(rounds / spe),
+        "--pivot_epoch", str(rounds / spe / 2), "--seed", "21"])
+    model, opt, sched, train_loader, val_loader = cv_train.build(
+        cfg, device="cuda", synthetic_examples=(n_train, 512))
+    assert model.cfg.grad_size == want_d, model.cfg.grad_size
+    assert train_loader.steps_per_epoch == spe, train_loader.steps_per_epoch
+    rr = drive_rounds(label, sc, ac, model, train_loader, rounds,
+                      lambda timed, on_round: cv_train.train(
+                          model, opt, sched, timed, val_loader, model.cfg,
+                          on_round=on_round))
+    launched = {n: rr.launches[n] for n in SKETCH_AND_ATTENTION
+                if rr.launches[n]}
+    if launched:
+        raise AssertionError(f"sketch/attention kernels launched on the "
+                             f"{label} path: {launched}")
+    state = sum(t.numel() * t.element_size() for t in model.clients)
+    phase(label, f"{rounds} rounds, {model.cfg.model}, D={want_d}, mean "
+          "client loss by round " + " ".join(
+              f"{float(v):.4f}" for v in rr.losses.mean(dim=1))
+          + f", launches {rr.launches}; client state {state / 1e9:.3f} GB "
+          f"({state} bytes: errors {tuple(model.clients.errors.shape)}, "
+          f"velocities {tuple(model.clients.velocities.shape)}, weights "
+          f"{tuple(model.clients.weights.shape)}, f32)")
+    x = torch.randn(want_d, generator=torch.Generator().manual_seed(4)
+                    ).to("cuda")
+    k = model.cfg.k
+    topk_ms = time_cuda(lambda: flat.masked_topk(x, k), 20)
+    kept = int((flat.masked_topk(x, k) != 0).sum())
+    phase(label, f"one per-client masked_topk at d={want_d}, k={k} (the "
+          f"sampled-threshold route above {flat.TOPK_THRESHOLD_MIN_D}): "
+          f"{topk_ms:.4f} ms (device time, median of 20, L2 flushed), kept "
+          f"{kept}")
+    return model, rr.timed, train_loader
+
+
+def ttopk_checks(model, timed) -> None:
+    """true_topk with local momentum: the last round's participants'
+    velocity rows are zero wherever the server sent (its virtual error
+    is zero there after the round) and nonzero elsewhere."""
+    ids = torch.as_tensor(timed.last_ids, dtype=torch.long, device="cuda")
+    vel = model.clients.velocities[ids]
+    sent = model.server.Verror == 0
+    n_sent = int(sent.sum())
+    if not n_sent >= 0.9 * model.cfg.k:
+        raise AssertionError(f"only {n_sent} coordinates sent (k = "
+                             f"{model.cfg.k})")
+    at_sent = int((vel[:, sent] != 0).sum())
+    elsewhere = int((vel[:, ~sent] != 0).sum())
+    phase("ttopk", f"last round: {n_sent} coordinates sent; nonzero "
+          f"velocity entries of its {ids.numel()} participants at them "
+          f"{at_sent}, elsewhere {elsewhere}")
+    if at_sent or not elsewhere:
+        raise AssertionError("the velocity rows are not masked at exactly "
+                             "the coordinates sent")
+
+
+def ltopk_checks(model, timed) -> None:
+    """local_topk: the last round's participants carry nonzero error
+    rows; the realized nonzeros of the aggregate beside 8 k."""
+    ids = torch.as_tensor(timed.last_ids, dtype=torch.long, device="cuda")
+    nz = (model.clients.errors[ids] != 0).sum(dim=1).tolist()
+    acct = model.accountant
+    k, W = model.cfg.k, model.cfg.num_workers
+    phase("ltopk", f"nonzero error entries of the last round's participants "
+          f"{nz}; realized nonzeros of the last aggregate update "
+          f"{acct.realized_nonzeros}, max over the rounds "
+          f"{acct.max_realized_nonzeros} (the {W} uploads' union is at "
+          f"most {W} x k = {W * k} but for threshold ties and sampling "
+          "noise)")
+    if min(nz) == 0:
+        raise AssertionError("a participant's error row is all zero")
+    if acct.realized_nonzeros is None or acct.max_realized_nonzeros == 0:
+        raise AssertionError("no realized nonzeros recorded")
+
+
+def ltopk_parity(model, timed, batch, cv_train, models, convert, fclient,
+                 flat) -> None:
+    """One config #3 client step (local_step: forward, backward, local
+    momentum and error, the per-client top-k) for 2 clients x 32 of a
+    main-path batch, from the path's initial weights (its round 1) and
+    the last round's participants' error and velocity rows, on the card
+    and on the CPU (TF32 off), beside a float64 CPU run. The gradients
+    must agree within PARITY_RTOL and the card be no less accurate than
+    the CPU against float64 (parity_phase's limits); the selected
+    supports must share TOPK_OVERLAP; the transmit and the new error and
+    velocity rows must agree within PARITY_RTOL on the coordinates both
+    runs selected alike (a coordinate near the threshold may be sent by
+    one run and kept by the other, which moves a threshold-sized value
+    between the transmit and the error row). A TF32 control run of the
+    card must be refused. The initial weights, not the trained ones:
+    after the path's loss spikes the float32 gradient of ResNet18 sits
+    about as far from float64 as the limit itself, on either device."""
+    cfg = model.cfg
+    w, _ = flat.flatten_params(models.build_model(
+        cfg.model, num_classes=100, seed=cfg.seed))
+    ids = torch.as_tensor(timed.last_ids[:2], dtype=torch.long,
+                          device=model.ps_weights.device)
+    err = model.clients.errors[ids].cpu()
+    vel = model.clients.velocities[ids].cpu()
+    data, mask = tuple(a[:2] for a in batch[1]), batch[2][:2]
+    runs = [("cuda", torch.float32, False), ("cpu", torch.float32, False),
+            ("cpu", torch.float64, False), ("cuda", torch.float32, True)]
+    tf32_flags = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
+    out = {}
+    for dev, dtype, tf32 in runs:
+        module = models.build_model("ResNet18", num_classes=100)
+        convert.load_flat(module, w)
+        module = module.to(dev, dtype)
+        _, unravel = flat.flatten_params(module)
+        base = fclient.make_flat_grad_fn(cv_train.make_compute_loss(module),
+                                         unravel)
+        grads = []
+
+        def grad_fn(wv, b, m):
+            res = base(wv, b, m)
+            grads.append(res[2])
+            return res
+
+        xs = tuple(t.to(dtype) if t.is_floating_point() else t
+                   for t in (torch.from_numpy(a).to(dev) for a in data))
+        m = torch.from_numpy(mask).to(dev, dtype)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            res = [fclient.local_step(
+                grad_fn, w.to(dev, dtype), tuple(x[c] for x in xs), m[c],
+                err[c].to(dev, dtype), vel[c].to(dev, dtype), cfg)
+                for c in range(2)]
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32_flags
+        key = "f64" if dtype == torch.float64 else "tf32" if tf32 else dev
+        out[key] = ([g.cpu() for g in grads],
+                    [(r.transmit.cpu(), r.error.cpu(), r.velocity.cpu())
+                     for r in res])
+        del module, grads, res
+    worst = dict(grad=0.0, rows=0.0, ratio=0.0, overlap=1.0)
+    for c in range(2):
+        gc, gp, g64 = (out[k][0][c] for k in ("cuda", "cpu", "f64"))
+        g_err, card64, cpu64 = _rel(gc, gp), _rel(gc, g64), _rel(gp, g64)
+        limit = ACCURACY_RATIO * max(cpu64, ACCURACY_FLOOR)
+        (tc, ec, vc), (tp, ep, vp) = out["cuda"][1][c], out["cpu"][1][c]
+        sel_c, sel_p = tc != 0, tp != 0
+        overlap = int((sel_c & sel_p).sum()) / max(int(sel_p.sum()), 1)
+        alike = sel_c == sel_p
+        rows = {name: _rel(a[alike], b[alike]) for name, a, b in
+                (("transmit", tc, tp), ("error", ec, ep),
+                 ("velocity", vc, vp))}
+        phase("lparity", f"client {c}: grad rel err card vs CPU {g_err:.3e} "
+              f"(tolerance {PARITY_RTOL:g}); vs float64: card {card64:.3e}, "
+              f"CPU {cpu64:.3e} (card <= {limit:.3e}); selected card "
+              f"{int(sel_c.sum())}, CPU {int(sel_p.sum())}, overlap "
+              f"{overlap:.5f} (>= {TOPK_OVERLAP:g}); on the "
+              f"{int(alike.sum())} coordinates selected alike: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in rows.items()))
+        if not (g_err <= PARITY_RTOL and card64 <= limit
+                and overlap >= TOPK_OVERLAP
+                and max(rows.values()) <= PARITY_RTOL):
+            raise AssertionError("card and CPU disagree beyond tolerance")
+        tg = out["tf32"][0][c]
+        tf_err, tf64 = _rel(tg, gp), _rel(tg, g64)
+        phase("lparity", f"client {c}, control, the card with TF32: grad rel "
+              f"err vs CPU {tf_err:.3e}, vs float64 {tf64:.3e} (must exceed "
+              f"{PARITY_RTOL:g} or {limit:.3e})")
+        if tf_err <= PARITY_RTOL and tf64 <= limit:
+            raise AssertionError("the limits pass a TF32 round: they cannot "
+                                 "tell TF32 from float32")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
                     const=os.path.join(HERE, "chiprun_out"),
                     help="trace three more rounds of each path with "
-                         "torch.profiler and write profile_rounds.txt and "
-                         "profile_gpt2_rounds.txt into DIR (default "
-                         "chiprun_out/ beside this script)")
+                         "torch.profiler and write profile_rounds.txt, "
+                         "profile_gpt2_rounds.txt and profile_<path>_"
+                         "rounds.txt of the fedavg, ttopk and ltopk paths "
+                         "into DIR (default chiprun_out/ beside this "
+                         "script)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -938,6 +1214,7 @@ def main(argv=None) -> int:
     from commefficient_tpu_torch.ops.sketch import CSVec
     from commefficient_tpu_torch.training import cv_train, gpt2_train
 
+    t_start = time.perf_counter()
     resolve_device("cuda")
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -966,7 +1243,7 @@ def main(argv=None) -> int:
 
     parity_phase("parity", build_resnet9, w, batch[1], batch[2], model.cfg,
                  cv_train.make_compute_loss, PARITY_RTOL, ACCURACY_FLOOR,
-                 fclient, fserver, flat)
+                 fclient, fserver, flat, tf32_control=True)
     if args.profile:
         profile_rounds(model, cv_train.get_data_loaders(
             model.cfg, (CLIENTS * EXAMPLES_PER_CLIENT, 512))[0],
@@ -996,6 +1273,32 @@ def main(argv=None) -> int:
                  lambda m: gpt2_train.make_compute_loss_train(m, g_cfg),
                  GPT2_PARITY_RTOL, GPT2_ACCURACY_FLOOR, fclient, fserver,
                  flat, tf32_control=True)
+
+    # the remaining modes at full width (phases 9-12)
+    cifar_dir = os.path.join(HERE, "build", "chip_smoke_data")
+    spe = math.ceil(CLIENTS * EXAMPLES_PER_CLIENT / (8 * 32))
+    for label, flags, rounds, path_spe, d, data_dir in (
+            ("fedavg", CONFIG1, FEDAVG_ROUNDS, CLIENTS // 8, MAIN_D,
+             cifar_dir),
+            ("ttopk", TTOPK, TTOPK_ROUNDS, spe, MAIN_D, cifar_dir),
+            ("ltopk", CONFIG3, LTOPK_ROUNDS, spe, CONFIG3_D,
+             os.path.join(HERE, "build", "chip_smoke_cifar100_data"))):
+        model, timed, loader = mode_path(
+            label, sc, ac, cv_train, flat, parse_args, flags, rounds,
+            path_spe, d, data_dir)
+        if label == "ttopk":
+            ttopk_checks(model, timed)
+        if label == "ltopk":
+            ltopk_checks(model, timed)
+            ltopk_parity(model, timed, next(iter(loader.epoch())), cv_train,
+                         models, convert, fclient, flat)
+        if args.profile:
+            profile_rounds(model, loader, model._optimizer,
+                           os.path.join(args.profile,
+                                        f"profile_{label}_rounds.txt"),
+                           f"{label} profile")
+        del model, timed, loader
+        torch.cuda.empty_cache()
     # launches: each entry's count from its own main path's run
     for k in kernels:
         k["launches"] = launches[k.pop("counter")]
@@ -1003,6 +1306,8 @@ def main(argv=None) -> int:
         k["launches"] = g_launches[k.pop("counter")]
     kernels += g_kernels
 
+    phase("wall", f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+          "from the device check to here")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """compress/: the port's Compressor plugin registry, one plugin per
-ported Config.mode (sketch, uncompressed)."""
+ported Config.mode (sketch, true_topk, local_topk, fedavg,
+uncompressed)."""
 from __future__ import annotations
 
 from typing import Dict
 
 from commefficient_tpu_torch.compress.base import Compressor
 from commefficient_tpu_torch.compress.modes import (
-    SketchCompressor, UncompressedCompressor,
+    FedavgCompressor, LocalTopkCompressor, SketchCompressor,
+    TrueTopkCompressor, UncompressedCompressor,
 )
 
 _REGISTRY: Dict[str, Compressor] = {}
@@ -29,7 +31,9 @@ def get_compressor(mode: str) -> Compressor:
                        f"registered: {sorted(_REGISTRY)}") from None
 
 
-for _comp in (SketchCompressor(), UncompressedCompressor()):
+for _comp in (SketchCompressor(), TrueTopkCompressor(),
+              LocalTopkCompressor(), FedavgCompressor(),
+              UncompressedCompressor()):
     register(_comp)
 del _comp
 

@@ -27,7 +27,8 @@ from typing import Optional, Tuple
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed",
          "powersgd", "dp_sketch")
 # the modes whose client, round and server paths are ported
-PORTED_MODES = ("sketch", "uncompressed")
+PORTED_MODES = ("sketch", "true_topk", "local_topk", "fedavg",
+                "uncompressed")
 ERROR_TYPES = ("none", "local", "virtual")
 DP_MODES = ("worker", "server")
 SCREEN_MODES = ("off", "finite", "norm")
@@ -49,7 +50,8 @@ DEFAULT_NUM_CLIENTS = {
 }
 
 # ROADMAP.md Queue 1 items that still hold each unported path
-Q_MODES = "Queue 1 item 6 (remaining modes and per-client state)"
+Q_OPTIONS = "Queue 1 item 6b (the per-round options of the modes)"
+Q_JOURNAL = "Queue 1 item 6c (checkpoint/resume and the journal)"
 Q_MODELS = "Queue 1 item 8 (other models and datasets)"
 Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
 Q_GPT2 = ("Queue 1 item 7 (what the GPT2 path leaves: pretrained "
@@ -372,23 +374,17 @@ class Config:
                 f"(ROADMAP.md {where})")
 
         if self.mode not in PORTED_MODES:
-            refuse(f"--mode {self.mode}",
-                   Q_SCALE if self.mode in ("powersgd", "dp_sketch")
-                   else Q_MODES)
-        if self.local_momentum != 0:
-            refuse("--local_momentum > 0 (per-client velocity rows)",
-                   Q_MODES)
-        if self.do_topk_down:
-            refuse("--topk_down", Q_MODES)
+            # powersgd and dp_sketch, the plugins of item 9
+            refuse(f"--mode {self.mode}", Q_SCALE)
         if self.do_dp:
-            refuse("--dp", Q_MODES)
+            refuse("--dp", Q_OPTIONS)
         if self.max_grad_norm is not None:
-            refuse("--max_grad_norm", Q_MODES)
+            refuse("--max_grad_norm", Q_OPTIONS)
         if self.do_bf16:
-            refuse("--bf16", Q_MODES)
+            refuse("--bf16", Q_OPTIONS)
         if self.sketch_table_dtype != "f32":
             refuse(f"--sketch_table_dtype {self.sketch_table_dtype}",
-                   Q_MODES)
+                   Q_OPTIONS)
         for flag, on in (("--checkpoint", self.do_checkpoint),
                          ("--checkpoint_every", self.checkpoint_every > 0),
                          ("--resume", self.resume),
@@ -400,8 +396,11 @@ class Config:
                           self.debug_transfer_guard),
                          ("--tensorboard", self.use_tensorboard)):
             if on:
-                refuse(flag, Q_MODES)
-        if self.model != "ResNet9":
+                refuse(flag, Q_JOURNAL)
+        # lazy: the model registry imports torch modules that import
+        # this one
+        from commefficient_tpu_torch.models import model_names
+        if self.model not in model_names():
             refuse(f"--model {self.model}", Q_MODELS)
         for flag, on in (("--finetune", self.do_finetune),
                          ("--remat", self.do_remat),

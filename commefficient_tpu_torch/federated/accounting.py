@@ -9,6 +9,11 @@ with the reference's cheap path (one updated-since-init bitset when
 num_epochs <= 1 and whole-dataset batches) and its bounded-staleness
 clamp (a deque of 10 / participation-rate change sets).
 
+For local_topk the accountant also keeps the realized nonzero count of
+the previous round's aggregate update (`realized_nonzeros`, and its
+running maximum) beside the analytic per-client k: the sampled
+threshold selection can keep more than k on ties.
+
 The device packs each round's change mask into D/32 uint32 words
 (`pack_change_bits`) so only those words come to the host; the host
 half (CommAccountant) is the JAX package's numpy code.
@@ -76,6 +81,10 @@ class CommAccountant:
         self.n_words = -(-cfg.grad_size // 32)
         self.upload_floats = cfg.upload_floats
         self.upload_bytes = float(cfg.upload_bytes)
+        # local_topk: popcount of the previous round's change bitset,
+        # to compare with (uploaders x k)
+        self.realized_nonzeros: Optional[int] = None
+        self.max_realized_nonzeros = 0
         self.cheap = (cfg.num_epochs <= 1 and cfg.local_batch_size == -1)
         if self.cheap:
             self.updated_since_init = np.zeros(self.n_words, np.uint32)
@@ -128,4 +137,9 @@ class CommAccountant:
                 self._last_reset[int(c)] = self.rounds_seen
             self.rounds_seen += 1
         upload = np.full(W, self.upload_bytes)
+        if self.cfg.mode == "local_topk" and prev_changed_words is not None:
+            self.realized_nonzeros = _popcount(
+                np.asarray(prev_changed_words))
+            self.max_realized_nonzeros = max(self.max_realized_nonzeros,
+                                             self.realized_nonzeros)
         return download, upload

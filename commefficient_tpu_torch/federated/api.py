@@ -42,11 +42,14 @@ def _as_tensor(x, device) -> torch.Tensor:
 class FedModel:
     def __init__(self, module: torch.nn.Module, loss_train, cfg: Config,
                  loss_val=None, device="cuda",
-                 num_clients: Optional[int] = None):
+                 num_clients: Optional[int] = None,
+                 lr_scale_vec: Optional[np.ndarray] = None):
         """module: the torch model (its flat vector is laid out as the
         JAX package's, ops/flat.py). loss_*: loss_fn(params, batch_tuple,
         mask) -> (loss, metrics), with `params` the {name: tensor} dict
-        for torch.func.functional_call."""
+        for torch.func.functional_call. lr_scale_vec: an optional [D]
+        per-parameter learning-rate scale (the Fixup nets' parameter
+        groups); the round then takes lr x that vector, in every mode."""
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.training = True
@@ -61,8 +64,12 @@ class FedModel:
             self.unravel, cfg)
         self.server = fround.init_server_state(cfg, vec)
         self.clients = fround.init_client_state(cfg, self.num_clients,
-                                                self.device)
+                                                self.device, vec)
         self.accountant = CommAccountant(cfg, self.num_clients)
+        self.lr_scale_vec = (None if lr_scale_vec is None
+                             else _as_tensor(np.asarray(lr_scale_vec,
+                                                        np.float32),
+                                             self.device))
         # the previous round's packed change bits, still on the device
         self._prev_change_bits: Optional[torch.Tensor] = None
         self._optimizer: Optional["FedOptimizer"] = None
@@ -82,10 +89,15 @@ class FedModel:
     def ps_weights(self) -> torch.Tensor:
         return self.server.ps_weights
 
-    def _lr(self) -> float:
+    def _lr(self):
+        """The scheduler's learning rate: a float, or a [D] tensor with
+        a per-parameter scale vector."""
         if self._optimizer is None:
             raise RuntimeError("attach a FedOptimizer before training")
-        return float(self._optimizer.param_groups[0]["lr"])
+        lr = float(self._optimizer.param_groups[0]["lr"])
+        if self.lr_scale_vec is not None:
+            return lr * self.lr_scale_vec
+        return lr
 
     def _call_train(self, batch):
         """batch = (client_ids [W], data tuple of [W, B, ...],

@@ -175,3 +175,41 @@ def local_step(flat_grad_fn, weights, batch, mask, error, velocity,
     to_transmit, error, velocity = cfg.compressor.residual(
         cfg, to_transmit, error, velocity)
     return ClientResult(to_transmit, error, velocity, loss, metrics, count)
+
+
+def fedavg_step(flat_grad_fn, weights, batch, mask, cfg: Config,
+                lr) -> ClientResult:
+    """FedAvg: full local SGD over the client's whole padded dataset,
+    transmitting the dataset-size-weighted weight delta (reference
+    worker_loop fedavg branch, fed_worker.py:61-113).
+
+    The dataset is cut into fedavg_batch_size batches and run through
+    num_fedavg_epochs times, step s at lr * fedavg_lr_decay**s. Every
+    step runs, an all-padding batch included: its gradient is the
+    weight-decay term alone and its zero loss counts in the step mean,
+    as in the JAX scan."""
+    B = mask.shape[0]
+    inner = (B if cfg.fedavg_batch_size == -1
+             else min(cfg.fedavg_batch_size, B))
+    n_batches = -(-B // inner)
+    batches = _microbatches(batch, mask, n_batches, inner)
+    w = weights
+    losses, metrics_seq = [], []
+    step = 0
+    for _ in range(cfg.num_fedavg_epochs):
+        for b, m in batches:
+            loss, metrics, grad = flat_grad_fn(w, b, m)
+            if cfg.weight_decay != 0:
+                grad = grad + (cfg.weight_decay / cfg.num_workers) * w
+            w = w - grad * lr * cfg.fedavg_lr_decay ** step
+            losses.append(loss)
+            metrics_seq.append(metrics)
+            step += 1
+    # loss and metrics averaged over the local steps (reference
+    # fed_worker.py:102-103)
+    loss = torch.stack(losses).mean()
+    metrics = tuple(torch.stack(m).mean() for m in zip(*metrics_seq))
+    count = mask.sum()
+    delta = (weights - w) * count
+    dummy = weights.new_zeros(())
+    return ClientResult(delta, dummy, dummy, loss, metrics, count)

@@ -3,10 +3,13 @@ commefficient_tpu/federated/round.py, single process, mask-free.
 
 One round: the cohort's clients compute on the server weights (one
 fused backward over all of them when Config.fused_client_backward
-holds, else one local_step each), their transmits are summed, the sum
-is sketched ONCE in sketch mode (kernel K1 on the card), divided by the
-cohort's example total, and handed to the server step
-(federated/server.py), whose update is applied to the weights.
+holds, else one local_step each, or fedavg_step's local SGD), their
+transmits are summed, the sum is sketched ONCE in sketch mode (kernel
+K1 on the card), divided by the cohort's example total, and handed to
+the server step (federated/server.py), whose update is applied to the
+weights. The participants' per-client rows (local error, local
+velocity, the stale weights of --topk_down) are gathered before the
+round and scattered back after it.
 
 What the JAX engine runs as one jitted SPMD program over a `clients`
 mesh axis runs here as eager PyTorch on one device: the `lax.psum`
@@ -17,13 +20,14 @@ would need them.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.federated import client as fclient
 from commefficient_tpu_torch.federated import server as fserver
+from commefficient_tpu_torch.ops.flat import masked_topk
 
 
 class ServerState(NamedTuple):
@@ -35,9 +39,9 @@ class ServerState(NamedTuple):
 
 
 class ClientState(NamedTuple):
-    """Per-client persistent rows, [num_clients, D] per tracked block or
-    a [0] placeholder. The ported modes track none (local momentum,
-    local error and topk_down are ROADMAP.md Queue 1 item 6)."""
+    """Per-client persistent rows, [num_clients, D] per tracked block
+    (local error, local velocity, --topk_down's stale weights) or a [0]
+    placeholder."""
     errors: torch.Tensor
     velocities: torch.Tensor
     weights: torch.Tensor
@@ -83,10 +87,12 @@ def _has_velocities(cfg: Config) -> bool:
     return cfg.compressor.has_velocities(cfg)
 
 
-def init_client_state(cfg: Config, num_clients: int,
-                      device) -> ClientState:
-    """Per-client rows for the blocks the config tracks; [0]
-    placeholders otherwise."""
+def init_client_state(cfg: Config, num_clients: int, device,
+                      ps_weights: Optional[torch.Tensor] = None
+                      ) -> ClientState:
+    """Per-client rows for the blocks the config tracks, [0]
+    placeholders otherwise. --topk_down's weight rows start as copies
+    of `ps_weights` (the clients' download at init)."""
     D = cfg.grad_size
 
     def block(tracked: bool):
@@ -94,11 +100,15 @@ def init_client_state(cfg: Config, num_clients: int,
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
     if cfg.do_topk_down:
-        raise NotImplementedError(
-            "per-client weight rows (--topk_down) are not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
+        if ps_weights is None:
+            raise ValueError("--topk_down needs the initial ps_weights "
+                             "for the per-client weight rows")
+        weights = ps_weights.detach().to(device, torch.float32).expand(
+            num_clients, D).clone()
+    else:
+        weights = block(False)
     return ClientState(block(_has_errors(cfg)),
-                       block(_has_velocities(cfg)), block(False))
+                       block(_has_velocities(cfg)), weights)
 
 
 def gather_cohort(cfg: Config, clients: ClientState,
@@ -112,7 +122,7 @@ def gather_cohort(cfg: Config, clients: ClientState,
 
     return CohortState(rows(clients.errors, _has_errors(cfg)),
                        rows(clients.velocities, _has_velocities(cfg)),
-                       rows(clients.weights, False))
+                       rows(clients.weights, cfg.do_topk_down))
 
 
 def scatter_back(cfg: Config, clients: ClientState, ids: torch.Tensor,
@@ -121,6 +131,8 @@ def scatter_back(cfg: Config, clients: ClientState, ids: torch.Tensor,
         clients.errors[ids] = cohort.errors
     if _has_velocities(cfg):
         clients.velocities[ids] = cohort.velocities
+    if cfg.do_topk_down:
+        clients.weights[ids] = cohort.weights
     return clients
 
 
@@ -134,19 +146,36 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
     flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel)
     comp = cfg.compressor
 
-    def client_phase(ps_weights, batch: RoundBatch, cohort: CohortState):
+    def client_weights(ps_weights, w_stale):
+        """What one client trains on: the server weights, or with
+        --topk_down its stale weights plus the top-k of the gap (down_k
+        decouples the download budget from the upload k)."""
+        if not cfg.do_topk_down:
+            return ps_weights
+        return w_stale + masked_topk(ps_weights - w_stale,
+                                     k=cfg.down_k or cfg.k)
+
+    def client_phase(ps_weights, batch: RoundBatch, cohort: CohortState,
+                     lr):
         """The cohort's summed transmit, example counts, per-client
         losses/metrics and updated rows."""
         if cfg.fused_client_backward:
             local_sum, losses, metrics, counts = fclient.fused_shard_grads(
                 flat_loss, ps_weights, batch.data, batch.mask, cfg)
             return local_sum, counts, losses, metrics, cohort
-        results = [
-            fclient.local_step(flat_grad, ps_weights,
-                               tuple(x[c] for x in batch.data),
-                               batch.mask[c], cohort.errors[c],
-                               cohort.velocities[c], cfg)
-            for c in range(batch.mask.shape[0])]
+        results, new_w = [], []
+        for c in range(batch.mask.shape[0]):
+            weights = client_weights(ps_weights, cohort.weights[c])
+            data = tuple(x[c] for x in batch.data)
+            if comp.local_sgd:
+                res = fclient.fedavg_step(flat_grad, weights, data,
+                                          batch.mask[c], cfg, lr)
+            else:
+                res = fclient.local_step(flat_grad, weights, data,
+                                         batch.mask[c], cohort.errors[c],
+                                         cohort.velocities[c], cfg)
+            results.append(res)
+            new_w.append(weights)
         local_sum = torch.stack([r.transmit for r in results]).sum(dim=0)
         counts = torch.stack([r.num_examples for r in results])
         losses = torch.stack([r.loss for r in results])
@@ -158,12 +187,16 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
         if _has_velocities(cfg):
             cohort = cohort._replace(
                 velocities=torch.stack([r.velocity for r in results]))
+        if cfg.do_topk_down:
+            # each participant's post-download weights, so its staleness
+            # is tracked
+            cohort = cohort._replace(weights=torch.stack(new_w))
         return local_sum, counts, losses, metrics, cohort
 
     def round_step(server: ServerState, cohort: CohortState,
                    batch: RoundBatch, lr):
         local_sum, counts, losses, metrics, cohort = client_phase(
-            server.ps_weights, batch, cohort)
+            server.ps_weights, batch, cohort, lr)
         if cfg.defer_sketch_encode:
             # sketch linearity: encode the cohort's sum once (K1)
             local_sum = fserver.args2sketch(cfg).encode(local_sum)
@@ -177,6 +210,10 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
         new_server = ServerState(server.ps_weights - upd.update,
                                  upd.Vvelocity, upd.Verror,
                                  server.round_idx + 1)
+        if _has_velocities(cfg) and upd.velocity_mask is not None:
+            # true_topk momentum factor masking, participants' rows only
+            cohort = cohort._replace(
+                velocities=cohort.velocities * upd.velocity_mask[None, :])
         return new_server, cohort, RoundMetrics(losses, metrics, counts)
 
     def train_round(server: ServerState, clients: ClientState,

@@ -1,6 +1,6 @@
 """Server-side aggregation: the port of
 commefficient_tpu/federated/server.py for the ported modes (sketch,
-uncompressed).
+true_topk, local_topk, fedavg, uncompressed).
 
 Same helper signature as the JAX package,
 `(gradient, Vvelocity, Verror, cfg, lr) -> ServerUpdate`, and the same
@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.ops.flat import masked_topk
 from commefficient_tpu_torch.ops.sketch import (
     CSVec, cached_sketch, scatter_drop,
 )
@@ -22,7 +23,8 @@ from commefficient_tpu_torch.ops.sketch import (
 class ServerUpdate(NamedTuple):
     """update: dense [D] weight update (the server applies w -= update);
     Vvelocity / Verror: new server momentum / error state; velocity_mask:
-    None in the ported modes (true_topk's client momentum masking)."""
+    [D] not-sent mask for the participants' local velocity rows
+    (true_topk with local momentum), else None."""
     update: torch.Tensor
     Vvelocity: torch.Tensor
     Verror: torch.Tensor
@@ -51,6 +53,41 @@ def get_server_update(gradient: torch.Tensor, Vvelocity: torch.Tensor,
         velocity_mask=(None if upd.velocity_mask is None
                        else torch.where(alive, upd.velocity_mask,
                                         torch.ones_like(upd.velocity_mask))))
+
+
+def _fedavg(avg_update, Vvelocity, Verror, cfg: Config,
+            lr) -> ServerUpdate:
+    """`lr` is ignored: the clients already applied it in their local
+    steps, and the averaged weight delta is applied as it is."""
+    rho = cfg.virtual_momentum
+    Vvelocity = avg_update + rho * Vvelocity
+    return ServerUpdate(Vvelocity, Vvelocity, Verror, None)
+
+
+def _true_topk(gradient, Vvelocity, Verror, cfg: Config,
+               lr) -> ServerUpdate:
+    """Top-k of the virtual error, then error feedback and momentum
+    factor masking at the sent coordinates; with local momentum the
+    participants' velocity rows are masked there too (the round applies
+    `velocity_mask`)."""
+    rho = cfg.virtual_momentum
+    Vvelocity = gradient + rho * Vvelocity
+    Verror = Verror + Vvelocity
+    update = masked_topk(Verror, k=cfg.k)
+    not_sent = (update == 0).to(Verror.dtype)
+    Verror = Verror * not_sent
+    Vvelocity = Vvelocity * not_sent
+    vel_mask = not_sent if cfg.local_momentum > 0 else None
+    return ServerUpdate(update * lr, Vvelocity, Verror, vel_mask)
+
+
+def _local_topk(local_topk_grad, Vvelocity, Verror, cfg: Config,
+                lr) -> ServerUpdate:
+    """Virtual momentum over the already sparsified cohort sum; no
+    virtual error."""
+    rho = cfg.virtual_momentum
+    Vvelocity = local_topk_grad + rho * Vvelocity
+    return ServerUpdate(Vvelocity * lr, Vvelocity, Verror, None)
 
 
 def _uncompressed(gradient, Vvelocity, Verror, cfg: Config,

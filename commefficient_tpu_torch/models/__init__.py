@@ -1,7 +1,8 @@
-"""Model registry of the port: ResNet9 by flag name, and GPT2 through
-`build_gpt2` (exported as the JAX package exports it; the GPT2 driver
-builds it, never `--model`). The rest of the JAX package's family is
-ROADMAP.md Queue 1 item 8."""
+"""Model registry of the port: ResNet9, ResNet18, FixupResNet18 and
+FixupResNet9 by flag name, and GPT2 through `build_gpt2` (exported as
+the JAX package exports it; the GPT2 driver builds it, never
+`--model`). The models of the JAX package's `resnets.py` are ROADMAP.md
+Queue 1 item 8."""
 from __future__ import annotations
 
 import inspect
@@ -10,11 +11,19 @@ from typing import Callable, Dict
 from commefficient_tpu_torch.models.resnet9 import (  # noqa: F401
     ResNet9, StatelessBatchNorm,
 )
+from commefficient_tpu_torch.models.fixup_resnet import (  # noqa: F401
+    FixupResNet9, FixupResNet18, ResNet18,
+)
 from commefficient_tpu_torch.models.gpt2 import (  # noqa: F401
     GPT2Config, GPT2DoubleHeads, build_gpt2,
 )
 
-_REGISTRY: Dict[str, Callable] = {"ResNet9": ResNet9}
+_REGISTRY: Dict[str, Callable] = {
+    "ResNet9": ResNet9,
+    "ResNet18": ResNet18,
+    "FixupResNet18": FixupResNet18,
+    "FixupResNet9": FixupResNet9,
+}
 
 
 def model_names():

@@ -117,22 +117,7 @@ class ResNet9(nn.Module):
         return self.head(x) * self.weight
 
     def jax_layout(self) -> List[LayoutEntry]:
-        """Where each parameter sits in the JAX package's flat vector:
-        its flax path and flax shape (conv kernels HWIO, head [in, out])."""
-        out = []
-        for name, p in self.named_parameters():
-            parts = name.split(".")
-            if parts[-1] == "weight" and p.dim() == 4:
-                o, i, h, w = p.shape
-                out.append(LayoutEntry(tuple(parts[:-1]) + ("kernel",), name,
-                                       (h, w, i, o), _HWIO_TO_OIHW))
-            elif parts[-1] == "weight" and p.dim() == 2:
-                o, i = p.shape
-                out.append(LayoutEntry(tuple(parts[:-1]) + ("kernel",), name,
-                                       (i, o), _IO_TO_OI))
-            else:
-                out.append(LayoutEntry(tuple(parts), name, tuple(p.shape)))
-        return out
+        return conv_net_layout(self)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
@@ -147,16 +132,43 @@ class ResNet9(nn.Module):
             if e.path[-1] == "kernel":
                 fan_in = int(np.prod(e.flat_shape[:-1]))
                 gain = 2.0 if len(e.flat_shape) == 4 else 1.0
-                flat = _truncated_normal(rng, e.flat_shape,
-                                         np.sqrt(gain / fan_in))
-                t = torch.from_numpy(flat)
-                if e.to_torch is not None:
-                    t = t.permute(*e.to_torch)
-                p.copy_(t)
+                load_flat_shaped(p, e, _truncated_normal(
+                    rng, e.flat_shape, np.sqrt(gain / fan_in)))
             elif e.path[-1] == "scale":
                 p.fill_(1.0)
             else:
                 p.zero_()
+
+
+def conv_net_layout(module: nn.Module) -> List[LayoutEntry]:
+    """Where each parameter of a convolutional net whose submodules
+    carry the flax names sits in the JAX package's flat vector: its
+    flax path and flax shape (conv kernels HWIO, dense kernels
+    [in, out]; every other parameter as it is)."""
+    out = []
+    for name, p in module.named_parameters():
+        parts = name.split(".")
+        if parts[-1] == "weight" and p.dim() == 4:
+            o, i, h, w = p.shape
+            out.append(LayoutEntry(tuple(parts[:-1]) + ("kernel",), name,
+                                   (h, w, i, o), _HWIO_TO_OIHW))
+        elif parts[-1] == "weight" and p.dim() == 2:
+            o, i = p.shape
+            out.append(LayoutEntry(tuple(parts[:-1]) + ("kernel",), name,
+                                   (i, o), _IO_TO_OI))
+        else:
+            out.append(LayoutEntry(tuple(parts), name, tuple(p.shape)))
+    return out
+
+
+def load_flat_shaped(p: torch.Tensor, e: LayoutEntry,
+                     flat: np.ndarray) -> None:
+    """Copy a numpy array in the parameter's flat (flax) shape into the
+    torch parameter, permuted to its torch shape."""
+    t = torch.from_numpy(flat)
+    if e.to_torch is not None:
+        t = t.permute(*e.to_torch)
+    p.copy_(t)
 
 
 def _truncated_normal(rng: np.random.RandomState, shape, std: float):

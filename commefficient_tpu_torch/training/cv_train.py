@@ -31,6 +31,7 @@ from commefficient_tpu_torch.data import (
     FedCIFAR10, FedCIFAR100, FedLoader, FedValLoader, transforms,
 )
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
+from commefficient_tpu_torch.ops.flat import module_layout
 from commefficient_tpu_torch.utils.logging import TableLogger, Timer
 from commefficient_tpu_torch.utils.schedules import LambdaLR, PiecewiseLinear
 
@@ -196,9 +197,11 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
 def build(cfg: Config, device="cuda",
           synthetic_examples: Optional[Tuple[int, int]] = None):
     """Loaders, model, optimizer and LR scheduler for `cfg`: what main()
-    wires before it calls train(). `--test` shrinks the model to one
-    channel per layer and the sketch to 1 x 10 with k = 10 (reference
-    cv_train.py:329-336)."""
+    wires before it calls train(). `--test` shrinks the sketch to 1 x 10
+    with k = 10 and a model that takes `channels` (ResNet9) to one
+    channel per layer (reference cv_train.py:329-336). The Fixup nets
+    train their scalar biases and scales at 0.1x the learning rate
+    (reference cv_train.py:366-376)."""
     model_config = {}
     if cfg.do_test:
         model_config["channels"] = {"prep": 1, "layer1": 1,
@@ -210,8 +213,11 @@ def build(cfg: Config, device="cuda",
     x0 = train_loader.dataset.get_client_batch(0, np.array([0]))[0]
     model_config["initial_channels"] = int(x0.shape[-1])
     module = models.build_model(cfg.model, **model_config)
+    lr_scale_vec = (fixup_lr_scales(module) if cfg.model.startswith("Fixup")
+                    else None)
     model = FedModel(module, make_compute_loss(module), cfg, device=device,
-                     num_clients=train_loader.dataset.num_clients)
+                     num_clients=train_loader.dataset.num_clients,
+                     lr_scale_vec=lr_scale_vec)
     opt = FedOptimizer(model)
     # cifar10-fast schedule: knots [0, pivot, num_epochs] -> [0, lr, 0]
     lr_scale = cfg.lr_scale if cfg.lr_scale is not None else 0.4
@@ -220,6 +226,19 @@ def build(cfg: Config, device="cuda",
     spe = train_loader.steps_per_epoch
     lr_scheduler = LambdaLR(opt, lr_lambda=lambda step: schedule(step / spe))
     return model, opt, lr_scheduler, train_loader, val_loader
+
+
+def fixup_lr_scales(module: torch.nn.Module) -> np.ndarray:
+    """Flat per-parameter LR-scale vector: 0.1 for the bias and scale
+    scalars, 1.0 elsewhere (reference param groups, cv_train.py:366-376;
+    the JAX driver's name test on the flax path)."""
+    segs = []
+    for e in module_layout(module):
+        names = "/".join(e.path).lower()
+        scale = 0.1 if ("bias" in names or "scale" in names
+                        or "mul" in names or "add" in names) else 1.0
+        segs.append(np.full(e.size, scale, np.float32))
+    return np.concatenate(segs)
 
 
 def main(argv=None) -> bool:

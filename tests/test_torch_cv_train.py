@@ -7,6 +7,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.device import resolve_device
@@ -27,7 +28,13 @@ def _argv(tmp_path, *extra):
     ("--mode", "sketch", "--error_type", "virtual",
      "--virtual_momentum", "0.9"),
     ("--mode", "uncompressed"),
-], ids=["sketch", "uncompressed"])
+    ("--mode", "true_topk", "--error_type", "virtual",
+     "--virtual_momentum", "0.9", "--local_momentum", "0.9"),
+    ("--mode", "local_topk", "--error_type", "local",
+     "--local_momentum", "0.9"),
+    ("--mode", "fedavg", "--local_batch_size", "-1",
+     "--fedavg_batch_size", "8", "--num_fedavg_epochs", "2"),
+], ids=["sketch", "uncompressed", "true_topk", "local_topk", "fedavg"])
 def test_cv_train_test_smoke_on_cpu(tmp_path, capsys, mode_flags):
     assert cv_train.main(_argv(tmp_path, *mode_flags))
     out = capsys.readouterr().out
@@ -52,13 +59,13 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (("--mode", "true_topk", "--error_type", "virtual"), "true_topk"),
+    (("--mode", "powersgd"), "powersgd"),
     (("--scan_rounds",), "--scan_rounds"),
     (("--client_dropout", "0.1"), "--client_dropout"),
     (("--checkpoint",), "--checkpoint"),
     (("--multihost",), "--multihost"),
     (("--sketch_table_dtype", "int8"), "--sketch_table_dtype"),
-    (("--model", "ResNet18"), "ResNet18"),
+    (("--model", "ResNet50"), "ResNet50"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
@@ -67,6 +74,50 @@ def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
         parse_args(argv=_argv(tmp_path, *flags))
     except NotImplementedError as e:
         assert needle in str(e)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--mode", "true_topk", "--error_type", "virtual"),
+    ("--mode", "local_topk", "--error_type", "local"),
+    ("--mode", "fedavg", "--local_batch_size", "-1"),
+    ("--mode", "true_topk", "--error_type", "virtual",
+     "--local_momentum", "0.9"),
+    ("--mode", "uncompressed", "--topk_down", "--down_k", "7"),
+    ("--model", "ResNet18", "--dataset_name", "CIFAR100"),
+    ("--model", "FixupResNet18"),
+    ("--model", "FixupResNet9"),
+], ids=["true_topk", "local_topk", "fedavg", "local_momentum",
+        "topk_down", "ResNet18", "FixupResNet18", "FixupResNet9"])
+def test_ported_options_build_a_fedmodel_on_cpu(tmp_path, flags):
+    cfg = parse_args(argv=_argv(tmp_path, *flags))
+    model, *_ = cv_train.build(cfg, device="cpu")
+    assert model.cfg.mode == cfg.mode and model.cfg.model == cfg.model
+    rows = model.clients
+    for block, tracked in ((rows.errors, cfg.error_type == "local"),
+                           (rows.velocities, cfg.local_momentum > 0),
+                           (rows.weights, cfg.do_topk_down)):
+        want = (model.num_clients, model.cfg.grad_size) if tracked else (0,)
+        assert tuple(block.shape) == want
+    if cfg.do_topk_down:
+        assert torch.equal(rows.weights[3], model.ps_weights)
+    assert (model.lr_scale_vec is not None) == cfg.model.startswith("Fixup")
+
+
+@pytest.mark.parametrize("name", ["FixupResNet18", "FixupResNet9"])
+def test_fixup_lr_scales_match_jax(name):
+    # the same 0.1 / 1.0 vector over the same flat layout
+    import jax
+    import jax.numpy as jnp
+    from commefficient_tpu.models import build_model as j_build_model
+    from commefficient_tpu.training.cv_train import _fixup_lr_scales
+    from commefficient_tpu_torch.models import build_model
+    jm = j_build_model(name, num_classes=10)
+    params = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((2, 32, 32, 3), jnp.float32)))
+    want = _fixup_lr_scales(params)
+    got = cv_train.fixup_lr_scales(build_model(name, num_classes=10))
+    np.testing.assert_array_equal(got, want)
+    assert 0 < (got == 0.1).sum() < got.size
 
 
 def test_reference_invariants_still_raise_value_error():

@@ -104,6 +104,23 @@ CASES = {
                               virtual_momentum=0.9, k=300, num_rows=5,
                               num_cols=700, microbatch_size=3),
     "uncompressed": dict(mode="uncompressed", virtual_momentum=0.9),
+    # server-side top-k of the virtual error, fused backward
+    "true_topk": dict(mode="true_topk", error_type="virtual",
+                      virtual_momentum=0.9, k=300),
+    # per-client velocity rows, masked at the sent coordinates
+    "true_topk_local_momentum": dict(mode="true_topk", error_type="virtual",
+                                     virtual_momentum=0.9, k=300,
+                                     local_momentum=0.9),
+    # per-client top-k with local error and velocity rows
+    "local_topk": dict(mode="local_topk", error_type="local",
+                       local_momentum=0.9, k=300),
+    # local SGD over each client's whole batch: 3 steps of 2, 2 epochs
+    "fedavg": dict(mode="fedavg", error_type="none", local_batch_size=-1,
+                   fedavg_batch_size=2, num_fedavg_epochs=2,
+                   fedavg_lr_decay=0.9),
+    # per-client stale weight rows, downloads of the top-500 gap
+    "uncompressed_topk_down": dict(mode="uncompressed", virtual_momentum=0.9,
+                                   do_topk_down=True, down_k=500),
 }
 
 
@@ -111,11 +128,12 @@ CASES = {
 def test_fedmodel_rounds_match_jax(case):
     # 3 rounds, 4 clients x 6 examples, from the same init. Tolerances:
     # the client backward reduces in another order than XLA's, so
-    # weights agree to 1e-5 of their scale and losses to 1e-5 relative;
-    # the top-k picks the same coordinates, so the upload/download byte
-    # totals are IDENTICAL.
-    kw = dict(local_momentum=0.0, num_workers=4, num_clients=12,
-              local_batch_size=6, **CASES[case])
+    # weights and the per-client rows agree to 1e-5 of their scale and
+    # losses to 1e-5 relative; the top-k picks the same coordinates, so
+    # the upload/download byte totals are IDENTICAL, and so is
+    # local_topk's realized nonzero count.
+    kw = {**dict(local_momentum=0.0, num_workers=4, num_clients=12,
+                 local_batch_size=6), **CASES[case]}
     jcfg = JConfig(**kw)
     tcfg = TConfig(**kw, device="cpu")
     jm = JResNet9(num_classes=10, channels=TINY)
@@ -149,8 +167,25 @@ def test_fedmodel_rounds_match_jax(case):
         np.testing.assert_allclose(tmodel.ps_weights.numpy(), jw, rtol=0,
                                    atol=1e-5 * np.abs(jw).max(),
                                    err_msg=f"round {i}")
+        for block in ("errors", "velocities", "weights"):
+            jrows = np.asarray(getattr(jmodel.clients, block))
+            trows = getattr(tmodel.clients, block).numpy()
+            if jrows.size == 0:
+                assert trows.size == 0, block
+                continue
+            jrows = jrows[:12]
+            assert trows.shape == jrows.shape, block
+            np.testing.assert_allclose(
+                trows, jrows, rtol=0, atol=1e-5 * np.abs(jrows).max(),
+                err_msg=f"{block}, round {i}")
+        assert (tmodel.accountant.realized_nonzeros
+                == jmodel.accountant.realized_nonzeros)
     np.testing.assert_array_equal(t_bytes, j_bytes)
     assert t_bytes[1] > 0 and t_bytes[0] > 0
+    assert (tmodel.accountant.max_realized_nonzeros
+            == jmodel.accountant.max_realized_nonzeros)
+    if kw["mode"] == "local_topk":
+        assert tmodel.accountant.realized_nonzeros > 0
 
 
 def test_state_allocators_need_the_callers_device():
@@ -161,4 +196,11 @@ def test_state_allocators_need_the_callers_device():
         sk.zeros()
     with pytest.raises(TypeError, match="device"):
         tround.init_client_state(None, 2)
+    # --topk_down's rows copy the weights, yet take no device from them
+    cfg = TConfig(mode="uncompressed", local_momentum=0.0, do_topk_down=True,
+                  grad_size=5, device="cpu")
+    with pytest.raises(TypeError, match="device"):
+        tround.init_client_state(cfg, 2, ps_weights=torch.ones(5))
+    rows = tround.init_client_state(cfg, 2, "cpu", torch.arange(5.0))
+    assert torch.equal(rows.weights, torch.arange(5.0).repeat(2, 1))
     assert sk.zeros("cpu").shape == (3, 10)
