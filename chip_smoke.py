@@ -14,7 +14,8 @@ the result line:
 3. kernels  — K1 (count-sketch encode) and K2 (median estimate of every
                coordinate), both reading eps and delta as packed sign
                bits, against their plain PyTorch versions (float sign
-               tables) at the main-path shapes and four small geometries
+               tables) at config #2's and config #4's main-path shapes
+               (d = 6,568,640 and 25,557,032) and four small geometries
                (padded tail / odd r, exact fit / even r, one chunk with
                c > d, c % 4 != 0 with a ragged last chunk). Tolerance:
                exact equality (bitwise up to the sign of zero). Times with
@@ -90,35 +91,61 @@ the result line:
                realized nonzeros of the aggregate beside 8 k.
 12. lparity — one config #3 client step of 2 clients on the card and on
                the CPU beside float64 (ltopk_parity), with a TF32 control.
+13. imagenet — BASELINE config #4 as benchmarks/imagenet.sh runs it
+               (CONFIG4: FixupResNet50, D = 25,504,024, uncompressed, 7
+               IID clients x 64 images of 224 px, one fused backward)
+               through cv_train.train(), IMAGENET_ROUNDS rounds on a
+               corpus this run writes in FedImageNet's preprocessed/
+               layout (256 classes x 64 images from seed 21, 2.47 GB, in
+               a temporary directory removed at the end); the Fixup LR
+               scales in use, no sketch or attention kernel.
+14. sketch50 — config #4 as BASELINE.json words it (CONFIG4_SKETCH:
+               ResNet50, D = 25,557,032, sketched over 256 IID clients, 7
+               x 64 a round, k / r / c at their defaults), IMAGENET_ROUNDS
+               rounds on the same corpus: K1 and K2 once a round, K3a,
+               K3b and K4 never; then the stable top-k alone over the
+               last round's [52 x 500,000] estimates.
+15. iparity — one round of ResNet50 at 224 px, 2 clients x 2 images of a
+               phase 14 batch through phase 14's own client function
+               (each client's local_step), card vs CPU vs float64: from
+               damped bn3 scales at phase 5's limits, with a TF32
+               control, and from phase 14's plain init at the accuracy
+               limit alone (R50_BN3_SCALE says why).
 Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
 prints its ms/round, the host's batch ms, peak memory, the client-state
 bytes and one per-client masked_topk at its D timed on the card, and
-fails if a sketch or attention kernel launched. Every path's rounds
-(4, 7, 9-11) run beside a background nvidia-smi reading the SM clock and
-power draw every 200 ms, and the host's load average before and after.
+fails if a sketch or attention kernel launched (13 and 14 print the
+first three). Every path's rounds (4, 7, 9-11, 13, 14) run beside a
+background nvidia-smi reading the SM clock and power draw every 200 ms,
+and the host's load average before and after.
 
 Before the last two lines comes {"kernels": [...]}, one entry per
-kernel and main path: K1 twice (sketch_encode at config #2's shapes,
-sketch_encode_gpt2 at config #5's), each with the launches of its own
-path's run ("path"). The line before the last holds the card's name
-and power limit; the last line is
+kernel and main path: K1 three times (sketch_encode at config #2's
+shapes, sketch_encode_r50 at config #4's, sketch_encode_gpt2 at config
+#5's) and K2 twice (config #2's, sketch_estimate_all_r50), each with the
+launches of its own path's run ("path"). The line before the last holds
+the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 `--profile [DIR]` additionally traces three more rounds of each path
 with torch.profiler and writes the device time by kernel to
 DIR/profile_rounds.txt (config #2), DIR/profile_gpt2_rounds.txt
-(config #5) and DIR/profile_{fedavg,ttopk,ltopk}_rounds.txt,
+(config #5) and DIR/profile_{fedavg,ttopk,ltopk,imagenet,sketch50}_
+rounds.txt,
 chiprun_out/ beside the script by default, and prints K3b's mean device
 time a launch on the GPT2 rounds' own tables.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from typing import NamedTuple
@@ -231,6 +258,51 @@ FEDAVG_ROUNDS, TTOPK_ROUNDS, LTOPK_ROUNDS = 5, 3, 10
 SKETCH_AND_ATTENTION = ("sketch_encode", "sketch_estimate_all",
                         "threshold_sample", "threshold_mask", "flash_fwd")
 
+# BASELINE config #4 (phases 13-15) on a corpus written in FedImageNet's
+# preprocessed/ layout: 224-px uint8 images from IMAGENET_SEED, one file
+# of IMAGENET_PER_CLASS images for each of IMAGENET_CLASSES classes (of
+# ImageNet's 1000; the model's head keeps 1000), and a val.npz
+IMAGENET_CLASSES, IMAGENET_PER_CLASS, IMAGENET_VAL = 256, 64, 256
+IMAGENET_HW, IMAGENET_SEED = 224, 21
+IMAGENET_ROUNDS = 5          # of 37 an epoch (16,384 images / (7 x 64))
+# phase 13: config #4 as benchmarks/imagenet.sh runs it, flag for flag
+CONFIG4 = ["--dataset_name", "ImageNet", "--model", "FixupResNet50",
+           "--local_batch_size", "64", "--max_local_batch", "64",
+           "--scan_span", "0", "--local_momentum", "0.0",
+           "--virtual_momentum", "0.9", "--weight_decay", "1e-4",
+           "--error_type", "virtual", "--mode", "uncompressed", "--iid",
+           "--num_clients", "7", "--num_workers", "7", "--k", "1000000",
+           "--num_rows", "1", "--num_cols", "10000000"]
+FIXUP50_D = 25_504_024
+# phase 14: config #4 as BASELINE.json words it, ResNet-50 sketched over
+# 256 clients (k, r, c at the parser's defaults: 50,000 / 5 / 500,000).
+# One cut: --microbatch_size 64 (each client's whole batch, so the same
+# gradient) runs the 7 clients' backwards one after another, because the
+# fused backward would hold all 448 images' activations at once: 175 MB
+# an image for this batch-normed ResNet50 (saved tensors counted on the
+# CPU), 78 GB of the card's 80
+CONFIG4_SKETCH = ["--dataset_name", "ImageNet", "--model", "ResNet50",
+                  "--mode", "sketch", "--error_type", "virtual",
+                  "--virtual_momentum", "0.9", "--local_momentum", "0",
+                  "--weight_decay", "1e-4", "--iid", "--num_clients", "256",
+                  "--num_workers", "7", "--local_batch_size", "64",
+                  "--max_local_batch", "64", "--microbatch_size", "64"]
+R50_D = 25_557_032
+# phase 15 (iparity) steps from the phase 14 model's initial weights
+# with each block's last norm scale (bn3) at R50_BN3_SCALE: at the plain
+# init the float32 gradient of this 16-block batch-normed net over 2
+# images a client sits 2.6e-2 (relative L2) from float64 (the CPU,
+# float32 vs float64, measured with this script's inputs' shapes), as
+# deep batch-normed nets' gradients grow through the blocks at init, so
+# no float32 device could be held to PARITY_RTOL there; damped as ResNet
+# inits that zero that scale damp it, the CPU's float32 gradient sits
+# 7.1e-4 from float64 and shares 0.998 of the top-k: the regime the
+# ResNet9 limits (PARITY_RTOL, ACCURACY_FLOOR) were set for. The plain
+# init that phase 14 trains from is held too, at the accuracy limit
+# alone: the card no further from float64 than ACCURACY_RATIO x the
+# CPU's float32 error
+R50_BN3_SCALE = 0.1
+
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
@@ -319,10 +391,12 @@ def time_cuda(fn, iters: int, warmup: int = 3, flush: bool = True,
 
 def kernel_phase(sc, CSVec):
     """K1 / K2 against their plain versions; returns the per-kernel
-    result rows (launch counts filled in after the main path)."""
+    result rows at config #2's and config #4's geometries (launch counts
+    filled in after each main path)."""
     dev = torch.device("cuda")
     max_err = {"sketch_encode": 0.0, "sketch_estimate_all": 0.0}
-    for geom in SMALL_GEOMETRIES + [dict(d=MAIN_D, c=MAIN_C, r=MAIN_R)]:
+    for geom in SMALL_GEOMETRIES + [dict(d=MAIN_D, c=MAIN_C, r=MAIN_R),
+                                    dict(d=R50_D, c=MAIN_C, r=MAIN_R)]:
         sk = CSVec(**geom)
         off, eps, delta = sk.tables(dev)
         eps_bits, delta_bits = sk.sign_bits(dev)
@@ -343,36 +417,46 @@ def kernel_phase(sc, CSVec):
                     f"max abs err {err}")
         phase("kernels", f"{geom}: K1 and K2 equal to their plain "
               "versions (exact)")
+        del sk, x, t_k, t_p, e_k, e_p
 
-    # timing at the main-path shapes
-    d, c, r = MAIN_D, MAIN_C, MAIN_R
-    sk = CSVec(d=d, c=c, r=r)
-    B = sk.n_chunks
-    off, eps, delta = sk.tables(dev)
-    eps_bits, delta_bits = sk.sign_bits(dev)
-    x = torch.randn(d, generator=torch.Generator().manual_seed(1)).to(dev)
-    table = sk.encode(x)
-    rows = [encode_row(sc, sk, x, "sketch_encode", "config2")]
-    # K2: read the table, off and the sign bits of eps [r, c] and delta
-    # [r, B] once; write the [B, c] estimate once. Operations per
-    # estimate: 2r sign flips, the r(r-1)/2 compare-exchanges (2 each),
-    # the middle.
-    k2_bytes = (4 * r * c + bits_bytes(r * c) + 4 * r * B
-                + bits_bytes(r * B) + 4 * B * c)
-    k2_ops = B * c * (2 * r + r * (r - 1) + 2)
-    rows.append(dict(
-        name="sketch_estimate_all", counter="sketch_estimate_all",
-        path="config2", route="cuda",
-        source="commefficient_tpu_torch/ops/csrc/sketch.cu",
-        replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:191",
-        fn=lambda: sc.estimate_all(table, off, delta_bits, eps_bits, d),
-        plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d),
-        library=None, bytes=k2_bytes, ops=k2_ops))
-    out = [timed_row(row, max_err[row["counter"]]) for row in rows]
+    # timing at the main paths' shapes: config #2's ResNet9, config #4's
+    # ResNet50
+    out = []
+    for d, suffix, path, seed in ((MAIN_D, "", "config2", 1),
+                                  (R50_D, "_r50", "config4", 5)):
+        sk = CSVec(d=d, c=MAIN_C, r=MAIN_R)
+        x = torch.randn(d, generator=torch.Generator().manual_seed(seed)
+                        ).to(dev)
+        rows = [encode_row(sc, sk, x, "sketch_encode" + suffix, path),
+                estimate_row(sc, sk, sk.encode(x),
+                             "sketch_estimate_all" + suffix, path)]
+        out += [timed_row(row, max_err[row["counter"]]) for row in rows]
+        del sk, x, rows
     phase("kernels", "sketch_estimate_all store policy: plain write-back "
           "float4 stores (not K3b's streaming __stcs: the [B, c] output "
           "and the table fit in the L2 together; sketch.cu header)")
     return out
+
+
+def estimate_row(sc, sk, table, name, path):
+    """The K2 row at `sk`'s geometry on `table` (on the card). K2 reads
+    the table, off and the sign bits of eps [r, c] and delta [r, B]
+    once and writes the [B, c] estimate once. Operations per estimate:
+    2r sign flips, the r(r-1)/2 compare-exchanges (2 each), the
+    middle."""
+    d, c, r, B = sk.d, sk.c, sk.r, sk.n_chunks
+    off, eps, delta = sk.tables(table.device)
+    eps_bits, delta_bits = sk.sign_bits(table.device)
+    return dict(
+        name=name, counter="sketch_estimate_all", path=path, route="cuda",
+        source="commefficient_tpu_torch/ops/csrc/sketch.cu",
+        replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:191",
+        fn=lambda: sc.estimate_all(table, off, delta_bits, eps_bits, d),
+        plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d),
+        library=None,
+        bytes=(4 * r * c + bits_bytes(r * c) + 4 * r * B
+               + bits_bytes(r * B) + 4 * B * c),
+        ops=B * c * (2 * r + r * (r - 1) + 2))
 
 
 def bits_bytes(n: int) -> int:
@@ -613,9 +697,30 @@ def _rel(a, b) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
+def cohort_grad_sum(fclient, loss_fn, unravel, w, xs, m, cfg):
+    """The cohort's summed transmit and example counts through the
+    client function the round takes for `cfg`: one backward over the
+    cohort (Config.fused_client_backward), else each client's
+    local_step in turn (its microbatched backward, weight decay, count
+    scaling and the encode of its transmit), with the dummies of
+    untracked error and velocity rows."""
+    if cfg.fused_client_backward:
+        g, _, _, counts = fclient.fused_shard_grads(
+            fclient.make_flat_loss_fn(loss_fn, unravel), w, xs, m, cfg)
+        return g, counts
+    grad_fn = fclient.make_flat_grad_fn(loss_fn, unravel)
+    dummy = w.new_zeros(())
+    res = [fclient.local_step(grad_fn, w, tuple(x[c] for x in xs), m[c],
+                              dummy, dummy, cfg)
+           for c in range(m.shape[0])]
+    return (torch.stack([r.transmit for r in res]).sum(dim=0),
+            torch.stack([r.num_examples for r in res]))
+
+
 def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
                  fclient, fserver, flat, tf32_control=False):
-    """One round's client gradient sum, sketch table and server selection
+    """One round's client gradient sum (through the path's own client
+    function, cohort_grad_sum), sketch table and server selection
     (top-k, or the threshold route's) on the card vs the CPU, from the
     same flat weights `w` and batch (`data` numpy arrays, floating ones
     cast to the run's dtype), with a float64 CPU gradient as the
@@ -623,9 +728,12 @@ def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
     `make_loss(module)` its loss. It passes when card and CPU agree
     within `rtol`, the card lies within ACCURACY_RATIO x max(the CPU's
     float32 error, `floor`) of float64, and the selections share
-    TOPK_OVERLAP of theirs. With `tf32_control` the card runs the round
-    once more with TF32 matmuls and convolutions: the gradient limits
-    must refuse that run, or they could not tell TF32 from float32."""
+    TOPK_OVERLAP of theirs. `rtol=None` holds the accuracy limit alone,
+    for weights whose float32 gradient sits too far from float64 on any
+    device for two devices to agree within a limit. With
+    `tf32_control` the card runs the round once more with TF32 matmuls
+    and convolutions: the gradient limits must refuse that run, or they
+    could not tell TF32 from float32."""
     sketch = fserver.args2sketch(cfg)
     runs = [("cuda", torch.float32, False), ("cpu", torch.float32, False),
             ("cpu", torch.float64, False)]
@@ -637,15 +745,15 @@ def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
     for dev, dtype, tf32 in runs:
         module = build().to(dev, dtype)
         _, unravel = flat.flatten_params(module)
-        loss = fclient.make_flat_loss_fn(make_loss(module), unravel)
         xs = tuple(t.to(dtype) if t.is_floating_point() else t
                    for t in (torch.from_numpy(a).to(dev) for a in data))
         m = torch.from_numpy(mask).to(dev, dtype)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
         try:
-            g, _, _, counts = fclient.fused_shard_grads(
-                loss, w.detach().to(dev, dtype), xs, m, cfg)
+            g, counts = cohort_grad_sum(fclient, make_loss(module), unravel,
+                                        w.detach().to(dev, dtype), xs, m,
+                                        cfg)
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32_flags
@@ -665,6 +773,15 @@ def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
     card64, cpu64 = _rel(gc, g64), _rel(gp, g64)
     overlap = len(kc & kp) / max(len(kp), 1)
     accuracy_limit = ACCURACY_RATIO * max(cpu64, floor)
+    if rtol is None:
+        phase(label, f"card vs CPU: grad rel err {g_err:.3e}, table rel "
+              f"err {t_err:.3e}, selection overlap {overlap:.5f} (no "
+              f"limit); vs the float64 CPU gradient: card {card64:.3e}, "
+              f"CPU float32 {cpu64:.3e} (card <= {ACCURACY_RATIO:g} x "
+              f"max(CPU, {floor:g}))")
+        if card64 > accuracy_limit:
+            raise AssertionError("the card is less accurate than the CPU")
+        return g_err, t_err, overlap
     phase(label, f"card vs CPU: grad rel err {g_err:.3e}, table rel "
           f"err {t_err:.3e} (tolerance {rtol:g}); vs the float64 CPU "
           f"gradient: card {card64:.3e}, CPU float32 {cpu64:.3e} (card <= "
@@ -1183,6 +1300,118 @@ def ltopk_parity(model, timed, batch, cv_train, models, convert, fclient,
                                  "tell TF32 from float32")
 
 
+def write_imagenet_corpus(root: str) -> None:
+    """Config #4's corpus under root/ImageNet/preprocessed/, file by file
+    (no array of the whole set): IMAGENET_CLASSES `client<i>.npy` of
+    [IMAGENET_PER_CLASS, 224, 224, 3] uint8 and a val.npz of
+    IMAGENET_VAL images, all from one RandomState(IMAGENET_SEED).
+    Uniform pixels: the shapes, the model and the code path are the
+    real ones, the images are not."""
+    import numpy as np
+    pre = os.path.join(root, "ImageNet", "preprocessed")
+    os.makedirs(pre)
+    rng = np.random.RandomState(IMAGENET_SEED)
+    shape = (IMAGENET_PER_CLASS, IMAGENET_HW, IMAGENET_HW, 3)
+
+    def images(shape):
+        return np.frombuffer(rng.bytes(math.prod(shape)),
+                             np.uint8).reshape(shape)
+
+    t0 = time.perf_counter()
+    written = 0
+    for c in range(IMAGENET_CLASSES):
+        arr = images(shape)
+        np.save(os.path.join(pre, f"client{c}.npy"), arr)
+        written += arr.nbytes
+    val = images((IMAGENET_VAL,) + shape[1:])
+    np.savez(os.path.join(pre, "val.npz"), images=val,
+             labels=rng.randint(0, IMAGENET_CLASSES, IMAGENET_VAL))
+    written += val.nbytes
+    seconds = time.perf_counter() - t0
+    phase("corpus", f"{IMAGENET_CLASSES} class files x {IMAGENET_PER_CLASS} "
+          f"images and {IMAGENET_VAL} val images of {IMAGENET_HW} px: "
+          f"{written} bytes of uint8 written in {seconds:.2f} s under "
+          f"{root}" + (" (over 60 s: cut IMAGENET_CLASSES)"
+                       if seconds > 60 else ""))
+
+
+def imagenet_path(label, sc, ac, cv_train, parse_args, flags, want_d,
+                  data_dir):
+    """Drive cv_train.train() for the first IMAGENET_ROUNDS rounds of one
+    config #4 path on the corpus under `data_dir`, at full width, beside
+    the card sampler: the learning-rate schedule is the run's own (24
+    epochs, the ramp to its peak over 5), and train() is handed the
+    config with num_epochs cut to IMAGENET_ROUNDS rounds. Returns (the
+    model, the rounds' run, the train loader)."""
+    n_train = IMAGENET_CLASSES * IMAGENET_PER_CLASS
+    spe = math.ceil(n_train / (7 * 64))
+    cfg = parse_args(argv=flags + [
+        "--device", "cuda", "--dataset_dir", data_dir, "--seed", "21"])
+    t0 = time.perf_counter()
+    model, opt, sched, train_loader, val_loader = cv_train.build(
+        cfg, device="cuda")
+    phase(label, f"built in {time.perf_counter() - t0:.2f} s: {cfg.model}, "
+          f"D={model.cfg.grad_size}, {model.num_clients} clients, "
+          f"fused backward {model.cfg.fused_client_backward}, {spe} rounds "
+          "an epoch")
+    assert model.cfg.grad_size == want_d, model.cfg.grad_size
+    assert train_loader.steps_per_epoch == spe, train_loader.steps_per_epoch
+    cut = model.cfg.replace(num_epochs=IMAGENET_ROUNDS / spe)
+    rr = drive_rounds(label, sc, ac, model, train_loader, IMAGENET_ROUNDS,
+                      lambda timed, on_round: cv_train.train(
+                          model, opt, sched, timed, val_loader, cut,
+                          on_round=on_round))
+    phase(label, f"{IMAGENET_ROUNDS} rounds at learning rate "
+          f"{opt.param_groups[0]['lr']:.5f} by the last, mean client loss "
+          "by round "
+          + " ".join(f"{float(v):.4f}" for v in rr.losses.mean(dim=1))
+          + f", launches {rr.launches}")
+    return model, rr, train_loader
+
+
+def imagenet_checks(model, rr) -> None:
+    """Phase 13: no sketch or attention kernel, and the Fixup learning
+    rates in use: 0.1 on the 16 blocks' 7 scalars and the head's 1000
+    biases, 1 elsewhere."""
+    launched = {n: rr.launches[n] for n in SKETCH_AND_ATTENTION
+                if rr.launches[n]}
+    if launched:
+        raise AssertionError(f"sketch/attention kernels launched on the "
+                             f"imagenet path: {launched}")
+    scales = model.lr_scale_vec
+    if scales is None:
+        raise AssertionError("FixupResNet50 runs without its LR scales")
+    n_low = int((scales == 0.1).sum())
+    n_one = int((scales == 1.0).sum())
+    phase("imagenet", f"Fixup LR scales in use: {n_low} coordinates at "
+          f"0.1, {n_one} at 1.0")
+    if n_low != 16 * 7 + 1000 or n_low + n_one != FIXUP50_D:
+        raise AssertionError("the Fixup LR scale vector is not JAX's")
+
+
+def sketch50_checks(model, rr, flat, fserver) -> None:
+    """Phase 14: K1 and K2 once a round each, K3a, K3b and K4 never;
+    then the stable top-k (ops/flat.topk_indices) timed alone over the
+    last round's own estimates, [B x c] of them."""
+    want = {"sketch_encode": IMAGENET_ROUNDS,
+            "sketch_estimate_all": IMAGENET_ROUNDS, "threshold_sample": 0,
+            "threshold_mask": 0, "flash_fwd": 0}
+    for name, n in want.items():
+        if rr.launches[name] != n:
+            raise AssertionError(f"{name} launched {rr.launches[name]} times "
+                                 f"in {IMAGENET_ROUNDS} rounds ({n} "
+                                 "expected)")
+    sketch = fserver.args2sketch(model.cfg)
+    est = sketch._flat_estimates(model.server.Verror)
+    sq = est * est
+    k = model.cfg.k
+    sort_ms = time_cuda(lambda: flat.topk_indices(sq, k), 20)
+    phase("sketch50", f"stable top-k (ops/flat.topk_indices, a stable "
+          f"descending sort) of {sq.numel()} estimates "
+          f"({sketch.n_chunks} x {sketch.c}), k={k}: {sort_ms:.4f} ms "
+          "(device time, median of 20, L2 flushed)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
@@ -1190,7 +1419,8 @@ def main(argv=None) -> int:
                     help="trace three more rounds of each path with "
                          "torch.profiler and write profile_rounds.txt, "
                          "profile_gpt2_rounds.txt and profile_<path>_"
-                         "rounds.txt of the fedavg, ttopk and ltopk paths "
+                         "rounds.txt of the fedavg, ttopk, ltopk, imagenet "
+                         "and sketch50 paths "
                          "into DIR (default chiprun_out/ beside this "
                          "script)")
     args = ap.parse_args(argv)
@@ -1299,12 +1529,66 @@ def main(argv=None) -> int:
                            f"{label} profile")
         del model, timed, loader
         torch.cuda.empty_cache()
+    # BASELINE config #4 (phases 13-15), on a corpus written for this run
+    corpus = tempfile.mkdtemp(prefix="chip_smoke_imagenet_")
+    try:
+        write_imagenet_corpus(corpus)
+        model, rr, loader = imagenet_path(
+            "imagenet", sc, ac, cv_train, parse_args, CONFIG4, FIXUP50_D,
+            corpus)
+        imagenet_checks(model, rr)
+        if args.profile:
+            profile_rounds(model, loader, model._optimizer,
+                           os.path.join(args.profile,
+                                        "profile_imagenet_rounds.txt"),
+                           "imagenet profile")
+        del model, rr, loader
+        torch.cuda.empty_cache()
+
+        model, rr, loader = imagenet_path(
+            "sketch50", sc, ac, cv_train, parse_args, CONFIG4_SKETCH, R50_D,
+            corpus)
+        s_launches = rr.launches
+        sketch50_checks(model, rr, flat, fserver)
+        if args.profile:
+            profile_rounds(model, loader, model._optimizer,
+                           os.path.join(args.profile,
+                                        "profile_sketch50_rounds.txt"),
+                           "sketch50 profile")
+        i_batch = next(iter(loader.epoch()))
+        i_cfg = model.cfg.replace(num_workers=2)
+        del model, rr, loader
+        torch.cuda.empty_cache()
+
+        # phase 15: the phase 14 model's initial weights, bn3 damped
+        # (R50_BN3_SCALE) and plain, 2 clients x 2 images of a phase 14
+        # batch
+        template = models.build_model("ResNet50", num_classes=1000,
+                                      seed=i_cfg.seed)
+        i_data = tuple(a[:2, :2] for a in i_batch[1]), i_batch[2][:2, :2]
+        for scale, rtol in ((R50_BN3_SCALE, PARITY_RTOL), (1.0, None)):
+            module = copy.deepcopy(template)
+            with torch.no_grad():
+                for name, p in module.named_parameters():
+                    if name.endswith("bn3.scale"):
+                        p.mul_(scale)
+            i_w, _ = flat.flatten_params(module)
+            phase("iparity", f"ResNet50 at {IMAGENET_HW} px, "
+                  f"d={i_w.numel()}, 2 clients x 2 images, bn3 scales x "
+                  f"{scale:g}, fused backward {i_cfg.fused_client_backward}")
+            parity_phase("iparity", lambda: copy.deepcopy(module), i_w,
+                         *i_data, i_cfg, cv_train.make_compute_loss, rtol,
+                         ACCURACY_FLOOR, fclient, fserver, flat,
+                         tf32_control=rtol is not None)
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+
     # launches: each entry's count from its own main path's run
-    for k in kernels:
-        k["launches"] = launches[k.pop("counter")]
-    for k in g_kernels:
-        k["launches"] = g_launches[k.pop("counter")]
+    path_launches = {"config2": launches, "config5": g_launches,
+                     "config4": s_launches}
     kernels += g_kernels
+    for k in kernels:
+        k["launches"] = path_launches[k["path"]][k.pop("counter")]
 
     phase("wall", f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           "from the device check to here")

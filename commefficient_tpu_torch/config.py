@@ -52,7 +52,6 @@ DEFAULT_NUM_CLIENTS = {
 # ROADMAP.md Queue 1 items that still hold each unported path
 Q_OPTIONS = "Queue 1 item 6b (the per-round options of the modes)"
 Q_JOURNAL = "Queue 1 item 6c (checkpoint/resume and the journal)"
-Q_MODELS = "Queue 1 item 8 (other models and datasets)"
 Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
 Q_GPT2 = ("Queue 1 item 7 (what the GPT2 path leaves: pretrained "
           "weights, --finetune, --remat, --model_parallel)")
@@ -397,11 +396,6 @@ class Config:
                          ("--tensorboard", self.use_tensorboard)):
             if on:
                 refuse(flag, Q_JOURNAL)
-        # lazy: the model registry imports torch modules that import
-        # this one
-        from commefficient_tpu_torch.models import model_names
-        if self.model not in model_names():
-            refuse(f"--model {self.model}", Q_MODELS)
         for flag, on in (("--finetune", self.do_finetune),
                          ("--remat", self.do_remat),
                          ("--model_parallel > 1", self.model_parallel > 1)):

@@ -144,21 +144,35 @@ def conv_net_layout(module: nn.Module) -> List[LayoutEntry]:
     """Where each parameter of a convolutional net whose submodules
     carry the flax names sits in the JAX package's flat vector: its
     flax path and flax shape (conv kernels HWIO, dense kernels
-    [in, out]; every other parameter as it is)."""
+    [in, out]; every other parameter as it is, or permuted as its
+    module's `FLAX_TO_TORCH` says: for each torch axis, the flax axis
+    it holds)."""
     out = []
-    for name, p in module.named_parameters():
-        parts = name.split(".")
-        if parts[-1] == "weight" and p.dim() == 4:
-            o, i, h, w = p.shape
-            out.append(LayoutEntry(tuple(parts[:-1]) + ("kernel",), name,
-                                   (h, w, i, o), _HWIO_TO_OIHW))
-        elif parts[-1] == "weight" and p.dim() == 2:
-            o, i = p.shape
-            out.append(LayoutEntry(tuple(parts[:-1]) + ("kernel",), name,
-                                   (i, o), _IO_TO_OI))
-        else:
-            out.append(LayoutEntry(tuple(parts), name, tuple(p.shape)))
+    for mname, mod in module.named_modules():
+        perm = getattr(mod, "FLAX_TO_TORCH", None)
+        for pname, p in mod.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            out.append(_conv_net_entry(name, p, perm))
     return out
+
+
+def _conv_net_entry(name: str, p: torch.Tensor, perm) -> LayoutEntry:
+    parts = name.split(".")
+    if perm is not None:
+        flat_shape = [0] * p.dim()
+        for t, f in enumerate(perm):
+            flat_shape[f] = p.shape[t]
+        return LayoutEntry(tuple(parts), name, tuple(flat_shape),
+                           tuple(perm))
+    if parts[-1] == "weight" and p.dim() == 4:
+        o, i, h, w = p.shape
+        return LayoutEntry(tuple(parts[:-1]) + ("kernel",), name,
+                           (h, w, i, o), _HWIO_TO_OIHW)
+    if parts[-1] == "weight" and p.dim() == 2:
+        o, i = p.shape
+        return LayoutEntry(tuple(parts[:-1]) + ("kernel",), name, (i, o),
+                           _IO_TO_OI)
+    return LayoutEntry(tuple(parts), name, tuple(p.shape))
 
 
 def load_flat_shaped(p: torch.Tensor, e: LayoutEntry,

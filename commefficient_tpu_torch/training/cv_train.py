@@ -3,9 +3,10 @@ commefficient_tpu/training/cv_train.py (reference cv_train.py).
 
 Same flags (config.parse_args), loss callback contract, epoch loop,
 LR schedule, table columns, communication-MiB reporting, `--test`
-smoke shrink and NaN abort. What the port does not run yet is refused
-by Config.validate: scanned spans, checkpoints, finetuning, the
-journal and scheduler layers (ROADMAP.md Queue 1).
+smoke shrink, NaN abort, and EMNIST's per-step log line, for CIFAR10,
+CIFAR100, EMNIST and ImageNet. What the port does not run yet is
+refused by Config.validate: scanned spans, checkpoints, finetuning,
+the journal and scheduler layers (ROADMAP.md Queue 1).
 
 Run on the card:
     python -m commefficient_tpu_torch.training.cv_train --mode sketch \
@@ -25,10 +26,11 @@ import torch.nn.functional as F
 
 from commefficient_tpu_torch import models
 from commefficient_tpu_torch.config import (
-    Q_MODELS, Config, num_classes_of_dataset, parse_args,
+    Config, num_classes_of_dataset, parse_args,
 )
 from commefficient_tpu_torch.data import (
-    FedCIFAR10, FedCIFAR100, FedLoader, FedValLoader, transforms,
+    FedCIFAR10, FedCIFAR100, FedEMNIST, FedImageNet, FedLoader,
+    FedValLoader, transforms,
 )
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.ops.flat import module_layout
@@ -58,10 +60,13 @@ def make_compute_loss(model: torch.nn.Module):
 
 # ---------------- data ----------------------------------------------------
 
-# name -> (dataset class, transform factory, --test synthetic sizes)
+# name -> (dataset class, transform factory, --test synthetic sizes):
+# EMNIST's are (writers, images a writer), the others' (train, val)
 _DATASETS = {
     "CIFAR10": (FedCIFAR10, transforms.cifar10_transforms, (2048, 512)),
     "CIFAR100": (FedCIFAR100, transforms.cifar100_transforms, (2048, 512)),
+    "EMNIST": (FedEMNIST, transforms.femnist_transforms, (64, 16)),
+    "ImageNet": (FedImageNet, transforms.imagenet_transforms, (512, 64)),
 }
 
 
@@ -74,9 +79,9 @@ def get_data_loaders(cfg: Config,
         dataset_cls, transform_factory, test_sizes = \
             _DATASETS[cfg.dataset_name]
     except KeyError:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset_name} is not ported to the port's "
-            f"cv_train yet (ROADMAP.md {Q_MODELS})") from None
+        raise ValueError(
+            f"cv_train supports {sorted(_DATASETS)}; for PERSONA use "
+            f"gpt2_train") from None
     train_t, test_t = transform_factory(seed=cfg.seed)
     synthetic = synthetic_examples or (test_sizes if cfg.do_test else None)
     kw = dict(do_iid=cfg.do_iid, num_clients=cfg.num_clients,
@@ -121,8 +126,10 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
     are done, an eval and a table row per epoch. `on_round(i, outputs)`
     is called after round i's dispatch with model(batch)'s outputs (a
     measuring caller synchronizes the device there). Returns False on a
-    NaN/divergent loss."""
+    NaN/divergent loss. EMNIST prints a line a round (reference
+    cv_train.py:233-237)."""
     timer = timer or Timer()
+    per_step_log = cfg.dataset_name == "EMNIST"
     spe = train_loader.steps_per_epoch
     total_rounds = math.ceil(cfg.num_epochs * spe)
     rounds_done = 0
@@ -133,11 +140,20 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
         losses, accs = [], []
         down = up = 0.0
 
+        step_t0 = time.monotonic()
+
         # metrics come to the host one round late, so the host does not
         # wait on the round it just queued
         def emit(p) -> bool:
+            nonlocal step_t0
             losses.append(float(np.mean(_host(p[0]))))
             accs.append(float(np.mean(_host(p[1]))))
+            if per_step_log:
+                now = time.monotonic()
+                print("LR: {:0.5f}, Loss: {:0.5f}, Acc: {:0.5f}, "
+                      "Time: {:0.2f}".format(float(p[2]), losses[-1],
+                                             accs[-1], now - step_t0))
+                step_t0 = now
             return not np.isnan(losses[-1])
 
         pending = None
@@ -160,7 +176,7 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
             if pending is not None and not emit(pending):
                 pending = None
                 break
-            pending = (loss, acc)
+            pending = (loss, acc, opt.param_groups[0]["lr"])
             rounds_done += 1
         if pending is not None:
             emit(pending)
@@ -199,8 +215,10 @@ def build(cfg: Config, device="cuda",
     """Loaders, model, optimizer and LR scheduler for `cfg`: what main()
     wires before it calls train(). `--test` shrinks the sketch to 1 x 10
     with k = 10 and a model that takes `channels` (ResNet9) to one
-    channel per layer (reference cv_train.py:329-336). The Fixup nets
-    train their scalar biases and scales at 0.1x the learning rate
+    channel per layer (reference cv_train.py:329-336). The model's input
+    channels and spatial size come from the first transformed image
+    (the ResNet101LN's LayerNorms are built for that size). The Fixup
+    nets train their scalar biases and scales at 0.1x the learning rate
     (reference cv_train.py:366-376)."""
     model_config = {}
     if cfg.do_test:
@@ -212,6 +230,7 @@ def build(cfg: Config, device="cuda",
     train_loader, val_loader = get_data_loaders(cfg, synthetic_examples)
     x0 = train_loader.dataset.get_client_batch(0, np.array([0]))[0]
     model_config["initial_channels"] = int(x0.shape[-1])
+    model_config["input_hw"] = tuple(int(s) for s in x0.shape[1:3])
     module = models.build_model(cfg.model, **model_config)
     lr_scale_vec = (fixup_lr_scales(module) if cfg.model.startswith("Fixup")
                     else None)

@@ -65,7 +65,7 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
     (("--checkpoint",), "--checkpoint"),
     (("--multihost",), "--multihost"),
     (("--sketch_table_dtype", "int8"), "--sketch_table_dtype"),
-    (("--model", "ResNet50"), "ResNet50"),
+    (("--max_grad_norm", "1.0"), "--max_grad_norm"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
@@ -86,8 +86,14 @@ def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
     ("--model", "ResNet18", "--dataset_name", "CIFAR100"),
     ("--model", "FixupResNet18"),
     ("--model", "FixupResNet9"),
+    ("--model", "FixupResNet50", "--dataset_name", "ImageNet", "--mode",
+     "uncompressed", "--iid", "--num_clients", "7"),
+    ("--model", "ResNet50", "--dataset_name", "ImageNet", "--iid",
+     "--num_clients", "256"),
+    ("--model", "ResNet34", "--dataset_name", "EMNIST"),
 ], ids=["true_topk", "local_topk", "fedavg", "local_momentum",
-        "topk_down", "ResNet18", "FixupResNet18", "FixupResNet9"])
+        "topk_down", "ResNet18", "FixupResNet18", "FixupResNet9",
+        "FixupResNet50", "ResNet50", "ResNet34-EMNIST"])
 def test_ported_options_build_a_fedmodel_on_cpu(tmp_path, flags):
     cfg = parse_args(argv=_argv(tmp_path, *flags))
     model, *_ = cv_train.build(cfg, device="cpu")
@@ -101,6 +107,29 @@ def test_ported_options_build_a_fedmodel_on_cpu(tmp_path, flags):
     if cfg.do_topk_down:
         assert torch.equal(rows.weights[3], model.ps_weights)
     assert (model.lr_scale_vec is not None) == cfg.model.startswith("Fixup")
+    if cfg.dataset_name in ("ImageNet", "EMNIST"):
+        # the dataset's classes reach the head, its image size the model
+        module = model.module
+        assert module.fc.out_features == {"ImageNet": 1000, "EMNIST": 62}[
+            cfg.dataset_name]
+        assert module.conv1.in_channels == (
+            1 if cfg.dataset_name == "EMNIST" else 3)
+        assert model.num_clients == (cfg.num_clients or 64)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--dataset_name", "ImageNet", "--iid", "--num_clients", "256"),
+    ("--dataset_name", "ImageNet", "--num_clients", "32"),
+    ("--dataset_name", "EMNIST"),
+    ("--dataset_name", "CIFAR10", "--num_clients", "100"),
+], ids=["ImageNet-iid", "ImageNet", "EMNIST", "CIFAR10"])
+def test_num_clients_resolve_as_in_jax(flags):
+    from commefficient_tpu.config import parse_args as j_parse_args
+    argv = ["--test", "--local_momentum", "0", *flags]
+    jcfg, tcfg = j_parse_args(argv=argv), parse_args(argv=argv)
+    assert tcfg.do_iid == jcfg.do_iid
+    for n in (None, 16):
+        assert tcfg.resolved_num_clients(n) == jcfg.resolved_num_clients(n)
 
 
 @pytest.mark.parametrize("name", ["FixupResNet18", "FixupResNet9"])
