@@ -111,6 +111,29 @@ the result line:
                damped bn3 scales at phase 5's limits, with a TF32
                control, and from phase 14's plain init at the accuracy
                limit alone (R50_BN3_SCALE says why).
+16. dp      — config #2 with `--dp --dp_mode worker --l2_norm_clip 1.0
+               --noise_multiplier 1e-4 --max_grad_norm 1.0` (DP_SIGMA says
+               why), ROUNDS rounds, run after phase 5: each client's
+               table encoded (K1, 8 a round) and clipped on its own;
+               finite losses, ms/round beside config #2's, peak memory;
+               the card's threefry bits and uniforms for the first
+               round's client 0 at D bitwise the CPU's, its normals
+               within DP_NORMAL_RTOL.
+17. wire    — config #2 with `--sketch_table_dtype int8`, then `bf16`,
+               ROUNDS rounds each: every client's upload a round exactly
+               2,500,020 and 5,000,000 bytes; ms/round.
+18. gpt2bf16 — config #5 with `--bf16`, run after phase 8, GPT2_ROUNDS
+               rounds at full width: K4's bf16 instantiation 12 x 8 a
+               round and its f32 one never, K1 / K3a / K3b as in phase 7,
+               ms/round and peak beside config #5's; then --bf16's
+               accuracy check (bf16_parity_phase: the 2-layer GPT2's
+               bf16 gradient on the card and on the CPU against float64,
+               their ratio within BF16_BAND, a float32 control outside
+               it). Phase 6 holds K4's bf16 instantiation against its
+               plain version at every K4 length.
+19. imagenet_bf16 — config #4 per imagenet.sh with `--bf16`, run after
+               phase 13, IMAGENET_ROUNDS rounds: ms/round, host batch and
+               peak beside phase 13's; no kernel launched.
 Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
 prints its ms/round, the host's batch ms, peak memory, the client-state
 bytes and one per-client masked_topk at its D timed on the card, and
@@ -120,17 +143,20 @@ background nvidia-smi reading the SM clock and power draw every 200 ms,
 and the host's load average before and after.
 
 Before the last two lines comes {"kernels": [...]}, one entry per
-kernel and main path: K1 three times (sketch_encode at config #2's
-shapes, sketch_encode_r50 at config #4's, sketch_encode_gpt2 at config
-#5's) and K2 twice (config #2's, sketch_estimate_all_r50), each with the
-launches of its own path's run ("path"). The line before the last holds
+kernel and main path: K1 four times (sketch_encode at config #2's
+shapes, sketch_encode_dp at the same shapes for the dp path,
+sketch_encode_r50 at config #4's, sketch_encode_gpt2 at config #5's),
+K2 twice (config #2's, sketch_estimate_all_r50), K3a, K3b, and K4 twice
+(flash_fwd on f32 operands, flash_fwd_bf16 on bf16 ones, config #5 and
+config #5 with --bf16), each with the launches of its own path's run
+("path"). The line before the last holds
 the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 `--profile [DIR]` additionally traces three more rounds of each path
 with torch.profiler and writes the device time by kernel to
 DIR/profile_rounds.txt (config #2), DIR/profile_gpt2_rounds.txt
-(config #5) and DIR/profile_{fedavg,ttopk,ltopk,imagenet,sketch50}_
-rounds.txt,
+(config #5) and DIR/profile_{dp,gpt2bf16,fedavg,ttopk,ltopk,imagenet,
+imagenet_bf16,sketch50}_rounds.txt,
 chiprun_out/ beside the script by default, and prints K3b's mean device
 time a launch on the GPT2 rounds' own tables.
 """
@@ -303,6 +329,35 @@ R50_D = 25_557_032
 # CPU's float32 error
 R50_BN3_SCALE = 0.1
 
+# the per-round options (phases 16-19, ROADMAP item 6b), each on a path
+# already above. Phase 16 (dp): config #2 with worker-mode DP and the
+# clip. The noise is N(0, 1) x DP_SIGMA x sqrt(8) a coordinate (the
+# reference's scale, not multiplied by the clip): 2.8e-4, the size of
+# one coordinate of a gradient clipped to norm 1 over D = 6,568,640
+# (1 / sqrt(D) = 3.9e-4), so the rounds carry noise of the signal's
+# order and stay finite
+DP_SIGMA = 1e-4
+CONFIG2_DP = ["--dp", "--dp_mode", "worker", "--l2_norm_clip", "1.0",
+              "--noise_multiplier", str(DP_SIGMA), "--max_grad_norm", "1.0"]
+# the card's normals against the CPU's from the same key (both from the
+# bitwise-equal uniforms through ops/prng.erf_inv; the CPU's sit 2.4e-7
+# relative at most from jax.random's, tests/test_torch_prng.py)
+DP_NORMAL_RTOL = 1e-6
+# phase 17 (wire): config #2's table on the quantized wires, upload
+# bytes a client a round: 5 x 500,000 cells, int8 with 5 f32 row scales
+WIRE_BYTES = {"int8": 2_500_020, "bf16": 5_000_000}
+# phase 18 (gpt2bf16): config #5 with --bf16, K4 on bf16 operands. Its
+# kernel check: o (bf16) within half a bf16 ulp of the plain version's
+# f32 output before its cast, plus K4_RTOL of max|o|; lse (f32) within
+# K4_RTOL relative. Its accuracy check (bf16_parity_phase): a 2-layer
+# full-width GPT2's bf16 gradient on the card and on the CPU, each
+# against the float64 CPU gradient; the card's distance over the CPU's
+# within BF16_BAND (tests/test_torch_options.py holds the port's CPU
+# bf16 gradient to JAX's with the same band), and a float32 control on
+# the card outside it
+BF16_BAND = (1 / 3, 3.0)
+H100_BF16_FLOPS = 989e12
+
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
@@ -333,9 +388,11 @@ def ptxas_summary(log: str) -> str:
               "threshold_sample_kernel<16>"),
              ("threshold_mask_kernelILi5E", "threshold_mask_kernel<5>"),
              ("threshold_mask_kernelILi16E", "threshold_mask_kernel<16>"),
-             ("flash_fwd_mma_kernelILi16E", "flash_fwd_mma_kernel<16>"),
-             ("flash_fwd_mma_kernelILi32E", "flash_fwd_mma_kernel<32>"),
-             ("flash_fwd_mma_kernelILi64E", "flash_fwd_mma_kernel<64>"))
+             ("flash_fwd_mma_kernelIfLi16E", "flash_fwd_mma_kernel<f32, 16>"),
+             ("flash_fwd_mma_kernelIfLi32E", "flash_fwd_mma_kernel<f32, 32>"),
+             ("flash_fwd_mma_kernelIfLi64E", "flash_fwd_mma_kernel<f32, 64>"),
+             ("flash_fwd_mma_kernelI13__nv_bfloat16Li64E",
+              "flash_fwd_mma_kernel<bf16, 64>"))
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -353,9 +410,13 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(out)
 
 
-def k4_smem_bytes(dh: int) -> int:
+def k4_smem_bytes(dh: int, bf16: bool = False) -> int:
     """flash_fwd_mma_kernel's dynamic shared memory a block (flash_fwd.cu
-    `Tile`): K and V tiles of 64 rows of Dh + 4 floats, 3 stages."""
+    `Tile`): K and V tiles of 64 rows of Dh + 4 floats, 3 stages; for
+    bf16 operands 3 stages of raw bf16 K and V tiles of 64 x Dh and one
+    widened f32 K and V tile."""
+    if bf16:
+        return 2 * 2 * 3 * 64 * dh + 4 * 2 * 64 * (dh + 4)
     return 4 * 2 * 3 * 64 * (dh + 4)
 
 
@@ -430,6 +491,10 @@ def kernel_phase(sc, CSVec):
         rows = [encode_row(sc, sk, x, "sketch_encode" + suffix, path),
                 estimate_row(sc, sk, sk.encode(x),
                              "sketch_estimate_all" + suffix, path)]
+        if path == "config2":
+            # the dp path (phase 16) encodes each client's [D] gradient
+            # at config #2's shapes, 8 a round
+            rows.append(encode_row(sc, sk, x, "sketch_encode_dp", "dp"))
         out += [timed_row(row, max_err[row["counter"]]) for row in rows]
         del sk, x, rows
     phase("kernels", "sketch_estimate_all store policy: plain write-back "
@@ -616,6 +681,7 @@ class RoundsRun(NamedTuple):
     peak: int               # max_memory_allocated over the rounds
     timed: TimedLoader
     card: CardSampler
+    uploads: list           # each round's [W] upload bytes a client
 
 
 def drive_rounds(label, sc, ac, model, loader, rounds, run) -> RoundsRun:
@@ -626,12 +692,13 @@ def drive_rounds(label, sc, ac, model, loader, rounds, run) -> RoundsRun:
     driver ran `rounds` rounds with finite losses and moved the
     weights; prints the ms/round line and the samples."""
     w0 = model.ps_weights.clone()
-    stamps, losses = [], []
+    stamps, losses, uploads = [], [], []
 
     def on_round(i, out):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         losses.append(out[0])
+        uploads.append(out[-1])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -660,37 +727,130 @@ def drive_rounds(label, sc, ac, model, loader, rounds, run) -> RoundsRun:
           f"{1e3 * statistics.median(timed.seconds[1:rounds]):.2f}; peak "
           f"memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated)")
     phase(label, card.summary())
-    return RoundsRun(round_ms, loss_vals, launches, peak, timed, card)
+    return RoundsRun(round_ms, loss_vals, launches, peak, timed, card,
+                     uploads)
+
+
+def config2_variant(label, sc, ac, cv_train, parse_args, data_dir,
+                    extra=(), rounds=ROUNDS):
+    """Drive cv_train.train() for `rounds` rounds of config #2 with the
+    flags `extra` added; returns (model, the rounds' run, the train
+    loader)."""
+    n_train = CLIENTS * EXAMPLES_PER_CLIENT
+    spe = math.ceil(n_train / (8 * 32))
+    cfg = parse_args(argv=CONFIG2 + list(extra) + [
+        "--local_batch_size", "32", "--num_clients", str(CLIENTS),
+        "--device", "cuda", "--dataset_dir", data_dir,
+        "--num_epochs", str(rounds / spe),
+        "--pivot_epoch", str(rounds / spe / 2), "--seed", "21"])
+    model, opt, sched, train_loader, val_loader = cv_train.build(
+        cfg, device="cuda", synthetic_examples=(n_train, 512))
+    assert model.cfg.grad_size == MAIN_D, model.cfg.grad_size
+    assert train_loader.steps_per_epoch == spe
+    rr = drive_rounds(label, sc, ac, model, train_loader, rounds,
+                      lambda timed, on_round: cv_train.train(
+                          model, opt, sched, timed, val_loader, model.cfg,
+                          on_round=on_round))
+    return model, rr, train_loader
+
+
+def check_launches(label, launches, want) -> None:
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} "
+                                 f"times ({n} expected)")
 
 
 def main_path(sc, ac, cv_train, parse_args, data_dir):
     """Drive cv_train.train() for ROUNDS rounds of config #2; returns
     (model, per-round ms, peak bytes, launches, a batch for parity)."""
-    n_train = CLIENTS * EXAMPLES_PER_CLIENT
-    spe = math.ceil(n_train / (8 * 32))
-    cfg = parse_args(argv=CONFIG2 + [
-        "--local_batch_size", "32", "--num_clients", str(CLIENTS),
-        "--device", "cuda", "--dataset_dir", data_dir,
-        "--num_epochs", str(ROUNDS / spe),
-        "--pivot_epoch", str(ROUNDS / spe / 2), "--seed", "21"])
-    model, opt, sched, train_loader, val_loader = cv_train.build(
-        cfg, device="cuda", synthetic_examples=(n_train, 512))
-    assert model.cfg.grad_size == MAIN_D, model.cfg.grad_size
-    assert train_loader.steps_per_epoch == spe
-    rr = drive_rounds("main", sc, ac, model, train_loader, ROUNDS,
-                      lambda timed, on_round: cv_train.train(
-                          model, opt, sched, timed, val_loader, model.cfg,
-                          on_round=on_round))
-    for name in ("sketch_encode", "sketch_estimate_all"):
-        if rr.launches[name] != ROUNDS:
-            raise AssertionError(f"{name} launched {rr.launches[name]} "
-                                 f"times in {ROUNDS} rounds (one a round "
-                                 "expected)")
+    model, rr, train_loader = config2_variant("main", sc, ac, cv_train,
+                                              parse_args, data_dir)
+    check_launches("main", rr.launches, {"sketch_encode": ROUNDS,
+                                         "sketch_estimate_all": ROUNDS})
     phase("main", f"{ROUNDS} rounds, D={MAIN_D}, mean client loss "
           f"first/last {float(rr.losses[0].mean()):.4f}/"
           f"{float(rr.losses[-1].mean()):.4f}, launches {rr.launches}")
     batch = next(iter(train_loader.epoch()))
     return model, rr.round_ms, rr.peak, rr.launches, batch
+
+
+def dp_phase(sc, ac, cv_train, parse_args, data_dir, prng, main_ms,
+             profile_dir=None):
+    """Phase 16: config #2 with --dp (worker) and --max_grad_norm. Each
+    client's table is encoded (K1) and clipped on its own, 8 a round;
+    then the card's threefry draw for the first round's client 0 at D
+    against the CPU's: bits and uniforms equal, normals within
+    DP_NORMAL_RTOL. Returns the rounds' launches."""
+    model, rr, loader = config2_variant("dp", sc, ac, cv_train, parse_args,
+                                        data_dir, CONFIG2_DP)
+    cfg = model.cfg
+    assert not cfg.defer_sketch_encode and not cfg.fused_client_backward
+    check_launches("dp", rr.launches, {"sketch_encode": 8 * ROUNDS,
+                                       "sketch_estimate_all": ROUNDS})
+    dp_ms = statistics.median(rr.round_ms[1:])
+    phase("dp", f"{ROUNDS} rounds, sigma {DP_SIGMA:g}, clip 1.0, "
+          f"max_grad_norm 1.0: mean client loss first/last "
+          f"{float(rr.losses[0].mean()):.4f}/"
+          f"{float(rr.losses[-1].mean()):.4f}, launches {rr.launches}; "
+          f"median {dp_ms:.2f} ms/round beside config #2's "
+          f"{statistics.median(main_ms[1:]):.2f} in this run; peak "
+          f"{rr.peak / 2 ** 30:.3f} GiB")
+    # client 0's key in the first round (round_idx 0)
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(cfg.seed), 0), 0)
+    bits = {dev: prng.random_bits(key, MAIN_D, device=dev).cpu()
+            for dev in ("cuda", "cpu")}
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    unif = {dev: prng.uniform(key, MAIN_D, lo, 1.0, device=dev).cpu()
+            for dev in ("cuda", "cpu")}
+    norm = {dev: prng.normal(key, MAIN_D, device=dev).cpu()
+            for dev in ("cuda", "cpu")}
+    n_rel = float(((norm["cuda"] - norm["cpu"]).abs()
+                   / norm["cpu"].abs().clamp(min=1e-30)).max())
+    same = float((norm["cuda"] == norm["cpu"]).float().mean())
+    bits_eq = torch.equal(bits["cuda"], bits["cpu"])
+    unif_eq = torch.equal(unif["cuda"].view(torch.int32),
+                          unif["cpu"].view(torch.int32))
+    draw_ms = time_cuda(lambda: prng.normal(key, MAIN_D, device="cuda"),
+                        10, flush=False)
+    phase("dp", f"threefry at D={MAIN_D}, the first round's client 0: "
+          f"bits equal {bits_eq}, uniforms bitwise equal {unif_eq}, "
+          f"normals max rel err {n_rel:.3e} ({same:.4f} bit-equal; "
+          f"tolerance {DP_NORMAL_RTOL:g}); one normal draw on the card "
+          f"{draw_ms:.3f} ms (device time, median of 10)")
+    if not (bits_eq and unif_eq and n_rel <= DP_NORMAL_RTOL):
+        raise AssertionError("the card's threefry draw differs from the "
+                             "CPU's")
+    if profile_dir:
+        profile_rounds(model, loader, model._optimizer,
+                       os.path.join(profile_dir, "profile_dp_rounds.txt"),
+                       "dp profile")
+    del model, loader
+    torch.cuda.empty_cache()
+    return rr.launches
+
+
+def wire_phase(sc, ac, cv_train, parse_args, data_dir, main_ms) -> None:
+    """Phase 17: config #2 on the int8 and bf16 wires; every client's
+    upload a round is WIRE_BYTES exactly, K1 and K2 once a round."""
+    for dtype, want in WIRE_BYTES.items():
+        label = f"wire_{dtype}"
+        model, rr, _ = config2_variant(
+            label, sc, ac, cv_train, parse_args, data_dir,
+            ["--sketch_table_dtype", dtype])
+        check_launches(label, rr.launches, {"sketch_encode": ROUNDS,
+                                            "sketch_estimate_all": ROUNDS})
+        ups = sorted({float(u) for r in rr.uploads for u in r})
+        phase(label, f"{ROUNDS} rounds: upload bytes a client a round "
+              f"{ups} (want {want}); mean client loss first/last "
+              f"{float(rr.losses[0].mean()):.4f}/"
+              f"{float(rr.losses[-1].mean()):.4f}; median "
+              f"{statistics.median(rr.round_ms[1:]):.2f} ms/round beside "
+              f"config #2's {statistics.median(main_ms[1:]):.2f}")
+        if ups != [float(want)]:
+            raise AssertionError(f"{label}: uploads {ups}, {want} expected")
+        del model
+        torch.cuda.empty_cache()
 
 
 def _rel(a, b) -> float:
@@ -868,6 +1028,29 @@ def kernel_phase_gpt2(sc, ac, CSVec):
               f"projection: K4 within {K4_RTOL:g} of its plain version "
               f"(max abs err o {e_o:.3e}, lse {e_l:.3e})")
         del q, k, v, o, lse, po, plse
+    err["flash_fwd_bf16"] = 0.0
+    for L in K4_LENGTHS:
+        q, k, v = k4_operands(L, seed=L, dtype=torch.bfloat16)
+        o, lse = ac.flash_fwd(q, k, v, 0.125)
+        po32, plse = ac.flash_fwd_plain(q.float(), k.float(), v.float(),
+                                        0.125)
+        po, _ = ac.flash_fwd_plain(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        within = bf16_within_half_ulp(o, po32)
+        e_o = float((o.float() - po.float()).abs().max())
+        e_l = float((lse - plse).abs().max())
+        err["flash_fwd_bf16"] = max(err["flash_fwd_bf16"], e_o, e_l)
+        if not (o.dtype == torch.bfloat16 and within
+                and e_l <= K4_RTOL * float(plse.abs().max())):
+            raise AssertionError(f"bf16 flash_fwd differs from its plain "
+                                 f"version at {shape}, L={L}: o {e_o}, "
+                                 f"lse {e_l}")
+        phase("kernels", f"{shape} bf16, L={L}, head views: K4 on bf16 "
+              f"operands, o within half a bf16 ulp (+{K4_RTOL:g} max|o|) "
+              f"of the plain f32 output before its cast, lse within "
+              f"{K4_RTOL:g} (max abs err vs the plain bf16 version: o "
+              f"{e_o:.3e}, lse {e_l:.3e})")
+        del q, k, v, o, lse, po32, po, plse
 
     # timing at the GPT2 main-path shapes
     d, c, r = GPT2_D, MAIN_C, MAIN_R
@@ -886,9 +1069,11 @@ def kernel_phase_gpt2(sc, ac, CSVec):
     # (2 each), the middle; K3b adds the square and the compare
     est_ops = 2 * r + r * (r - 1) + 2
     q, kk, v = k4_operands(GPT2_L, seed=3)
+    qb, kb, vb = k4_operands(GPT2_L, seed=3, dtype=torch.bfloat16)
     bh = K4_BATCH * K4_HEADS
     pairs = bh * GPT2_L * (GPT2_L + 1) // 2      # causal (q, k) pairs
     sdpa = sdpa_efficient(ac, q, kk, v)
+    sdpa_b = sdpa_flash_bf16(ac, qb, kb, vb)
     rows = [
         encode_row(sc, sk, x, "sketch_encode_gpt2", "config5"),
         # K3a reads the whole table (its r * B * ns gathers cover it),
@@ -935,6 +1120,19 @@ def kernel_phase_gpt2(sc, ac, CSVec):
              library=sdpa,
              bytes=4 * 4 * q.numel() + 4 * bh * GPT2_L,
              ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
+        # bf16 operands (--bf16): q, k, v read and o written in bf16
+        # (2 bytes), lse in f32; 4 Dh operations a causal pair on bf16
+        # inputs, at the bf16 tensor-core rate. Its yardstick rounds P to
+        # bf16 before P.V, so it is not quite the same function
+        dict(name="flash_fwd_bf16", counter="flash_fwd_bf16",
+             path="config5_bf16", route="cuda",
+             source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces="commefficient_tpu/ops/attention.py:91",
+             fn=lambda: ac.flash_fwd(qb, kb, vb, 0.125),
+             plain=lambda: ac.flash_fwd_plain(qb, kb, vb, 0.125),
+             library=sdpa_b,
+             bytes=4 * 2 * qb.numel() + 4 * bh * GPT2_L,
+             ops=4 * K4_DH * pairs, peak_flops=H100_BF16_FLOPS),
     ]
     return [timed_row(row, err[row["counter"]]) for row in rows]
 
@@ -978,14 +1176,14 @@ def early_out_shares(sk, table, off, thr) -> None:
           "8-position sectors hold only such coordinates (plain torch)")
 
 
-def k4_operands(L: int, seed: int):
+def k4_operands(L: int, seed: int, dtype=torch.float32):
     """q, k, v as the GPT2 main path hands them to K4: the [B, H, L, Dh]
     head views of one fused [K4_BATCH, L, 3 * 768] QKV projection (row
-    stride 3 * 768, no copy)."""
+    stride 3 * 768, no copy), in `dtype` (bf16 under --bf16)."""
     E = K4_HEADS * K4_DH
     qkv = torch.randn(K4_BATCH, L, 3 * E,
                       generator=torch.Generator().manual_seed(seed)
-                      ).to("cuda")
+                      ).to("cuda", dtype)
     return tuple(t.reshape(K4_BATCH, L, K4_HEADS, K4_DH).transpose(1, 2)
                  for t in qkv.split(E, dim=-1))
 
@@ -1014,42 +1212,76 @@ def sdpa_efficient(ac, q, k, v):
     return call
 
 
+def sdpa_flash_bf16(ac, q, k, v):
+    """K4-bf16's library yardstick: scaled_dot_product_attention (bf16,
+    causal) pinned to the flash backend, on the same bf16 views. It
+    rounds P to bf16 before P.V, so it is held to the plain version
+    only loosely (2e-2 of max|o|) and its error is printed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=0.125)
+    o = call().float()
+    po, _ = ac.flash_fwd_plain(q.float(), k.float(), v.float(), 0.125)
+    e = float((o - po).abs().max() / po.abs().max())
+    phase("kernels", f"library yardstick (bf16): scaled_dot_product_"
+          f"attention, backend {SDPBackend.FLASH_ATTENTION.name} (pinned), "
+          f"on the bf16 head views; relative max err vs the plain f32 "
+          f"output {e:.3e}")
+    if not e <= 2e-2:
+        raise AssertionError("the bf16 SDPA yardstick is far from K4's "
+                             "function")
+    return call
+
+
+def bf16_within_half_ulp(o, po32) -> bool:
+    """o (bf16) within half a bf16 ulp of the f32 output po32 before its
+    cast, plus K4_RTOL of max|po32|."""
+    ulp = torch.where(po32 == 0, torch.zeros_like(po32),
+                      torch.ldexp(torch.ones_like(po32),
+                                  torch.frexp(po32).exponent - 8))
+    bound = 0.5 * ulp + K4_RTOL * float(po32.abs().max())
+    return bool(((o.float() - po32).abs() <= bound).all())
+
+
 def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
-                   profile_dir=None):
+                   profile_dir=None, label="gpt2", extra=(),
+                   attn="flash_fwd"):
     """Drive gpt2_train.train_gpt2() for GPT2_ROUNDS rounds of config #5,
     then test_gpt2 on the val split (and, with `profile_dir`, trace
     three more rounds); returns (launches, round ms, peak bytes, a batch
     for parity, the config)."""
     spe = math.ceil(GPT2_CORPUS[0] * GPT2_CORPUS[1] * GPT2_CORPUS[2]
                     / (8 * 8))
-    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5 + [
-        "--local_batch_size", "8", "--device", "cuda",
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5 + list(
+        extra) + ["--local_batch_size", "8", "--device", "cuda",
         "--dataset_dir", data_dir, "--num_epochs", str(GPT2_ROUNDS / spe),
         "--seed", "21"])
     t0 = time.perf_counter()
     model, opt, sched, train_loader, val_loader = gpt2_train.build(
         cfg, HashTokenizer(GPT2_VOCAB), device="cuda",
         synthetic_examples=GPT2_CORPUS)
-    phase("gpt2", f"built in {time.perf_counter() - t0:.2f} s: D="
+    phase(label, f"built in {time.perf_counter() - t0:.2f} s: D="
           f"{model.cfg.grad_size}, train L={train_loader.dataset.seq_len}, "
           f"val L={val_loader.dataset.seq_len}, {spe} rounds an epoch")
     assert model.cfg.grad_size == GPT2_D, model.cfg.grad_size
     assert train_loader.dataset.seq_len == GPT2_L
     assert train_loader.steps_per_epoch == spe
     assert model.cfg.fused_client_backward
-    rr = drive_rounds("gpt2", sc, ac, model, train_loader, GPT2_ROUNDS,
+    rr = drive_rounds(label, sc, ac, model, train_loader, GPT2_ROUNDS,
                       lambda timed, on_round: gpt2_train.train_gpt2(
                           model, opt, sched, timed, model.cfg,
                           on_round=on_round))
     launches = rr.launches
     want = {"threshold_sample": GPT2_ROUNDS, "threshold_mask": GPT2_ROUNDS,
             "sketch_encode": 2 * GPT2_ROUNDS, "sketch_estimate_all": 0,
-            "flash_fwd": 12 * 8 * GPT2_ROUNDS}
-    for name, n in want.items():
-        if launches[name] != n:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {GPT2_ROUNDS} rounds ({n} expected)")
-    phase("gpt2", f"{GPT2_ROUNDS} rounds, D={GPT2_D}, L={GPT2_L}, mean "
+            "flash_fwd": 0, "flash_fwd_bf16": 0}
+    want[attn] = 12 * 8 * GPT2_ROUNDS
+    check_launches(label, launches, want)
+    phase(label, f"{GPT2_ROUNDS} rounds, D={GPT2_D}, L={GPT2_L}, mean "
           f"client loss first/last {float(rr.losses[0].mean()):.4f}/"
           f"{float(rr.losses[-1].mean()):.4f}, launches {launches}")
     reset_counts(sc, ac)
@@ -1058,21 +1290,68 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
     torch.cuda.synchronize()
     if not math.isfinite(stats["val_nll"]):
         raise AssertionError(f"non-finite val NLL {stats['val_nll']}")
-    phase("gpt2", f"test_gpt2: val NLL {stats['val_nll']:.4f}, acc "
+    phase(label, f"test_gpt2: val NLL {stats['val_nll']:.4f}, acc "
           f"{stats['val_acc']:.4f}, ppl {stats['val_ppl']:.2f} in "
-          f"{time.perf_counter() - t0:.2f} s, K4 launched "
-          f"{ac.LAUNCHES['flash_fwd']} times")
-    if ac.LAUNCHES["flash_fwd"] == 0:
-        raise AssertionError("test_gpt2 did not launch K4")
+          f"{time.perf_counter() - t0:.2f} s, K4 ({attn}) launched "
+          f"{ac.LAUNCHES[attn]} times")
+    if ac.LAUNCHES[attn] == 0:
+        raise AssertionError(f"test_gpt2 did not launch K4 ({attn})")
     if profile_dir:
         profile_rounds(model, train_loader, opt,
-                       os.path.join(profile_dir, "profile_gpt2_rounds.txt"),
-                       "gpt2 profile", per_launch=("threshold_mask_kernel",))
+                       os.path.join(profile_dir,
+                                    f"profile_{label}_rounds.txt"),
+                       f"{label} profile",
+                       per_launch=("threshold_mask_kernel",))
     batch = next(iter(train_loader.epoch()))
     cfg = model.cfg
     del model, opt, sched
     torch.cuda.empty_cache()
     return launches, rr.round_ms, rr.peak, batch, cfg
+
+
+def bf16_parity_phase(label, build, w, data, mask, make_loss, fclient,
+                      flat) -> None:
+    """--bf16's accuracy check: one client's flat gradient from the same
+    weights `w` and batch in bf16 on the card and on the CPU, each
+    against the float64 CPU gradient. The card's distance over the
+    CPU's must lie within BF16_BAND; a float32 run on the card (the
+    --bf16-off control) must fall outside it."""
+    runs = (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+            ("cpu", torch.float64), ("cuda", None))
+    out = {}
+    for dev, dt in runs:
+        dtype = torch.float64 if dt == torch.float64 else torch.float32
+        module = build().to(dev, dtype)
+        _, unravel = flat.flatten_params(module)
+        xs = tuple(t.to(dtype) if t.is_floating_point() else t
+                   for t in (torch.from_numpy(a).to(dev) for a in data))
+        m = torch.from_numpy(mask).to(dev, dtype)
+        grad_fn = fclient.make_flat_grad_fn(
+            make_loss(module), unravel,
+            torch.bfloat16 if dt == torch.bfloat16 else None)
+        t0 = time.perf_counter()
+        _, _, g = grad_fn(w.detach().to(dev, dtype), xs, m)
+        out[dev, dt] = g.cpu()
+        phase(label, f"{dev} {dt or torch.float32} gradient in "
+              f"{time.perf_counter() - t0:.2f} s")
+        del module, g
+    g64 = out["cpu", torch.float64]
+    e_card = _rel(out["cuda", torch.bfloat16], g64)
+    e_cpu = _rel(out["cpu", torch.bfloat16], g64)
+    e_ctrl = _rel(out["cuda", None], g64)
+    e_pair = _rel(out["cuda", torch.bfloat16], out["cpu", torch.bfloat16])
+    lo, hi = BF16_BAND
+    phase(label, f"vs the float64 CPU gradient: card bf16 {e_card:.3e}, "
+          f"CPU bf16 {e_cpu:.3e}, ratio {e_card / e_cpu:.3f} (within "
+          f"[{lo:.3f}, {hi:g}]); card bf16 vs CPU bf16 {e_pair:.3e}; "
+          f"control, the card with --bf16 off: {e_ctrl:.3e}, ratio "
+          f"{e_ctrl / e_cpu:.3e} (must fall outside)")
+    if not lo <= e_card / e_cpu <= hi:
+        raise AssertionError("the card's bf16 gradient is not as accurate "
+                             "as the CPU's")
+    if lo <= e_ctrl / e_cpu <= hi:
+        raise AssertionError("the band passes a float32 run: it cannot tell "
+                             "bf16 from float32")
 
 
 def profile_rounds(model, train_loader, opt, path, label="profile",
@@ -1419,8 +1698,9 @@ def main(argv=None) -> int:
                     help="trace three more rounds of each path with "
                          "torch.profiler and write profile_rounds.txt, "
                          "profile_gpt2_rounds.txt and profile_<path>_"
-                         "rounds.txt of the fedavg, ttopk, ltopk, imagenet "
-                         "and sketch50 paths "
+                         "rounds.txt of the dp, gpt2bf16, fedavg, ttopk, "
+                         "ltopk, imagenet, imagenet_bf16 and sketch50 "
+                         "paths "
                          "into DIR (default chiprun_out/ beside this "
                          "script)")
     args = ap.parse_args(argv)
@@ -1437,7 +1717,7 @@ def main(argv=None) -> int:
     from commefficient_tpu_torch.federated import server as fserver
     from commefficient_tpu_torch.models import convert
     from commefficient_tpu_torch.models import gpt2 as gpt2_model
-    from commefficient_tpu_torch.ops import flat
+    from commefficient_tpu_torch.ops import flat, prng
     from commefficient_tpu_torch.ops.kernels import _build
     from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
     from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
@@ -1457,7 +1737,8 @@ def main(argv=None) -> int:
     phase("build", f"nvcc sm_90a build of {sorted(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s (0 when already built); "
           f"ptxas: {ptxas}; flash_fwd_mma_kernel dynamic smem a block: "
-          + ", ".join(f"Dh {dh}: {k4_smem_bytes(dh)} bytes"
+          + ", ".join(f"Dh {dh}: {k4_smem_bytes(dh)} bytes (bf16 "
+                      f"{k4_smem_bytes(dh, bf16=True)})"
                       for dh in ac.SUPPORTED_DH))
 
     kernels = kernel_phase(sc, CSVec)
@@ -1481,11 +1762,17 @@ def main(argv=None) -> int:
                                            "profile_rounds.txt"))
     del model
     torch.cuda.empty_cache()
+    # phases 16-17: config #2 with --dp and --max_grad_norm, and on the
+    # quantized wires
+    dp_launches = dp_phase(sc, ac, cv_train, parse_args, data_dir, prng,
+                           round_ms, args.profile)
+    wire_phase(sc, ac, cv_train, parse_args, data_dir, round_ms)
 
     g_kernels = kernel_phase_gpt2(sc, ac, CSVec)
-    g_launches, _, _, g_batch, g_cfg = gpt2_main_path(
-        sc, ac, gpt2_train, parse_args, HashTokenizer,
-        os.path.join(HERE, "build", "chip_smoke_gpt2_data"), args.profile)
+    gpt2_dir = os.path.join(HERE, "build", "chip_smoke_gpt2_data")
+    g_launches, g_ms, g_peak, g_batch, g_cfg = gpt2_main_path(
+        sc, ac, gpt2_train, parse_args, HashTokenizer, gpt2_dir,
+        args.profile)
 
     # a 2-layer full-width GPT2 (threshold route), 2 clients x 2
     # examples of a main-path batch
@@ -1503,6 +1790,24 @@ def main(argv=None) -> int:
                  lambda m: gpt2_train.make_compute_loss_train(m, g_cfg),
                  GPT2_PARITY_RTOL, GPT2_ACCURACY_FLOOR, fclient, fserver,
                  flat, tf32_control=True)
+
+    # phase 18: config #5 with --bf16 (K4 on bf16 operands), then the
+    # bf16 accuracy check on the 2-layer GPT2, one example of 2
+    # candidates
+    gb_launches, gb_ms, gb_peak, gb_batch, _ = gpt2_main_path(
+        sc, ac, gpt2_train, parse_args, HashTokenizer, gpt2_dir,
+        args.profile, label="gpt2bf16", extra=["--bf16"],
+        attn="flash_fwd_bf16")
+    phase("gpt2bf16", f"median {statistics.median(gb_ms[1:]):.2f} "
+          f"ms/round beside config #5's {statistics.median(g_ms[1:]):.2f}; "
+          f"peak {gb_peak / 2 ** 30:.3f} GiB beside "
+          f"{g_peak / 2 ** 30:.3f}")
+    bf16_parity_phase("gpt2bf16",
+                      lambda: gpt2_model.GPT2DoubleHeads(gcfg, seed=5), g_w,
+                      tuple(a[0, :1] for a in gb_batch[1]),
+                      gb_batch[2][0, :1],
+                      lambda m: gpt2_train.make_compute_loss_train(m, g_cfg),
+                      fclient, flat)
 
     # the remaining modes at full width (phases 9-12)
     cifar_dir = os.path.join(HERE, "build", "chip_smoke_data")
@@ -1542,7 +1847,29 @@ def main(argv=None) -> int:
                            os.path.join(args.profile,
                                         "profile_imagenet_rounds.txt"),
                            "imagenet profile")
+        i_rr = rr
         del model, rr, loader
+        torch.cuda.empty_cache()
+
+        # phase 19: config #4 per imagenet.sh with --bf16
+        model, rr, loader = imagenet_path(
+            "imagenet_bf16", sc, ac, cv_train, parse_args,
+            CONFIG4 + ["--bf16"], FIXUP50_D, corpus)
+        check_launches("imagenet_bf16", rr.launches,
+                       {n: 0 for n in rr.launches})
+        med = statistics.median
+        phase("imagenet_bf16", "bf16 beside phase 13's f32: median "
+              f"{med(rr.round_ms[1:]):.2f}, {med(i_rr.round_ms[1:]):.2f} "
+              "ms/round; host batch "
+              f"{1e3 * med(rr.timed.seconds[1:]):.2f}, "
+              f"{1e3 * med(i_rr.timed.seconds[1:]):.2f} ms; peak "
+              f"{rr.peak / 2 ** 30:.3f}, {i_rr.peak / 2 ** 30:.3f} GiB")
+        if args.profile:
+            profile_rounds(model, loader, model._optimizer,
+                           os.path.join(args.profile,
+                                        "profile_imagenet_bf16_rounds.txt"),
+                           "imagenet_bf16 profile")
+        del model, rr, loader, i_rr
         torch.cuda.empty_cache()
 
         model, rr, loader = imagenet_path(
@@ -1585,7 +1912,8 @@ def main(argv=None) -> int:
 
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,
-                     "config4": s_launches}
+                     "config4": s_launches, "dp": dp_launches,
+                     "config5_bf16": gb_launches}
     kernels += g_kernels
     for k in kernels:
         k["launches"] = path_launches[k["path"]][k.pop("counter")]

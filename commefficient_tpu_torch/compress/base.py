@@ -8,13 +8,17 @@ static specs (host-side config math): `state_shape`, `wire_floats`,
 `wire_bytes`, `has_errors`, `has_velocities`, `validate`;
 
 the four seams of the round, each the identity by default:
-  * `encode(cfg, grad)` — per client, the mean gradient -> the wire
-    quantity;
+  * `encode(cfg, grad, key)` — per client, the mean gradient -> the
+    wire quantity;
   * `residual(cfg, to_transmit, error, velocity)` — per client, after
     count scaling: wire payload plus the error/velocity carries;
-  * `post_aggregate(cfg, transmit)` — once a round on the cohort sum;
-  * `decode(cfg, gradient, Vvelocity, Verror, lr)` — the server step,
-    returning a federated.server.ServerUpdate.
+  * `post_aggregate(cfg, transmit, key)` — once a round on the cohort
+    sum;
+  * `decode(cfg, gradient, Vvelocity, Verror, lr, key)` — the server
+    step, returning a federated.server.ServerUpdate.
+
+`key` is a threefry key (ops/prng.py): the client's, the round's or
+the server's, as in the JAX engine.
 
 `sketch_like` marks a scheme whose wire quantity is the [r, c]
 count-sketch table, `local_sgd` one that trains several local steps.
@@ -52,14 +56,14 @@ class Compressor:
         support."""
 
     # ---- round seams --------------------------------------------------
-    def encode(self, cfg, grad):
+    def encode(self, cfg, grad, key=None):
         return grad
 
     def residual(self, cfg, to_transmit, error, velocity):
         return to_transmit, error, velocity
 
-    def post_aggregate(self, cfg, transmit):
+    def post_aggregate(self, cfg, transmit, key=None):
         return transmit
 
-    def decode(self, cfg, gradient, Vvelocity, Verror, lr):
+    def decode(self, cfg, gradient, Vvelocity, Verror, lr, key=None):
         raise NotImplementedError

@@ -9,10 +9,8 @@ imports config, and config's spec properties import this package.
 from __future__ import annotations
 
 from commefficient_tpu_torch.compress.base import Compressor
-from commefficient_tpu_torch.ops.flat import masked_topk
-
-# wire element size of the sketch table; only f32 is ported
-_TABLE_ELEM_BYTES = {"f32": 4}
+from commefficient_tpu_torch.ops.flat import clip_table_to_l2, masked_topk
+from commefficient_tpu_torch.ops.kernels.quant import wire_table_bytes
 
 
 def _fserver():
@@ -31,17 +29,24 @@ class SketchCompressor(Compressor):
         return cfg.num_rows * cfg.num_cols
 
     def wire_bytes(self, cfg) -> int:
-        return (cfg.num_rows * cfg.num_cols
-                * _TABLE_ELEM_BYTES[cfg.sketch_table_dtype])
+        # at the wire dtype, int8's per-row scales included
+        return wire_table_bytes(cfg.num_rows, cfg.num_cols,
+                                cfg.sketch_table_dtype)
 
-    def encode(self, cfg, grad):
+    def encode(self, cfg, grad, key=None):
         if cfg.defer_sketch_encode:
             # linearity: the round encodes the cohort's SUM once
             return grad
-        return _fserver().args2sketch(cfg).encode(grad)
+        sketch = _fserver().args2sketch(cfg)
+        table = sketch.encode(grad)
+        if cfg.max_grad_norm is not None:
+            table = clip_table_to_l2(table, sketch.l2estimate(table),
+                                     cfg.max_grad_norm)
+        return table
 
-    def decode(self, cfg, gradient, Vvelocity, Verror, lr):
-        return _fserver()._sketched(gradient, Vvelocity, Verror, cfg, lr)
+    def decode(self, cfg, gradient, Vvelocity, Verror, lr, key=None):
+        return _fserver()._sketched(gradient, Vvelocity, Verror, cfg,
+                                    lr, key)
 
 
 class TrueTopkCompressor(Compressor):
@@ -52,8 +57,9 @@ class TrueTopkCompressor(Compressor):
     def wire_floats(self, cfg) -> int:
         return cfg.grad_size
 
-    def decode(self, cfg, gradient, Vvelocity, Verror, lr):
-        return _fserver()._true_topk(gradient, Vvelocity, Verror, cfg, lr)
+    def decode(self, cfg, gradient, Vvelocity, Verror, lr, key=None):
+        return _fserver()._true_topk(gradient, Vvelocity, Verror, cfg,
+                                     lr, key)
 
 
 class LocalTopkCompressor(Compressor):
@@ -73,8 +79,9 @@ class LocalTopkCompressor(Compressor):
             velocity = velocity * not_sent     # momentum factor masking
         return to_transmit, error, velocity
 
-    def decode(self, cfg, gradient, Vvelocity, Verror, lr):
-        return _fserver()._local_topk(gradient, Vvelocity, Verror, cfg, lr)
+    def decode(self, cfg, gradient, Vvelocity, Verror, lr, key=None):
+        return _fserver()._local_topk(gradient, Vvelocity, Verror, cfg,
+                                      lr, key)
 
 
 class FedavgCompressor(Compressor):
@@ -86,8 +93,9 @@ class FedavgCompressor(Compressor):
     def wire_floats(self, cfg) -> int:
         return cfg.grad_size
 
-    def decode(self, cfg, gradient, Vvelocity, Verror, lr):
-        return _fserver()._fedavg(gradient, Vvelocity, Verror, cfg, lr)
+    def decode(self, cfg, gradient, Vvelocity, Verror, lr, key=None):
+        return _fserver()._fedavg(gradient, Vvelocity, Verror, cfg,
+                                  lr, key)
 
 
 class UncompressedCompressor(Compressor):
@@ -97,6 +105,6 @@ class UncompressedCompressor(Compressor):
     def wire_floats(self, cfg) -> int:
         return cfg.grad_size
 
-    def decode(self, cfg, gradient, Vvelocity, Verror, lr):
+    def decode(self, cfg, gradient, Vvelocity, Verror, lr, key=None):
         return _fserver()._uncompressed(gradient, Vvelocity, Verror, cfg,
-                                        lr)
+                                        lr, key)

@@ -50,7 +50,6 @@ DEFAULT_NUM_CLIENTS = {
 }
 
 # ROADMAP.md Queue 1 items that still hold each unported path
-Q_OPTIONS = "Queue 1 item 6b (the per-round options of the modes)"
 Q_JOURNAL = "Queue 1 item 6c (checkpoint/resume and the journal)"
 Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
 Q_GPT2 = ("Queue 1 item 7 (what the GPT2 path leaves: pretrained "
@@ -375,15 +374,6 @@ class Config:
         if self.mode not in PORTED_MODES:
             # powersgd and dp_sketch, the plugins of item 9
             refuse(f"--mode {self.mode}", Q_SCALE)
-        if self.do_dp:
-            refuse("--dp", Q_OPTIONS)
-        if self.max_grad_norm is not None:
-            refuse("--max_grad_norm", Q_OPTIONS)
-        if self.do_bf16:
-            refuse("--bf16", Q_OPTIONS)
-        if self.sketch_table_dtype != "f32":
-            refuse(f"--sketch_table_dtype {self.sketch_table_dtype}",
-                   Q_OPTIONS)
         for flag, on in (("--checkpoint", self.do_checkpoint),
                          ("--checkpoint_every", self.checkpoint_every > 0),
                          ("--resume", self.resume),

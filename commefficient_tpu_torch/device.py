@@ -7,7 +7,9 @@ falls back to the CPU silently. Tests pass `device="cpu"` explicitly.
 TF32 is switched off for both matmuls and cuDNN convolutions: the JAX
 reference computes in full float32, and TF32 keeps only about three
 decimal digits, which would put the card's gradients and sketch
-tables outside the parity tolerances.
+tables outside the parity tolerances. cuBLAS's bfloat16 GEMMs (--bf16)
+may not reduce in bfloat16 either: they accumulate in float32 and
+round once, as XLA's bfloat16 dots do.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev

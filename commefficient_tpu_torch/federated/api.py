@@ -31,6 +31,7 @@ from commefficient_tpu_torch.federated.accounting import (
     CommAccountant, pack_change_bits, to_words,
 )
 from commefficient_tpu_torch.ops.flat import flatten_params
+from commefficient_tpu_torch.ops.prng import PRNGKey
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -66,6 +67,8 @@ class FedModel:
         self.clients = fround.init_client_state(cfg, self.num_clients,
                                                 self.device, vec)
         self.accountant = CommAccountant(cfg, self.num_clients)
+        # the run's threefry key; every round folds in its index
+        self._key = PRNGKey(cfg.seed)
         self.lr_scale_vec = (None if lr_scale_vec is None
                              else _as_tensor(np.asarray(lr_scale_vec,
                                                         np.float32),
@@ -114,7 +117,7 @@ class FedModel:
             _as_tensor(mask, self.device).to(torch.float32))
         prev_weights = self.server.ps_weights
         self.server, self.clients, metrics = self._train_round(
-            self.server, self.clients, placed, self._lr())
+            self.server, self.clients, placed, self._lr(), self._key)
         self._prev_change_bits = pack_change_bits(
             self.server.ps_weights - prev_weights)
         download, upload = self.accountant.record_round(ids_host,

@@ -14,11 +14,15 @@ count, so the server's divide by the cohort's example total is exact
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.ops.flat import (
+    clip_to_l2, dp_noise, global_norm_clip,
+)
 
 LossFn = Callable[[dict, Tuple[torch.Tensor, ...], torch.Tensor],
                   Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]]
@@ -33,27 +37,60 @@ class ClientResult(NamedTuple):
     num_examples: torch.Tensor   # valid example count (f32 scalar)
 
 
-def make_flat_loss_fn(loss_fn: LossFn, unravel: Callable):
+def _cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x in `dtype` when x is floating (the JAX package's `_cast_tree`
+    leaf rule); integer and boolean tensors pass unchanged."""
+    return x.to(dtype) if x.is_floating_point() else x
+
+
+def _compute_in(params: dict, batch, compute_dtype):
+    """The parameters and batch a model body sees: cast to
+    `compute_dtype` (--bf16) leaf by leaf, or as they are. The cast is
+    differentiable, so the gradient reaches the float32 flat vector in
+    float32. The validity mask is never cast."""
+    if compute_dtype is None:
+        return params, batch
+    return ({k: _cast(v, compute_dtype) for k, v in params.items()},
+            tuple(_cast(x, compute_dtype) for x in batch))
+
+
+def _loss_out(loss, metrics, compute_dtype):
+    """Loss and metrics brought back to float32 after a `compute_dtype`
+    body (float32 and float64 bodies return theirs as they are)."""
+    if compute_dtype is None:
+        return loss, metrics
+    return loss.float(), tuple(m.float() for m in metrics)
+
+
+def make_flat_loss_fn(loss_fn: LossFn, unravel: Callable,
+                      compute_dtype=None):
     """loss_fn lifted to the flat weight vector:
     flat_loss(vec, batch, mask) -> (loss, metrics). Differentiable in
     `vec` when it requires grad. Consecutive calls on the same `vec`
     object (the cohort's clients in fused_shard_grads) share one
-    unravel, so the backward splits the gradient once, not per client."""
+    unravel, so the backward splits the gradient once, not per client.
+    `compute_dtype` (torch.bfloat16 under --bf16) is the type the model
+    body computes in; each call casts the parameters anew, so each
+    client's bf16 gradient is summed into the float32 vector."""
     last = [None, None]
 
     def flat_loss(vec, batch, mask):
         if last[0] is not vec:
             last[:] = [vec, unravel(vec)]
-        return loss_fn(last[1], batch, mask)
+        params, batch = _compute_in(last[1], batch, compute_dtype)
+        return _loss_out(*loss_fn(params, batch, mask), compute_dtype)
     return flat_loss
 
 
-def make_flat_grad_fn(loss_fn: LossFn, unravel: Callable):
+def make_flat_grad_fn(loss_fn: LossFn, unravel: Callable,
+                      compute_dtype=None):
     """flat_grad(vec, batch, mask) -> (loss, metrics, grad [D]), the
-    gradient taken with respect to the flat vector."""
+    gradient taken with respect to the float32 flat vector, the body
+    computed in `compute_dtype` when it is given."""
     def flat_grad(weights, batch, mask):
         w = weights.detach().requires_grad_(True)
-        loss, metrics = loss_fn(unravel(w), batch, mask)
+        params, b = _compute_in(unravel(w), batch, compute_dtype)
+        loss, metrics = _loss_out(*loss_fn(params, b, mask), compute_dtype)
         grad, = torch.autograd.grad(loss, w)
         return (loss.detach(), tuple(m.detach() for m in metrics), grad)
     return flat_grad
@@ -82,12 +119,20 @@ def _microbatches(batch, mask, n_mb: int, mb: int):
 
 
 def forward_grad(flat_grad_fn, weights: torch.Tensor, batch,
-                 mask: torch.Tensor, cfg: Config, compute_grad: bool = True):
+                 mask: torch.Tensor, cfg: Config, key=None,
+                 compute_grad: bool = True):
     """Microbatched forward(/backward) over one client's padded batch.
     Returns (g, loss, metrics, count): g the compressed mean gradient
     (None when compute_grad is False, and then `flat_grad_fn` is a
     loss-only callable, see make_flat_loss_fn), loss and metrics masked
-    means, count the valid example count."""
+    means, count the valid example count. `key` is the client's
+    threefry key (ops/prng.py), which `--dp --dp_mode worker` draws its
+    noise from.
+
+    The mean gradient then goes through the JAX package's steps in its
+    order: `--max_grad_norm`'s global-norm clip (not in sketch mode,
+    which clips the table), weight decay, `--dp`'s clip to
+    l2_norm_clip and worker noise, and the mode's encode."""
     n_mb, mb = _microbatch_shape(mask.shape[0], cfg.microbatch_size)
     grad_sum = torch.zeros_like(weights) if compute_grad else None
     loss_sum = weights.new_zeros(())
@@ -115,11 +160,19 @@ def forward_grad(flat_grad_fn, weights: torch.Tensor, batch,
     # mean over valid examples: the gradient scale does not depend on
     # microbatch_size
     grad = grad_sum / denom
+    if cfg.max_grad_norm is not None and cfg.mode != "sketch":
+        grad = global_norm_clip(grad, cfg.max_grad_norm)
     # weight decay, divided by num_workers so the summed transmission
     # applies it once (reference utils.py:254-259)
     if cfg.weight_decay != 0:
         grad = grad + (cfg.weight_decay / cfg.num_workers) * weights
-    return cfg.compressor.encode(cfg, grad), loss, metrics, total
+    if cfg.do_dp:
+        grad = clip_to_l2(grad, cfg.l2_norm_clip)
+        if cfg.dp_mode == "worker":
+            grad = grad + dp_noise(key, grad.shape, cfg.noise_multiplier,
+                                   scale=math.sqrt(cfg.num_workers),
+                                   device=grad.device)
+    return cfg.compressor.encode(cfg, grad, key), loss, metrics, total
 
 
 def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
@@ -157,11 +210,12 @@ def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
 
 
 def local_step(flat_grad_fn, weights, batch, mask, error, velocity,
-               cfg: Config) -> ClientResult:
+               cfg: Config, key=None) -> ClientResult:
     """One client's single local step plus its compression bookkeeping
-    (reference local_step, fed_worker.py:184-230)."""
+    (reference local_step, fed_worker.py:184-230); `key` is the
+    client's threefry key."""
     g, loss, metrics, count = forward_grad(flat_grad_fn, weights, batch,
-                                           mask, cfg)
+                                           mask, cfg, key)
     # the transmit sums over examples; the server divides by the
     # cohort's example total
     g = g * count
@@ -187,7 +241,8 @@ def fedavg_step(flat_grad_fn, weights, batch, mask, cfg: Config,
     num_fedavg_epochs times, step s at lr * fedavg_lr_decay**s. Every
     step runs, an all-padding batch included: its gradient is the
     weight-decay term alone and its zero loss counts in the step mean,
-    as in the JAX scan."""
+    as in the JAX scan. Like the JAX package's fedavg_step, it applies
+    neither `--dp` nor `--max_grad_norm`."""
     B = mask.shape[0]
     inner = (B if cfg.fedavg_batch_size == -1
              else min(cfg.fedavg_batch_size, B))

@@ -5,11 +5,17 @@ One round: the cohort's clients compute on the server weights (one
 fused backward over all of them when Config.fused_client_backward
 holds, else one local_step each, or fedavg_step's local SGD), their
 transmits are summed, the sum is sketched ONCE in sketch mode (kernel
-K1 on the card), divided by the cohort's example total, and handed to
-the server step (federated/server.py), whose update is applied to the
-weights. The participants' per-client rows (local error, local
-velocity, the stale weights of --topk_down) are gathered before the
-round and scattered back after it.
+K1 on the card; once per client instead under --dp or
+--max_grad_norm), rides the --sketch_table_dtype wire, is divided by
+the cohort's example total, and is handed to the server step
+(federated/server.py), whose update is applied to the weights. The
+clients compute in bfloat16 under --bf16. The participants' per-client
+rows (local error, local velocity, the stale weights of --topk_down)
+are gathered before the round and scattered back after it.
+
+Keys (ops/prng.py) as in the JAX engine: the round's is
+fold_in(key, round_idx), client c's (c its place in the cohort)
+fold_in(round_key, c), the server's fold_in(round_key, num_workers).
 
 What the JAX engine runs as one jitted SPMD program over a `clients`
 mesh axis runs here as eager PyTorch on one device: the `lax.psum`
@@ -28,6 +34,8 @@ from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.federated import client as fclient
 from commefficient_tpu_torch.federated import server as fserver
 from commefficient_tpu_torch.ops.flat import masked_topk
+from commefficient_tpu_torch.ops.kernels.quant import wire_roundtrip
+from commefficient_tpu_torch.ops.prng import fold_in
 
 
 class ServerState(NamedTuple):
@@ -136,14 +144,23 @@ def scatter_back(cfg: Config, clients: ClientState, ids: torch.Tensor,
     return clients
 
 
+def compute_dtype(cfg: Config):
+    """The client body's type: torch.bfloat16 under --bf16, else None
+    (the parameters' own float32)."""
+    return torch.bfloat16 if cfg.do_bf16 else None
+
+
 def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
     """The train-round callable:
-        train_round(server, clients, batch, lr) -> (server, clients,
-                                                    RoundMetrics)
-    `lr` is the scheduler's learning rate for this round (a float)."""
+        train_round(server, clients, batch, lr, key) -> (server, clients,
+                                                         RoundMetrics)
+    `lr` is the scheduler's learning rate for this round (a float),
+    `key` the run's threefry key (ops/prng.py)."""
     cfg.validate()
-    flat_grad = fclient.make_flat_grad_fn(loss_fn, unravel)
-    flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel)
+    flat_grad = fclient.make_flat_grad_fn(loss_fn, unravel,
+                                          compute_dtype(cfg))
+    flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel,
+                                          compute_dtype(cfg))
     comp = cfg.compressor
 
     def client_weights(ps_weights, w_stale):
@@ -156,7 +173,7 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
                                      k=cfg.down_k or cfg.k)
 
     def client_phase(ps_weights, batch: RoundBatch, cohort: CohortState,
-                     lr):
+                     lr, round_key):
         """The cohort's summed transmit, example counts, per-client
         losses/metrics and updated rows."""
         if cfg.fused_client_backward:
@@ -173,7 +190,8 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
             else:
                 res = fclient.local_step(flat_grad, weights, data,
                                          batch.mask[c], cohort.errors[c],
-                                         cohort.velocities[c], cfg)
+                                         cohort.velocities[c], cfg,
+                                         fold_in(round_key, c))
             results.append(res)
             new_w.append(weights)
         local_sum = torch.stack([r.transmit for r in results]).sum(dim=0)
@@ -194,19 +212,26 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
         return local_sum, counts, losses, metrics, cohort
 
     def round_step(server: ServerState, cohort: CohortState,
-                   batch: RoundBatch, lr):
+                   batch: RoundBatch, lr, key):
+        round_key = fold_in(key, server.round_idx)
+        W = batch.mask.shape[0]
         local_sum, counts, losses, metrics, cohort = client_phase(
-            server.ps_weights, batch, cohort, lr)
+            server.ps_weights, batch, cohort, lr, round_key)
         if cfg.defer_sketch_encode:
             # sketch linearity: encode the cohort's sum once (K1)
             local_sum = fserver.args2sketch(cfg).encode(local_sum)
+        if cfg.mode == "sketch":
+            # the quantized wire (the identity for f32). The JAX engine
+            # rounds each mesh shard's sum; one device holds one shard
+            local_sum = wire_roundtrip(local_sum, cfg.sketch_table_dtype)
         # the sum over the clients axis of the JAX engine (lax.psum) is
         # the identity on one device
-        transmit = comp.post_aggregate(cfg, local_sum)
+        transmit = comp.post_aggregate(cfg, local_sum, round_key)
         total = counts.sum()
         gradient = transmit / torch.clamp(total, min=1.0)
         upd = fserver.get_server_update(gradient, server.Vvelocity,
-                                        server.Verror, cfg, lr)
+                                        server.Verror, cfg, lr,
+                                        key=fold_in(round_key, W))
         new_server = ServerState(server.ps_weights - upd.update,
                                  upd.Vvelocity, upd.Verror,
                                  server.round_idx + 1)
@@ -217,9 +242,10 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
         return new_server, cohort, RoundMetrics(losses, metrics, counts)
 
     def train_round(server: ServerState, clients: ClientState,
-                    batch: RoundBatch, lr):
+                    batch: RoundBatch, lr, key):
         cohort = gather_cohort(cfg, clients, batch.client_ids)
-        server, cohort, metrics = round_step(server, cohort, batch, lr)
+        server, cohort, metrics = round_step(server, cohort, batch, lr,
+                                             key)
         clients = scatter_back(cfg, clients, batch.client_ids, cohort)
         return server, clients, metrics
 
@@ -230,8 +256,10 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
 
 def make_eval_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
     """eval_batch(ps_weights, data [S, vb, ...], mask [S, vb]) ->
-    per-shard (loss [S], metrics, count [S]), forward only."""
-    flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel)
+    per-shard (loss [S], metrics, count [S]), forward only, in the
+    train round's compute type."""
+    flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel,
+                                          compute_dtype(cfg))
 
     @torch.no_grad()
     def eval_batch(ps_weights, data, mask):

@@ -3,8 +3,9 @@ commefficient_tpu/federated/server.py for the ported modes (sketch,
 true_topk, local_topk, fedavg, uncompressed).
 
 Same helper signature as the JAX package,
-`(gradient, Vvelocity, Verror, cfg, lr) -> ServerUpdate`, and the same
-`alive` gate: a round in which no client survived leaves the state
+`(gradient, Vvelocity, Verror, cfg, lr, key) -> ServerUpdate` (`key`:
+the server's threefry key, ops/prng.py, for server-side DP noise), and
+the same `alive` gate: a round in which no client survived leaves the state
 untouched and applies a zero update.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from commefficient_tpu_torch.config import Config
-from commefficient_tpu_torch.ops.flat import masked_topk
+from commefficient_tpu_torch.ops.flat import dp_noise, masked_topk
 from commefficient_tpu_torch.ops.sketch import (
     CSVec, cached_sketch, scatter_drop,
 )
@@ -38,12 +39,14 @@ def args2sketch(cfg: Config) -> CSVec:
 
 def get_server_update(gradient: torch.Tensor, Vvelocity: torch.Tensor,
                       Verror: torch.Tensor, cfg: Config, lr,
+                      key: Optional[torch.Tensor] = None,
                       alive: Optional[torch.Tensor] = None
                       ) -> ServerUpdate:
-    """Dispatch on cfg.mode through its Compressor plugin. `alive`: an
-    optional boolean scalar tensor; False gates the result to a no-op
-    (zero update, state passed through bit-exactly)."""
-    upd = cfg.compressor.decode(cfg, gradient, Vvelocity, Verror, lr)
+    """Dispatch on cfg.mode through its Compressor plugin. `key`: the
+    server's threefry key (needed by `--dp --dp_mode server`). `alive`:
+    an optional boolean scalar tensor; False gates the result to a
+    no-op (zero update, state passed through bit-exactly)."""
+    upd = cfg.compressor.decode(cfg, gradient, Vvelocity, Verror, lr, key)
     if alive is None:
         return upd
     return ServerUpdate(
@@ -56,7 +59,7 @@ def get_server_update(gradient: torch.Tensor, Vvelocity: torch.Tensor,
 
 
 def _fedavg(avg_update, Vvelocity, Verror, cfg: Config,
-            lr) -> ServerUpdate:
+            lr, key=None) -> ServerUpdate:
     """`lr` is ignored: the clients already applied it in their local
     steps, and the averaged weight delta is applied as it is."""
     rho = cfg.virtual_momentum
@@ -65,7 +68,7 @@ def _fedavg(avg_update, Vvelocity, Verror, cfg: Config,
 
 
 def _true_topk(gradient, Vvelocity, Verror, cfg: Config,
-               lr) -> ServerUpdate:
+               lr, key=None) -> ServerUpdate:
     """Top-k of the virtual error, then error feedback and momentum
     factor masking at the sent coordinates; with local momentum the
     participants' velocity rows are masked there too (the round applies
@@ -82,7 +85,7 @@ def _true_topk(gradient, Vvelocity, Verror, cfg: Config,
 
 
 def _local_topk(local_topk_grad, Vvelocity, Verror, cfg: Config,
-                lr) -> ServerUpdate:
+                lr, key=None) -> ServerUpdate:
     """Virtual momentum over the already sparsified cohort sum; no
     virtual error."""
     rho = cfg.virtual_momentum
@@ -91,14 +94,20 @@ def _local_topk(local_topk_grad, Vvelocity, Verror, cfg: Config,
 
 
 def _uncompressed(gradient, Vvelocity, Verror, cfg: Config,
-                  lr) -> ServerUpdate:
+                  lr, key=None) -> ServerUpdate:
+    """Momentum SGD; with `--dp --dp_mode server` the step (not the
+    momentum state) carries N(0, noise_multiplier) noise."""
     rho = cfg.virtual_momentum
     Vvelocity = gradient + rho * Vvelocity
-    return ServerUpdate(Vvelocity * lr, Vvelocity, Verror, None)
+    grad = Vvelocity
+    if cfg.do_dp and cfg.dp_mode == "server":
+        grad = grad + dp_noise(key, grad.shape, cfg.noise_multiplier,
+                               device=grad.device)
+    return ServerUpdate(grad * lr, Vvelocity, Verror, None)
 
 
 def _sketched(sketched_grad, Vvelocity, Verror, cfg: Config,
-              lr) -> ServerUpdate:
+              lr, key=None) -> ServerUpdate:
     """FetchSGD's server step in table space: momentum, virtual error,
     the median estimate of every coordinate (kernel K2 on the card),
     top-k, a re-sketch of the k-sparse update, and zeroing of the cells

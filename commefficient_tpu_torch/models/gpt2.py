@@ -8,10 +8,15 @@ The same architecture and the same parameter tree:
     ([B, C, L] -> [B*C, L]);
   * token types looked up in the SAME token embedding, and the LM head
     tied to it (one [V, E] parameter);
-  * attention: below FLASH_ATTENTION_MIN_LEN the product form with a
-    -1e9 causal fill and a float32 softmax; at and above it
-    `ops/attention.flash_attention` (kernel K4 on the card), which never
+  * attention: below FLASH_ATTENTION_MIN_LEN the product form with
+    float32 logits (from bfloat16 operands under --bf16, as JAX's
+    `preferred_element_type=float32` einsum), a -1e9 causal fill and a
+    float32 softmax; at and above it `ops/attention.flash_attention`
+    (kernel K4 on the card, float32 or bfloat16 q/k/v), which never
     materializes [B, H, L, L];
+  * LayerNorm statistics and normalization in float32 whatever the
+    input type, rounded to it once at the end (flax's
+    `force_float32_reductions`);
   * the MC head reads the hidden state at `mc_token_ids` and projects to
     one scalar a candidate.
 
@@ -76,6 +81,19 @@ PRESETS = {
 FLASH_ATTENTION_MIN_LEN = 256
 
 
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm computed in float32 for a bfloat16 input, then
+    rounded to the input's type once: flax's LayerNorm takes its
+    statistics and normalizes in float32 (force_float32_reductions)."""
+
+    def forward(self, x):
+        if x.dtype in (torch.float32, torch.float64):
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
 class SelfAttention(nn.Module):
     """Causal multi-head self-attention with a fused QKV projection."""
 
@@ -99,11 +117,15 @@ class SelfAttention(nn.Module):
         if L >= FLASH_ATTENTION_MIN_LEN:
             out = flash_attention(q, k, v)
         else:
-            att = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+            # float32 (or float64) logits: bfloat16 products are exact
+            # in float32
+            acc = torch.promote_types(q.dtype, torch.float32)
+            att = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)
+                               ) / math.sqrt(hd)
             causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                            device=h.device))
             att = att.masked_fill(~causal, -1e9)
-            att = torch.softmax(att.float(), dim=-1).to(v.dtype)
+            att = torch.softmax(att, dim=-1).to(v.dtype)
             out = torch.matmul(att, v)
         out = out.transpose(1, 2).reshape(B, L, E)
         return self.c_proj(out)
@@ -126,9 +148,9 @@ class Block(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         eps = cfg.layer_norm_epsilon
-        self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=eps)
+        self.ln_1 = LayerNorm(cfg.n_embd, eps=eps)
         self.attn = SelfAttention(cfg)
-        self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=eps)
+        self.ln_2 = LayerNorm(cfg.n_embd, eps=eps)
         self.mlp = MLP(cfg)
 
     def forward(self, h):
@@ -144,7 +166,7 @@ class GPT2Transformer(nn.Module):
         self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd)
         for i in range(cfg.n_layer):
             self.add_module(f"h_{i}", Block(cfg))
-        self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon)
+        self.ln_f = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon)
 
     def forward(self, input_ids, token_type_ids=None):
         L = input_ids.shape[-1]
@@ -206,9 +228,11 @@ class GPT2DoubleHeads(nn.Module):
                     out.append(LayoutEntry(prefix + ("kernel",), name,
                                            (i, o), _IO_TO_OI))
                     continue
-                flax = {(nn.LayerNorm, "weight"): "scale",
-                        (nn.Embedding, "weight"): "embedding"}.get(
-                            (type(mod), pname), pname)
+                flax = pname
+                if pname == "weight" and isinstance(mod, nn.LayerNorm):
+                    flax = "scale"
+                elif pname == "weight" and isinstance(mod, nn.Embedding):
+                    flax = "embedding"
                 out.append(LayoutEntry(prefix + (flax,), name,
                                        tuple(p.shape)))
         return out

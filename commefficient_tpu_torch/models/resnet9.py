@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import LayoutEntry
 
 DEFAULT_CHANNELS = {"prep": 64, "layer1": 128, "layer2": 256, "layer3": 512}
@@ -42,8 +43,10 @@ class StatelessBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        mean = x.mean(dim=(0, 2, 3), keepdim=True)
-        var = x.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+        # jnp's mean and var: float32 from the upcast batch, rounded
+        # once, for a bfloat16 input (ops/lowp.py)
+        mean = lowp.mean(x, dim=(0, 2, 3), keepdim=True)
+        var = lowp.var(x, dim=(0, 2, 3), keepdim=True)
         return ((x - mean) * torch.rsqrt(var + self.epsilon)
                 * self.scale[None, :, None, None]
                 + self.bias[None, :, None, None])

@@ -46,6 +46,10 @@ NORMS = ("batch", "layer", "group", "none")
 BLOCKS = ("basic", "bottleneck", "fixup_bottleneck")
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class LayerNorm(nn.Module):
     """flax `LayerNorm(reduction_axes=(-3, -2, -1), feature_axes=(-3,
     -2, -1))` on NCHW: each image normalized over all its (C, H, W)
@@ -61,10 +65,14 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, *hw))
 
     def forward(self, x):
-        mean = x.mean(dim=(1, 2, 3), keepdim=True)
-        var = x.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
-        return ((x - mean) * torch.rsqrt(var + FLAX_NORM_EPSILON)
-                * self.scale + self.bias)
+        # in float32 for a bfloat16 input, rounded once at the end (flax
+        # reduces and normalizes in float32)
+        xf = _at_least_f32(x)
+        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+        var = xf.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + FLAX_NORM_EPSILON)
+                * _at_least_f32(self.scale)
+                + _at_least_f32(self.bias)).to(x.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -78,8 +86,11 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        return F.group_norm(x, self.num_groups, self.scale, self.bias,
-                            FLAX_NORM_EPSILON)
+        # in float32 for a bfloat16 input, as LayerNorm above
+        return F.group_norm(_at_least_f32(x), self.num_groups,
+                            _at_least_f32(self.scale),
+                            _at_least_f32(self.bias),
+                            FLAX_NORM_EPSILON).to(x.dtype)
 
 
 def _norm(kind: str, channels: int, hw: Tuple[int, int]

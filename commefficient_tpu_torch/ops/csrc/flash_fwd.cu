@@ -62,13 +62,29 @@
 //   written head-merged, [B, L, H, Dh], which the model's head merge
 //   then reshapes without a copy; lse is [B, H, L].
 //
+// bfloat16 operands (GPT2 under --bf16). JAX's kernel upcasts each
+// bf16 tile to f32, takes q * sm_scale, the logits, the online softmax
+// and P.V in f32, writes o in q's type and lse in f32. Here the same
+// body runs on f32 tiles: K and V tiles come in as raw bf16 with
+// cp.async, three stages deep (half the bytes of the f32 stages), and
+// each tile is widened once into one f32 K and one f32 V tile in the
+// padded layout above, from which the unchanged 3xTF32 body reads; q is
+// widened when it is split. o is rounded to bf16 (round to nearest
+// even, __float2bfloat16_rn) as it is stored; lse stays f32. bf16
+// values are exact in TF32, so the small parts of K, V and q are zero
+// and a later version may drop their passes (or use bf16 mma with f32
+// accumulation); the body is kept as it is here.
+//
 // Left for later: wgmma. For TF32 it takes both operands K-major, so V
 // would have to be transposed in shared memory first; with TMA and a
 // producer warp it is the route to the tensor cores' full rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -84,6 +100,11 @@ struct Tile {
   static constexpr int kStride = DH + 4;          // padded row, floats
   static constexpr int kFloats = kBK * kStride;   // one K or V tile
   static constexpr int kBytes = 4 * 2 * kStages * kFloats;  // K, V
+  // bf16 operands: raw (unpadded) K and V tiles in kStages stages, then
+  // one widened f32 K and one f32 V tile
+  static constexpr int kRawElems = kBK * DH;      // one raw K or V tile
+  static constexpr int kBytesBf16 =
+      2 * 2 * kStages * kRawElems + 4 * 2 * kFloats;
 };
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -151,19 +172,142 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
+// rows r0 .. r0 + 63 of a bf16 [L, DH] head into an unpadded raw tile,
+// 8 values a 16-byte copy; rows at or past L are zero-filled
 template <int DH>
+__device__ __forceinline__ void load_raw_tile(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              long long sl, int r0, int L) {
+  constexpr int kVec = DH / 8;
+  for (int i = threadIdx.x; i < kBK * kVec; i += kThreads) {
+    const int r = i / kVec;
+    const int c8 = i - r * kVec;
+    const bool ok = r0 + r < L;
+    const __nv_bfloat16* g = ok ? src + (long long)(r0 + r) * sl + 8 * c8
+                                : src;
+    cp_async16(reinterpret_cast<float*>(dst + r * DH + 8 * c8),
+               reinterpret_cast<const float*>(g), ok);
+  }
+}
+
+// a raw bf16 tile widened into the padded f32 layout the body reads
+template <int DH>
+__device__ __forceinline__ void widen_tile(float* dst,
+                                           const __nv_bfloat16* src) {
+  constexpr int kVec = DH / 8;
+  for (int i = threadIdx.x; i < kBK * kVec; i += kThreads) {
+    const int r = i / kVec;
+    const int c8 = i - r * kVec;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * DH + 8 * c8);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h[0]);
+    const float2 b = __bfloat1622float2(h[1]);
+    const float2 c = __bfloat1622float2(h[2]);
+    const float2 d = __bfloat1622float2(h[3]);
+    float* o = dst + r * Tile<DH>::kStride + 8 * c8;
+    *reinterpret_cast<float4*>(o) = make_float4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<float4*>(o + 4) = make_float4(c.x, c.y, d.x, d.y);
+  }
+}
+
+// two adjacent o values in the output's type
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The staging steps of the two operand types, chosen by overload on the
+// operand pointer. smem holds, for f32, [stage][K | V] padded f32
+// tiles; for bf16, [stage][K | V] raw bf16 tiles followed by the widened
+// f32 K and V tiles. q is staged through the last stage's K buffer.
+
+// K and V tile `tile` into stage `st`
+template <int DH>
+__device__ __forceinline__ void load_kv(float* smem, const float* kp,
+                                        const float* vp, long long ksl,
+                                        long long vsl, int st, int tile,
+                                        int L) {
+  constexpr int TF = Tile<DH>::kFloats;
+  load_tile<DH>(smem + st * 2 * TF, kp, ksl, tile * kBK, L);
+  load_tile<DH>(smem + st * 2 * TF + TF, vp, vsl, tile * kBK, L);
+}
+template <int DH>
+__device__ __forceinline__ void load_kv(float* smem, const __nv_bfloat16* kp,
+                                        const __nv_bfloat16* vp,
+                                        long long ksl, long long vsl, int st,
+                                        int tile, int L) {
+  constexpr int RE = Tile<DH>::kRawElems;
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem);
+  load_raw_tile<DH>(raw + st * 2 * RE, kp, ksl, tile * kBK, L);
+  load_raw_tile<DH>(raw + st * 2 * RE + RE, vp, vsl, tile * kBK, L);
+}
+
+// q's rows q0 .. q0 + 63 into the last stage
+template <int DH>
+__device__ __forceinline__ void load_q(float* smem, const float* qp,
+                                       long long qsl, int q0, int L) {
+  load_tile<DH>(smem + (kStages - 1) * 2 * Tile<DH>::kFloats, qp, qsl, q0,
+                L);
+}
+template <int DH>
+__device__ __forceinline__ void load_q(float* smem, const __nv_bfloat16* qp,
+                                       long long qsl, int q0, int L) {
+  load_raw_tile<DH>(reinterpret_cast<__nv_bfloat16*>(smem)
+                        + (kStages - 1) * 2 * Tile<DH>::kRawElems,
+                    qp, qsl, q0, L);
+}
+
+// staged q at row r, column c of the block, as f32
+template <int DH>
+__device__ __forceinline__ float q_at(const float* smem, const float*, int r,
+                                      int c) {
+  return smem[(kStages - 1) * 2 * Tile<DH>::kFloats
+              + r * Tile<DH>::kStride + c];
+}
+template <int DH>
+__device__ __forceinline__ float q_at(const float* smem,
+                                      const __nv_bfloat16*, int r, int c) {
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(smem)
+                              [(kStages - 1) * 2 * Tile<DH>::kRawElems
+                               + r * DH + c]);
+}
+
+// the f32 K tile of key tile kt (its V tile follows it); bf16 widens the
+// landed raw tiles first, once for all warps
+template <int DH>
+__device__ __forceinline__ const float* kv_tile(float* smem, const float*,
+                                                int kt) {
+  return smem + (kt % kStages) * 2 * Tile<DH>::kFloats;
+}
+template <int DH>
+__device__ __forceinline__ const float* kv_tile(float* smem,
+                                                const __nv_bfloat16*,
+                                                int kt) {
+  constexpr int RE = Tile<DH>::kRawElems;
+  const __nv_bfloat16* raw =
+      reinterpret_cast<const __nv_bfloat16*>(smem) + (kt % kStages) * 2 * RE;
+  float* wide = smem + kStages * RE;   // after the raw stages
+  widen_tile<DH>(wide, raw);
+  widen_tile<DH>(wide + Tile<DH>::kFloats, raw + RE);
+  __syncthreads();
+  return wide;
+}
+
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_mma_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, long long qsb, long long qsh,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, long long qsb, long long qsh,
     long long qsl, long long ksb, long long ksh, long long ksl,
-    long long vsb, long long vsh, long long vsl, float* __restrict__ o,
+    long long vsb, long long vsh, long long vsl, T* __restrict__ o,
     float* __restrict__ lse, int H, int L, int n_bh, float sm_scale) {
   constexpr int S = Tile<DH>::kStride;
   constexpr int TF = Tile<DH>::kFloats;
   constexpr int KS = DH / 8;   // k steps of the score product
   constexpr int ND = DH / 8;   // n tiles of the PV product
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);   // [stage][K | V]
+  float* smem = reinterpret_cast<float*>(smem4);   // see load_kv
 
   // heaviest query tiles first, across all heads
   const int lin = blockIdx.y * gridDim.x + blockIdx.x;
@@ -171,9 +315,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_mma_kernel(
   const int bh = lin - (lin / n_bh) * n_bh;
   const int b = bh / H;
   const int h = bh - b * H;
-  const float* qp = q + b * qsb + h * qsh;
-  const float* kp = k + b * ksb + h * ksh;
-  const float* vp = v + b * vsb + h * vsh;
+  const T* qp = q + b * qsb + h * qsh;
+  const T* kp = k + b * ksb + h * ksh;
+  const T* vp = v + b * vsb + h * vsh;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -185,14 +329,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_mma_kernel(
   // q through the last stage's K buffer, tiles 0 and 1 into stages 0
   // and 1; one commit group each, empty past the last tile, so that
   // wait_group<kStages - 1> always means "q, or tile kt, has landed"
-  load_tile<DH>(smem + (kStages - 1) * 2 * TF, qp, qsl, q0, L);
+  load_q<DH>(smem, qp, qsl, q0, L);
   cp_async_commit();
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_kt) {
-      load_tile<DH>(smem + st * 2 * TF, kp, ksl, st * kBK, L);
-      load_tile<DH>(smem + st * 2 * TF + TF, vp, vsl, st * kBK, L);
-    }
+    if (st < n_kt) load_kv<DH>(smem, kp, vp, ksl, vsl, st, st, L);
     cp_async_commit();
   }
   cp_async_wait<kStages - 1>();
@@ -200,14 +341,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_mma_kernel(
 
   uint32_t qb[KS][4], qs[KS][4];
   {
-    const float* qw = smem + (kStages - 1) * 2 * TF + warp * 16 * S;
+    // this warp's q rows, as f32, scaled in f32
+    const int r0 = warp * 16 + g;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      split(qw[g * S + 8 * kk + t] * sm_scale, qb[kk][0], qs[kk][0]);
-      split(qw[(g + 8) * S + 8 * kk + t] * sm_scale, qb[kk][1], qs[kk][1]);
-      split(qw[g * S + 8 * kk + t + 4] * sm_scale, qb[kk][2], qs[kk][2]);
-      split(qw[(g + 8) * S + 8 * kk + t + 4] * sm_scale, qb[kk][3],
-            qs[kk][3]);
+      split(q_at<DH>(smem, qp, r0, 8 * kk + t) * sm_scale, qb[kk][0],
+            qs[kk][0]);
+      split(q_at<DH>(smem, qp, r0 + 8, 8 * kk + t) * sm_scale, qb[kk][1],
+            qs[kk][1]);
+      split(q_at<DH>(smem, qp, r0, 8 * kk + t + 4) * sm_scale, qb[kk][2],
+            qs[kk][2]);
+      split(q_at<DH>(smem, qp, r0 + 8, 8 * kk + t + 4) * sm_scale,
+            qb[kk][3], qs[kk][3]);
     }
   }
   __syncthreads();   // the last stage is free for tile kStages - 1
@@ -223,15 +368,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_mma_kernel(
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int ahead = kt + kStages - 1;
-    if (ahead < n_kt) {
-      float* nxt = smem + (ahead % kStages) * 2 * TF;
-      load_tile<DH>(nxt, kp, ksl, ahead * kBK, L);
-      load_tile<DH>(nxt + TF, vp, vsl, ahead * kBK, L);
-    }
+    if (ahead < n_kt)
+      load_kv<DH>(smem, kp, vp, ksl, vsl, ahead % kStages, ahead, L);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
     __syncthreads();
-    const float* ks = smem + (kt % kStages) * 2 * TF;
+    const float* ks = kv_tile<DH>(smem, kp, kt);
     const float* vs = ks + TF;
 
     // s = (q * sm_scale) k^T over this tile: 8 n-tiles of 8 keys
@@ -326,37 +468,49 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_mma_kernel(
   const float ls0 = fmaxf(l0, 1e-30f);
   const float ls1 = fmaxf(l1, 1e-30f);
   if (row0 < L) {
-    float* orow = o + ((long long)(b * L + row0) * H + h) * DH + 2 * t;
+    T* orow = o + ((long long)(b * L + row0) * H + h) * DH + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<float2*>(orow + 8 * nd) =
-          make_float2(acc[nd][0] / ls0, acc[nd][1] / ls0);
+      store2(orow + 8 * nd, acc[nd][0] / ls0, acc[nd][1] / ls0);
     if (t == 0) lse[(long long)bh * L + row0] = m0 + logf(ls0);
   }
   if (row1 < L) {
-    float* orow = o + ((long long)(b * L + row1) * H + h) * DH + 2 * t;
+    T* orow = o + ((long long)(b * L + row1) * H + h) * DH + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<float2*>(orow + 8 * nd) =
-          make_float2(acc[nd][2] / ls1, acc[nd][3] / ls1);
+      store2(orow + 8 * nd, acc[nd][2] / ls1, acc[nd][3] / ls1);
     if (t == 0) lse[(long long)bh * L + row1] = m1 + logf(ls1);
   }
 }
 
-template <int DH>
-int launch(const float* q, const float* k, const float* v,
-           const long long* st, float* o, float* lse, int B, int H, int L,
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v,
+           const long long* st, void* o, float* lse, int B, int H, int L,
            float sm_scale, cudaStream_t stream) {
-  const int bytes = Tile<DH>::kBytes;
+  const int bytes = std::is_same<T, float>::value ? Tile<DH>::kBytes
+                                                  : Tile<DH>::kBytesBf16;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_mma_kernel<T, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + kBQ - 1) / kBQ, B * H);
-  flash_fwd_mma_kernel<DH><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], o, lse, H, L, B * H, sm_scale);
+  flash_fwd_mma_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], static_cast<T*>(o), lse, H, L, B * H, sm_scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dh(const void* q, const void* k, const void* v,
+              const long long* st, void* o, float* lse, int B, int H, int L,
+              int dh, float sm_scale, cudaStream_t s) {
+  switch (dh) {
+    case 16: return launch<T, 16>(q, k, v, st, o, lse, B, H, L, sm_scale, s);
+    case 32: return launch<T, 32>(q, k, v, st, o, lse, B, H, L, sm_scale, s);
+    case 64: return launch<T, 64>(q, k, v, st, o, lse, B, H, L, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -366,20 +520,25 @@ extern "C" {
 // o [B, L, H, Dh] (head-merged, contiguous), lse [B, H, L] <- causal
 // attention of q, k, v [B, H, L, Dh] given by their element strides
 // `strides` = (q's B, H, L; k's B, H, L; v's B, H, L), unit stride in
-// Dh, every row 16-byte aligned; Dh in {16, 32, 64}. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Dh, every row 16-byte aligned; Dh in {16, 32, 64}. q, k, v and o are
+// float32 (cct_flash_fwd) or bfloat16 (cct_flash_fwd_bf16); lse is
+// float32. Returns cudaGetLastError() after the launch (0 = launched).
 int cct_flash_fwd(const float* q, const float* k, const float* v,
                   const long long* strides, float* o, float* lse, int B,
                   int H, int L, int dh, float sm_scale, void* stream) {
   if (B < 1 || H < 1 || (long long)B * H > 65535 || L < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dh) {
-    case 16: return launch<16>(q, k, v, strides, o, lse, B, H, L, sm_scale, s);
-    case 32: return launch<32>(q, k, v, strides, o, lse, B, H, L, sm_scale, s);
-    case 64: return launch<64>(q, k, v, strides, o, lse, B, H, L, sm_scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_dh<float>(q, k, v, strides, o, lse, B, H, L, dh, sm_scale,
+                          (cudaStream_t)stream);
+}
+
+int cct_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                       const long long* strides, void* o, float* lse, int B,
+                       int H, int L, int dh, float sm_scale, void* stream) {
+  if (B < 1 || H < 1 || (long long)B * H > 65535 || L < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_dh<__nv_bfloat16>(q, k, v, strides, o, lse, B, H, L, dh,
+                                  sm_scale, (cudaStream_t)stream);
 }
 
 const char* cct_error_string(int code) {

@@ -18,6 +18,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from commefficient_tpu_torch.ops.prng import normal
+
 TOPK_THRESHOLD_MIN_D = 4 * 1024 * 1024
 _TOPK_SAMPLE = 1024 * 1024
 
@@ -158,3 +160,39 @@ def sampled_threshold_mask(v: torch.Tensor, k: int) -> torch.Tensor:
     stride = max(1, d // _TOPK_SAMPLE)
     thr = threshold_from_sq_sample(sq[::stride], k, d)
     return torch.where(sq >= thr, v, torch.zeros_like(v))
+
+
+def clip_to_l2(vec: torch.Tensor, clip: float) -> torch.Tensor:
+    """`vec` scaled down to L2 norm `clip` when its norm exceeds it
+    (branch-free, as the JAX package's `clip_to_l2`)."""
+    norm = torch.linalg.vector_norm(vec)
+    scale = torch.where(norm > clip, clip / torch.clamp(norm, min=1e-30),
+                        torch.ones_like(norm))
+    return vec * scale
+
+
+def clip_table_to_l2(table: torch.Tensor, l2_est: torch.Tensor,
+                     clip: float) -> torch.Tensor:
+    """A sketch table scaled by an outside L2 estimate of its vector
+    (`CSVec.l2estimate`), down to `clip`."""
+    scale = torch.where(l2_est > clip, clip / torch.clamp(l2_est, min=1e-30),
+                        torch.ones_like(l2_est))
+    return table * scale
+
+
+def global_norm_clip(vec: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """`torch.nn.utils.clip_grad_norm_`'s rule on the flat vector:
+    times max_norm / (norm + 1e-6) when the norm exceeds max_norm."""
+    norm = torch.linalg.vector_norm(vec)
+    scale = torch.where(norm > max_norm, max_norm / (norm + 1e-6),
+                        torch.ones_like(norm))
+    return vec * scale
+
+
+def dp_noise(key: torch.Tensor, shape, noise_multiplier: float,
+             scale: float = 1.0, device=None) -> torch.Tensor:
+    """Gaussian DP noise N(0, 1) * (noise_multiplier * scale) on
+    `device`, drawn as `jax.random.normal(key, shape)` draws it
+    (ops/prng.py): scale is sqrt(num_workers) at the worker and 1 at
+    the server."""
+    return normal(key, shape, device) * (noise_multiplier * scale)

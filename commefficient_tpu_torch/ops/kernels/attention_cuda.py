@@ -16,12 +16,20 @@ projection reach it without a copy; it writes o head-merged into a
 `transpose(1, 2)` view, which the model's head merge reshapes without
 a copy. lse is [B, H, L].
 
+q, k and v are float32, or bfloat16 under --bf16 (GPT2's config #5
+with L = 299): the JAX kernel upcasts each bf16 tile to float32, runs
+the same float32 body and writes o in bf16 and lse in float32, and so
+does K4's bf16 instantiation (`cct_flash_fwd_bf16`). The wrapper never
+upcasts on the host and never falls back to the plain version for a
+CUDA tensor.
+
 Routing is by device, per call: a CPU tensor takes the plain version
 (`flash_fwd_plain`, the online-softmax fold of ops/attention.py); a
 CUDA tensor launches the kernel or raises.
 
-Counts: `LAUNCHES["flash_fwd"]` adds one each time the wrapper launches
-the kernel, and nowhere else.
+Counts: `LAUNCHES["flash_fwd"]` (float32 operands) and
+`LAUNCHES["flash_fwd_bf16"]` (bfloat16) add one each time the wrapper
+launches that instantiation, and nowhere else.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 from commefficient_tpu_torch.ops.attention import _flash_fwd_plain
 from commefficient_tpu_torch.ops.kernels import _build
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_bf16": 0}
 
 # the head widths the kernel is instantiated for (GPT2's presets all
 # use 64)
@@ -45,11 +53,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# the kernel's operand types: (C entry point, launch counter)
+_ENTRY = {torch.float32: ("cct_flash_fwd", "flash_fwd"),
+          torch.bfloat16: ("cct_flash_fwd_bf16", "flash_fwd_bf16")}
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.cct_flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i,
-                                  ctypes.c_float, vp]
-    lib.cct_flash_fwd.restype = i
+    for name, _ in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, ctypes.c_float, vp]
+        fn.restype = i
 
 
 # the plain version: (o, lse) of the JAX package's off-TPU forward
@@ -62,7 +76,9 @@ def _strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
     unless its Dh stride is 1 and every row is 16-byte aligned (the
     kernel loads 16 bytes a thread)."""
     sb, sh, sl, sd = t.stride()
-    if sd != 1 or t.data_ptr() % 16 or sb % 4 or sh % 4 or sl % 4:
+    per16 = 16 // t.element_size()
+    if (sd != 1 or t.data_ptr() % 16 or sb % per16 or sh % per16
+            or sl % per16):
         raise ValueError(f"{name} must have unit stride in Dh and 16-byte "
                          f"aligned rows, got strides {t.stride()} at "
                          f"address {t.data_ptr():#x}")
@@ -72,17 +88,21 @@ def _strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal attention forward of q, k, v [B, H, L, Dh]: (o [B, H, L,
-    Dh], lse [B, H, L]). K4 on CUDA tensors (float32, any strides with
+    Dh] in q's type, lse [B, H, L] in float32, or float64 for float64
+    operands). K4 on CUDA tensors (float32 or bfloat16, any strides with
     unit stride in Dh and 16-byte aligned rows; o is the [B, H, L, Dh]
     view of a head-merged [B, L, H, Dh] buffer), `flash_fwd_plain` on
-    CPU tensors (float32, or float64 for a float64 reference)."""
+    CPU tensors (float32 or bfloat16, or float64 for a float64
+    reference)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
         if t.dtype != q.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16,
                                                  torch.float64):
-            raise TypeError(f"{name} must be torch.float32 (or float64 on "
-                            f"the CPU) like q, got {t.dtype}")
+            raise TypeError(f"{name} must be torch.float32 or bfloat16 "
+                            f"(or float64 on the CPU) like q, got "
+                            f"{t.dtype}")
         if t.shape != q.shape or t.dim() != 4:
             raise ValueError(f"q, k, v must share one [B, H, L, Dh] shape, "
                              f"got {tuple(q.shape)} and {name} "
@@ -94,9 +114,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_plain(q, k, v, sm_scale)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if q.dtype != torch.float32:
-        raise TypeError(f"the flash kernel takes torch.float32, got "
-                        f"{q.dtype}")
+    if q.dtype not in _ENTRY:
+        raise TypeError(f"the flash kernel takes torch.float32 or "
+                        f"bfloat16, got {q.dtype}")
     B, H, L, dh = q.shape
     if dh not in SUPPORTED_DH:
         raise ValueError(f"flash_fwd supports head widths {SUPPORTED_DH}, "
@@ -106,13 +126,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 9)(*_strides("q", q), *_strides("k", k),
                                       *_strides("v", v))
     lib = _build.load("flash_fwd", _declare)
-    o = torch.empty((B, L, H, dh), dtype=torch.float32, device=dev)
+    entry, counter = _ENTRY[q.dtype]
+    o = torch.empty((B, L, H, dh), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.cct_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 strides, o.data_ptr(), lse.data_ptr(), B, H,
-                                 L, dh, float(sm_scale), stream)
-    _build.check(lib, code, "cct_flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+        code = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   strides, o.data_ptr(), lse.data_ptr(), B,
+                                   H, L, dh, float(sm_scale), stream)
+    _build.check(lib, code, entry)
+    LAUNCHES[counter] += 1
     return o.transpose(1, 2), lse

@@ -22,7 +22,6 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from commefficient_tpu_torch import models
 from commefficient_tpu_torch.config import (
@@ -33,6 +32,7 @@ from commefficient_tpu_torch.data import (
     FedValLoader, transforms,
 )
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
+from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import module_layout
 from commefficient_tpu_torch.utils.logging import TableLogger, Timer
 from commefficient_tpu_torch.utils.schedules import LambdaLR, PiecewiseLinear
@@ -47,7 +47,7 @@ def make_compute_loss(model: torch.nn.Module):
     def compute_loss(params, batch, mask):
         images, labels = batch
         logits = torch.func.functional_call(model, params, (images,))
-        logp = F.log_softmax(logits, dim=-1)
+        logp = lowp.log_softmax(logits, dim=-1)
         nll = -logp.gather(1, labels.long()[:, None])[:, 0]
         denom = torch.clamp(mask.sum(), min=1.0)
         loss = (nll * mask).sum() / denom

@@ -27,7 +27,6 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from commefficient_tpu_torch.config import Q_GPT2, Config, parse_args
 from commefficient_tpu_torch.data.loader import FedLoader, FedValLoader
@@ -39,6 +38,7 @@ from commefficient_tpu_torch.models.convert import load_flat, to_jax_params
 from commefficient_tpu_torch.models.gpt2 import (
     PRESETS, GPT2Config, GPT2DoubleHeads, save_pretrained,
 )
+from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.utils.logging import (
     TableLogger, Timer, make_logdir,
 )
@@ -56,7 +56,7 @@ def _lm_nll(lm_logits, lm_labels, mask):
     labels = lm_labels[..., 1:].long()
     valid = (labels != IGNORE_INDEX).to(mask.dtype) * mask[:, None, None]
     safe = labels.clamp(min=0)
-    logp = F.log_softmax(logits, dim=-1)
+    logp = lowp.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
@@ -64,7 +64,7 @@ def _lm_nll(lm_logits, lm_labels, mask):
 def _mc_loss_acc(mc_logits, mc_labels, mask):
     """Candidate-choice cross-entropy and accuracy (the double head)."""
     labels = mc_labels.long()
-    logp = F.log_softmax(mc_logits, dim=-1)
+    logp = lowp.log_softmax(mc_logits, dim=-1)
     nll = -logp.gather(1, labels[:, None])[:, 0]
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom

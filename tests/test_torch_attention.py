@@ -107,7 +107,7 @@ def test_wrapper_routes_cpu_to_plain_and_checks_arguments():
     o, lse = ac.flash_fwd(q, k, v, 0.25)
     po, plse = ac.flash_fwd_plain(q, k, v, 0.25)
     assert torch.equal(o, po) and torch.equal(lse, plse)
-    assert ac.LAUNCHES == {"flash_fwd": 0}
+    assert ac.LAUNCHES == {"flash_fwd": 0, "flash_fwd_bf16": 0}
     with pytest.raises(TypeError, match="float32"):
         ac.flash_fwd(q.double(), k, v, 0.25)
     with pytest.raises(ValueError, match="shape"):

@@ -64,8 +64,8 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
     (("--client_dropout", "0.1"), "--client_dropout"),
     (("--checkpoint",), "--checkpoint"),
     (("--multihost",), "--multihost"),
-    (("--sketch_table_dtype", "int8"), "--sketch_table_dtype"),
-    (("--max_grad_norm", "1.0"), "--max_grad_norm"),
+    (("--resume",), "--resume"),
+    (("--remat",), "--remat"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
@@ -91,9 +91,15 @@ def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
     ("--model", "ResNet50", "--dataset_name", "ImageNet", "--iid",
      "--num_clients", "256"),
     ("--model", "ResNet34", "--dataset_name", "EMNIST"),
+    ("--mode", "sketch", "--error_type", "virtual", "--dp",
+     "--noise_multiplier", "0.1", "--max_grad_norm", "1.0"),
+    ("--mode", "uncompressed", "--dp", "--dp_mode", "server"),
+    ("--bf16",),
+    ("--sketch_table_dtype", "int8"),
 ], ids=["true_topk", "local_topk", "fedavg", "local_momentum",
         "topk_down", "ResNet18", "FixupResNet18", "FixupResNet9",
-        "FixupResNet50", "ResNet50", "ResNet34-EMNIST"])
+        "FixupResNet50", "ResNet50", "ResNet34-EMNIST", "dp-max_grad_norm",
+        "dp-server", "bf16", "int8-wire"])
 def test_ported_options_build_a_fedmodel_on_cpu(tmp_path, flags):
     cfg = parse_args(argv=_argv(tmp_path, *flags))
     model, *_ = cv_train.build(cfg, device="cpu")
@@ -115,6 +121,42 @@ def test_ported_options_build_a_fedmodel_on_cpu(tmp_path, flags):
         assert module.conv1.in_channels == (
             1 if cfg.dataset_name == "EMNIST" else 3)
         assert model.num_clients == (cfg.num_clients or 64)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--mode", "sketch", "--error_type", "virtual", "--dp",
+     "--noise_multiplier", "0.05", "--max_grad_norm", "1.0"),
+    ("--mode", "uncompressed", "--dp", "--dp_mode", "server",
+     "--noise_multiplier", "0.05"),
+    ("--mode", "sketch", "--error_type", "virtual", "--bf16"),
+    ("--mode", "sketch", "--error_type", "virtual",
+     "--sketch_table_dtype", "int8"),
+], ids=["dp-worker-max_grad_norm", "dp-server", "bf16", "int8-wire"])
+def test_per_round_options_run_through_cv_train(tmp_path, flags):
+    # item 6b's options end to end on the CPU, over a tenth of an epoch:
+    # finite losses, the wire's bytes billed (int8: 1 x 10 cells of 1
+    # byte plus one 4-byte row scale a client), bf16 reaching the eval
+    # path too
+    cfg = parse_args(argv=_argv(tmp_path, *flags, "--num_epochs", "0.1"))
+    model, opt, sched, train_loader, val_loader = cv_train.build(
+        cfg, device="cpu")
+    ups = []
+    assert cv_train.train(model, opt, sched, train_loader, val_loader,
+                          model.cfg, on_round=lambda i, out: ups.append(
+                              (float(out[0].mean()), float(out[3].sum()))))
+    assert ups and all(np.isfinite(loss) for loss, _ in ups)
+    if cfg.sketch_table_dtype == "int8":
+        assert all(up == 4 * (10 * 1 + 4) for _, up in ups)
+    # the eval path computes in the train round's type
+    seen = []
+    handle = model.module.register_forward_hook(
+        lambda m, i, o: seen.append(o.dtype))
+    model.train(False)
+    loss, *_ = model(next(val_loader.batches()))
+    handle.remove()
+    assert np.isfinite(loss).all()
+    want = torch.bfloat16 if cfg.do_bf16 else torch.float32
+    assert seen and all(d == want for d in seen)
 
 
 @pytest.mark.parametrize("flags", [

@@ -451,6 +451,54 @@ def test_flash_kernel_on_strided_head_views(cuda_device, layout, dh, L):
     assert float((lse - plse).abs().max()) <= 1e-5 * float(plse.abs().max())
 
 
+def _bf16_within_half_ulp(o, po32, scale_floor=1e-5):
+    """o (bf16) within half a bf16 ulp of the plain version's f32 output
+    before its cast, plus scale_floor of max|o|: the kernel's f32
+    accumulators sit ~1e-6 from the plain ones, then both round."""
+    ulp = torch.where(po32 == 0, torch.zeros_like(po32),
+                      torch.ldexp(torch.ones_like(po32),
+                                  torch.frexp(po32).exponent - 8))
+    bound = 0.5 * ulp + scale_floor * float(po32.abs().max())
+    return bool(((o.float() - po32).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("L", [65, 299, 1024])
+def test_flash_kernel_on_bf16_head_views(cuda_device, dh, L):
+    # the bf16 instantiation on bf16 head views of a fused QKV: o (bf16)
+    # within half a bf16 ulp of the plain version's f32 output, lse (f32)
+    # within 1e-5 relative; counted apart from the f32 instantiation
+    g = torch.Generator().manual_seed(L + dh)
+    x = torch.randn(2, L, 3 * 3 * dh, generator=g).to(cuda_device)
+    q, k, v = _head_views(x.bfloat16(), 3)
+    before = dict(ac.LAUNCHES)
+    o, lse = ac.flash_fwd(q, k, v, dh ** -0.5)
+    po32, plse = ac.flash_fwd_plain(q.float(), k.float(), v.float(),
+                                    dh ** -0.5)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES["flash_fwd_bf16"] == before["flash_fwd_bf16"] + 1
+    assert ac.LAUNCHES["flash_fwd"] == before["flash_fwd"]
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert o.transpose(1, 2).is_contiguous()
+    assert _bf16_within_half_ulp(o, po32)
+    assert float((lse - plse).abs().max()) <= 1e-5 * float(plse.abs().max())
+    # the plain bf16 version is that f32 output rounded
+    po, _ = ac.flash_fwd_plain(q, k, v, dh ** -0.5)
+    assert torch.equal(po, po32.bfloat16())
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_mixed_and_other_dtypes(cuda_device):
+    q = torch.randn(1, 2, 64, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        ac.flash_fwd(q.bfloat16(), q, q, 0.25)
+    with pytest.raises(TypeError):
+        ac.flash_fwd(q.half(), q.half(), q.half(), 0.25)
+    with pytest.raises(TypeError):
+        ac.flash_fwd(q.double(), q.double(), q.double(), 0.25)
+
+
 @pytest.mark.gpu
 def test_flash_kernel_refuses_unaligned_rows(cuda_device):
     x = torch.randn(1, 70, 3 * 2 * 16 + 1, device=cuda_device)

@@ -132,7 +132,49 @@ CASES = {
     "resnet50_sketch": dict(mode="sketch", error_type="virtual",
                             virtual_momentum=0.9, k=500, num_rows=5,
                             num_cols=2000),
+    # the per-round options (item 6b). --max_grad_norm and --dp turn
+    # the deferred encode and the fused backward off: each client's
+    # table is encoded (and in sketch mode clipped by its l2estimate)
+    # on its own
+    "sketch_max_grad_norm": dict(mode="sketch", error_type="virtual",
+                                 virtual_momentum=0.9, k=300, num_rows=5,
+                                 num_cols=700, max_grad_norm=0.5),
+    # worker noise from each client's threefry key, sqrt(W) scaled
+    "sketch_dp_worker": dict(mode="sketch", error_type="virtual",
+                             virtual_momentum=0.9, k=300, num_rows=5,
+                             num_cols=700, do_dp=True, l2_norm_clip=1.0,
+                             noise_multiplier=0.01),
+    # server noise from the server's key (round key folded with W)
+    "uncompressed_dp_server": dict(mode="uncompressed",
+                                   virtual_momentum=0.9, do_dp=True,
+                                   dp_mode="server", l2_norm_clip=0.5,
+                                   noise_multiplier=0.01),
+    "true_topk_dp": dict(mode="true_topk", error_type="virtual",
+                         virtual_momentum=0.9, k=300, do_dp=True,
+                         l2_norm_clip=1.0, noise_multiplier=0.01),
+    "local_topk_max_grad_norm": dict(mode="local_topk", error_type="local",
+                                     local_momentum=0.9, k=300,
+                                     max_grad_norm=0.5),
+    # JAX's fedavg_step applies neither option, and neither does the port
+    "fedavg_dp_max_grad_norm": dict(mode="fedavg", error_type="none",
+                                    local_batch_size=-1,
+                                    fedavg_batch_size=2, do_dp=True,
+                                    noise_multiplier=0.01,
+                                    max_grad_norm=0.5),
+    # the quantized wire, held to a one-device JAX mesh (WIRE_CASES)
+    "sketch_int8": dict(mode="sketch", error_type="virtual",
+                        virtual_momentum=0.9, k=300, num_rows=5,
+                        num_cols=700, sketch_table_dtype="int8"),
+    "sketch_bf16_wire": dict(mode="sketch", error_type="virtual",
+                             virtual_momentum=0.9, k=300, num_rows=5,
+                             num_cols=700, sketch_table_dtype="bf16"),
 }
+# The JAX engine rounds EACH MESH SHARD's client-sum table to the wire
+# type before its psum, and the test conftest's 8 CPU devices would put
+# the 4 clients on 4 shards (4 roundings of 1-client sums); the port,
+# on one device, rounds the one cohort sum. The wire cases therefore
+# hold the port to a one-device JAX mesh, the layout it models.
+WIRE_CASES = ("sketch_int8", "sketch_bf16_wire")
 # the model of a case: the tiny ResNet9 unless named here, as (registry
 # name, fields) of both packages' registries
 CASE_MODELS = {
@@ -191,8 +233,12 @@ def test_fedmodel_rounds_match_jax(case):
     tcfg = TConfig(**kw, device="cpu")
     jm, params, tm = _case_models(case)
 
+    mesh = None
+    if case in WIRE_CASES:
+        from commefficient_tpu.parallel.mesh import make_client_mesh
+        mesh = make_client_mesh(1)
     jmodel = JFedModel(None, j_make_compute_loss(jm), jcfg, params=params,
-                       num_clients=12)
+                       num_clients=12, mesh=mesh)
     jopt = JFedOptimizer(jmodel)
     tmodel = TFedModel(tm, t_make_compute_loss(tm), tcfg, device="cpu",
                        num_clients=12)
