@@ -134,6 +134,21 @@ the result line:
 19. imagenet_bf16 — config #4 per imagenet.sh with `--bf16`, run after
                phase 13, IMAGENET_ROUNDS rounds: ms/round, host batch and
                peak beside phase 13's; no kernel launched.
+20. resume  — config #2 at full width through cv_train.run() with
+               `--checkpoint_every 1 --trace` and the journal on, on a
+               synthetic CIFAR10 of 20 clients x 64 images (5 rounds an
+               epoch), cuDNN deterministic: run A over 2 epochs; run B
+               preempted as its second epoch opens, then a fresh model
+               with `--resume` runs epoch 2. The final checkpoints bitwise
+               equal (every key but the wall-clock thr_*), every round's
+               client ids and bytes equal, K1 / K2 once a round in each
+               run; both journals checked without the JAX package
+               (check_journal); ms/round beside phase 4's, each
+               checkpoint's write seconds and bytes, the stage spans.
+21. gpt2resume — the same for config #5 at full width through
+               gpt2_train.run(), on 8 personas x 24 examples, all 8 in
+               every round (3 rounds an epoch, L = 299): K1 twice, K3a,
+               K3b once and K4 96 times a round.
 Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
 prints its ms/round, the host's batch ms, peak memory, the client-state
 bytes and one per-client masked_topk at its D timed on the card, and
@@ -141,6 +156,10 @@ fails if a sketch or attention kernel launched (13 and 14 print the
 first three). Every path's rounds (4, 7, 9-11, 13, 14) run beside a
 background nvidia-smi reading the SM clock and power draw every 200 ms,
 and the host's load average before and after.
+
+Phases 20-21 (RESUME_EPOCHS' note) fall back, on a bitwise miss, to a
+second run A: B must then lie within 2x A's own spread, and the phase
+names the arrays that differ.
 
 Before the last two lines comes {"kernels": [...]}, one entry per
 kernel and main path: K1 four times (sketch_encode at config #2's
@@ -164,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import glob
 import json
 import math
 import os
@@ -176,6 +196,7 @@ import time
 import traceback
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -357,6 +378,20 @@ WIRE_BYTES = {"int8": 2_500_020, "bf16": 5_000_000}
 # the card outside it
 BF16_BAND = (1 / 3, 3.0)
 H100_BF16_FLOPS = 989e12
+# phases 20-21 (resume, gpt2resume; ROADMAP item 6c): a config run with a
+# rotated checkpoint an epoch, the journal and the tracer, twice: A over
+# RESUME_EPOCHS epochs uninterrupted; B preempted as its second epoch's
+# stream opens (Preempted) and finished by a fresh model built with
+# --resume. Their final checkpoints must be bitwise equal but for the
+# wall-clock throughput EMAs (thr_*), with cuDNN held deterministic for
+# these runs. Config #2 on a synthetic CIFAR10 of RESUME_CIFAR_CLIENTS
+# clients x 64 images (5 rounds of 8 x 32 an epoch); config #5 on
+# RESUME_GPT2_CORPUS, 8 personas of 24 examples each, all 8 in every
+# round (an epoch is exactly 3 rounds; L = 299, so K4 runs)
+RESUME_EPOCHS = 2
+RESUME_CIFAR_CLIENTS = 20
+RESUME_CIFAR = (RESUME_CIFAR_CLIENTS * 64, 512)
+RESUME_GPT2_CORPUS = (8, 1, 24)
 
 
 def phase(name: str, msg: str) -> None:
@@ -592,22 +627,38 @@ def timed_row(row, max_abs_err):
     return res
 
 
+class Preempted(Exception):
+    """The preemption phases 20-21 simulate: raised as the stream of a
+    chosen epoch opens, before it draws anything."""
+
+
 class TimedLoader:
     """The train loader with the host time spent producing each round's
     batch recorded (sampling, fetch, augmentation, stacking), and the
-    client ids of the last round drawn."""
+    client ids and examples of the last round drawn. With
+    `preempt_at_epoch` n, opening the n-th epoch raises Preempted."""
 
-    def __init__(self, inner):
+    def __init__(self, inner, preempt_at_epoch=None):
         self.inner = inner
         self.seconds = []
         self.last_ids = None
+        self.last_examples = None
+        self.preempt_at_epoch = preempt_at_epoch
+        self.epochs = 0
 
     @property
     def steps_per_epoch(self):
         return self.inner.steps_per_epoch
 
-    def epoch(self):
-        it = iter(self.inner.epoch())
+    @property
+    def sampler(self):
+        return self.inner.sampler
+
+    def epoch(self, skip=0):
+        self.epochs += 1
+        if self.epochs == self.preempt_at_epoch:
+            raise Preempted(f"epoch {self.epochs}")
+        it = iter(self.inner.epoch(skip=skip))
         while True:
             t = time.perf_counter()
             try:
@@ -616,6 +667,7 @@ class TimedLoader:
                 return
             self.seconds.append(time.perf_counter() - t)
             self.last_ids = item[0]
+            self.last_examples = float(item[2].sum())
             yield item
 
 
@@ -1690,6 +1742,216 @@ def sketch50_checks(model, rr, flat, fserver) -> None:
           f"({sketch.n_chunks} x {sketch.c}), k={k}: {sort_ms:.4f} ms "
           "(device time, median of 20, L2 flushed)")
 
+class RoundLog:
+    """on_round of a resume run: each round's end (after a synchronize),
+    client ids, examples and download / upload bytes."""
+
+    def __init__(self, timed):
+        self.timed = timed
+        self.t0 = time.perf_counter()
+        self.ends, self.ids, self.examples, self.bytes = [], [], [], []
+
+    def __call__(self, i, out):
+        torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        self.ids.append(np.asarray(self.timed.last_ids).copy())
+        self.examples.append(self.timed.last_examples)
+        self.bytes.append((float(np.sum(out[-2])), float(np.sum(out[-1]))))
+
+    def round_ms(self) -> list:
+        return [1e3 * (b - a) for a, b in zip([self.t0] + self.ends[:-1],
+                                              self.ends)]
+
+
+class _Quiet:
+    """A logger that prints nothing (the GPT2 driver's per-round table)."""
+
+    def append(self, row):
+        pass
+
+
+def final_checkpoint(ck_dir: str, name: str) -> str:
+    return sorted(glob.glob(os.path.join(ck_dir, f"{name}-r*.npz")))[-1]
+
+
+def checkpoint_diff(a: str, b: str) -> dict:
+    """{key: max |a - b|} of the keys whose arrays differ (thr_*, the
+    wall-clock throughput EMAs, excepted); a missing key counts inf."""
+    out = {}
+    with np.load(a) as za, np.load(b) as zb:
+        for k in sorted(set(za.files) | set(zb.files)):
+            if k.startswith("thr_"):
+                continue
+            if k not in za.files or k not in zb.files:
+                out[k] = math.inf
+            elif not np.array_equal(za[k], zb[k]):
+                x, y = za[k], zb[k]
+                out[k] = (float(np.abs(x.astype(np.float64)
+                                       - y.astype(np.float64)).max())
+                          if x.shape == y.shape and x.dtype.kind in "fiu"
+                          else math.inf)
+    return out
+
+
+# (run, its directory, the epoch whose opening preempts it, --resume)
+RESUME_PLAN = (("A", "A", None, False), ("B1", "B", 2, False),
+               ("B2", "B", None, True))
+
+
+def resume_runs(label, sc, ac, build, tmp, plan=RESUME_PLAN):
+    """A, then B preempted and resumed (RESUME_EPOCHS' note). `build(ck,
+    journal, resume)` returns (model, loader, go) with go(loader,
+    on_round) driving the driver's run(). Returns {name: (ok, RoundLog,
+    launches)} for A, B1 (preempted) and B2 (resumed)."""
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, sub, preempt, resume in plan:
+            d = os.path.join(tmp, sub)
+            model, loader, go = build(d, d + ".jsonl", resume)
+            timed = TimedLoader(loader, preempt_at_epoch=preempt)
+            log = RoundLog(timed)
+            reset_counts(sc, ac)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                ok = go(timed, log)
+            except Preempted:
+                ok = None
+            torch.cuda.synchronize()
+            runs[name] = (ok, log, read_counts(sc, ac))
+            phase(label, f"run {name}: {len(log.ends)} rounds, ok {ok}, "
+                  "ms/round " + " ".join(f"{t:.2f}" for t in log.round_ms())
+                  + f", peak over its rounds, checkpoints and resume "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+            del model, loader, go, timed
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return runs
+
+
+def check_journal(label, path, rounds, epoch_rounds, log_rows):
+    """The journal of one run (A) or of a preempted run and its resume
+    (B), read without the JAX package: every record carries v, event,
+    ts and mono; each segment opens with run_start (the second with
+    resumed_round `epoch_rounds`) and closes with run_end, the last ok;
+    one `round` event for each round index, whose bytes are the
+    accountant's and whose examples and survivors are the round's;
+    `epoch` and `checkpoint` events; `trace` events holding the stage,
+    dispatch, collect and checkpoint spans. Returns the checkpoint
+    events."""
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    records, problems = read_journal(path)
+    fail = list(problems)
+    for r in records:
+        if not all(k in r for k in ("v", "event", "ts", "mono")):
+            fail.append(f"record without v/event/ts/mono: {r}")
+    starts = [r for r in records if r["event"] == "run_start"]
+    ends = [r for r in records if r["event"] == "run_end"]
+    want_starts = [0] if len(log_rows) == 1 else [0, epoch_rounds]
+    if [s["resumed_round"] for s in starts] != want_starts:
+        fail.append(f"run_start resumed_round "
+                    f"{[s['resumed_round'] for s in starts]}, "
+                    f"{want_starts} expected")
+    if not ends or ends[-1]["ok"] is not True or \
+            len(ends) != len(starts) or records[-1]["event"] != "run_end":
+        fail.append(f"run_end records {ends}")
+    by_round = {}
+    for r in records:
+        if r["event"] == "round":
+            by_round.setdefault(r["round"], []).append(r)
+    if sorted(by_round) != list(range(rounds)) or \
+            any(len(v) != 1 for v in by_round.values()):
+        fail.append(f"round events {sorted(by_round)}")
+    ids = [i for log in log_rows for i in log.ids]
+    examples = [e for log in log_rows for e in log.examples]
+    nbytes = [b for log in log_rows for b in log.bytes]
+    for i, rows in by_round.items():
+        r = rows[0]
+        m = r.get("metrics", {})
+        if i < len(nbytes) and ((r["down_bytes"], r["up_bytes"])
+                                != nbytes[i]
+                                or m.get("examples") != examples[i]
+                                or m.get("survivors") != len(ids[i])):
+            fail.append(f"round {i}: {r} against bytes {nbytes[i]}, "
+                        f"examples {examples[i]}")
+    ckpts = [r for r in records if r["event"] == "checkpoint"]
+    if not ckpts or not any(r["event"] == "epoch" for r in records):
+        fail.append("no epoch or checkpoint event")
+    spans = {s["name"] for r in records if r["event"] == "trace"
+             for s in r["spans"]}
+    if not {"stage", "dispatch", "collect", "checkpoint"} <= spans:
+        fail.append(f"trace spans {sorted(spans)}")
+    if fail:
+        raise AssertionError(f"{label} journal {path}: " + "; ".join(
+            str(f) for f in fail[:5]))
+    return ckpts
+
+
+def resume_phase(label, sc, ac, build, name, rounds, epoch_rounds,
+                 want_launches, ref_ms, ref_label, tmp):
+    """Phases 20-21: runs A and B, then the bitwise and journal checks.
+    On a bitwise miss, A runs again: B must lie within 2x A's own spread
+    (a nondeterministic op outside the port's code), else the phase
+    fails."""
+    runs = resume_runs(label, sc, ac, build, tmp)
+    (a_ok, a_log, a_launch), (_, b1_log, _), (b_ok, b2_log, b_launch) = (
+        runs["A"], runs["B1"], runs["B2"])
+    if not (a_ok and b_ok) or len(a_log.ends) != rounds or \
+            len(b1_log.ends) != epoch_rounds or \
+            len(b2_log.ends) != rounds - epoch_rounds:
+        raise AssertionError(f"{label}: rounds A {len(a_log.ends)}, B "
+                             f"{len(b1_log.ends)} + {len(b2_log.ends)}")
+    check_launches(label + " A", a_launch, {
+        k: n * rounds for k, n in want_launches.items()})
+    check_launches(label + " B", b_launch, {
+        k: n * (rounds - epoch_rounds) for k, n in want_launches.items()})
+    b_rows = b1_log.ids + b2_log.ids
+    if not (all(np.array_equal(x, y) for x, y in zip(a_log.ids, b_rows))
+            and a_log.bytes == b1_log.bytes + b2_log.bytes):
+        raise AssertionError(f"{label}: B's client ids or bytes differ "
+                             "from A's")
+    fa = final_checkpoint(os.path.join(tmp, "A"), name)
+    fb = final_checkpoint(os.path.join(tmp, "B"), name)
+    diff = checkpoint_diff(fa, fb)
+    if os.path.basename(fa) != os.path.basename(fb) or diff:
+        phase(label, f"NOT bitwise: {os.path.basename(fa)} vs "
+              f"{os.path.basename(fb)} differ in {diff}; running A again")
+        resume_runs(label, sc, ac, build, tmp,
+                    plan=(("A2", "A2", None, False),))
+        spread = checkpoint_diff(fa, final_checkpoint(
+            os.path.join(tmp, "A2"), name))
+        if not spread or any(v > 2 * spread.get(k, 0.0)
+                             for k, v in diff.items()):
+            raise AssertionError(f"{label}: B differs from A by {diff}, "
+                                 f"A from itself by {spread}")
+        phase(label, f"B within 2x A's own spread {spread}")
+    else:
+        phase(label, f"final checkpoints {os.path.basename(fa)} bitwise "
+              "equal (every key but thr_*); client ids and bytes of all "
+              f"{rounds} rounds equal")
+    ckpts = check_journal(label + " A", os.path.join(tmp, "A.jsonl"),
+                          rounds, epoch_rounds, [a_log])
+    ckpts += check_journal(label + " B", os.path.join(tmp, "B.jsonl"),
+                           rounds, epoch_rounds, [b1_log, b2_log])
+    med = statistics.median
+    phase(label, f"journals valid; A median {med(a_log.round_ms()[1:]):.2f}"
+          f" ms/round (journal, tracer and a checkpoint an epoch) beside "
+          f"{ref_label}'s {med(ref_ms[1:]):.2f} (journal off)")
+    phase(label, "checkpoints (write seconds, bytes): " + ", ".join(
+        f"{os.path.basename(c['path'])} {c['seconds']:.3f} s "
+        f"{c['bytes']}" for c in ckpts))
+    phase(label, f"run B's resumed half launched {b_launch}")
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    from commefficient_tpu_torch.telemetry.trace import stage_stats
+    spans = [sp for r in read_journal(os.path.join(tmp, "A.jsonl"))[0]
+             if r["event"] == "trace" for sp in r["spans"]]
+    phase(label, "A's stage spans, p50 ms (n): " + ", ".join(
+        f"{k} {1e3 * v['p50_s']:.3f} ({v['n']})"
+        for k, v in stage_stats(spans).items()))
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1909,6 +2171,65 @@ def main(argv=None) -> int:
                          tf32_control=rtol is not None)
     finally:
         shutil.rmtree(corpus, ignore_errors=True)
+
+    # phases 20-21: checkpoint/resume and the run journal (ROADMAP item
+    # 6c), config #2 and config #5 at full width (RESUME_EPOCHS' note)
+    resume_tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        c2_data = os.path.join(HERE, "build", "chip_smoke_resume_data")
+        c2_spe = math.ceil(RESUME_CIFAR[0] / (8 * 32))
+
+        def build_c2(ck, journal, resume):
+            cfg = parse_args(argv=CONFIG2 + [
+                "--local_batch_size", "32", "--num_clients",
+                str(RESUME_CIFAR_CLIENTS), "--device", "cuda",
+                "--dataset_dir", c2_data, "--num_epochs",
+                str(RESUME_EPOCHS), "--pivot_epoch", "1", "--seed", "21",
+                "--checkpoint_every", "1", "--checkpoint_path", ck,
+                "--trace", "--journal_path", journal]
+                + (["--resume"] if resume else []))
+            model, opt, sched, loader, val = cv_train.build(
+                cfg, device="cuda", synthetic_examples=RESUME_CIFAR)
+            assert model.cfg.grad_size == MAIN_D
+            return model, loader, lambda tl, on_round: cv_train.run(
+                model, opt, sched, tl, val, model.cfg, ck,
+                on_round=on_round)
+
+        resume_phase("resume", sc, ac, build_c2, "ResNet9",
+                     RESUME_EPOCHS * c2_spe, c2_spe,
+                     {"sketch_encode": 1, "sketch_estimate_all": 1},
+                     round_ms, "config #2 (phase 4)",
+                     os.path.join(resume_tmp, "config2"))
+
+        c5_data = os.path.join(HERE, "build", "chip_smoke_gpt2_resume_data")
+        c5_spe = math.prod(RESUME_GPT2_CORPUS) // (8 * 8)
+
+        def build_c5(ck, journal, resume):
+            cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5 + [
+                "--local_batch_size", "8", "--device", "cuda",
+                "--dataset_dir", c5_data, "--num_epochs",
+                str(RESUME_EPOCHS), "--seed", "21", "--checkpoint_every",
+                "1", "--checkpoint_path", ck, "--trace", "--journal_path",
+                journal] + (["--resume"] if resume else []))
+            model, opt, sched, loader, _ = gpt2_train.build(
+                cfg, HashTokenizer(GPT2_VOCAB), device="cuda",
+                synthetic_examples=RESUME_GPT2_CORPUS)
+            assert model.cfg.grad_size == GPT2_D
+            assert loader.dataset.seq_len == GPT2_L
+            assert loader.steps_per_epoch == c5_spe
+            return model, loader, lambda tl, on_round: gpt2_train.run(
+                model, opt, sched, tl, model.cfg, ck, logger=_Quiet(),
+                on_round=on_round)
+
+        resume_phase("gpt2resume", sc, ac, build_c5, "gpt2",
+                     RESUME_EPOCHS * c5_spe, c5_spe,
+                     {"sketch_encode": 2, "threshold_sample": 1,
+                      "threshold_mask": 1, "flash_fwd": 12 * 8,
+                      "sketch_estimate_all": 0, "flash_fwd_bf16": 0},
+                     g_ms, "config #5 (phase 7)",
+                     os.path.join(resume_tmp, "config5"))
+    finally:
+        shutil.rmtree(resume_tmp, ignore_errors=True)
 
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,

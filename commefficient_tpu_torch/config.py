@@ -50,8 +50,8 @@ DEFAULT_NUM_CLIENTS = {
 }
 
 # ROADMAP.md Queue 1 items that still hold each unported path
-Q_JOURNAL = "Queue 1 item 6c (checkpoint/resume and the journal)"
 Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
+Q_ANALYSIS = "Queue 1 item 10 (the analysis tiers)"
 Q_GPT2 = ("Queue 1 item 7 (what the GPT2 path leaves: pretrained "
           "weights, --finetune, --remat, --model_parallel)")
 
@@ -85,8 +85,7 @@ class Config:
     nan_threshold: float = 999.0
     do_profile: bool = False
 
-    # observability (the JAX package's telemetry/journal layer; the port
-    # keeps the flags for parity and refuses the ones that need it)
+    # observability (telemetry/: the run journal, the stage tracer)
     telemetry: bool = True
     journal_path: str = ""
     profile_spans: str = ""
@@ -364,6 +363,11 @@ class Config:
                 f"down_k={self.down_k} exceeds grad_size={self.grad_size}")
         if self.num_rows < 1 or self.num_cols < 1:
             raise ValueError("num_rows and num_cols must be >= 1")
+        if self.trace and not self.telemetry:
+            # the session drains the tracer's rings into the journal
+            raise ValueError(
+                "--trace requires telemetry (drop --no_telemetry: "
+                "the session drains the trace rings into the journal)")
 
     def _refuse_unported(self) -> None:
         def refuse(what: str, where: str):
@@ -374,18 +378,11 @@ class Config:
         if self.mode not in PORTED_MODES:
             # powersgd and dp_sketch, the plugins of item 9
             refuse(f"--mode {self.mode}", Q_SCALE)
-        for flag, on in (("--checkpoint", self.do_checkpoint),
-                         ("--checkpoint_every", self.checkpoint_every > 0),
-                         ("--resume", self.resume),
-                         ("--trace", self.trace),
-                         ("--profile", self.do_profile),
-                         ("--profile_spans", bool(self.profile_spans)),
-                         ("--journal_path", bool(self.journal_path)),
-                         ("--debug_transfer_guard",
-                          self.debug_transfer_guard),
-                         ("--tensorboard", self.use_tensorboard)):
-            if on:
-                refuse(flag, Q_JOURNAL)
+        if self.debug_transfer_guard:
+            # the JAX guard forbids IMPLICIT transfers; CUDA's sync debug
+            # mode would also trip on the port's explicit one-round-late
+            # copies, so it is not the same guard (ROADMAP.md item 10)
+            refuse("--debug_transfer_guard", Q_ANALYSIS)
         for flag, on in (("--finetune", self.do_finetune),
                          ("--remat", self.do_remat),
                          ("--model_parallel > 1", self.model_parallel > 1)):
@@ -403,6 +400,8 @@ class Config:
                 ("--deadline_quantile", self.deadline_quantile > 0),
                 ("--target_survivors", self.target_survivors > 0),
                 ("--scan_rounds", self.scan_rounds),
+                # captures of scanned spans
+                ("--profile_spans", bool(self.profile_spans)),
                 ("--pipeline", self.pipeline),
                 ("--async_admit_rounds", self.async_admit_rounds > 0),
                 ("--speed_match", self.speed_match),

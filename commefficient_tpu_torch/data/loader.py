@@ -20,15 +20,24 @@ class FedLoader:
         self.sampler = FedSampler(dataset.data_per_client, num_workers,
                                   local_batch_size, seed=seed,
                                   max_local_batch=max_local_batch)
+        # the augmentation stream rides in the sampler's checkpoint state
+        self.sampler.aug_rng = getattr(dataset.transform, "rng", None)
 
     @property
     def steps_per_epoch(self) -> int:
         return self.sampler.steps_per_epoch()
 
-    def epoch(self) -> Iterator[Tuple[np.ndarray, Tuple[np.ndarray, ...],
-                                      np.ndarray]]:
+    def epoch(self, skip: int = 0
+              ) -> Iterator[Tuple[np.ndarray, Tuple[np.ndarray, ...],
+                                  np.ndarray]]:
+        """skip: pass over the first `skip` rounds with the sampler's
+        index math only (a resume's fast-forward; the sampler's rng
+        advances as in a full epoch)."""
         B = self.sampler.round_batch_size
         for r in self.sampler.epoch():
+            if skip > 0:
+                skip -= 1
+                continue
             per_client = []
             for w in range(len(r.client_ids)):
                 n_valid = int(r.mask[w].sum())

@@ -7,12 +7,21 @@ to `local_batch_size` examples from each (the whole remaining client
 dataset when -1). Every round is [num_workers, B] indices plus a
 float validity mask, B fixed for the run. The draws are the JAX
 package's numpy calls in the same order, so the same seed yields the
-same rounds bit for bit. Throughput sampling, idle-slot padding and
-mid-epoch stream checkpoints are ROADMAP.md Queue 1 items 6 and 9.
+same rounds bit for bit.
+
+The stream is checkpointable (`state_dict`, `smp_*` keys): the MT19937
+state plus, mid-epoch, the live epoch's permutations, cursors and
+position, so a resumed run continues the exact stream instead of
+replaying the epoch head. The train transform's augmentation generator
+(`aug_rng`, set by FedLoader) rides along as `aug_rng_*` keys, which
+the JAX package neither writes nor reads: its resumes restart the
+augmentation from the seed, and so does the port's resume of a
+checkpoint without them (ROADMAP.md Queue 3). Throughput sampling and idle-slot padding
+are the scheduler's, ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 
@@ -35,6 +44,15 @@ class FedSampler:
         self.local_batch_size = local_batch_size
         self.max_local_batch = max_local_batch
         self.rng = np.random.RandomState(seed)
+        # `_epoch` mirrors the live epoch generator's permutations,
+        # cursor and position (state_dict reads it); `_pending` holds a
+        # restored mid-epoch stream the next epoch() continues;
+        # `_restored` makes resolve_resume answer 0
+        self._epoch: Optional[dict] = None
+        self._pending: Optional[dict] = None
+        self._restored = False
+        # the train transform's augmentation generator, or None
+        self.aug_rng: Optional[np.random.RandomState] = None
         if num_workers > self.num_clients:
             raise ValueError(
                 f"num_workers={num_workers} > num_clients={self.num_clients}")
@@ -63,11 +81,23 @@ class FedSampler:
     def epoch(self) -> Iterator[RoundIndices]:
         B = self.round_batch_size
         dpc = self.data_per_client
-        perms = [self.rng.permutation(n) for n in dpc]
-        cursor = np.zeros(self.num_clients, dtype=int)
+        if self._pending is not None:
+            # continue a restored mid-epoch stream: the restored rng
+            # already holds every draw up to the suspension point
+            st, self._pending = self._pending, None
+            perms, cursor, pos = st["perms"], st["cursor"], st["pos"]
+        else:
+            perms = [self.rng.permutation(n) for n in dpc]
+            cursor = np.zeros(self.num_clients, dtype=int)
+            pos = 0
+        # cursor is mutated in place below, so state_dict() sees the
+        # suspended stream's position; exhaustion clears the mirror,
+        # the next epoch() overwrites it
+        self._epoch = {"perms": perms, "cursor": cursor, "pos": pos}
         while True:
             alive = np.where(cursor < dpc)[0]
             if len(alive) < self.num_workers:
+                self._epoch = None
                 return
             chosen = self.rng.choice(alive, self.num_workers, replace=False)
             idx = np.zeros((self.num_workers, B), np.int32)
@@ -80,7 +110,113 @@ class FedSampler:
                 idx[w, :take] = perms[cid][cursor[cid]:cursor[cid] + take]
                 mask[w, :take] = 1.0
                 cursor[cid] += take
+            self._epoch["pos"] += 1
             yield RoundIndices(chosen.astype(np.int32), idx, mask)
+
+    # ---------------- checkpointable stream state ------------------------
+
+    @property
+    def resume_pending(self) -> bool:
+        """A restored mid-epoch stream waits for the next epoch()."""
+        return self._pending is not None
+
+    @property
+    def pending_pos(self) -> Optional[int]:
+        """Rounds the restored mid-epoch stream had drawn, or None. A
+        stream restored at the drivers' per-epoch cap was abandoned
+        there by the uninterrupted run (discard_pending); one short of
+        it may be driven for the remaining rounds only."""
+        return (None if self._pending is None
+                else int(self._pending["pos"]))
+
+    def discard_pending(self) -> None:
+        """Drop a restored mid-epoch stream: the next epoch() draws
+        fresh permutations from the restored rng."""
+        self._pending = None
+
+    def abandon_epoch(self) -> None:
+        """The drivers' per-epoch round cap ended the epoch before the
+        generator ran out: clear the live-stream mirror so a checkpoint
+        written after this records in_epoch = 0. The rng keeps the
+        abandoned stream's draws, as the uninterrupted run does."""
+        self._epoch = None
+
+    def resolve_resume(self, skip_rounds: int) -> int:
+        """The `epoch(skip=)` of the first resumed epoch: 0 when this
+        run restored sampler state (the stream position is exact), else
+        `skip_rounds` (a checkpoint without `smp_*` keys replays the
+        epoch head)."""
+        if not self._restored:
+            return int(skip_rounds)
+        self._restored = False
+        return 0
+
+    def state_dict(self) -> dict:
+        """The stream state as plain numpy arrays: the MT19937
+        generator and, while an epoch is live, its permutations,
+        cursors and position."""
+        out = _rng_state("rng", self.rng)
+        out["in_epoch"] = np.int64(0)
+        if self.aug_rng is not None:
+            out.update(_rng_state("aug_rng", self.aug_rng))
+        st = self._epoch if self._epoch is not None else self._pending
+        if st is not None:
+            out["in_epoch"] = np.int64(1)
+            out["epoch_pos"] = np.int64(st["pos"])
+            # a COPY: the live epoch advances `cursor` in place
+            out["cursor"] = np.array(st["cursor"], np.int64, copy=True)
+            out["perm_flat"] = (
+                np.concatenate([np.asarray(p, np.int64)
+                                for p in st["perms"]])
+                if len(st["perms"]) else np.zeros((0,), np.int64))
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a state_dict() capture; a mid-epoch one waits in
+        `_pending` for the next epoch()."""
+        _set_rng_state("rng", self.rng, state)
+        if self.aug_rng is not None and "aug_rng_key" in state:
+            _set_rng_state("aug_rng", self.aug_rng, state)
+        self._epoch = None
+        self._pending = None
+        self._restored = True
+        if not int(np.asarray(state.get("in_epoch", 0))):
+            return
+        cursor = np.asarray(state["cursor"], dtype=int)
+        flat = np.asarray(state["perm_flat"], dtype=int)
+        dpc = self.data_per_client
+        if cursor.shape[0] != self.num_clients or \
+                flat.shape[0] != int(dpc.sum()):
+            raise ValueError(
+                "sampler checkpoint does not match this dataset: "
+                f"cursor for {cursor.shape[0]} clients / "
+                f"{flat.shape[0]} permutation entries vs "
+                f"{self.num_clients} clients / {int(dpc.sum())} "
+                "examples")
+        perms, off = [], 0
+        for n in dpc:
+            perms.append(flat[off:off + int(n)].copy())
+            off += int(n)
+        self._pending = {"perms": perms, "cursor": cursor.copy(),
+                         "pos": int(np.asarray(state["epoch_pos"]))}
+
+
+def _rng_state(name: str, rng: np.random.RandomState) -> dict:
+    kind, key, pos, has_gauss, cached = rng.get_state()
+    assert kind == "MT19937"
+    return {f"{name}_key": np.asarray(key, np.uint32),
+            f"{name}_pos": np.int64(pos),
+            f"{name}_has_gauss": np.int64(has_gauss),
+            f"{name}_cached": np.float64(cached)}
+
+
+def _set_rng_state(name: str, rng: np.random.RandomState,
+                   state: dict) -> None:
+    rng.set_state((
+        "MT19937", np.asarray(state[f"{name}_key"], np.uint32),
+        int(np.asarray(state[f"{name}_pos"])),
+        int(np.asarray(state[f"{name}_has_gauss"])),
+        float(np.asarray(state[f"{name}_cached"]))))
 
 
 class ValSampler:

@@ -62,6 +62,9 @@ def _make_cifar_transforms(mean, std, seed=0):
     def test(images, labels):
         return normalize(images, mean, std), labels.astype(np.int32)
 
+    # the augmentation stream's generator, which FedLoader hands to the
+    # sampler so resumes continue it (data/sampler.py)
+    train.rng = rng
     return train, test
 
 
@@ -100,6 +103,9 @@ def femnist_transforms(seed=0):
         return (normalize(images, FEMNIST_MEAN, FEMNIST_STD),
                 labels.astype(np.int32))
 
+    # the augmentation stream's generator, which FedLoader hands to the
+    # sampler so resumes continue it (data/sampler.py)
+    train.rng = rng
     return train, test
 
 
@@ -117,5 +123,8 @@ def imagenet_transforms(seed=0):
         return (normalize(images, IMAGENET_MEAN, IMAGENET_STD),
                 labels.astype(np.int32))
 
+    # the augmentation stream's generator, which FedLoader hands to the
+    # sampler so resumes continue it (data/sampler.py)
+    train.rng = rng
     return train, test
 

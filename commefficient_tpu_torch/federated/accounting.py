@@ -51,6 +51,14 @@ def to_words(packed: torch.Tensor) -> np.ndarray:
     return packed.cpu().numpy().astype(np.uint32)
 
 
+def from_words(words: np.ndarray, device) -> torch.Tensor:
+    """The exact inverse of to_words: host uint32 words (a checkpoint's
+    `acct_prev_change_words`) as pack_change_bits' int64 values on
+    `device`."""
+    return torch.from_numpy(
+        np.asarray(words, np.uint32).astype(np.int64)).to(device)
+
+
 def _popcount(words: np.ndarray) -> int:
     return int(_POPCOUNT_TABLE[np.ascontiguousarray(words)
                                .view(np.uint8)].sum())
@@ -143,3 +151,50 @@ class CommAccountant:
             self.max_realized_nonzeros = max(self.max_realized_nonzeros,
                                              self.realized_nonzeros)
         return download, upload
+
+    # -- checkpoint round-trip (utils/checkpoint.py writes it under
+    #    `acct_*` keys, so a resumed run keeps its download charges) ---
+    def state_dict(self) -> dict:
+        state = {}
+        if self.cheap:
+            state["updated_since_init"] = self.updated_since_init.copy()
+        else:
+            # sparse staleness: arrays over the clients ever seen
+            ids = np.array(sorted(self._last_reset), np.int64)
+            state["stale_rounds"] = np.int64(self.rounds_seen)
+            state["stale_ids"] = ids
+            state["stale_at"] = np.array(
+                [self._last_reset[int(c)] for c in ids], np.int64)
+            state["changes"] = (np.stack(list(self.changes))
+                                if len(self.changes)
+                                else np.zeros((0, self.n_words), np.uint32))
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        if self.cheap:
+            self.updated_since_init = np.asarray(
+                state["updated_since_init"], np.uint32)
+            return
+        if "stale_ids" in state:
+            self.rounds_seen = int(np.asarray(state["stale_rounds"]))
+            ids = np.asarray(state["stale_ids"], np.int64)
+            at = np.asarray(state["stale_at"], np.int64)
+            self._last_reset = {int(c): int(a) for c, a in zip(ids, at)}
+        else:
+            # legacy dense staleness vector: an equivalent sparse map,
+            # anchored at its maximum (never-seen clients sat there)
+            stale = np.asarray(state["stale"], np.int64)
+            self.rounds_seen = int(stale.max()) if stale.size else 0
+            self._last_reset = {
+                int(c): int(self.rounds_seen - s)
+                for c, s in enumerate(stale)
+                if int(s) != self.rounds_seen}
+        rows = np.asarray(state["changes"], np.uint32)
+        if self.changes.maxlen is not None and \
+                len(rows) > self.changes.maxlen:
+            # written under a wider window: grow to fit rather than
+            # undercharge returning clients by dropping the oldest rows
+            self.changes = deque([], maxlen=len(rows))
+        self.changes.clear()
+        for row in rows:
+            self.changes.append(row)

@@ -1,6 +1,6 @@
 """Reference-shaped high-level API: FedModel + FedOptimizer, the port
 of commefficient_tpu/federated/api.py (single process, no scheduler,
-transport, state tiers, journal or scanned spans).
+transport, state tiers or scanned spans).
 
 The call contract is the JAX package's:
 
@@ -16,6 +16,12 @@ the call; `opt.step()` only exists for call-pattern parity. Losses and
 metrics come back as tensors on the model's device; download/upload are
 the round's per-client byte counts (numpy), accounted one round late
 exactly as in the JAX package.
+
+Checkpointing (utils/checkpoint.py): the model tracks the clients ever
+sampled (`_touched`), so `client_rows_payload` persists only their rows,
+and `load_state` rebuilds the rest from their init; a telemetry session
+(`attach_telemetry`) is fed each round's metric vector, byte totals and
+a `compressor` event.
 """
 from __future__ import annotations
 
@@ -24,20 +30,41 @@ from typing import Optional
 import numpy as np
 import torch
 
-from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.config import Q_SCALE, Config
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.federated import round as fround
 from commefficient_tpu_torch.federated.accounting import (
-    CommAccountant, pack_change_bits, to_words,
+    CommAccountant, from_words, pack_change_bits, to_words,
 )
 from commefficient_tpu_torch.ops.flat import flatten_params
 from commefficient_tpu_torch.ops.prng import PRNGKey
+from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
+from commefficient_tpu_torch.telemetry.trace import TRACE
+from commefficient_tpu_torch.utils.checkpoint import (
+    config_fingerprint, validate_fingerprint,
+)
+
+# the JAX scheduler's counters: bookkeeping of a uniform, deadline-free
+# schedule, which the port's rounds equal; any other `sched_*` key, or a
+# deadline round, is scheduler state the port cannot continue
+_SCHED_COUNTERS = ("rounds_scheduled", "clients_sampled",
+                   "deadline_rounds", "truncated_slots",
+                   "last_deadline_s", "rounds_committed")
 
 
 def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _owned(x, device) -> torch.Tensor:
+    """A float32 copy of a loaded array on `device`, sharing no memory
+    with the checkpoint it came from (the round updates client rows in
+    place)."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+    return t.to(device, torch.float32, copy=True)
 
 
 class FedModel:
@@ -67,6 +94,24 @@ class FedModel:
         self.clients = fround.init_client_state(cfg, self.num_clients,
                                                 self.device, vec)
         self.accountant = CommAccountant(cfg, self.num_clients)
+        # O(cohort) checkpoints: the clients ever sampled (their rows
+        # may differ from init), and under --topk_down the init weights
+        # untouched rows rebuild from. A load of dense client blocks
+        # loses the touched set, so saves stay dense from there on.
+        self._touched: set = set()
+        self._sparse_rows_ok = True
+        self._init_weights_host = (vec.detach().cpu().numpy().astype(
+            np.float32) if cfg.do_topk_down else None)
+        # observability: the throughput tracker always exists (its state
+        # rides in every checkpoint); the session is the driver's
+        self.throughput = ClientThroughputTracker(self.num_clients)
+        self.telemetry = None
+        # the run's FedSampler, whose stream rides in checkpoints
+        self.data_sampler = None
+        # the JAX package's scheduler / async-admission checkpoint state
+        # of a loaded file, written back as read (load_state)
+        self._carried_sched: Optional[dict] = None
+        self._carried_asyb: Optional[dict] = None
         # the run's threefry key; every round folds in its index
         self._key = PRNGKey(cfg.seed)
         self.lr_scale_vec = (None if lr_scale_vec is None
@@ -92,6 +137,151 @@ class FedModel:
     def ps_weights(self) -> torch.Tensor:
         return self.server.ps_weights
 
+    # -- observability and checkpoint payloads ----------------------------
+    def attach_telemetry(self, session) -> None:
+        """Install a telemetry.TelemetrySession (or None to detach); a
+        session without a tracker gets this model's `throughput`."""
+        self.telemetry = session
+        if session is not None and session.tracker is None:
+            session.tracker = self.throughput
+
+    def attach_data_sampler(self, sampler) -> None:
+        """Install the run's FedSampler (or None): its stream state
+        rides in checkpoints under `smp_*`, and load_state restores it,
+        so a resumed run continues the exact data stream."""
+        self.data_sampler = sampler
+
+    def sampler_state(self) -> Optional[dict]:
+        return (self.data_sampler.state_dict()
+                if self.data_sampler is not None else None)
+
+    def scheduler_state(self) -> Optional[dict]:
+        """The `sched_*` payload: what a loaded JAX checkpoint carried
+        (the port runs no scheduler)."""
+        return self._carried_sched
+
+    def async_admit_state(self) -> Optional[dict]:
+        """The `asyb_*` payload: what a loaded JAX checkpoint carried."""
+        return self._carried_asyb
+
+    @property
+    def _prev_change_words(self) -> Optional[np.ndarray]:
+        """The previous round's change bits as host uint32 words (the
+        checkpoint's `acct_prev_change_words`)."""
+        return (None if self._prev_change_bits is None
+                else to_words(self._prev_change_bits))
+
+    @property
+    def checkpoint_fingerprint(self) -> dict:
+        return config_fingerprint(self.cfg, self.num_clients)
+
+    def client_rows_payload(self) -> Optional[dict]:
+        """The O(cohort) `crows_*` payload: the sorted ids of every
+        client ever sampled, each tracked block's rows for exactly
+        those ids ([0] for untracked blocks) and, under --topk_down,
+        `base_weights`. None for a stateless config or after a dense
+        load; the caller then saves the dense blocks."""
+        tracked = [block.ndim == 2 for block in self.clients]
+        if not any(tracked) or not self._sparse_rows_ok:
+            return None
+        ids = (np.sort(np.fromiter(self._touched, np.int64))
+               if self._touched else np.zeros((0,), np.int64))
+        payload = {"ids": ids}
+        if self._init_weights_host is not None:
+            payload["base_weights"] = self._init_weights_host
+        index = torch.from_numpy(ids).to(self.device)
+        for name, used in zip(("errors", "velocities", "weights"),
+                              tracked):
+            payload[name] = (
+                getattr(self.clients, name)[index].cpu().numpy()
+                if used and len(ids) else np.zeros((0,), np.float32))
+        return payload
+
+    def load_state(self, ckpt) -> int:
+        """Install a loaded utils.checkpoint.Checkpoint (written by
+        either package) on this model's device; returns its scheduler
+        step. A fingerprint of another config raises
+        CheckpointMismatchError."""
+        if ckpt.fingerprint is not None:
+            validate_fingerprint(ckpt.fingerprint,
+                                 self.checkpoint_fingerprint,
+                                 "<loaded checkpoint>")
+        self._check_unported_state(ckpt)
+        dev = self.device
+        s = ckpt.server
+        self.server = fround.ServerState(
+            _owned(s.ps_weights, dev), _owned(s.Vvelocity, dev),
+            _owned(s.Verror, dev), int(s.round_idx))
+        if ckpt.client_rows is not None:
+            # init (zeros, or the init weights under --topk_down) plus
+            # the saved rows IS the full state: untouched rows never
+            # left their init values
+            rows = ckpt.client_rows
+            if rows.get("base_weights") is not None:
+                self._init_weights_host = np.asarray(
+                    rows["base_weights"], np.float32)
+            base = (self._init_weights_host
+                    if self._init_weights_host is not None
+                    else np.asarray(s.ps_weights, np.float32))
+            self.clients = fround.init_client_state(
+                self.cfg, self.num_clients, dev, _owned(base, dev))
+            ids = np.asarray(rows["ids"], np.int64)
+            self._touched = set(int(i) for i in ids)
+            self._sparse_rows_ok = True
+            if len(ids):
+                index = torch.from_numpy(ids).to(dev)
+                for name in ("errors", "velocities", "weights"):
+                    data = np.asarray(rows.get(name, ()))
+                    block = getattr(self.clients, name)
+                    if data.ndim == 2 and block.ndim == 2:
+                        block[index] = _owned(data, dev)
+        elif ckpt.clients is not None:
+            # dense blocks: the touched set is unrecoverable, so this
+            # model's own saves stay dense from here on
+            self.clients = fround.ClientState(
+                *[_owned(block, dev) for block in ckpt.clients])
+            if any(block.ndim == 2 for block in ckpt.clients):
+                self._sparse_rows_ok = False
+        self._finish_load(ckpt)
+        return ckpt.scheduler_step
+
+    def _check_unported_state(self, ckpt) -> None:
+        """Scheduler or async-admission state that would steer the
+        resumed rounds needs item 9's layers: refuse it. A uniform,
+        deadline-free schedule's counters and an empty admission buffer
+        are carried and written back as read."""
+        sched = ckpt.scheduler or {}
+        steering = (set(sched) - set(_SCHED_COUNTERS)
+                    or any(int(np.asarray(sched.get(k, 0)))
+                           for k in ("deadline_rounds", "truncated_slots")))
+        pending = int(np.asarray(
+            (ckpt.async_admit or {}).get("ids", ())).size)
+        if steering or pending:
+            what = ("scheduler state (sched_*)" if steering
+                    else f"{pending} pending async admissions (asyb_*)")
+            raise NotImplementedError(
+                f"the checkpoint carries {what} that the resumed rounds "
+                "would need; the scheduler and async admission are not "
+                f"ported to commefficient_tpu_torch yet (ROADMAP.md "
+                f"{Q_SCALE})")
+        self._carried_sched = ckpt.scheduler
+        self._carried_asyb = ckpt.async_admit
+
+    def _finish_load(self, ckpt) -> None:
+        """Accounting, throughput, sampler stream and the previous
+        round's change bits."""
+        if ckpt.accountant_state:
+            self.accountant.load_state_dict(ckpt.accountant_state)
+        if ckpt.throughput:
+            self.throughput.load_state_dict(ckpt.throughput)
+        if ckpt.sampler and self.data_sampler is not None:
+            # attach the run's sampler BEFORE load_state; the drivers
+            # then continue the restored stream (sampler.resolve_resume)
+            self.data_sampler.load_state_dict(ckpt.sampler)
+        self._prev_change_bits = (
+            None if ckpt.prev_change_words is None
+            else from_words(ckpt.prev_change_words, self.device))
+
     def _lr(self):
         """The scheduler's learning rate: a float, or a [D] tensor with
         a per-parameter scale vector."""
@@ -107,21 +297,38 @@ class FedModel:
         mask [W, B])."""
         client_ids, data, mask = batch
         ids_host = np.asarray(client_ids).reshape(-1)
-        # the previous round's change bits come to the host BEFORE this
-        # round is queued, so the copy waits on that round only
-        prev_words = (None if self._prev_change_bits is None
-                      else to_words(self._prev_change_bits))
-        placed = fround.RoundBatch(
-            _as_tensor(ids_host.astype(np.int64), self.device),
-            tuple(_as_tensor(d, self.device) for d in data),
-            _as_tensor(mask, self.device).to(torch.float32))
+        this_round = self.server.round_idx
+        with TRACE.span("stage", round=this_round):
+            # the previous round's change bits come to the host BEFORE
+            # this round is queued, so the copy waits on that round only
+            prev_words = self._prev_change_words
+            placed = fround.RoundBatch(
+                _as_tensor(ids_host.astype(np.int64), self.device),
+                tuple(_as_tensor(d, self.device) for d in data),
+                _as_tensor(mask, self.device).to(torch.float32))
+            lr = self._lr()
         prev_weights = self.server.ps_weights
-        self.server, self.clients, metrics = self._train_round(
-            self.server, self.clients, placed, self._lr(), self._key)
-        self._prev_change_bits = pack_change_bits(
-            self.server.ps_weights - prev_weights)
-        download, upload = self.accountant.record_round(ids_host,
-                                                        prev_words)
+        with TRACE.span("dispatch", round=this_round):
+            self.server, self.clients, metrics = self._train_round(
+                self.server, self.clients, placed, lr, self._key)
+        self._touched.update(int(i) for i in ids_host)
+        with TRACE.span("collect", round=this_round):
+            self._prev_change_bits = pack_change_bits(
+                self.server.ps_weights - prev_weights)
+            download, upload = self.accountant.record_round(ids_host,
+                                                            prev_words)
+        if self.telemetry is not None:
+            # the mode's wire geometry and the round's billed upload,
+            # then the round's metric tensors (journaled one round late)
+            self.telemetry.journal_event(
+                "compressor", round=this_round, mode=self.cfg.mode,
+                wire_bytes=float(self.cfg.upload_bytes),
+                up_bytes=round(float(upload.sum()), 3))
+            self.telemetry.on_round(
+                this_round, ids_host,
+                metrics.telemetry if self.cfg.telemetry else None,
+                metrics.num_examples,
+                comm=(float(download.sum()), float(upload.sum())))
         return [metrics.losses, *metrics.metrics, download, upload]
 
     def _call_val(self, batch):

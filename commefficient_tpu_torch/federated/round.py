@@ -36,6 +36,8 @@ from commefficient_tpu_torch.federated import server as fserver
 from commefficient_tpu_torch.ops.flat import masked_topk
 from commefficient_tpu_torch.ops.kernels.quant import wire_roundtrip
 from commefficient_tpu_torch.ops.prng import fold_in
+from commefficient_tpu_torch.telemetry import metrics as tmetrics
+from commefficient_tpu_torch.telemetry.trace import TRACE
 
 
 class ServerState(NamedTuple):
@@ -75,6 +77,9 @@ class RoundMetrics(NamedTuple):
     losses: torch.Tensor                     # [W] per-client mean loss
     metrics: Tuple[torch.Tensor, ...]        # each [W]
     num_examples: torch.Tensor               # [W]
+    # telemetry/metrics.round_vector under Config.telemetry, else a [0]
+    # placeholder; read-only, so the state is bitwise the same either way
+    telemetry: torch.Tensor
 
 
 def init_server_state(cfg: Config, ps_weights: torch.Tensor) -> ServerState:
@@ -232,21 +237,34 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
         upd = fserver.get_server_update(gradient, server.Vvelocity,
                                         server.Verror, cfg, lr,
                                         key=fold_in(round_key, W))
-        new_server = ServerState(server.ps_weights - upd.update,
-                                 upd.Vvelocity, upd.Verror,
+        new_ps = server.ps_weights - upd.update
+        new_server = ServerState(new_ps, upd.Vvelocity, upd.Verror,
                                  server.round_idx + 1)
         if _has_velocities(cfg) and upd.velocity_mask is not None:
             # true_topk momentum factor masking, participants' rows only
             cohort = cohort._replace(
                 velocities=cohort.velocities * upd.velocity_mask[None, :])
-        return new_server, cohort, RoundMetrics(losses, metrics, counts)
+        if cfg.telemetry:
+            tele = tmetrics.round_vector(
+                losses=losses, counts=counts,
+                delta=new_ps - server.ps_weights, verror=upd.Verror,
+                vvelocity=upd.Vvelocity, survivors=W)
+        else:
+            tele = tmetrics.empty_vector(new_ps.device)
+        return new_server, cohort, RoundMetrics(losses, metrics, counts,
+                                                tele)
 
     def train_round(server: ServerState, clients: ClientState,
                     batch: RoundBatch, lr, key):
-        cohort = gather_cohort(cfg, clients, batch.client_ids)
-        server, cohort, metrics = round_step(server, cohort, batch, lr,
-                                             key)
-        clients = scatter_back(cfg, clients, batch.client_ids, cohort)
+        # host spans of the three dispatches (telemetry/trace.py); the
+        # round tag comes from the caller's enclosing `dispatch` span
+        with TRACE.span("gather"):
+            cohort = gather_cohort(cfg, clients, batch.client_ids)
+        with TRACE.span("round_dispatch"):
+            server, cohort, metrics = round_step(server, cohort, batch,
+                                                 lr, key)
+        with TRACE.span("scatter"):
+            clients = scatter_back(cfg, clients, batch.client_ids, cohort)
         return server, clients, metrics
 
     train_round.round_step = round_step

@@ -4,9 +4,12 @@ commefficient_tpu/training/cv_train.py (reference cv_train.py).
 Same flags (config.parse_args), loss callback contract, epoch loop,
 LR schedule, table columns, communication-MiB reporting, `--test`
 smoke shrink, NaN abort, and EMNIST's per-step log line, for CIFAR10,
-CIFAR100, EMNIST and ImageNet. What the port does not run yet is
-refused by Config.validate: scanned spans, checkpoints, finetuning,
-the journal and scheduler layers (ROADMAP.md Queue 1).
+CIFAR100, EMNIST and ImageNet; the run journal (on by default, under
+the run directory or --journal_path), `--checkpoint_every`,
+`--checkpoint`, `--resume` (training/persist.py), `--trace`,
+`--profile` and `--tensorboard`. What the port does not run yet is
+refused by Config.validate: scanned spans, finetuning and the
+scheduler layers (ROADMAP.md Queue 1).
 
 Run on the card:
     python -m commefficient_tpu_torch.training.cv_train --mode sketch \
@@ -17,6 +20,7 @@ and on the CPU with `--device cpu` (the kernels' plain versions).
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, Optional, Tuple
 
@@ -34,7 +38,11 @@ from commefficient_tpu_torch.data import (
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import module_layout
-from commefficient_tpu_torch.utils.logging import TableLogger, Timer
+from commefficient_tpu_torch.telemetry import NumericTripError
+from commefficient_tpu_torch.training import persist
+from commefficient_tpu_torch.utils.logging import (
+    TableLogger, Timer, make_logdir,
+)
 from commefficient_tpu_torch.utils.schedules import LambdaLR, PiecewiseLinear
 
 
@@ -121,10 +129,14 @@ def run_eval(model: FedModel, val_loader) -> tuple:
 def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
           train_loader, val_loader, cfg: Config, loggers=(),
           timer: Optional[Timer] = None,
-          on_round: Optional[Callable[[int, list], None]] = None) -> bool:
+          on_round: Optional[Callable[[int, list], None]] = None,
+          log_dir: str = "") -> bool:
     """The epoch loop: rounds until ceil(num_epochs * steps_per_epoch)
-    are done, an eval and a table row per epoch. `on_round(i, outputs)`
-    is called after round i's dispatch with model(batch)'s outputs (a
+    are done, an eval and a table row per epoch (journaled as an `epoch`
+    event), a rotated checkpoint every --checkpoint_every epochs. A
+    resumed model counts its restored rounds against that budget and
+    continues the restored sampler stream. `on_round(i, outputs)` is
+    called after round i's dispatch with model(batch)'s outputs (a
     measuring caller synchronizes the device there). Returns False on a
     NaN/divergent loss. EMNIST prints a line a round (reference
     cv_train.py:233-237)."""
@@ -132,11 +144,27 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
     per_step_log = cfg.dataset_name == "EMNIST"
     spe = train_loader.steps_per_epoch
     total_rounds = math.ceil(cfg.num_epochs * spe)
-    rounds_done = 0
-    epoch = 0
+    sampler = train_loader.sampler
+    # on resume num_epochs is the TOTAL budget; a restored sampler
+    # stream continues where it stopped (skip 0), a checkpoint without
+    # one replays the epoch head
+    rounds_done = int(model.server.round_idx)
+    epoch = rounds_done // spe
+    skip_rounds = sampler.resolve_resume(rounds_done % spe)
+    if (sampler.pending_pos or 0) >= spe:
+        # the uninterrupted run abandoned this stream at the cap
+        sampler.discard_pending()
+    ckpt_prefix = _ckpt_path(cfg)
     total_down = total_up = 0.0
+    writer = persist.try_tensorboard(log_dir) if cfg.use_tensorboard \
+        else None
+    profile = None
+    profiled = False
     while rounds_done < total_rounds:
         epoch += 1
+        if cfg.do_profile and not profiled:
+            profile = persist.EpochProfile(log_dir, model.device)
+            profiled = True
         losses, accs = [], []
         down = up = 0.0
 
@@ -157,10 +185,15 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
             return not np.isnan(losses[-1])
 
         pending = None
-        stream = iter(train_loader.epoch())
+        stream = iter(train_loader.epoch(skip=skip_rounds))
+        skip_rounds = 0
         # the round budget is checked BEFORE the next round is drawn, so
-        # ending early never draws (and discards) a round
-        while rounds_done < total_rounds:
+        # ending early never draws (and discards) a round; the stream is
+        # then abandoned, so a later checkpoint records no live epoch
+        while True:
+            if rounds_done >= total_rounds:
+                sampler.abandon_epoch()
+                break
             try:
                 client_ids, data, mask = next(stream)
             except StopIteration:
@@ -182,6 +215,9 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
             emit(pending)
         total_down += down
         total_up += up
+        if profile is not None:
+            profile.stop()
+            profile = None
         train_time = timer()
 
         mean_loss = float(np.mean(losses)) if losses else float("nan")
@@ -207,7 +243,55 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
         }
         for logger in loggers:
             logger.append(row)
+        if writer is not None:
+            for name, value in row.items():
+                if name != "epoch":
+                    writer.add_scalar(name.split(" ")[0], value, epoch)
+        if model.telemetry is not None:
+            # the one-round-late round, then the table row
+            model.telemetry.flush()
+            model.telemetry.journal_event(
+                "epoch", **{k.replace(" (MiB)", "_mib"): v
+                            for k, v in row.items()})
+            model.telemetry.mark_steady_state()
+        if cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
+            persist.checkpoint_epoch(model, lr_scheduler, ckpt_prefix, cfg,
+                                     rounds_done)
+    if writer is not None:
+        writer.close()
     return True
+
+
+def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
+        val_loader, cfg: Config, log_dir: str, loggers=(),
+        timer: Optional[Timer] = None,
+        on_round: Optional[Callable[[int, list], None]] = None) -> bool:
+    """What main() does with a built model: --resume, the telemetry
+    session, train(), --checkpoint; the session is closed (`run_end`)
+    whatever happens. A numeric trip re-raises, or raises the
+    rollback's NotImplementedError (persist.numeric_rollback)."""
+    fallbacks = []
+    if cfg.resume:
+        persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks)
+    tele = persist.start_telemetry(model, cfg, log_dir, "cv_train",
+                                   fallbacks)
+    ok = False
+    try:
+        try:
+            ok = train(model, opt, lr_scheduler, train_loader, val_loader,
+                       cfg, loggers=loggers, timer=timer,
+                       on_round=on_round, log_dir=log_dir)
+        except NumericTripError as trip:
+            persist.numeric_rollback(model, _ckpt_path(cfg), cfg, tele,
+                                     trip)
+        model.finalize()
+        if cfg.do_checkpoint:
+            persist.checkpoint_final(model, lr_scheduler, _ckpt_path(cfg),
+                                     cfg)
+    finally:
+        if tele is not None:
+            tele.close(ok=bool(ok))
+    return ok
 
 
 def build(cfg: Config, device="cuda",
@@ -237,6 +321,8 @@ def build(cfg: Config, device="cuda",
     model = FedModel(module, make_compute_loss(module), cfg, device=device,
                      num_clients=train_loader.dataset.num_clients,
                      lr_scale_vec=lr_scale_vec)
+    # the sampler's stream rides in checkpoints (before any --resume)
+    model.attach_data_sampler(train_loader.sampler)
     opt = FedOptimizer(model)
     # cifar10-fast schedule: knots [0, pivot, num_epochs] -> [0, lr, 0]
     lr_scale = cfg.lr_scale if cfg.lr_scale is not None else 0.4
@@ -260,6 +346,10 @@ def fixup_lr_scales(module: torch.nn.Module) -> np.ndarray:
     return np.concatenate(segs)
 
 
+def _ckpt_path(cfg: Config) -> str:
+    return os.path.join(cfg.checkpoint_path, cfg.model)
+
+
 def main(argv=None) -> bool:
     cfg = parse_args(argv=argv)
     print(cfg)
@@ -269,9 +359,8 @@ def main(argv=None) -> bool:
         cfg, device=cfg.device)
     print(f"Finished initializing in {timer():.2f} seconds")
     t0 = time.monotonic()
-    ok = train(model, opt, lr_scheduler, train_loader, val_loader,
-               model.cfg, loggers=(TableLogger(),), timer=timer)
-    model.finalize()
+    ok = run(model, opt, lr_scheduler, train_loader, val_loader, model.cfg,
+             make_logdir(cfg), loggers=(TableLogger(),), timer=timer)
     print(f"trained in {time.monotonic() - t0:.2f} seconds")
     return ok
 

@@ -4,13 +4,15 @@ commefficient_tpu/training/gpt2_train.py (reference gpt2_train.py).
 Same flags (config.parse_args, default lr 4e-2), the double-heads loss
 callbacks with the same normalisation, the one-round-lag metric emit,
 the NaN abort, the epoch-1-only communication totals, the HF-style
-artifact and the final validation. The round underneath is the same
+artifact and the final validation; the run journal, `--checkpoint_every`,
+`--checkpoint`, `--resume` (training/persist.py, the resumed epoch's
+stream continued), `--trace` and `--profile`. The round underneath is the same
 engine cv_train drives; at config #5 it takes the fused client backward
 (Config.fused_client_backward) and the threshold decode (kernel K3),
 and sequences of 256 tokens or more take flash attention (kernel K4).
 What the port does not run yet is refused by Config.validate or here:
-scanned spans, checkpoints, the journal (ROADMAP.md Queue 1 item 6),
-pretrained weights, --finetune, --remat and --model_parallel (item 7).
+scanned spans (ROADMAP.md Queue 1 item 9), pretrained weights,
+--finetune, --remat and --model_parallel (item 7).
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
@@ -39,6 +41,9 @@ from commefficient_tpu_torch.models.gpt2 import (
     PRESETS, GPT2Config, GPT2DoubleHeads, save_pretrained,
 )
 from commefficient_tpu_torch.ops import lowp
+from commefficient_tpu_torch.telemetry import NumericTripError
+from commefficient_tpu_torch.training import persist
+from commefficient_tpu_torch.utils.checkpoint import save_checkpoint
 from commefficient_tpu_torch.utils.logging import (
     TableLogger, Timer, make_logdir,
 )
@@ -145,20 +150,32 @@ def run_eval(model: FedModel, val_loader):
 def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
                train_loader, cfg: Config, logger=None,
                timer: Optional[Timer] = None,
-               on_round: Optional[Callable[[int, list], None]] = None
-               ) -> bool:
+               on_round: Optional[Callable[[int, list], None]] = None,
+               log_dir: str = "") -> bool:
     """ceil(num_epochs) epochs of rounds, the last one cut to its
     fraction; a table row per round, emitted one round late so the host
-    never waits on the round it just queued. `on_round(i, outputs)` is
+    never waits on the round it just queued; an `epoch` journal event
+    and, every --checkpoint_every epochs, a rotated checkpoint. A
+    resumed model counts its restored rounds against the budget and
+    continues the restored sampler stream. `on_round(i, outputs)` is
     called after round i's dispatch with model(batch)'s outputs (a
     measuring caller synchronizes the device there). Returns False on a
     NaN/divergent loss."""
     timer = timer or Timer()
     logger = logger or TableLogger()
     spe = train_loader.steps_per_epoch
+    sampler = train_loader.sampler
     epoch_download = epoch_upload = 0.0
-    batch_idx = 0
+    # on resume num_epochs is the TOTAL budget (cv_train.train's rule)
+    batch_idx = int(model.server.round_idx)
+    start_epoch = batch_idx // spe
+    skip_rounds = sampler.resolve_resume(batch_idx % spe)
+    if (sampler.pending_pos or 0) >= spe:
+        sampler.discard_pending()
+    ckpt_prefix = _ckpt_path(cfg)
     losses = []
+    profile = (persist.EpochProfile(log_dir, model.device)
+               if cfg.do_profile else None)
 
     def emit(p) -> bool:
         bidx, lr_v, l_, lm_, mc_ = p
@@ -174,13 +191,19 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
         })
         return not (np.isnan(losses[-1]) or losses[-1] > cfg.nan_threshold)
 
-    for epoch in range(math.ceil(cfg.num_epochs)):
+    for epoch in range(start_epoch, math.ceil(cfg.num_epochs)):
         frac = (cfg.num_epochs - epoch
                 if epoch == math.ceil(cfg.num_epochs) - 1 else 1.0)
         pending = None
         aborted = False
-        stream = iter(train_loader.epoch())
-        while batch_idx - epoch * spe < spe * frac:
+        stream = iter(train_loader.epoch(skip=skip_rounds))
+        skip_rounds = 0
+        while True:
+            if batch_idx - epoch * spe >= spe * frac:
+                # the epoch's cap: abandon without drawing, so a later
+                # checkpoint records no live epoch
+                sampler.abandon_epoch()
+                break
             try:
                 client_ids, data, mask = next(stream)
             except StopIteration:
@@ -205,9 +228,22 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
                        loss, lm, mc)
         if pending is not None and not emit(pending):
             aborted = True
+        if profile is not None:
+            profile.stop()
+            profile = None
         if aborted:
             print(f"found nan/divergent loss {losses[-1]}, aborting")
             return False
+        if model.telemetry is not None:
+            model.telemetry.flush()
+            model.telemetry.journal_event(
+                "epoch", epoch=epoch,
+                train_loss=(losses[-1] if losses else None),
+                rounds=batch_idx)
+            model.telemetry.mark_steady_state()
+        if cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
+            persist.checkpoint_epoch(model, lr_scheduler, ckpt_prefix, cfg,
+                                     batch_idx)
 
     n_clients = model.num_clients
     print(f"Total Download (MiB): {epoch_download:0.2f} (only epoch 1)")
@@ -267,12 +303,53 @@ def build(cfg: Config, tokenizer, device="cuda",
     model = FedModel(module, make_compute_loss_train(module, cfg), cfg,
                      loss_val=make_compute_loss_val(module), device=device,
                      num_clients=train_loader.dataset.num_clients)
+    # the sampler's stream rides in checkpoints (before any --resume)
+    model.attach_data_sampler(train_loader.sampler)
     opt = FedOptimizer(model)
     spe = train_loader.steps_per_epoch
     lr = cfg.lr_scale if cfg.lr_scale is not None else DEFAULT_LR
     schedule = PiecewiseLinear([0, cfg.num_epochs * spe], [lr, 0.0])
     lr_scheduler = LambdaLR(opt, lr_lambda=schedule)
     return model, opt, lr_scheduler, train_loader, val_loader
+
+
+def _ckpt_path(cfg: Config) -> str:
+    return os.path.join(cfg.checkpoint_path, "gpt2")
+
+
+def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
+        cfg: Config, log_dir: str, logger=None,
+        timer: Optional[Timer] = None,
+        on_round: Optional[Callable[[int, list], None]] = None) -> bool:
+    """What main() does around train_gpt2(): --resume, the telemetry
+    session, --checkpoint; the session is closed (`run_end`) whatever
+    happens. A numeric trip re-raises, or raises the rollback's
+    NotImplementedError (persist.numeric_rollback)."""
+    fallbacks = []
+    if cfg.resume:
+        persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks)
+    tele = persist.start_telemetry(model, cfg, log_dir, "gpt2_train",
+                                   fallbacks)
+    ok = False
+    try:
+        try:
+            ok = train_gpt2(model, opt, lr_scheduler, train_loader, cfg,
+                            logger=logger, timer=timer, on_round=on_round,
+                            log_dir=log_dir)
+        except NumericTripError as trip:
+            persist.numeric_rollback(model, _ckpt_path(cfg), cfg, tele,
+                                     trip)
+        if cfg.do_checkpoint:
+            persist.checkpoint_final(model, lr_scheduler, _ckpt_path(cfg),
+                                     cfg)
+    finally:
+        if tele is not None:
+            tele.close(ok=bool(ok))
+    return ok
+
+
+def _ckpt_path(cfg: Config) -> str:
+    return os.path.join(cfg.checkpoint_path, "gpt2")
 
 
 def main(argv=None) -> bool:
@@ -290,9 +367,13 @@ def main(argv=None) -> bool:
     print("Steps per epoch", train_loader.steps_per_epoch)
     log_dir = make_logdir(cfg)
     print(f"Finished initializing in {timer():.2f} seconds")
-    ok = train_gpt2(model, opt, lr_scheduler, train_loader, model.cfg,
-                    timer=timer)
-    # HF-style final artifact: tokenizer + config + weights
+    ok = run(model, opt, lr_scheduler, train_loader, model.cfg, log_dir,
+             timer=timer)
+    # the final server state beside the run's artifacts, as the JAX
+    # driver writes it, and the HF-style artifact: tokenizer + config +
+    # weights
+    save_checkpoint(os.path.join(log_dir, "gpt2"), model.server,
+                    scheduler_step=lr_scheduler.step_count)
     module = model.module
     load_flat(module, model.ps_weights)
     save_pretrained(log_dir, to_jax_params(module), module.cfg, tokenizer)

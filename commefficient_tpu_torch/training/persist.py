@@ -1,0 +1,162 @@
+"""What both drivers share around their training loops: `--resume`,
+the per-epoch rotated checkpoint, the final checkpoint, the run's
+telemetry session, the numeric trip's rollback, `--profile` and
+`--tensorboard`. The port of the matching parts of
+commefficient_tpu/training/{cv_train,gpt2_train,scanloop}.py.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import List, Optional, Tuple
+
+import torch
+
+from commefficient_tpu_torch.config import Q_SCALE
+from commefficient_tpu_torch.telemetry import (
+    NumericTripError, attach_run_telemetry,
+)
+from commefficient_tpu_torch.telemetry.trace import TRACE
+from commefficient_tpu_torch.utils.checkpoint import (
+    load_resilient, save_final, save_rotating,
+)
+
+
+def _state_kwargs(model, lr_scheduler) -> dict:
+    """Everything a checkpoint carries besides the server and client
+    state."""
+    return dict(scheduler_step=lr_scheduler.step_count,
+                accountant=model.accountant,
+                prev_change_words=model._prev_change_words,
+                fingerprint=model.checkpoint_fingerprint,
+                throughput=model.throughput.state_dict(),
+                scheduler=model.scheduler_state(),
+                sampler=model.sampler_state(),
+                async_admit=model.async_admit_state(),
+                client_rows=model.client_rows_payload())
+
+
+def resume(model, lr_scheduler, prefix: str,
+           fallbacks: List[Tuple[str, str]]) -> Optional[str]:
+    """--resume: load the newest good checkpoint of `prefix` into the
+    model (falling back past corrupt files, each appended to
+    `fallbacks` as (path, reason)) and the LR schedule's step. Attach
+    the run's sampler before this, so its stream is restored too.
+    Returns the file loaded, or None when there is none."""
+    loaded = load_resilient(
+        prefix, expect_fingerprint=model.checkpoint_fingerprint,
+        on_fallback=lambda p, why: fallbacks.append((p, why)))
+    if loaded is None:
+        return None
+    path, ckpt = loaded
+    lr_scheduler.load_state_dict({"step_count": model.load_state(ckpt)})
+    print(f"resumed from {path} at round {int(ckpt.server.round_idx)}")
+    return path
+
+
+def start_telemetry(model, cfg, log_dir: str, driver: str,
+                    fallbacks=()):
+    """The run's TelemetrySession (None under --no_telemetry), with the
+    resume's fallbacks journaled as `checkpoint_fallback` events."""
+    tele = attach_run_telemetry(model, cfg, log_dir, driver=driver)
+    if tele is not None:
+        for p, why in fallbacks:
+            tele.journal_event("checkpoint_fallback", path=p,
+                               error=why[:200])
+    return tele
+
+
+def checkpoint_epoch(model, lr_scheduler, prefix: str, cfg,
+                     round_idx: int) -> str:
+    """--checkpoint_every: the rotated save inside a `checkpoint` span,
+    journaled as a `checkpoint` event with its seconds and bytes."""
+    t0 = time.monotonic()
+    with TRACE.span("checkpoint", round=int(round_idx)):
+        path = save_rotating(prefix, model.server, model.clients,
+                             keep_last=cfg.keep_checkpoints,
+                             max_age_hours=cfg.ckpt_max_age_hours,
+                             **_state_kwargs(model, lr_scheduler))
+    if model.telemetry is not None:
+        model.telemetry.journal_event(
+            "checkpoint", path=path,
+            seconds=round(time.monotonic() - t0, 3),
+            bytes=os.path.getsize(path))
+    print(f"checkpointed to {path}")
+    return path
+
+
+def checkpoint_final(model, lr_scheduler, prefix: str, cfg) -> str:
+    """--checkpoint: the rotated save plus the fixed `<prefix>.npz`."""
+    path = save_final(prefix, model.server, model.clients,
+                      keep_last=cfg.keep_checkpoints,
+                      max_age_hours=cfg.ckpt_max_age_hours,
+                      **_state_kwargs(model, lr_scheduler))
+    print(f"saved checkpoint to {path}")
+    return path
+
+
+def numeric_rollback(model, prefix: str, cfg, tele,
+                     trip: NumericTripError):
+    """After a numeric trip (its `numeric_trip` event already durable):
+    with no finite checkpoint to return to, or no rollback allowed,
+    re-raise the trip. The JAX drivers roll back to the newest finite
+    checkpoint and replay with update screening forced on; screening is
+    ROADMAP.md Queue 1 item 9, so the port raises NotImplementedError
+    there, chained from the trip."""
+    if tele is not None:
+        # the buffered round would trip again
+        tele.discard_pending()
+    if cfg.max_numeric_rollbacks < 1:
+        raise trip
+    fallbacks: List[Tuple[str, str]] = []
+    loaded = load_resilient(
+        prefix, expect_fingerprint=model.checkpoint_fingerprint,
+        on_fallback=lambda p, why: fallbacks.append((p, why)),
+        require_finite=True)
+    if tele is not None:
+        for p, why in fallbacks:
+            tele.journal_event("checkpoint_fallback", path=p,
+                               error=why[:200])
+    if loaded is None:
+        raise trip
+    raise NotImplementedError(
+        f"numeric trip at round {trip.round_idx}: rolling back to "
+        f"{loaded[0]} replays with update screening forced on, which "
+        f"is not ported to commefficient_tpu_torch yet (ROADMAP.md "
+        f"{Q_SCALE})") from trip
+
+
+class EpochProfile:
+    """--profile: torch.profiler over the first trained epoch (CUDA
+    activity on the card), its Chrome trace written to
+    <log_dir>/profile/trace.json."""
+
+    def __init__(self, log_dir: str, device: torch.device):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.dir = os.path.join(log_dir or ".", "profile")
+        self.prof = profile(activities=acts)
+        self.prof.start()
+
+    def stop(self) -> str:
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}")
+        return path
+
+
+def try_tensorboard(log_dir: str):
+    """A SummaryWriter, or None (with a note) when tensorboard is not
+    installed."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        return SummaryWriter(log_dir=log_dir or ".")
+    # broad by necessity: tensorboard/protobuf version skew raises
+    # AttributeError or TypeError, not only ImportError
+    except Exception as e:
+        print(f"tensorboard unavailable ({e}); continuing without")
+        return None

@@ -1,6 +1,7 @@
-"""Atomic file writes (`<path>.tmp`, flush, fsync, os.replace): the
-port's copy of the part of commefficient_tpu/utils/atomic_io.py its
-dataset caches use."""
+"""Atomic file writes (`<path>.tmp`, flush, fsync, os.replace) and the
+durable append of self-delimited lines: the port's copy of
+commefficient_tpu/utils/atomic_io.py (dataset caches, checkpoints, the
+run journal)."""
 from __future__ import annotations
 
 import os
@@ -15,6 +16,48 @@ def atomic_write_text(path: str, text: str) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def atomic_append_line(path: str, line: str) -> None:
+    """Append ONE self-delimited line (a JSONL record) durably; see
+    atomic_append_lines."""
+    atomic_append_lines(path, (line,))
+
+
+def atomic_append_lines(path: str, lines, check_tail: bool = True) -> None:
+    """Append self-delimited lines durably, with ONE flush + fsync for
+    the batch.
+
+    A preemption mid-write can tear at most the final line, which the
+    journal's reader reports without losing a committed record. Before
+    appending, a torn tail left by an earlier process is sealed with a
+    newline, so the fragment stays its own (detectably invalid) line
+    instead of corrupting the first new record. A torn tail can only
+    predate this process's first append, so a long-lived writer passes
+    check_tail=False after its first call."""
+    seal = b""
+    if check_tail:
+        try:
+            with open(path, "rb") as rf:
+                rf.seek(-1, os.SEEK_END)
+                if rf.read(1) != b"\n":
+                    seal = b"\n"
+        except (OSError, ValueError):
+            pass  # missing or empty file: nothing to seal
+    data = seal + "".join(f"{ln}\n" for ln in lines).encode()
+    with open(path, "ab") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
 
 
 def atomic_save(path: str, arr) -> None:

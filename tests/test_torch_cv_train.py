@@ -62,9 +62,9 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
     (("--mode", "powersgd"), "powersgd"),
     (("--scan_rounds",), "--scan_rounds"),
     (("--client_dropout", "0.1"), "--client_dropout"),
-    (("--checkpoint",), "--checkpoint"),
+    (("--debug_transfer_guard",), "--debug_transfer_guard"),
     (("--multihost",), "--multihost"),
-    (("--resume",), "--resume"),
+    (("--profile_spans", "0:1"), "--profile_spans"),
     (("--remat",), "--remat"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
@@ -74,6 +74,22 @@ def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
         parse_args(argv=_argv(tmp_path, *flags))
     except NotImplementedError as e:
         assert needle in str(e)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--checkpoint_every", "1"),
+    ("--resume",),
+    ("--trace",),
+    ("--journal_path", "j.jsonl"),
+    ("--profile",),
+    ("--checkpoint", "--tensorboard"),
+], ids=["checkpoint_every", "resume", "trace", "journal_path", "profile",
+        "checkpoint-tensorboard"])
+def test_item_6c_flags_are_accepted(tmp_path, flags):
+    cfg = parse_args(argv=_argv(tmp_path, *flags))
+    assert cfg.telemetry
+    with pytest.raises(ValueError, match="--trace requires telemetry"):
+        parse_args(argv=_argv(tmp_path, "--trace", "--no_telemetry"))
 
 
 @pytest.mark.parametrize("flags", [
@@ -205,14 +221,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
-    # a fresh interpreter imports every module of the port, then checks
-    # sys.modules
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    # a fresh interpreter imports every module of the port and runs
+    # cv_train.main with checkpoints, a resume and the tracer, then
+    # checks sys.modules
     code = r"""
 import importlib, pkgutil, sys
 import commefficient_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+from commefficient_tpu_torch.training import cv_train
+def argv(epochs):
+    return ["--test", "--device", "cpu", "--mode", "sketch", "--error_type",
+            "virtual", "--local_momentum", "0", "--num_workers", "8",
+            "--local_batch_size", "64", "--num_epochs", epochs,
+            "--checkpoint_every", "1", "--resume", "--trace",
+            "--dataset_dir", "ds", "--checkpoint_path", "ck"]
+assert cv_train.main(argv("1"))   # nothing to resume yet
+assert cv_train.main(argv("2"))   # resumes from the first run's epoch
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "commefficient_tpu" or n.startswith("commefficient_tpu."))
@@ -221,10 +247,12 @@ print("N", sum(1 for n in sys.modules if n.startswith("commefficient_tpu_torch")
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "resumed from ck/ResNet9-r" in out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
     assert n >= 20
 
