@@ -149,6 +149,37 @@ the result line:
                gpt2_train.run(), on 8 personas x 24 examples, all 8 in
                every round (3 rounds an epoch, L = 299): K1 twice, K3a,
                K3b once and K4 96 times a round.
+22. faults  — config #2 with `--client_dropout 0.25 --straggler_rate
+               0.25 --straggler_cutoff 0.2` (the dropout_stragglers
+               variant on the fused backward), ROUNDS rounds: K1 and K2
+               once a round; every round's uploads the wire bytes at the
+               slots utils/faults' draws keep for the seed and 0 at the
+               others; the survivor-weighted fused gradient of a batch
+               equal to its survivors' own (PARITY_RTOL).
+23. byzantine — config #2 with `--update_screen norm --byzantine_rate
+               0.25 --attack colluding` and `--aggregator coord_median`
+               (BYZANTINE_ROUNDS rounds), `trimmed_mean` and `norm_clip`
+               (3 each): each client's transmit encoded on its own, K1 8
+               times a round, the order statistics over [8, 5, 500000]
+               tables; one K1 launch on a client's transmit bitwise its
+               plain version; ms/round beside phase 4's.
+24. rollback — config #2 with `--poison_kind nan`, the screen off, a
+               checkpoint an epoch over 3 epochs: round ROLLBACK_POISONED
+               poisoned by a FaultSchedule while the newest checkpoint is
+               torn; the trip rolls back past the torn file to the older
+               finite one, replays with screening forced and finishes
+               finite; the journal read without JAX.
+25. finetune — config #5's GPT2-small written by save_pretrained;
+               --finetune loads it bitwise and evaluates it; then
+               FINETUNE_ROUNDS rounds from it plain and with --remat
+               under torch.use_deterministic_algorithms: the updates
+               bitwise equal (else within 2x a second plain run's
+               spread), K4 twice a block under remat, peak memory beside
+               phase 7's.
+26. cvfinetune — config #2's ResNet9 trained 3 rounds on CIFAR10 with
+               --checkpoint, then `--finetune --finetuned_from CIFAR10`
+               on the synthetic CIFAR100 for 3 rounds: the transferred
+               coordinates bitwise unmoved, the head trained.
 Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
 prints its ms/round, the host's batch ms, peak memory, the client-state
 bytes and one per-client masked_topk at its D timed on the card, and
@@ -162,9 +193,10 @@ second run A: B must then lie within 2x A's own spread, and the phase
 names the arrays that differ.
 
 Before the last two lines comes {"kernels": [...]}, one entry per
-kernel and main path: K1 four times (sketch_encode at config #2's
-shapes, sketch_encode_dp at the same shapes for the dp path,
-sketch_encode_r50 at config #4's, sketch_encode_gpt2 at config #5's),
+kernel and main path: K1 five times (sketch_encode at config #2's
+shapes, sketch_encode_dp and sketch_encode_byzantine at the same shapes
+for the dp and byzantine paths, sketch_encode_r50 at config #4's,
+sketch_encode_gpt2 at config #5's),
 K2 twice (config #2's, sketch_estimate_all_r50), K3a, K3b, and K4 twice
 (flash_fwd on f32 operands, flash_fwd_bf16 on bf16 ones, config #5 and
 config #5 with --bf16), each with the launches of its own path's run
@@ -197,7 +229,11 @@ import traceback
 from typing import NamedTuple
 
 import numpy as np
-import torch
+
+# phase 25 runs under torch.use_deterministic_algorithms, which needs
+# cuBLAS's fixed workspace from the process's first cuBLAS call on
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -527,9 +563,12 @@ def kernel_phase(sc, CSVec):
                 estimate_row(sc, sk, sk.encode(x),
                              "sketch_estimate_all" + suffix, path)]
         if path == "config2":
-            # the dp path (phase 16) encodes each client's [D] gradient
-            # at config #2's shapes, 8 a round
+            # the dp path (phase 16) and the robust aggregators (phase
+            # 23) encode each client's [D] transmit at config #2's
+            # shapes, 8 a round
             rows.append(encode_row(sc, sk, x, "sketch_encode_dp", "dp"))
+            rows.append(encode_row(sc, sk, x, "sketch_encode_byzantine",
+                                   "byzantine"))
         out += [timed_row(row, max_err[row["counter"]]) for row in rows]
         del sk, x, rows
     phase("kernels", "sketch_estimate_all store policy: plain write-back "
@@ -1953,6 +1992,379 @@ def resume_phase(label, sc, ac, build, name, rounds, epoch_rounds,
 
 
 
+# ---------------- item 9a and item 7: phases 22-26 ------------------------
+
+FAULTS = ["--client_dropout", "0.25", "--straggler_rate", "0.25",
+          "--straggler_cutoff", "0.2"]
+BYZANTINE = ["--update_screen", "norm", "--byzantine_rate", "0.25",
+             "--attack", "colluding"]
+BYZANTINE_ROUNDS = 5        # coord_median; 3 each for the other two
+ROLLBACK_EPOCHS = 3         # of 5 or 6 rounds (RESUME_CIFAR's corpus)
+ROLLBACK_POISONED = 12      # a round of the third epoch
+FINETUNE_ROUNDS = 2
+
+
+def expected_survivors(seed: int, round_idx: int, W: int,
+                       faults) -> np.ndarray:
+    """The survivor mask utils/faults draws for config #2 with FAULTS:
+    the dropout draw, times the straggler draw's fractions at or above
+    the cutoff (a fraction under it degrades to a drop)."""
+    surv = faults.bernoulli_survivors(seed, round_idx, W, 0.25)
+    work = faults.straggler_work_fractions(seed, round_idx, W, 0.25, 0.1)
+    return surv * (work >= 0.2)
+
+
+def faults_phase(sc, ac, cv_train, parse_args, data_dir, fclient, faults,
+                 main_ms) -> None:
+    """Phase 22: config #2 with dropout and stragglers on the fused
+    backward (the dropout_stragglers variant). Every round's uploads are
+    the wire bytes at the slots utils/faults keeps and 0 at the others;
+    a dropped slot adds no gradient: the survivor-weighted fused
+    gradient of a batch equals the fused gradient of its survivors
+    alone (PARITY_RTOL)."""
+    model, rr, loader = config2_variant("faults", sc, ac, cv_train,
+                                        parse_args, data_dir, FAULTS)
+    assert model.cfg.fused_client_backward
+    check_launches("faults", rr.launches, {"sketch_encode": ROUNDS,
+                                           "sketch_estimate_all": ROUNDS})
+    wire = float(model.cfg.upload_bytes)
+    dropped = 0
+    for r, up in enumerate(rr.uploads):
+        want = expected_survivors(model.cfg.seed, r, 8, faults)
+        dropped += int((want == 0).sum())
+        if not np.array_equal(np.asarray(up), wire * want):
+            raise AssertionError(f"faults: round {r} uploads {up}, the "
+                                 f"draw keeps {want}")
+    med = statistics.median
+    phase("faults", f"{ROUNDS} rounds: {dropped} of {8 * ROUNDS} slots "
+          "dropped or under the cutoff, each billed 0 bytes, the others "
+          f"{wire:.0f}, as utils/faults draws them for seed "
+          f"{model.cfg.seed}; median {med(rr.round_ms[1:]):.2f} ms/round "
+          f"beside config #2's {med(main_ms[1:]):.2f}; launches "
+          f"{rr.launches}")
+    ids, data, mask = next(iter(loader.epoch()))
+    dev = torch.device("cuda")
+    data = tuple(torch.as_tensor(np.asarray(x)).to(dev) for x in data)
+    mask = torch.as_tensor(mask).to(dev)
+    surv = torch.ones(8, device=dev)
+    surv[[2, 5]] = 0.0
+    keep = surv > 0
+    flat_loss = fclient.make_flat_loss_fn(
+        cv_train.make_compute_loss(model.module), model.unravel)
+    cfg = model.cfg
+    g_s = fclient.fused_shard_grads(flat_loss, model.ps_weights, data,
+                                    mask, cfg, survivors=surv)[0]
+    g_k = fclient.fused_shard_grads(flat_loss, model.ps_weights,
+                                    tuple(x[keep] for x in data),
+                                    mask[keep], cfg)[0]
+    err = _rel(g_s, g_k)
+    phase("faults", f"fused gradient with slots 2 and 5 dropped vs the 6 "
+          f"survivors alone: rel err {err:.3e} (tolerance {PARITY_RTOL:g})")
+    if not err <= PARITY_RTOL:
+        raise AssertionError("faults: a dropped slot moved the gradient")
+    del model, loader
+    torch.cuda.empty_cache()
+
+
+def byzantine_phase(sc, ac, cv_train, parse_args, data_dir, fclient,
+                    fserver, main_ms):
+    """Phase 23: config #2 under the colluding attack, the norm screen
+    and the robust aggregators. Each client's transmit is encoded on its
+    own (K1 8 times a round) and the order statistics run over the
+    [8, 5, 500000] tables; one K1 launch on a client's transmit equals
+    its plain version bitwise. Returns coord_median's launches."""
+    med = statistics.median
+    launches = None
+    for agg, rounds in (("coord_median", BYZANTINE_ROUNDS),
+                        ("trimmed_mean", 3), ("norm_clip", 3)):
+        label = f"byzantine_{agg}"
+        model, rr, loader = config2_variant(
+            label, sc, ac, cv_train, parse_args, data_dir,
+            BYZANTINE + ["--aggregator", agg], rounds=rounds)
+        assert model.cfg.robust_aggregation
+        check_launches(label, rr.launches, {
+            "sketch_encode": 8 * rounds, "sketch_estimate_all": rounds})
+        phase(label, f"{rounds} rounds: median {med(rr.round_ms[1:]):.2f} "
+              f"ms/round beside config #2's {med(main_ms[1:]):.2f}; peak "
+              f"{rr.peak / 2 ** 30:.3f} GiB; mean client loss first/last "
+              f"{float(rr.losses[0].mean()):.4f}/"
+              f"{float(rr.losses[-1].mean()):.4f}; launches {rr.launches}")
+        if launches is None:
+            launches = rr.launches
+            # one client's transmit through K1 against the plain version
+            ids, data, mask = next(iter(loader.epoch()))
+            cfg = model.cfg
+            flat_grad = fclient.make_flat_grad_fn(
+                cv_train.make_compute_loss(model.module), model.unravel)
+            res = fclient.local_step(
+                flat_grad, model.ps_weights,
+                tuple(torch.as_tensor(np.asarray(x[0])).cuda()
+                      for x in data),
+                torch.as_tensor(mask[0]).cuda(), None, None, cfg)
+            sk = fserver.args2sketch(cfg)
+            off, eps, delta = sk.tables(res.transmit.device)
+            t_k = sk.encode(res.transmit)
+            t_p = sc.encode_plain(res.transmit, off, delta, eps, sk.c)
+            torch.cuda.synchronize()
+            if not torch.equal(t_k, t_p):
+                raise AssertionError(
+                    "byzantine: K1 on a client's transmit differs from its "
+                    "plain version, max abs err "
+                    f"{float((t_k - t_p).abs().max())}")
+            phase(label, f"K1 on client 0's [{res.transmit.numel()}] "
+                  "transmit equal to its plain version (exact)")
+        del model, loader
+        torch.cuda.empty_cache()
+    return launches
+
+
+def tear(path: str) -> None:
+    """Cut a checkpoint file to half its bytes."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(size // 2)
+
+
+def rollback_phase(sc, ac, cv_train, parse_args, faults, tmp) -> None:
+    """Phase 24: config #2 with NaN poison and the screen off, a
+    checkpoint an epoch: slot 1 of round ROLLBACK_POISONED is poisoned
+    (a FaultSchedule) and, as it runs, the newest checkpoint is torn.
+    The numeric watch trips one round later, the rollback falls back
+    past the torn file to the older finite one, replays with screening
+    forced (--rollback_screen_rounds 64 covers the rest of the run) and
+    finishes finite. The journal, read without the JAX package, holds
+    one numeric_trip, one checkpoint_fallback, and after the trip the
+    poisoned round screened (its schedule record screen_on 1,
+    n_poisoned 1)."""
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    from commefficient_tpu_torch.utils.checkpoint import (
+        latest_checkpoint_path,
+    )
+    ck, journal = os.path.join(tmp, "ck"), os.path.join(tmp, "j.jsonl")
+    cfg = parse_args(argv=CONFIG2 + [
+        "--local_batch_size", "32", "--num_clients",
+        str(RESUME_CIFAR_CLIENTS), "--device", "cuda", "--dataset_dir",
+        os.path.join(HERE, "build", "chip_smoke_resume_data"),
+        "--num_epochs", str(ROLLBACK_EPOCHS), "--pivot_epoch", "1",
+        "--seed", "21", "--checkpoint_every", "1", "--checkpoint_path", ck,
+        "--journal_path", journal, "--poison_kind", "nan",
+        "--rollback_screen_rounds", "64"])
+    model, opt, sched, loader, val = cv_train.build(
+        cfg, device="cuda", synthetic_examples=RESUME_CIFAR)
+    model.set_fault_schedule(faults.FaultSchedule(
+        poison={ROLLBACK_POISONED: [1]}))
+    torn = []
+
+    def on_round(i, out):
+        torch.cuda.synchronize()
+        if i == ROLLBACK_POISONED and not torn:
+            torn.append(latest_checkpoint_path(os.path.join(ck, "ResNet9")))
+            tear(torn[0])
+
+    reset_counts(sc, ac)
+    t0 = time.perf_counter()
+    ok = cv_train.run(model, opt, sched, loader, val, model.cfg, ck,
+                      on_round=on_round)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = math.ceil(ROLLBACK_EPOCHS * loader.steps_per_epoch)
+    if not (ok and torch.isfinite(model.ps_weights).all()
+            and model.server.round_idx == total):
+        raise AssertionError(f"rollback: ok {ok}, round "
+                             f"{model.server.round_idx} of {total}")
+    records, problems = read_journal(journal)
+    kinds = [r["event"] for r in records]
+    trips = [i for i, k in enumerate(kinds) if k == "numeric_trip"]
+    fail = list(problems)
+    if len(trips) != 1 or records[trips[0]]["round"] != ROLLBACK_POISONED:
+        fail.append(f"numeric_trip records {[records[i] for i in trips]}")
+    after = records[trips[0] + 1:] if trips else []
+    fallbacks = [r for r in after if r["event"] == "checkpoint_fallback"]
+    screened = [r for r in after if r["event"] == "screened"]
+    replay = [r for r in after if r["event"] == "schedule"
+              and r["round"] == ROLLBACK_POISONED]
+    if [r["path"] for r in fallbacks] != torn:
+        fail.append(f"checkpoint_fallback {fallbacks}, torn {torn}")
+    if [(r["round"], r["n_screened"]) for r in screened] != [
+            (ROLLBACK_POISONED, 1)]:
+        fail.append(f"screened {screened}")
+    if not (replay and replay[0]["screen_on"] == 1.0
+            and replay[0]["n_poisoned"] == 1):
+        fail.append(f"replayed schedule {replay}")
+    if records[-1]["event"] != "run_end" or records[-1]["ok"] is not True:
+        fail.append(f"last record {records[-1]}")
+    if fail:
+        raise AssertionError("rollback journal: " + "; ".join(
+            str(f) for f in fail[:5]))
+    first = next(r["round"] for r in after if r["event"] == "round")
+    phase("rollback", f"tripped at round {ROLLBACK_POISONED}, fell back past "
+          f"{os.path.basename(torn[0])} (torn), replayed from round "
+          f"{first} with screening forced; {total} rounds done, weights "
+          f"finite; journal: 1 numeric_trip, 1 checkpoint_fallback, round "
+          f"{ROLLBACK_POISONED} screened on the replay; {wall:.2f} s "
+          f"wall, launches {read_counts(sc, ac)}")
+    del model, loader
+    torch.cuda.empty_cache()
+
+
+def gpt2_finetune_phase(sc, ac, gpt2_train, gpt2_model, convert, flat,
+                        parse_args, HashTokenizer, data_dir, g_ms, g_peak,
+                        tmp) -> None:
+    """Phase 25: config #5's GPT2-small from a seed, written by
+    save_pretrained; --finetune (gpt2_train.build, as main() calls it)
+    loads it bitwise and evaluates it (test_gpt2, the JAX driver's
+    --finetune contract). Then FINETUNE_ROUNDS rounds of
+    gpt2_train.train_gpt2 from the artifact (--model_checkpoint), plain
+    and with --remat, under torch.use_deterministic_algorithms: the
+    remat run's update bitwise the plain one's (or, if a second plain
+    run differs from the first, within 2x that spread), K4 twice a block
+    under remat, the peak memory of each beside phase 7's."""
+    tok = HashTokenizer(GPT2_VOCAB)
+    spe = math.ceil(math.prod(GPT2_CORPUS) / (8 * 8))
+    base = CONFIG5 + ["--local_batch_size", "8", "--device", "cuda",
+                      "--dataset_dir", data_dir, "--seed", "21",
+                      "--num_epochs", str(FINETUNE_ROUNDS / spe)]
+    module = gpt2_train.build_model_and_params(
+        parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=base), tok,
+        GPT2_L)
+    saved, _ = flat.flatten_params(module)
+    saved = saved.detach().clone()
+    art = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    gpt2_model.save_pretrained(art, convert.to_jax_params(module), module.cfg)
+    save_s = time.perf_counter() - t0
+    del module
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=base + [
+        "--finetune", "--finetune_path", art])
+    t0 = time.perf_counter()
+    model, _, _, _, val = gpt2_train.build(cfg, tok, device="cuda",
+                                           synthetic_examples=GPT2_CORPUS)
+    load_s = time.perf_counter() - t0
+    if not torch.equal(model.ps_weights.cpu(), saved):
+        raise AssertionError("finetune: the loaded weights differ from the "
+                             "saved ones")
+    reset_counts(sc, ac)
+    stats = gpt2_train.test_gpt2(model, val, logger=_Quiet())
+    torch.cuda.synchronize()
+    if not math.isfinite(stats["val_nll"]) or not ac.LAUNCHES["flash_fwd"]:
+        raise AssertionError(f"finetune eval: {stats}, {ac.LAUNCHES}")
+    phase("finetune", f"save_pretrained of D={saved.numel()} in "
+          f"{save_s:.2f} s ({sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))} "
+          f"bytes); --finetune built and loaded it bitwise in {load_s:.2f} "
+          f"s; test_gpt2 val NLL {stats['val_nll']:.4f}")
+    del model, val
+    torch.cuda.empty_cache()
+
+    def rounds(label, extra):
+        cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=base + [
+            "--model_checkpoint", art] + extra)
+        model, opt, sched, loader, _ = gpt2_train.build(
+            cfg, tok, device="cuda", synthetic_examples=GPT2_CORPUS)
+        if not torch.equal(model.ps_weights.cpu(), saved):
+            raise AssertionError(f"{label}: not the artifact's weights")
+        assert model.module.cfg.remat == ("--remat" in extra)
+        w0 = model.ps_weights.clone()
+        rr = drive_rounds(label, sc, ac, model, loader, FINETUNE_ROUNDS,
+                          lambda timed, on_round: gpt2_train.train_gpt2(
+                              model, opt, sched, timed, model.cfg,
+                              logger=_Quiet(), on_round=on_round))
+        blocks = 2 if "--remat" in extra else 1
+        check_launches(label, rr.launches, {
+            "flash_fwd": blocks * 12 * 8 * FINETUNE_ROUNDS,
+            "sketch_encode": 2 * FINETUNE_ROUNDS,
+            "threshold_mask": FINETUNE_ROUNDS})
+        update = (model.ps_weights - w0).cpu()
+        del model, opt, loader
+        torch.cuda.empty_cache()
+        return update, rr
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain, p_rr = rounds("finetune_plain", [])
+        remat, r_rr = rounds("finetune_remat", ["--remat"])
+        if torch.equal(plain, remat):
+            verdict = "bitwise equal"
+        else:
+            again, _ = rounds("finetune_plain2", [])
+            spread = float((plain - again).abs().max())
+            dist = float((plain - remat).abs().max())
+            verdict = (f"NOT bitwise: max |plain - remat| {dist:.3e}, two "
+                       f"plain runs {spread:.3e} apart")
+            if not dist <= 2 * spread:
+                raise AssertionError(f"finetune: {verdict}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    med = statistics.median
+    phase("finetune", f"{FINETUNE_ROUNDS} rounds from the artifact: remat "
+          f"update vs plain {verdict}; K4 launched "
+          f"{r_rr.launches['flash_fwd']} times under remat, "
+          f"{p_rr.launches['flash_fwd']} plain; peak "
+          f"{r_rr.peak / 2 ** 30:.3f} GiB remat, {p_rr.peak / 2 ** 30:.3f} "
+          f"plain, phase 7's {g_peak / 2 ** 30:.3f}; ms/round "
+          f"{med(r_rr.round_ms):.2f} remat, {med(p_rr.round_ms):.2f} plain "
+          f"(phase 7's median {med(g_ms[1:]):.2f})")
+
+
+def cvfinetune_phase(sc, ac, cv_train, parse_args, flat, models, tmp
+                     ) -> None:
+    """Phase 26: config #2's ResNet9 trained on CIFAR10 for 3 rounds with
+    --checkpoint, then --finetune --finetuned_from CIFAR10 on the
+    synthetic CIFAR100 (3 rounds): the body comes over leaf for leaf and
+    never moves, the 100-class head trains, K1 and K2 once a round."""
+    n_train = CLIENTS * EXAMPLES_PER_CLIENT
+    spe = math.ceil(n_train / (8 * 32))
+    ck = os.path.join(tmp, "ck")
+    common = ["--local_batch_size", "32", "--num_clients", str(CLIENTS),
+              "--device", "cuda", "--num_epochs", str(3 / spe),
+              "--pivot_epoch", str(1.5 / spe), "--seed", "21",
+              "--no_telemetry"]
+    cfg = parse_args(argv=CONFIG2 + common + [
+        "--dataset_dir", os.path.join(HERE, "build", "chip_smoke_data"),
+        "--checkpoint", "--checkpoint_path", ck])
+    model, opt, sched, loader, val = cv_train.build(
+        cfg, device="cuda", synthetic_examples=(n_train, 512))
+    if not cv_train.run(model, opt, sched, loader, val, model.cfg, tmp):
+        raise AssertionError("cvfinetune: the CIFAR10 run failed")
+    old = model.ps_weights.cpu()
+    old_layout = flat.module_layout(model.module)
+    del model, loader
+    cfg = parse_args(argv=CONFIG2 + common + [
+        "--dataset_name", "CIFAR100", "--dataset_dir",
+        os.path.join(HERE, "build", "chip_smoke_cifar100_data"),
+        "--finetune", "--finetune_path", ck, "--finetuned_from", "CIFAR10"])
+    model, opt, sched, loader, val = cv_train.build(
+        cfg, device="cuda", synthetic_examples=(n_train, 512))
+    frozen = (model.lr_scale_vec == 0).cpu()
+    w0 = model.ps_weights.cpu()
+    old_at = dict(zip([e.path for e in old_layout],
+                      torch.split(old, [e.size for e in old_layout])))
+    off = moved_over = 0
+    for e in flat.module_layout(model.module):
+        seg = slice(off, off + e.size)
+        off += e.size
+        if bool(frozen[seg].all()):
+            moved_over += e.size
+            if not torch.equal(w0[seg], old_at[e.path]):
+                raise AssertionError(f"cvfinetune: {e.path} not transferred")
+    rr = drive_rounds("cvfinetune", sc, ac, model, loader, 3,
+                      lambda timed, on_round: cv_train.train(
+                          model, opt, sched, timed, val, model.cfg,
+                          on_round=on_round))
+    check_launches("cvfinetune", rr.launches, {"sketch_encode": 3,
+                                               "sketch_estimate_all": 3})
+    w = model.ps_weights.cpu()
+    if not torch.equal(w[frozen], w0[frozen]) or \
+            torch.equal(w[~frozen], w0[~frozen]):
+        raise AssertionError("cvfinetune: frozen coordinates moved, or the "
+                             "head did not train")
+    phase("cvfinetune", f"D={w.numel()}: {moved_over} coordinates "
+          f"transferred (frozen_count {model.frozen_count}) and bitwise "
+          f"unmoved after 3 rounds; the head's {int((~frozen).sum())} "
+          f"moved; launches {rr.launches}")
+    del model, loader
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
@@ -2231,10 +2643,32 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(resume_tmp, ignore_errors=True)
 
+    # phases 22-26: the fault-tolerant rounds, the numeric rollback and
+    # --finetune (ROADMAP items 9a and 7)
+    from commefficient_tpu_torch.utils import faults
+    c2_dir = os.path.join(HERE, "build", "chip_smoke_data")
+    faults_phase(sc, ac, cv_train, parse_args, c2_dir, fclient, faults,
+                 round_ms)
+    byz_launches = byzantine_phase(sc, ac, cv_train, parse_args, c2_dir,
+                                   fclient, fserver, round_ms)
+    late_tmp = tempfile.mkdtemp(prefix="chip_smoke_item9a_")
+    try:
+        os.makedirs(os.path.join(late_tmp, "rollback"))
+        rollback_phase(sc, ac, cv_train, parse_args, faults,
+                       os.path.join(late_tmp, "rollback"))
+        gpt2_finetune_phase(sc, ac, gpt2_train, gpt2_model, convert, flat,
+                            parse_args, HashTokenizer, gpt2_dir, g_ms,
+                            g_peak, late_tmp)
+        cvfinetune_phase(sc, ac, cv_train, parse_args, flat, models,
+                         late_tmp)
+    finally:
+        shutil.rmtree(late_tmp, ignore_errors=True)
+
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,
                      "config4": s_launches, "dp": dp_launches,
-                     "config5_bf16": gb_launches}
+                     "config5_bf16": gb_launches,
+                     "byzantine": byz_launches}
     kernels += g_kernels
     for k in kernels:
         k["launches"] = path_launches[k["path"]][k.pop("counter")]

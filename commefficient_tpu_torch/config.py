@@ -52,8 +52,6 @@ DEFAULT_NUM_CLIENTS = {
 # ROADMAP.md Queue 1 items that still hold each unported path
 Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
 Q_ANALYSIS = "Queue 1 item 10 (the analysis tiers)"
-Q_GPT2 = ("Queue 1 item 7 (what the GPT2 path leaves: pretrained "
-          "weights, --finetune, --remat, --model_parallel)")
 
 
 def num_classes_of_dataset(dataset_name: str) -> int:
@@ -332,14 +330,64 @@ class Config:
         if not 0.0 <= self.straggler_rate <= 1.0:
             raise ValueError(
                 f"straggler_rate={self.straggler_rate} must be in [0, 1]")
+        if not 0.0 < self.straggler_min_work <= 1.0:
+            raise ValueError(
+                f"straggler_min_work={self.straggler_min_work} must be in "
+                "(0, 1] (zero work is dropout: use client_dropout or "
+                "straggler_cutoff)")
+        if not 0.0 <= self.straggler_cutoff <= 1.0:
+            raise ValueError(
+                f"straggler_cutoff={self.straggler_cutoff} must be in "
+                "[0, 1] (fractions below it degrade to dropout)")
         if self.update_screen not in SCREEN_MODES:
             raise ValueError(f"unknown update_screen {self.update_screen!r}")
+        if self.screen_norm_mult <= 1.0:
+            raise ValueError(
+                f"screen_norm_mult={self.screen_norm_mult} must be > 1 "
+                "(an update at the cohort median is not an outlier)")
+        if not 0.0 <= self.poison_rate < 1.0:
+            raise ValueError(
+                f"poison_rate={self.poison_rate} must be in [0, 1)")
         if self.poison_kind not in POISON_KINDS:
             raise ValueError(f"unknown poison_kind {self.poison_kind!r}")
         if self.aggregator not in AGGREGATORS:
             raise ValueError(f"unknown aggregator {self.aggregator!r}")
+        if not 0.0 <= self.trim_beta < 0.5:
+            raise ValueError(
+                f"trim_beta={self.trim_beta} must be in [0, 0.5) (trimming "
+                "half the cohort from each end leaves no client)")
+        if not 0.0 <= self.byzantine_rate < 1.0:
+            raise ValueError(
+                f"byzantine_rate={self.byzantine_rate} must be in [0, 1)")
         if self.attack not in ATTACKS:
             raise ValueError(f"unknown attack {self.attack!r}")
+        if self.byzantine_rate > 0 and self.poison_rate > 0:
+            raise ValueError(
+                "--byzantine_rate and --poison_rate are mutually exclusive: "
+                "both ride the per-client fault operand")
+        if self.target_screened_rate >= 0:
+            if self.update_screen != "norm":
+                raise ValueError(
+                    "--target_screened_rate adapts the norm screen's "
+                    "threshold and requires --update_screen norm")
+            if self.target_screened_rate >= 1.0:
+                raise ValueError(
+                    f"target_screened_rate={self.target_screened_rate} "
+                    "must be < 1")
+        if self.screen_adapt_step <= 0:
+            raise ValueError("screen_adapt_step must be > 0")
+        if not 1.0 < self.screen_mult_min <= self.screen_mult_max:
+            raise ValueError(
+                f"need 1 < screen_mult_min={self.screen_mult_min} <= "
+                f"screen_mult_max={self.screen_mult_max}")
+        if self.rollback_screen_rounds < 1:
+            raise ValueError(
+                "rollback_screen_rounds must be >= 1: a rollback with no "
+                "forced-screen round replays the same non-finite update")
+        if self.max_numeric_rollbacks < 0:
+            raise ValueError(
+                "max_numeric_rollbacks must be >= 0 (0 = a numeric trip "
+                "fails loud at once)")
         if self.sampler not in ("uniform", "throughput"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.state_tier not in ("device", "host"):
@@ -383,19 +431,11 @@ class Config:
             # mode would also trip on the port's explicit one-round-late
             # copies, so it is not the same guard (ROADMAP.md item 10)
             refuse("--debug_transfer_guard", Q_ANALYSIS)
-        for flag, on in (("--finetune", self.do_finetune),
-                         ("--remat", self.do_remat),
-                         ("--model_parallel > 1", self.model_parallel > 1)):
-            if on:
-                refuse(flag, Q_GPT2)
         for flag, on in (
-                ("--client_dropout", self.client_dropout > 0),
-                ("--straggler_rate", self.straggler_rate > 0),
-                ("--update_screen", self.update_screen != "off"),
-                ("--poison_rate", self.poison_rate > 0),
-                ("--byzantine_rate", self.byzantine_rate > 0),
-                ("--aggregator", self.robust_aggregation),
+                # adaptive screening: the control/ bank
                 ("--target_screened_rate", self.target_screened_rate >= 0),
+                # the multi-device step
+                ("--model_parallel > 1", self.model_parallel > 1),
                 ("--sampler", self.sampler != "uniform"),
                 ("--deadline_quantile", self.deadline_quantile > 0),
                 ("--target_survivors", self.target_survivors > 0),

@@ -82,13 +82,24 @@ def _prefix_or_popcounts(changes, depths, n_words: int) -> dict:
     return out
 
 
+# the dense-upload modes, whose payload shrinks by the frozen
+# coordinates of --finetune (a sketch table and a top-k budget do not)
+_DENSE_UPLOAD = ("uncompressed", "true_topk", "fedavg")
+
+
 class CommAccountant:
-    def __init__(self, cfg: Config, num_clients: int):
+    def __init__(self, cfg: Config, num_clients: int,
+                 frozen_count: int = 0):
         self.cfg = cfg
         self.num_clients = num_clients
         self.n_words = -(-cfg.grad_size // 32)
         self.upload_floats = cfg.upload_floats
         self.upload_bytes = float(cfg.upload_bytes)
+        if frozen_count and cfg.mode in _DENSE_UPLOAD:
+            # frozen coordinates transmit nothing (the reference's
+            # requires_grad=False parameters are not in its vector)
+            self.upload_floats = cfg.grad_size - frozen_count
+            self.upload_bytes = 4.0 * self.upload_floats
         # local_topk: popcount of the previous round's change bitset,
         # to compare with (uploaders x k)
         self.realized_nonzeros: Optional[int] = None
@@ -118,33 +129,42 @@ class CommAccountant:
                          for c in ids], np.int64)
 
     def record_round(self, participating: np.ndarray,
-                     prev_changed_words: Optional[np.ndarray]):
+                     prev_changed_words: Optional[np.ndarray],
+                     survivors: Optional[np.ndarray] = None):
         """Account one round. `prev_changed_words` is the packed change
         bitset of the PREVIOUS round's update (None on the first round:
-        nothing changed since the clients were initialized). Returns
-        (download_bytes, upload_bytes), each [W] aligned with
-        `participating`."""
+        nothing changed since the clients were initialized).
+        `survivors` ([W] {0,1}, aligned with `participating`): the
+        clients that completed the round. The round passes the
+        admitted set under screening and the contributors under a
+        robust aggregator, so a dropped, screened or fully trimmed
+        client is charged nothing and its staleness keeps growing.
+        Returns (download_bytes, upload_bytes), each [W] aligned with
+        `participating`, 0 at the uncharged slots."""
         participating = np.asarray(participating).reshape(-1)
         self._check_ids(participating)
         W = participating.shape[0]
+        alive = (np.ones(W, bool) if survivors is None
+                 else np.asarray(survivors).reshape(-1) > 0)
+        completed = participating[alive]
         download = np.zeros(W)
         if self.cheap:
             if prev_changed_words is not None:
                 self.updated_since_init |= np.asarray(prev_changed_words)
-            download[:] = 4.0 * _popcount(self.updated_since_init)
+            download[alive] = 4.0 * _popcount(self.updated_since_init)
         else:
             if prev_changed_words is not None:
                 self.changes.append(np.asarray(prev_changed_words))
-            if len(self.changes) and W:
-                stale = np.clip(self.staleness(participating), 0,
+            if len(self.changes) and len(completed):
+                stale = np.clip(self.staleness(completed), 0,
                                 len(self.changes))
                 counts = _prefix_or_popcounts(
                     self.changes, np.unique(stale), self.n_words)
-                download[:] = [4.0 * counts[int(s)] for s in stale]
-            for c in participating:
+                download[alive] = [4.0 * counts[int(s)] for s in stale]
+            for c in completed:
                 self._last_reset[int(c)] = self.rounds_seen
             self.rounds_seen += 1
-        upload = np.full(W, self.upload_bytes)
+        upload = np.where(alive, self.upload_bytes, 0.0)
         if self.cfg.mode == "local_topk" and prev_changed_words is not None:
             self.realized_nonzeros = _popcount(
                 np.asarray(prev_changed_words))

@@ -22,6 +22,16 @@ sampled (`_touched`), so `client_rows_payload` persists only their rows,
 and `load_state` rebuilds the rest from their init; a telemetry session
 (`attach_telemetry`) is fed each round's metric vector, byte totals and
 a `compressor` event.
+
+Faults (utils/faults.py) are drawn here on the host, as pure functions
+of (seed, round), and ride into the round as RoundBatch operands:
+--client_dropout and FaultSchedule drops (survivors), --straggler_rate
+and scripted slow slots (work; a fraction below --straggler_cutoff
+degrades to a drop), and in the screened family (round.screened_family,
+or a rollback's forced window, `force_screen_rounds`) the poison or
+adversary mask with the screen flag. The accountant bills the round's
+admitted (or contributing) clients; the journal gets `schedule`,
+`screened`, `aggregator` and `injected_fault` events.
 """
 from __future__ import annotations
 
@@ -42,6 +52,10 @@ from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
 from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.utils.checkpoint import (
     config_fingerprint, validate_fingerprint,
+)
+from commefficient_tpu_torch.utils.faults import (
+    FaultSchedule, InjectedFault, bernoulli_survivors, byzantine_mask,
+    poison_mask, straggler_work_fractions,
 )
 
 # the JAX scheduler's counters: bookkeeping of a uniform, deadline-free
@@ -77,7 +91,10 @@ class FedModel:
         mask) -> (loss, metrics), with `params` the {name: tensor} dict
         for torch.func.functional_call. lr_scale_vec: an optional [D]
         per-parameter learning-rate scale (the Fixup nets' parameter
-        groups); the round then takes lr x that vector, in every mode."""
+        groups); the round then takes lr x that vector, in every mode.
+        Its exact zeros mark frozen coordinates (--finetune): their
+        gradients are zeroed at the source (the round's `grad_mask`), so
+        they take no share of the compression budget."""
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.training = True
@@ -85,15 +102,27 @@ class FedModel:
         cfg = cfg.replace(grad_size=int(vec.shape[0])).validate()
         self.cfg = cfg
         self.num_clients = cfg.resolved_num_clients(num_clients)
-        self._train_round = fround.make_train_fn(loss_train, self.unravel,
-                                                 cfg)
+        grad_mask = None
+        if lr_scale_vec is not None and np.any(np.asarray(lr_scale_vec) == 0):
+            grad_mask = (np.asarray(lr_scale_vec) != 0).astype(np.float32)
+        self.frozen_count = (0 if grad_mask is None
+                             else int((grad_mask == 0).sum()))
+        self._train_round = fround.make_train_fn(
+            loss_train, self.unravel, cfg,
+            grad_mask=(None if grad_mask is None
+                       else _as_tensor(grad_mask, self.device)))
         self._eval_batch = fround.make_eval_fn(
             loss_val if loss_val is not None else loss_train,
             self.unravel, cfg)
         self.server = fround.init_server_state(cfg, vec)
         self.clients = fround.init_client_state(cfg, self.num_clients,
                                                 self.device, vec)
-        self.accountant = CommAccountant(cfg, self.num_clients)
+        self.accountant = CommAccountant(cfg, self.num_clients,
+                                         frozen_count=self.frozen_count)
+        # fault injection: an optional script (set_fault_schedule), and
+        # the end of a rollback's forced-screen window (a round index)
+        self.fault_schedule: Optional[FaultSchedule] = None
+        self._screen_force_until = 0
         # O(cohort) checkpoints: the clients ever sampled (their rows
         # may differ from init), and under --topk_down the init weights
         # untouched rows rebuild from. A load of dense client blocks
@@ -292,20 +321,185 @@ class FedModel:
             return lr * self.lr_scale_vec
         return lr
 
+    # -- faults (utils/faults.py) -----------------------------------------
+    def set_fault_schedule(self, schedule: Optional[FaultSchedule]) -> None:
+        """Install (or clear, with None) a deterministic fault script:
+        scripted drops and slow slots compose with the random draws,
+        scripted poison / adversary slots put the rounds in the
+        screened family, crash_after raises InjectedFault once that
+        round has completed and crash_in_span before it commits."""
+        self.fault_schedule = schedule
+
+    def _survivors_for_round(self, round_idx: int,
+                             ids: np.ndarray) -> Optional[np.ndarray]:
+        """[W] f32 survivor mask, or None when nothing drops clients."""
+        mask = None
+        if self.cfg.client_dropout > 0:
+            mask = bernoulli_survivors(self.cfg.seed, round_idx, len(ids),
+                                       self.cfg.client_dropout)
+        if self.fault_schedule is not None:
+            scripted = self.fault_schedule.survival_mask(round_idx, ids)
+            if scripted is not None:
+                mask = scripted if mask is None else mask * scripted
+        return mask
+
+    def _work_for_round(self, round_idx: int,
+                        W: int) -> Optional[np.ndarray]:
+        """[W] f32 work fractions, or None when nothing slows clients;
+        scripted fractions compose with the draw by minimum."""
+        work = None
+        if self.cfg.straggler_rate > 0:
+            work = straggler_work_fractions(
+                self.cfg.seed, round_idx, W, self.cfg.straggler_rate,
+                self.cfg.straggler_min_work)
+        if self.fault_schedule is not None:
+            scripted = self.fault_schedule.work_fractions(round_idx, W)
+            if scripted is not None:
+                work = scripted if work is None else np.minimum(work,
+                                                                scripted)
+        return work
+
+    def _faults_for_round(self, round_idx: int, ids: np.ndarray):
+        """(survivors, work) with --straggler_cutoff applied: a fraction
+        below it degrades to a drop (survivor bit 0, work 1.0); a work
+        vector left all ones is None, so the round runs exactly the
+        dropout variant; work always rides with survivors."""
+        surv = self._survivors_for_round(round_idx, ids)
+        work = self._work_for_round(round_idx, len(ids))
+        if work is not None:
+            work = np.asarray(work, np.float32)
+            cutoff = self.cfg.straggler_cutoff
+            if cutoff > 0:
+                below = work < cutoff
+                if below.any():
+                    surv = (np.ones(len(ids), np.float32) if surv is None
+                            else surv.copy())
+                    surv[below] = 0.0
+                    work = np.where(below, np.float32(1.0), work)
+            if np.all(work >= 1.0):
+                work = None
+        if work is not None and surv is None:
+            surv = np.ones(len(ids), np.float32)
+        return surv, work
+
+    def _screened_dispatch(self, round_idx: int) -> bool:
+        """Whether this round runs in the screened family: screening,
+        poison, adversaries or a robust aggregator configured, a forced
+        window after a rollback, or scripted poison / adversaries."""
+        return (fround.screened_family(self.cfg)
+                or round_idx < self._screen_force_until
+                or (self.fault_schedule is not None
+                    and bool(self.fault_schedule.poison
+                             or self.fault_schedule.byzantine)))
+
+    def _poison_values(self, round_idx: int, W: int) -> np.ndarray:
+        """[W] f32 {0,1}: the poison draw, or under --byzantine_rate the
+        adversary draw (the two are exclusive), max-composed with the
+        schedule's slots."""
+        sched = self.fault_schedule
+        if self.cfg.byzantine_rate > 0:
+            mask = byzantine_mask(self.cfg.seed, round_idx, W,
+                                  self.cfg.byzantine_rate)
+            scripted = (None if sched is None
+                        else sched.byzantine_mask_for(round_idx, W))
+        else:
+            mask = poison_mask(self.cfg.seed, round_idx, W,
+                               self.cfg.poison_rate)
+            scripted = (None if sched is None
+                        else sched.poison_mask_for(round_idx, W))
+        return mask if scripted is None else np.maximum(mask, scripted)
+
+    def _screen_flag(self, round_idx: int) -> np.float32:
+        """1.0 when the admission screen applies this round (configured,
+        or inside a rollback's forced window), else 0.0: poison then
+        reaches the server state."""
+        on = (self.cfg.update_screen != "off"
+              or round_idx < self._screen_force_until)
+        return np.float32(1.0 if on else 0.0)
+
+    def force_screen_rounds(self, n: int) -> None:
+        """Force the admission screen on for the next `n` rounds (a
+        numeric rollback's window, --rollback_screen_rounds): the
+        replayed rounds draw the identical poison and screen it out."""
+        self._screen_force_until = max(self._screen_force_until,
+                                       self.server.round_idx + int(n))
+
+    def _journal_fault(self, kind: str, round_idx: int) -> None:
+        """An InjectedFault about to raise, durable in the journal."""
+        if self.telemetry is not None:
+            self.telemetry.journal_event("injected_fault", fault=kind,
+                                         round=int(round_idx))
+            self.telemetry.flush()
+
+    def _journal_round_faults(self, round_idx, ids, survivors, pois, screen,
+                              admitted, agg_stats) -> None:
+        """A faulted round's journal: the `schedule` record (clients
+        that completed it; the poisoned count and the screen flag in the
+        screened family), a `screened` event when the admission mask
+        refused survivors, an `aggregator` event under a robust
+        aggregator. The JAX writer's keys."""
+        tele = self.telemetry
+        fields = {"round": int(round_idx), "sampler": self.cfg.sampler,
+                  "n_sampled": int(len(ids) if survivors is None
+                                   else (survivors > 0).sum())}
+        if pois is not None:
+            fields["screen_on"] = float(screen)
+            fields["n_poisoned"] = int((pois > 0).sum())
+        tele.journal_event("schedule", **fields)
+        if admitted is not None:
+            n_screened = int((survivors > 0).sum() - (admitted > 0).sum())
+            if n_screened > 0:
+                tele.journal_event(
+                    "screened", round=int(round_idx),
+                    n_screened=n_screened,
+                    kind=(self.cfg.update_screen
+                          if self.cfg.update_screen != "off" else "finite"))
+        if agg_stats is not None:
+            resid = float(agg_stats[2])
+            tele.journal_event(
+                "aggregator", round=int(round_idx),
+                aggregator=self.cfg.aggregator,
+                n_trimmed=round(float(agg_stats[0]), 6),
+                n_clipped=int(agg_stats[1]),
+                residual_l2=(round(resid, 6) if np.isfinite(resid)
+                             else -1.0),
+                n_contrib=int(agg_stats[3]))
+
     def _call_train(self, batch):
         """batch = (client_ids [W], data tuple of [W, B, ...],
         mask [W, B])."""
         client_ids, data, mask = batch
         ids_host = np.asarray(client_ids).reshape(-1)
         this_round = self.server.round_idx
+        W = len(ids_host)
+        if (self.fault_schedule is not None
+                and self.fault_schedule.should_crash_in_span(this_round, 1)):
+            # preempted while this round is in flight: nothing commits
+            self._journal_fault("crash_in_span", this_round - 1)
+            raise InjectedFault(this_round - 1)
+        with TRACE.span("plan", round=this_round):
+            survivors, work = self._faults_for_round(this_round, ids_host)
+            pois = screen = None
+            if self._screened_dispatch(this_round):
+                pois = self._poison_values(this_round, W)
+                screen = self._screen_flag(this_round)
+                if survivors is None:
+                    survivors = np.ones(W, np.float32)
         with TRACE.span("stage", round=this_round):
             # the previous round's change bits come to the host BEFORE
             # this round is queued, so the copy waits on that round only
             prev_words = self._prev_change_words
+
+            def operand(x):
+                return None if x is None else _as_tensor(
+                    np.asarray(x, np.float32), self.device)
+
             placed = fround.RoundBatch(
                 _as_tensor(ids_host.astype(np.int64), self.device),
                 tuple(_as_tensor(d, self.device) for d in data),
-                _as_tensor(mask, self.device).to(torch.float32))
+                _as_tensor(mask, self.device).to(torch.float32),
+                operand(survivors), operand(work), operand(pois),
+                operand(screen))
             lr = self._lr()
         prev_weights = self.server.ps_weights
         with TRACE.span("dispatch", round=this_round):
@@ -315,20 +509,41 @@ class FedModel:
         with TRACE.span("collect", round=this_round):
             self._prev_change_bits = pack_change_bits(
                 self.server.ps_weights - prev_weights)
-            download, upload = self.accountant.record_round(ids_host,
-                                                            prev_words)
+            # bill the clients that completed the round: the admitted
+            # ones in the screened family, the contributors under a
+            # robust aggregator (the host copy waits for this round)
+            admitted = (None if metrics.admitted is None
+                        else metrics.admitted.cpu().numpy())
+            bill = (admitted if metrics.contributors is None
+                    else metrics.contributors.cpu().numpy())
+            if bill is None:
+                bill = survivors
+            download, upload = self.accountant.record_round(
+                ids_host, prev_words, survivors=bill)
         if self.telemetry is not None:
+            if survivors is not None:
+                self._journal_round_faults(
+                    this_round, ids_host, survivors, pois, screen, admitted,
+                    None if metrics.agg_stats is None
+                    else metrics.agg_stats.cpu().numpy())
             # the mode's wire geometry and the round's billed upload,
             # then the round's metric tensors (journaled one round late)
             self.telemetry.journal_event(
                 "compressor", round=this_round, mode=self.cfg.mode,
                 wire_bytes=float(self.cfg.upload_bytes),
-                up_bytes=round(float(upload.sum()), 3))
+                up_bytes=round(float(upload.sum()), 3),
+                frozen_count=self.frozen_count)
             self.telemetry.on_round(
                 this_round, ids_host,
                 metrics.telemetry if self.cfg.telemetry else None,
                 metrics.num_examples,
                 comm=(float(download.sum()), float(upload.sum())))
+        if (self.fault_schedule is not None
+                and self.fault_schedule.should_crash(this_round)):
+            # the round above fully completed: crash at the boundary a
+            # real preemption leaves
+            self._journal_fault("crash_after", this_round)
+            raise InjectedFault(this_round)
         return [metrics.losses, *metrics.metrics, download, upload]
 
     def _call_val(self, batch):

@@ -15,7 +15,7 @@ count, so the server's divide by the cohort's example total is exact
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -120,7 +120,8 @@ def _microbatches(batch, mask, n_mb: int, mb: int):
 
 def forward_grad(flat_grad_fn, weights: torch.Tensor, batch,
                  mask: torch.Tensor, cfg: Config, key=None,
-                 compute_grad: bool = True):
+                 compute_grad: bool = True,
+                 grad_mask: Optional[torch.Tensor] = None):
     """Microbatched forward(/backward) over one client's padded batch.
     Returns (g, loss, metrics, count): g the compressed mean gradient
     (None when compute_grad is False, and then `flat_grad_fn` is a
@@ -130,8 +131,10 @@ def forward_grad(flat_grad_fn, weights: torch.Tensor, batch,
     noise from.
 
     The mean gradient then goes through the JAX package's steps in its
-    order: `--max_grad_norm`'s global-norm clip (not in sketch mode,
-    which clips the table), weight decay, `--dp`'s clip to
+    order: `grad_mask` (0 at frozen coordinates, --finetune: they take
+    no gradient, no weight decay, no share of a clipping norm and no
+    DP noise), `--max_grad_norm`'s global-norm clip (not in sketch
+    mode, which clips the table), weight decay, `--dp`'s clip to
     l2_norm_clip and worker noise, and the mode's encode."""
     n_mb, mb = _microbatch_shape(mask.shape[0], cfg.microbatch_size)
     grad_sum = torch.zeros_like(weights) if compute_grad else None
@@ -160,23 +163,32 @@ def forward_grad(flat_grad_fn, weights: torch.Tensor, batch,
     # mean over valid examples: the gradient scale does not depend on
     # microbatch_size
     grad = grad_sum / denom
+    if grad_mask is not None:
+        grad = grad * grad_mask
     if cfg.max_grad_norm is not None and cfg.mode != "sketch":
         grad = global_norm_clip(grad, cfg.max_grad_norm)
     # weight decay, divided by num_workers so the summed transmission
     # applies it once (reference utils.py:254-259)
     if cfg.weight_decay != 0:
-        grad = grad + (cfg.weight_decay / cfg.num_workers) * weights
+        wd_term = (cfg.weight_decay / cfg.num_workers) * weights
+        if grad_mask is not None:
+            wd_term = wd_term * grad_mask
+        grad = grad + wd_term
     if cfg.do_dp:
         grad = clip_to_l2(grad, cfg.l2_norm_clip)
         if cfg.dp_mode == "worker":
             grad = grad + dp_noise(key, grad.shape, cfg.noise_multiplier,
                                    scale=math.sqrt(cfg.num_workers),
                                    device=grad.device)
+        if grad_mask is not None:
+            grad = grad * grad_mask
     return cfg.compressor.encode(cfg, grad, key), loss, metrics, total
 
 
 def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
-                      mask: torch.Tensor, cfg: Config):
+                      mask: torch.Tensor, cfg: Config,
+                      grad_mask: Optional[torch.Tensor] = None,
+                      survivors: Optional[torch.Tensor] = None):
     """One backward over the whole cohort (Config.fused_client_backward
     guarantees it equals the sum of per-client local_step transmits):
 
@@ -188,8 +200,12 @@ def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
     batch / mask are the cohort's [W, B, ...] tensors. The clients'
     forwards run one after another (each client's loss_fn sees only its
     own batch, so batch statistics stay per client) and one backward
-    follows. Returns (grad_sum [D], losses [W], metrics, counts [W])
-    with per-client masked-mean losses and metrics."""
+    follows. `survivors` ([W] {0,1}) weights each client's term and
+    count, so a dropped client adds exactly nothing; `grad_mask` zeroes
+    frozen coordinates of the gradient and the weight-decay term.
+    Returns (grad_sum [D], losses [W], metrics, counts [W]) with
+    per-client masked-mean losses and metrics and survivor-weighted
+    counts."""
     w = weights.detach().requires_grad_(True)
     W = mask.shape[0]
     losses, metrics = [], []
@@ -199,23 +215,32 @@ def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
         metrics.append(mets)
     losses = torch.stack(losses)
     counts = mask.sum(dim=1)
+    if survivors is not None:
+        counts = counts * survivors
     total = (losses * counts).sum()
     grad_sum, = torch.autograd.grad(total, w)
+    if grad_mask is not None:
+        grad_sum = grad_sum * grad_mask
     if cfg.weight_decay != 0:
-        grad_sum = grad_sum + ((cfg.weight_decay / cfg.num_workers)
-                               * weights * counts.sum())
+        wd_term = ((cfg.weight_decay / cfg.num_workers)
+                   * weights * counts.sum())
+        if grad_mask is not None:
+            wd_term = wd_term * grad_mask
+        grad_sum = grad_sum + wd_term
     mets = tuple(torch.stack([m[i].detach() for m in metrics])
                  for i in range(len(metrics[0])))
     return grad_sum, losses.detach(), mets, counts
 
 
 def local_step(flat_grad_fn, weights, batch, mask, error, velocity,
-               cfg: Config, key=None) -> ClientResult:
+               cfg: Config, key=None,
+               grad_mask: Optional[torch.Tensor] = None) -> ClientResult:
     """One client's single local step plus its compression bookkeeping
     (reference local_step, fed_worker.py:184-230); `key` is the
-    client's threefry key."""
+    client's threefry key, `grad_mask` forward_grad's."""
     g, loss, metrics, count = forward_grad(flat_grad_fn, weights, batch,
-                                           mask, cfg, key)
+                                           mask, cfg, key,
+                                           grad_mask=grad_mask)
     # the transmit sums over examples; the server divides by the
     # cohort's example total
     g = g * count
@@ -232,7 +257,8 @@ def local_step(flat_grad_fn, weights, batch, mask, error, velocity,
 
 
 def fedavg_step(flat_grad_fn, weights, batch, mask, cfg: Config,
-                lr) -> ClientResult:
+                lr, grad_mask: Optional[torch.Tensor] = None,
+                work: Optional[torch.Tensor] = None) -> ClientResult:
     """FedAvg: full local SGD over the client's whole padded dataset,
     transmitting the dataset-size-weighted weight delta (reference
     worker_loop fedavg branch, fed_worker.py:61-113).
@@ -242,29 +268,57 @@ def fedavg_step(flat_grad_fn, weights, batch, mask, cfg: Config,
     step runs, an all-padding batch included: its gradient is the
     weight-decay term alone and its zero loss counts in the step mean,
     as in the JAX scan. Like the JAX package's fedavg_step, it applies
-    neither `--dp` nor `--max_grad_norm`."""
+    neither `--dp` nor `--max_grad_norm`. `lr` is a float or a [D]
+    per-parameter tensor; `grad_mask` zeroes frozen coordinates' local
+    gradients (weight decay included).
+
+    `work` (a scalar tensor in (0, 1], a straggler): only the first
+    ceil(work * steps) steps apply; the later ones still run (as the
+    JAX scan traces them) with their updates gated off. Loss and
+    metrics are then means over the completed steps, and the delta is
+    weighted by the examples processed, the dataset size times the
+    completed share of the steps."""
     B = mask.shape[0]
     inner = (B if cfg.fedavg_batch_size == -1
              else min(cfg.fedavg_batch_size, B))
     n_batches = -(-B // inner)
     batches = _microbatches(batch, mask, n_batches, inner)
+    steps = cfg.num_fedavg_epochs * n_batches
+    live_steps = None if work is None else torch.ceil(work * steps)
     w = weights
-    losses, metrics_seq = [], []
+    losses, metrics_seq, lives = [], [], []
     step = 0
     for _ in range(cfg.num_fedavg_epochs):
         for b, m in batches:
             loss, metrics, grad = flat_grad_fn(w, b, m)
             if cfg.weight_decay != 0:
                 grad = grad + (cfg.weight_decay / cfg.num_workers) * w
-            w = w - grad * lr * cfg.fedavg_lr_decay ** step
+            if grad_mask is not None:
+                grad = grad * grad_mask
+            decay = cfg.fedavg_lr_decay ** step
+            if live_steps is None:
+                w = w - grad * lr * decay
+            else:
+                live = (step < live_steps).to(w.dtype)
+                w = w - grad * lr * decay * live
+                lives.append(live)
             losses.append(loss)
             metrics_seq.append(metrics)
             step += 1
-    # loss and metrics averaged over the local steps (reference
-    # fed_worker.py:102-103)
-    loss = torch.stack(losses).mean()
-    metrics = tuple(torch.stack(m).mean() for m in zip(*metrics_seq))
-    count = mask.sum()
+    if live_steps is None:
+        # loss and metrics averaged over the local steps (reference
+        # fed_worker.py:102-103)
+        loss = torch.stack(losses).mean()
+        metrics = tuple(torch.stack(m).mean() for m in zip(*metrics_seq))
+        count = mask.sum()
+    else:
+        lives = torch.stack(lives)
+        done = lives.sum()
+        denom = torch.clamp(done, min=1.0)
+        loss = (torch.stack(losses) * lives).sum() / denom
+        metrics = tuple((torch.stack(m) * lives).sum() / denom
+                        for m in zip(*metrics_seq))
+        count = mask.sum() * (done / steps)
     delta = (weights - w) * count
     dummy = weights.new_zeros(())
     return ClientResult(delta, dummy, dummy, loss, metrics, count)

@@ -19,10 +19,33 @@ fold_in(round_key, c), the server's fold_in(round_key, num_workers).
 
 What the JAX engine runs as one jitted SPMD program over a `clients`
 mesh axis runs here as eager PyTorch on one device: the `lax.psum`
-over the clients axis is the identity. The dropout / straggler /
-screened program variants (RoundBatch.survivors, .work, .poison) are
-ROADMAP.md Queue 1 item 9; Config.validate refuses the options that
-would need them.
+over the clients axis is the identity.
+
+The fault variants (utils/faults.py) ride RoundBatch operands, as in
+the JAX engine, and keep its NaN rules:
+  * `survivors` ([W] {0,1}): a dropped client adds nothing to the sum
+    or the example total, its rows come back as gathered, and a round
+    with no survivor leaves the server state bitwise untouched (only
+    round_idx advances);
+  * `work` ([W] fractions in (0, 1]): a straggler processes the first
+    ceil(f * valid) of its valid examples (a prefix), or under fedavg
+    its first ceil(f * steps) local steps, and is weighted by what it
+    processed;
+  * `poison` ([W] {0,1}) with `screen` (a scalar): the screened family.
+    Flagged transmits are corrupted (`corrupt`) or, under
+    --byzantine_rate, replaced by the attack (`attack`); the admission
+    screen (`admission`) takes the finite bit of every transmit and,
+    under --update_screen norm, the cohort-median l2 check, and applies
+    only when `screen` > 0. Excluded clients are zeroed with `where`,
+    never a multiply (NaN * 0 is NaN), so a screened client is bitwise a
+    dropped one. The screened family always takes the per-client path.
+    Under a robust --aggregator each client's transmit is encoded on
+    its own (K1, W times a round in sketch mode) and rides the wire
+    before `robust_aggregate` takes order statistics over the [W, ...]
+    tables; `masked_median` takes medians as jnp.nanmedian does (the
+    mean of the two middles of an even count).
+`grad_mask` ([D], 0 at frozen coordinates, --finetune) is applied to
+every client gradient before compression.
 """
 from __future__ import annotations
 
@@ -67,10 +90,16 @@ class CohortState(NamedTuple):
 
 class RoundBatch(NamedTuple):
     """One round's input: num_workers clients, each with a padded
-    local batch and its validity mask."""
+    local batch and its validity mask, and the fault operands (module
+    docstring; None where the round has none). `work` rides with
+    `survivors`, and `screen` with `poison`."""
     client_ids: torch.Tensor                 # [W] int
     data: Tuple[torch.Tensor, ...]           # each [W, B, ...]
     mask: torch.Tensor                       # [W, B] f32
+    survivors: Optional[torch.Tensor] = None  # [W] f32 {0,1}
+    work: Optional[torch.Tensor] = None       # [W] f32 in (0, 1]
+    poison: Optional[torch.Tensor] = None     # [W] f32 {0,1}
+    screen: Optional[torch.Tensor] = None     # scalar f32
 
 
 class RoundMetrics(NamedTuple):
@@ -80,6 +109,179 @@ class RoundMetrics(NamedTuple):
     # telemetry/metrics.round_vector under Config.telemetry, else a [0]
     # placeholder; read-only, so the state is bitwise the same either way
     telemetry: torch.Tensor
+    # screened family: survivors x admission, the mask the accountant
+    # bills and the rows merge by; None elsewhere
+    admitted: Optional[torch.Tensor] = None
+    # robust aggregators: the admitted clients some cell of the
+    # aggregate kept (a client trimmed out of every cell is billed as
+    # dropped), and (mean clients trimmed a cell, clients clipped, l2
+    # of robust minus mean aggregate, contributors)
+    contributors: Optional[torch.Tensor] = None
+    agg_stats: Optional[torch.Tensor] = None
+
+
+# the "scale" poison kind's factor: past any norm screen, finite in f32
+POISON_SCALE = 2.0 ** 40
+
+
+def screened_family(cfg: Config) -> bool:
+    """Whether `cfg` runs the screened rounds in its steady state
+    (screening, poison, adversaries or a robust aggregator); a rollback
+    forces them for a window on any config (FedModel)."""
+    return (cfg.update_screen != "off" or cfg.poison_rate > 0
+            or cfg.byzantine_rate > 0 or cfg.robust_aggregation)
+
+
+def _rows(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[W] -> [W, 1, ...] to broadcast against the [W, ...] tensor t."""
+    return v.reshape(v.shape + (1,) * (t.dim() - 1))
+
+
+def masked_median(vals: torch.Tensor, valid: torch.Tensor,
+                  dim: int = 0) -> torch.Tensor:
+    """jnp.nanmedian(where(valid, vals, nan), axis=dim): the median of
+    the valid entries, the MEAN of the two middles of an even count
+    ((lo + hi) * 0.5, jnp's midpoint), NaN where none is valid.
+    torch.median would take the lower middle."""
+    s = torch.where(valid, vals, torch.full_like(vals, float("nan")))
+    s = torch.sort(s, dim=dim).values          # NaN sorts last
+    n = valid.sum(dim=dim, keepdim=True)
+    lo = torch.clamp((n - 1) // 2, min=0)
+    hi = torch.clamp(n // 2, min=0)
+    lo_v = torch.gather(s, dim, lo).squeeze(dim)
+    hi_v = torch.gather(s, dim, hi).squeeze(dim)
+    return (lo_v + hi_v) * 0.5
+
+
+def corrupt(t: torch.Tensor, pois: torch.Tensor, kind: str) -> torch.Tensor:
+    """The value fault on flagged clients' transmits ([W, ...]): NaN,
+    Inf, or times POISON_SCALE."""
+    flag = _rows(pois, t) > 0
+    if kind == "scale":
+        return t * torch.where(flag, t.new_tensor(POISON_SCALE),
+                               t.new_tensor(1.0))
+    bad = float("inf") if kind == "inf" else float("nan")
+    return torch.where(flag, t.new_tensor(bad), t)
+
+
+def attack(t: torch.Tensor, pois: torch.Tensor, surv: torch.Tensor,
+           cfg: Config) -> torch.Tensor:
+    """The adversary's replacement of flagged clients' transmits
+    ([W, ...]): `sign_flip` (-v), `scaled` (100 v), or one crafted
+    update from the honest cohort's statistics (honest: unflagged,
+    surviving, finite): `little_is_enough` (mean minus one standard
+    deviation a coordinate) or `colluding` (the negated honest mean at
+    0.9 x the norm screen's envelope, mult x the honest median norm)."""
+    W = t.shape[0]
+    V = t.reshape(W, -1).to(torch.float32)
+    if cfg.attack == "sign_flip":
+        A = -V
+    elif cfg.attack == "scaled":
+        A = V * 100.0
+    else:
+        honest = (~(pois > 0)) & (surv > 0) & torch.isfinite(V).all(dim=1)
+        nh = torch.clamp(honest.sum(), min=1)
+        hm = honest[:, None]
+        hmean = torch.where(hm, V, torch.zeros_like(V)).sum(0) / nh
+        if cfg.attack == "little_is_enough":
+            hvar = torch.where(hm, torch.square(V - hmean[None, :]),
+                               torch.zeros_like(V)).sum(0) / nh
+            crafted = hmean - torch.sqrt(hvar)
+        else:  # colluding
+            hnorm = torch.sqrt(torch.square(V).sum(1))
+            med = masked_median(hnorm, honest)
+            med = torch.where(honest.sum() > 0, med, med.new_tensor(1.0))
+            # the envelope the norm screen admits (>= 1 keeps the
+            # attack meaningful with the screen off)
+            amult = med.new_tensor(max(float(cfg.screen_norm_mult), 1.0))
+            d = -hmean
+            crafted = d * (med.new_tensor(0.9) * amult * med / torch.clamp(
+                torch.sqrt(torch.square(d).sum()), min=1e-12))
+        A = crafted[None, :].expand_as(V)
+    out = torch.where(pois[:, None] > 0, A, V)
+    return out.reshape(t.shape).to(t.dtype)
+
+
+def admission(t: torch.Tensor, surv: torch.Tensor, screen: torch.Tensor,
+              cfg: Config) -> torch.Tensor:
+    """[W] f32 admit mask of the transmits t ([W, ...]): finite, and
+    under --update_screen norm an l2 at most screen_norm_mult x the
+    median l2 of the eligible clients (surviving, finite, nonzero; a
+    round with none eligible admits all). All ones when `screen` is 0:
+    the mask is computed and not applied."""
+    W = t.shape[0]
+    ok = torch.isfinite(t).reshape(W, -1).all(dim=1)
+    if cfg.update_screen == "norm":
+        l2 = torch.sqrt(torch.square(t.to(torch.float32))
+                        .reshape(W, -1).sum(dim=1))
+        elig = (surv > 0) & torch.isfinite(l2) & (l2 > 0)
+        med = masked_median(l2, elig)
+        norm_ok = torch.where(elig.sum() > 0, l2 <= cfg.screen_norm_mult * med,
+                              torch.ones_like(ok))
+        ok = ok & norm_ok
+    return torch.where(screen > 0, ok.to(torch.float32),
+                       torch.ones_like(surv))
+
+
+def robust_aggregate(V: torch.Tensor, counts: torch.Tensor,
+                     admitted: torch.Tensor, cfg: Config):
+    """Order statistics over the clients' aggregation-space transmits
+    V [W, n] (example-weighted sums) in place of the mean: per-cell
+    coord_median or trim_beta-trimmed mean, or norm_clip to the cohort
+    median. Cells of clients not admitted or not finite are excluded
+    (`where`). Ranks and norms are taken on the per-client MEAN updates
+    V / counts; the kept aggregate stays example-weighted. Returns (agg
+    [n], contributors [W] f32, agg_stats [4])."""
+    n_w = counts
+    adm = admitted > 0
+    E = adm[:, None] & torch.isfinite(V)
+    zero = torch.zeros_like(V)
+    wcol = n_w[:, None]
+    total_w = n_w.sum()
+    U = V / torch.clamp(n_w, min=1.0)[:, None]
+    mean_agg = torch.where(E, V, zero).sum(0) / torch.clamp(total_w, min=1.0)
+    n_trim = n_clip = V.new_zeros(())
+    keep = E
+    if cfg.aggregator == "coord_median":
+        med = masked_median(U, E)
+        agg = torch.where(E.any(dim=0), med, torch.zeros_like(med))
+    elif cfg.aggregator == "trimmed_mean":
+        vals = torch.where(E, U, torch.full_like(U, float("inf")))
+        order = torch.argsort(vals, dim=0, stable=True)
+        ranks = torch.argsort(order, dim=0, stable=True)
+        n_e = E.sum(dim=0)
+        # floor(beta * n_e) a side, at least one value left in a
+        # nonempty cell
+        m = torch.minimum(
+            torch.floor(cfg.trim_beta * n_e.to(torch.float32)).to(n_e.dtype),
+            torch.clamp(n_e - 1, min=0) // 2)
+        keep = E & (ranks >= m[None, :]) & (ranks < (n_e - m)[None, :])
+        ksum = torch.where(keep, wcol, torch.zeros_like(wcol)).sum(0)
+        agg = torch.where(keep, V, zero).sum(0) / torch.clamp(ksum, min=1.0)
+        n_trim = ((E & ~keep).to(torch.float32).sum()
+                  / float(V.shape[1]))
+    else:  # norm_clip
+        l2u = torch.sqrt(torch.where(E, torch.square(U), zero).sum(1))
+        elign = adm & (l2u > 0) & torch.isfinite(l2u)
+        medn = masked_median(l2u, elign)
+        clip = torch.where(elign & (l2u > medn),
+                           medn / torch.clamp(l2u, min=1e-30),
+                           torch.ones_like(l2u))
+        n_clip = (clip < 1.0).sum().to(torch.float32)
+        agg = (torch.where(E, V * clip[:, None], zero).sum(0)
+               / torch.clamp(total_w, min=1.0))
+    resid = torch.sqrt(torch.square(agg - mean_agg).sum())
+    contrib = (adm & keep.any(dim=1)).to(torch.float32)
+    stats = torch.stack([n_trim, n_clip, resid, contrib.sum()])
+    return agg, contrib, stats
+
+
+def straggler_budget(mask: torch.Tensor, work: torch.Tensor) -> torch.Tensor:
+    """Each client's first ceil(f * valid) valid examples ([W, B]
+    validity times the prefix): the examples a straggler got through."""
+    kept = torch.cumsum(mask, dim=1) <= torch.ceil(work * mask.sum(dim=1)
+                                                   )[:, None]
+    return mask * kept.to(mask.dtype)
 
 
 def init_server_state(cfg: Config, ps_weights: torch.Tensor) -> ServerState:
@@ -155,12 +357,15 @@ def compute_dtype(cfg: Config):
     return torch.bfloat16 if cfg.do_bf16 else None
 
 
-def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
+def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
+                  grad_mask: Optional[torch.Tensor] = None):
     """The train-round callable:
         train_round(server, clients, batch, lr, key) -> (server, clients,
                                                          RoundMetrics)
-    `lr` is the scheduler's learning rate for this round (a float),
-    `key` the run's threefry key (ops/prng.py)."""
+    `lr` is the scheduler's learning rate for this round (a float, or a
+    [D] tensor with per-parameter scales), `key` the run's threefry key
+    (ops/prng.py), `grad_mask` an optional [D] float mask, 0 at frozen
+    coordinates."""
     cfg.validate()
     flat_grad = fclient.make_flat_grad_fn(loss_fn, unravel,
                                           compute_dtype(cfg))
@@ -177,33 +382,83 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
         return w_stale + masked_topk(ps_weights - w_stale,
                                      k=cfg.down_k or cfg.k)
 
+    def screen_and_aggregate(tx, counts, surv, pois, screen):
+        """The screened family's tail over the per-client transmits tx
+        [W, ...]: fault or attack, admission, then the where-sum, or
+        under a robust aggregator the per-client encode, the wire and
+        the order statistics. Returns (local_sum or the normalized
+        robust aggregate, counts, admitted, contributors, agg_stats)."""
+        if cfg.byzantine_rate > 0:
+            tx = attack(tx, pois, surv, cfg)
+        else:
+            tx = corrupt(tx, pois, cfg.poison_kind)
+        admitted = surv * admission(tx, surv, screen, cfg)
+        counts = counts * admitted
+        if not cfg.robust_aggregation:
+            keep = _rows(admitted, tx) > 0
+            return (torch.where(keep, tx, torch.zeros_like(tx)).sum(dim=0),
+                    counts, admitted, None, None)
+        if cfg.defer_sketch_encode:
+            # aggregation space: each client's table (K1 once a client)
+            sketch = fserver.args2sketch(cfg)
+            tx = torch.stack([sketch.encode(t) for t in tx])
+        if cfg.mode == "sketch":
+            tx = wire_roundtrip(tx, cfg.sketch_table_dtype)
+        W = tx.shape[0]
+        agg, contrib, stats = robust_aggregate(
+            tx.reshape(W, -1).to(torch.float32), counts, admitted, cfg)
+        return (agg.reshape(tx.shape[1:]).to(tx.dtype), counts, admitted,
+                contrib, stats)
+
     def client_phase(ps_weights, batch: RoundBatch, cohort: CohortState,
                      lr, round_key):
-        """The cohort's summed transmit, example counts, per-client
-        losses/metrics and updated rows."""
-        if cfg.fused_client_backward:
+        """The cohort's aggregate transmit, example counts, per-client
+        losses/metrics, updated rows, and the screened family's masks:
+        (transmit, counts, losses, metrics, cohort, admitted,
+        contributors, agg_stats). The transmit is the summed one, or
+        under a robust aggregator its normalized location estimate."""
+        surv, work, pois = batch.survivors, batch.work, batch.poison
+        mask = batch.mask
+        if work is not None and not comp.local_sgd:
+            mask = straggler_budget(mask, work)
+        if cfg.fused_client_backward and pois is None:
             local_sum, losses, metrics, counts = fclient.fused_shard_grads(
-                flat_loss, ps_weights, batch.data, batch.mask, cfg)
-            return local_sum, counts, losses, metrics, cohort
+                flat_loss, ps_weights, batch.data, mask, cfg,
+                grad_mask=grad_mask, survivors=surv)
+            return (local_sum, counts, losses, metrics, cohort, None,
+                    None, None)
         results, new_w = [], []
-        for c in range(batch.mask.shape[0]):
+        for c in range(mask.shape[0]):
             weights = client_weights(ps_weights, cohort.weights[c])
             data = tuple(x[c] for x in batch.data)
             if comp.local_sgd:
-                res = fclient.fedavg_step(flat_grad, weights, data,
-                                          batch.mask[c], cfg, lr)
+                res = fclient.fedavg_step(
+                    flat_grad, weights, data, mask[c], cfg, lr,
+                    grad_mask=grad_mask,
+                    work=None if work is None else work[c])
             else:
-                res = fclient.local_step(flat_grad, weights, data,
-                                         batch.mask[c], cohort.errors[c],
+                res = fclient.local_step(flat_grad, weights, data, mask[c],
+                                         cohort.errors[c],
                                          cohort.velocities[c], cfg,
-                                         fold_in(round_key, c))
+                                         fold_in(round_key, c),
+                                         grad_mask=grad_mask)
             results.append(res)
             new_w.append(weights)
-        local_sum = torch.stack([r.transmit for r in results]).sum(dim=0)
+        tx = torch.stack([r.transmit for r in results])
         counts = torch.stack([r.num_examples for r in results])
         losses = torch.stack([r.loss for r in results])
         metrics = tuple(torch.stack([r.metrics[i] for r in results])
                         for i in range(len(results[0].metrics)))
+        admitted = contrib = stats = None
+        if pois is not None:
+            local_sum, counts, admitted, contrib, stats = \
+                screen_and_aggregate(tx, counts, surv, pois, batch.screen)
+        elif surv is not None:
+            # dropped clients' uploads zeroed before the sum
+            local_sum = (tx * _rows(surv, tx)).sum(dim=0)
+            counts = counts * surv
+        else:
+            local_sum = tx.sum(dim=0)
         if _has_errors(cfg):
             cohort = cohort._replace(
                 errors=torch.stack([r.error for r in results]))
@@ -214,45 +469,89 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
             # each participant's post-download weights, so its staleness
             # is tracked
             cohort = cohort._replace(weights=torch.stack(new_w))
-        return local_sum, counts, losses, metrics, cohort
+        return (local_sum, counts, losses, metrics, cohort, admitted,
+                contrib, stats)
 
     def round_step(server: ServerState, cohort: CohortState,
                    batch: RoundBatch, lr, key):
         round_key = fold_in(key, server.round_idx)
         W = batch.mask.shape[0]
-        local_sum, counts, losses, metrics, cohort = client_phase(
-            server.ps_weights, batch, cohort, lr, round_key)
-        if cfg.defer_sketch_encode:
-            # sketch linearity: encode the cohort's sum once (K1)
-            local_sum = fserver.args2sketch(cfg).encode(local_sum)
-        if cfg.mode == "sketch":
-            # the quantized wire (the identity for f32). The JAX engine
-            # rounds each mesh shard's sum; one device holds one shard
-            local_sum = wire_roundtrip(local_sum, cfg.sketch_table_dtype)
+        dev = batch.mask.device
+        if batch.poison is not None:
+            # the screened family always has survivors and a screen flag
+            batch = batch._replace(
+                survivors=(torch.ones(W, device=dev)
+                           if batch.survivors is None
+                           else batch.survivors.float()),
+                poison=batch.poison.float(),
+                screen=(torch.ones((), device=dev) if batch.screen is None
+                        else torch.as_tensor(batch.screen, dtype=torch.float32,
+                                             device=dev)))
+        elif batch.work is not None and batch.survivors is None:
+            batch = batch._replace(survivors=torch.ones(W, device=dev))
+        (local_sum, counts, losses, metrics, new_cohort, admitted, contrib,
+         agg_stats) = client_phase(server.ps_weights, batch, cohort, lr,
+                                   round_key)
+        robust = admitted is not None and cfg.robust_aggregation
+        if not robust:
+            if cfg.defer_sketch_encode:
+                # sketch linearity: encode the cohort's sum once (K1)
+                local_sum = fserver.args2sketch(cfg).encode(local_sum)
+            if cfg.mode == "sketch":
+                # the quantized wire (the identity for f32). The JAX
+                # engine rounds each mesh shard's sum; one device holds
+                # one shard
+                local_sum = wire_roundtrip(local_sum, cfg.sketch_table_dtype)
         # the sum over the clients axis of the JAX engine (lax.psum) is
         # the identity on one device
         transmit = comp.post_aggregate(cfg, local_sum, round_key)
         total = counts.sum()
-        gradient = transmit / torch.clamp(total, min=1.0)
+        # a robust aggregate is already the normalized estimate
+        gradient = (transmit if robust
+                    else transmit / torch.clamp(total, min=1.0))
+        eff = admitted if admitted is not None else batch.survivors
+        # a round nobody completed (or every client was screened out)
+        # leaves the server state bitwise untouched
+        alive = None if eff is None else eff.sum() > 0
         upd = fserver.get_server_update(gradient, server.Vvelocity,
                                         server.Verror, cfg, lr,
-                                        key=fold_in(round_key, W))
-        new_ps = server.ps_weights - upd.update
+                                        key=fold_in(round_key, W),
+                                        alive=alive)
+        if alive is None:
+            new_ps = server.ps_weights - upd.update
+        else:
+            new_ps = torch.where(alive, server.ps_weights - upd.update,
+                                 server.ps_weights)
+        # round_idx advances on a dead round too: it indexes the key
+        # stream and the fault draws
         new_server = ServerState(new_ps, upd.Vvelocity, upd.Verror,
                                  server.round_idx + 1)
-        if _has_velocities(cfg) and upd.velocity_mask is not None:
-            # true_topk momentum factor masking, participants' rows only
-            cohort = cohort._replace(
-                velocities=cohort.velocities * upd.velocity_mask[None, :])
+        keep = None if eff is None else eff[:, None] > 0
+        if _has_errors(cfg) and keep is not None:
+            new_cohort = new_cohort._replace(errors=torch.where(
+                keep, new_cohort.errors, cohort.errors))
+        if _has_velocities(cfg):
+            vel = new_cohort.velocities
+            if upd.velocity_mask is not None:
+                # true_topk momentum factor masking, participants' rows
+                vel = vel * upd.velocity_mask[None, :]
+            if keep is not None:
+                vel = torch.where(keep, vel, cohort.velocities)
+            new_cohort = new_cohort._replace(velocities=vel)
+        if cfg.do_topk_down and keep is not None:
+            # a dropped client never received the download
+            new_cohort = new_cohort._replace(weights=torch.where(
+                keep, new_cohort.weights, cohort.weights))
         if cfg.telemetry:
             tele = tmetrics.round_vector(
                 losses=losses, counts=counts,
                 delta=new_ps - server.ps_weights, verror=upd.Verror,
-                vvelocity=upd.Vvelocity, survivors=W)
+                vvelocity=upd.Vvelocity,
+                survivors=W if eff is None else eff.sum())
         else:
             tele = tmetrics.empty_vector(new_ps.device)
-        return new_server, cohort, RoundMetrics(losses, metrics, counts,
-                                                tele)
+        return new_server, new_cohort, RoundMetrics(
+            losses, metrics, counts, tele, admitted, contrib, agg_stats)
 
     def train_round(server: ServerState, clients: ClientState,
                     batch: RoundBatch, lr, key):

@@ -28,9 +28,20 @@ sort as strings (h_0, h_1, h_10, h_11, h_2, ...), `bias` before
 [in, out] (a torch Linear weight transposed), LayerNorm's weight is
 flax's `scale`, and the tied `wte` is one entry.
 
-Pretrained weights are not imported (ROADMAP.md Queue 1 item 7): only
-the writing half of the HF bridge is here, for the artifact `main`
-saves.
+`GPT2Config.remat` (--remat) recomputes each block in the backward
+(torch.utils.checkpoint, non-reentrant): activation memory drops to
+about one block's, values and gradients are bitwise those without it,
+and the recompute runs the block's attention again (K4 twice a block).
+
+The HF bridge both ways, on numpy trees in the flax shapes (what
+models/convert.to_jax_params gives): `hf_state_dict_from_params` and
+`save_pretrained` write the artifact (config.json + pytorch_model.bin),
+`params_from_hf_state_dict`, `load_pretrained_dir` and
+`try_load_pretrained` read one (the JAX package's artifact included),
+and `resize_token_embeddings` / `resize_position_embeddings` grow the
+tables with N(0, initializer_range) rows drawn by the port's threefry
+(ops/prng.normal, jax.random.normal's draw within 1e-6). Nothing here
+downloads weights.
 """
 from __future__ import annotations
 
@@ -39,13 +50,15 @@ import json
 import math
 import os
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from commefficient_tpu_torch.ops import prng
 from commefficient_tpu_torch.ops.attention import flash_attention
 from commefficient_tpu_torch.ops.flat import LayoutEntry
 from commefficient_tpu_torch.utils.atomic_io import atomic_write_text
@@ -62,6 +75,9 @@ class GPT2Config:
     n_head: int = 12
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
+    # recompute each block in the backward (--remat): a memory schedule,
+    # not part of the artifact
+    remat: bool = False
 
     def replace(self, **kw) -> "GPT2Config":
         return dataclasses.replace(self, **kw)
@@ -158,6 +174,21 @@ class Block(nn.Module):
         return h + self.mlp(self.ln_2(h))
 
 
+def _remat_block(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """block(h) with its activations recomputed in the backward. The
+    parameters the block holds now (under functional_call, views of the
+    flat vector) are passed to the checkpoint explicitly and re-bound
+    for the recompute, which runs after functional_call has put the
+    module's own parameters back."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(x, *params):
+        return torch.func.functional_call(block, dict(zip(names, params)),
+                                          (x,))
+
+    return checkpoint(run, h, *tensors, use_reentrant=False)
+
+
 class GPT2Transformer(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -177,7 +208,11 @@ class GPT2Transformer(nn.Module):
             # embedding
             h = h + self.wte(token_type_ids)
         for i in range(self.cfg.n_layer):
-            h = getattr(self, f"h_{i}")(h)
+            block = getattr(self, f"h_{i}")
+            if self.cfg.remat and torch.is_grad_enabled():
+                h = _remat_block(block, h)
+            else:
+                h = block(h)
         h = self.ln_f(h)
         # weight-tied LM logits
         return h, F.linear(h, self.wte.weight)
@@ -271,7 +306,147 @@ def build_gpt2(model_checkpoint: str = "gpt2", seed: int = 0,
     return GPT2DoubleHeads(cfg, seed=seed)
 
 
-# ---- the HF-style artifact (write only) ---------------------------------
+# ---- the HF bridge and the HF-style artifact -----------------------------
+
+def _normal_rows(key, shape, std: float) -> np.ndarray:
+    """jax.random.normal(key, shape) * std, float32, on the host."""
+    if key is None:
+        key = prng.PRNGKey(0)
+    return (prng.normal(key, shape) * std).numpy()
+
+
+def _grow_rows(params, path: Tuple[str, ...], n: int, key,
+               initializer_range: float):
+    """A copy of the tree with the [old, E] table at `path` grown to n
+    rows (N(0, initializer_range) rows appended); the tree itself when
+    it already has n rows or more."""
+    node = params["params"]
+    for k in path:
+        node = node[k]
+    old, E = node.shape
+    if n <= old:
+        return params
+    grown = np.concatenate(
+        [np.asarray(node, np.float32),
+         _normal_rows(key, (n - old, E), initializer_range)], axis=0)
+
+    def rebuild(tree, keys):
+        out = dict(tree)
+        out[keys[0]] = grown if len(keys) == 1 else rebuild(tree[keys[0]],
+                                                            keys[1:])
+        return out
+
+    return {**params, "params": rebuild(params["params"], path)}
+
+
+def resize_token_embeddings(params, new_vocab_size: int, key=None,
+                            initializer_range: float = 0.02):
+    """The tree with the tied token embedding grown to
+    `new_vocab_size` rows (special tokens added to the tokenizer); pair
+    it with a module of `cfg.replace(vocab_size=new_vocab_size)`."""
+    return _grow_rows(params, ("transformer", "wte", "embedding"),
+                      new_vocab_size, key, initializer_range)
+
+
+def resize_position_embeddings(params, new_n_positions: int, key=None,
+                               initializer_range: float = 0.02):
+    """The tree with the position table grown to `new_n_positions`
+    rows, for a corpus that pads longer than the artifact's."""
+    return _grow_rows(params, ("transformer", "wpe", "embedding"),
+                      new_n_positions, key, initializer_range)
+
+
+def params_from_hf_state_dict(state_dict: Dict[str, Any], cfg: GPT2Config,
+                              key=None) -> dict:
+    """A HuggingFace GPT-2 state dict (torch tensors or numpy arrays;
+    GPT2LMHeadModel, GPT2Model or double-heads naming) -> the flax-shaped
+    numpy tree. HF's Conv1D weights are [in, out] like the tree's
+    kernels; LayerNorm weight/bias map to scale/bias; the MC head (a
+    torch Linear, [out, in]) is transposed, or drawn fresh as
+    N(0, initializer_range) from `key` when the checkpoint has none."""
+    def t(name):
+        arr = state_dict[name]
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().numpy()
+        return np.asarray(arr, np.float32)
+
+    prefix = ("transformer." if any(k.startswith("transformer.")
+                                    for k in state_dict) else "")
+    tr: Dict[str, Any] = {
+        "wte": {"embedding": t(prefix + "wte.weight")},
+        "wpe": {"embedding": t(prefix + "wpe.weight")},
+        "ln_f": {"scale": t(prefix + "ln_f.weight"),
+                 "bias": t(prefix + "ln_f.bias")},
+    }
+    for i in range(cfg.n_layer):
+        p = f"{prefix}h.{i}."
+
+        def dense(name):
+            return {"kernel": t(p + name + ".weight"),
+                    "bias": t(p + name + ".bias")}
+
+        tr[f"h_{i}"] = {
+            "ln_1": {"scale": t(p + "ln_1.weight"),
+                     "bias": t(p + "ln_1.bias")},
+            "ln_2": {"scale": t(p + "ln_2.weight"),
+                     "bias": t(p + "ln_2.bias")},
+            "attn": {"c_attn": dense("attn.c_attn"),
+                     "c_proj": dense("attn.c_proj")},
+            "mlp": {"c_fc": dense("mlp.c_fc"),
+                    "c_proj": dense("mlp.c_proj")},
+        }
+    mc = "multiple_choice_head.summary."
+    if mc + "weight" in state_dict:
+        mc_kernel = np.ascontiguousarray(t(mc + "weight").T)
+        mc_bias = t(mc + "bias")
+    else:
+        mc_kernel = _normal_rows(key, (cfg.n_embd, 1), cfg.initializer_range)
+        mc_bias = np.zeros((1,), np.float32)
+    return {"params": {"transformer": tr,
+                       "mc_head": {"kernel": mc_kernel, "bias": mc_bias}}}
+
+
+def load_pretrained_dir(path: str, key=None
+                        ) -> Optional[Tuple[dict, GPT2Config]]:
+    """Read a `save_pretrained` artifact of either package (config.json
+    plus pytorch_model.bin, or the .npz a torch-less JAX run writes):
+    (the flax-shaped tree, its GPT2Config), or None when `path` holds
+    no such artifact."""
+    cfg_path = os.path.join(path, "config.json")
+    bin_path = os.path.join(path, "pytorch_model.bin")
+    npz_path = os.path.join(path, "pytorch_model.npz")
+    if not os.path.isfile(cfg_path):
+        return None
+    if os.path.isfile(bin_path):
+        sd = torch.load(bin_path, map_location="cpu", weights_only=True)
+    elif os.path.isfile(npz_path):
+        with np.load(npz_path) as z:
+            sd = {k: z[k] for k in z.files}
+    else:
+        return None
+    with open(cfg_path) as f:
+        raw = json.load(f)
+    cfg = GPT2Config(
+        vocab_size=raw["vocab_size"],
+        n_positions=raw.get("n_positions", 1024),
+        n_embd=raw["n_embd"], n_layer=raw["n_layer"], n_head=raw["n_head"],
+        layer_norm_epsilon=raw.get("layer_norm_epsilon", 1e-5),
+        initializer_range=raw.get("initializer_range", 0.02))
+    return params_from_hf_state_dict(sd, cfg, key=key), cfg
+
+
+def try_load_pretrained(model_checkpoint: str, cfg: GPT2Config,
+                        key=None) -> Optional[dict]:
+    """A locally cached HF checkpoint through `transformers`, or None
+    when the package or the checkpoint is missing. Never downloads."""
+    try:
+        from transformers import GPT2LMHeadModel
+        pt = GPT2LMHeadModel.from_pretrained(model_checkpoint,
+                                             local_files_only=True)
+    except (ImportError, OSError, ValueError, RuntimeError):
+        # transformers missing, nothing cached, or a torn cache
+        return None
+    return params_from_hf_state_dict(pt.state_dict(), cfg, key=key)
 
 def hf_state_dict_from_params(params, cfg: GPT2Config
                               ) -> Dict[str, np.ndarray]:

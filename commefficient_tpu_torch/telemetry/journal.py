@@ -13,9 +13,15 @@ Queue 1 item 10).
 Kinds the port writes: run_start / run_end (config snapshot; run_end
 carries down_bytes_total / up_bytes_total), round (`round`, `metrics`
 named per telemetry.metrics.METRIC_NAMES, `seconds`, `down_bytes`,
-`up_bytes`), compressor (the round's mode, wire geometry and upload
-total), epoch, checkpoint (`path`, `seconds`), checkpoint_fallback,
-numeric_trip, trace (batched stage spans, telemetry/trace.py).
+`up_bytes`), compressor (the round's mode, wire geometry, upload total
+and the frozen coordinate count of --finetune), epoch, checkpoint
+(`path`, `seconds`), checkpoint_fallback, numeric_trip, trace (batched
+stage spans, telemetry/trace.py), and for a faulted round (federated/
+api.py) schedule (`round`, `sampler`, `n_sampled` the clients that
+completed it; in the screened family `screen_on` and `n_poisoned`),
+screened (`round`, `n_screened`, `kind` finite or norm), aggregator
+(`round`, `aggregator`, `n_trimmed`, `n_clipped`, `residual_l2`, -1.0
+when non-finite, `n_contrib`) and injected_fault (`fault`, `round`).
 
 Durability: every append goes through
 utils/atomic_io.atomic_append_lines (flush + fsync a batch); a

@@ -63,9 +63,11 @@ def round_vector(losses, counts, delta, verror, vvelocity,
         update_l2,
         error_l2,
         velocity_l2,
-        # a fill on the device, not a host copy (which would wait for
-        # the queued round)
-        total.new_full((), float(survivors)),
+        # a count on the device (a tensor under faults) or a fill, not
+        # a host copy (which would wait for the queued round)
+        (survivors.to(torch.float32).reshape(())
+         if isinstance(survivors, torch.Tensor)
+         else total.new_full((), float(survivors))),
         total,
         realized_k,
         estimate_residual,

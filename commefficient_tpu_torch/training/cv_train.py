@@ -7,9 +7,11 @@ smoke shrink, NaN abort, and EMNIST's per-step log line, for CIFAR10,
 CIFAR100, EMNIST and ImageNet; the run journal (on by default, under
 the run directory or --journal_path), `--checkpoint_every`,
 `--checkpoint`, `--resume` (training/persist.py), `--trace`,
-`--profile` and `--tensorboard`. What the port does not run yet is
-refused by Config.validate: scanned spans, finetuning and the
-scheduler layers (ROADMAP.md Queue 1).
+`--profile` and `--tensorboard`; `--finetune --finetuned_from
+<dataset>` (finetune_from_checkpoint) and the fault flags of
+utils/faults.py with the numeric rollback. What the port does not run
+yet is refused by Config.validate: scanned spans and the scheduler
+layers (ROADMAP.md Queue 1).
 
 Run on the card:
     python -m commefficient_tpu_torch.training.cv_train --mode sketch \
@@ -38,8 +40,10 @@ from commefficient_tpu_torch.data import (
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import module_layout
-from commefficient_tpu_torch.telemetry import NumericTripError
 from commefficient_tpu_torch.training import persist
+from commefficient_tpu_torch.utils.checkpoint import (
+    latest_checkpoint_path, load_checkpoint, transfer_for_finetune,
+)
 from commefficient_tpu_torch.utils.logging import (
     TableLogger, Timer, make_logdir,
 )
@@ -267,9 +271,10 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
         timer: Optional[Timer] = None,
         on_round: Optional[Callable[[int, list], None]] = None) -> bool:
     """What main() does with a built model: --resume, the telemetry
-    session, train(), --checkpoint; the session is closed (`run_end`)
-    whatever happens. A numeric trip re-raises, or raises the
-    rollback's NotImplementedError (persist.numeric_rollback)."""
+    session, train() (a numeric trip rolls back to the newest finite
+    checkpoint and re-enters it, persist.train_with_rollback),
+    --checkpoint; the session is closed (`run_end`) whatever
+    happens."""
     fallbacks = []
     if cfg.resume:
         persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks)
@@ -277,13 +282,11 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
                                    fallbacks)
     ok = False
     try:
-        try:
-            ok = train(model, opt, lr_scheduler, train_loader, val_loader,
-                       cfg, loggers=loggers, timer=timer,
-                       on_round=on_round, log_dir=log_dir)
-        except NumericTripError as trip:
-            persist.numeric_rollback(model, _ckpt_path(cfg), cfg, tele,
-                                     trip)
+        ok = persist.train_with_rollback(
+            lambda: train(model, opt, lr_scheduler, train_loader,
+                          val_loader, cfg, loggers=loggers, timer=timer,
+                          on_round=on_round, log_dir=log_dir),
+            model, lr_scheduler, _ckpt_path(cfg), cfg, tele)
         model.finalize()
         if cfg.do_checkpoint:
             persist.checkpoint_final(model, lr_scheduler, _ckpt_path(cfg),
@@ -301,9 +304,10 @@ def build(cfg: Config, device="cuda",
     with k = 10 and a model that takes `channels` (ResNet9) to one
     channel per layer (reference cv_train.py:329-336). The model's input
     channels and spatial size come from the first transformed image
-    (the ResNet101LN's LayerNorms are built for that size). The Fixup
-    nets train their scalar biases and scales at 0.1x the learning rate
-    (reference cv_train.py:366-376)."""
+    (the ResNet101LN's LayerNorms are built for that size). --finetune
+    freezes the transferred parameters (finetune_from_checkpoint); the
+    Fixup nets train their scalar biases and scales at 0.1x the
+    learning rate (reference cv_train.py:366-376)."""
     model_config = {}
     if cfg.do_test:
         model_config["channels"] = {"prep": 1, "layer1": 1,
@@ -316,8 +320,13 @@ def build(cfg: Config, device="cuda",
     model_config["initial_channels"] = int(x0.shape[-1])
     model_config["input_hw"] = tuple(int(s) for s in x0.shape[1:3])
     module = models.build_model(cfg.model, **model_config)
-    lr_scale_vec = (fixup_lr_scales(module) if cfg.model.startswith("Fixup")
-                    else None)
+    lr_scale_vec = None
+    if cfg.do_finetune:
+        lr_scale_vec = finetune_from_checkpoint(cfg, module, model_config)
+    if cfg.model.startswith("Fixup"):
+        # the JAX driver's order: the Fixup scales replace the finetune
+        # freeze (ROADMAP.md Queue 3)
+        lr_scale_vec = fixup_lr_scales(module)
     model = FedModel(module, make_compute_loss(module), cfg, device=device,
                      num_clients=train_loader.dataset.num_clients,
                      lr_scale_vec=lr_scale_vec)
@@ -331,6 +340,32 @@ def build(cfg: Config, device="cuda",
     spe = train_loader.steps_per_epoch
     lr_scheduler = LambdaLR(opt, lr_lambda=lambda step: schedule(step / spe))
     return model, opt, lr_scheduler, train_loader, val_loader
+
+
+def finetune_from_checkpoint(cfg: Config, module: torch.nn.Module,
+                             model_config: dict) -> np.ndarray:
+    """--finetune: load the newest checkpoint under
+    --finetune_path/<model> (the manifest's, else the newest stamped
+    file, else <model>.npz: a preempted pretraining run still counts),
+    transfer every parameter whose path and shape match into `module`
+    (a model of --finetuned_from's class count is the old layout; the
+    new head stays fresh), and return the per-parameter LR scales: 0 at
+    the transferred (frozen) coordinates, 1 elsewhere (reference
+    cv_train.py:377-384 freezes with requires_grad=False)."""
+    if cfg.finetuned_from is None:
+        raise ValueError("--finetuned_from is required with --finetune")
+    src = latest_checkpoint_path(os.path.join(cfg.finetune_path, cfg.model))
+    if src is None:
+        raise FileNotFoundError(
+            f"no checkpoint for model {cfg.model!r} under --finetune_path "
+            f"{cfg.finetune_path!r}")
+    old_server = load_checkpoint(src).server
+    old_module = models.build_model(cfg.model, **{
+        **model_config,
+        "num_classes": num_classes_of_dataset(cfg.finetuned_from)})
+    _, frozen = transfer_for_finetune(old_module, old_server.ps_weights,
+                                      module)
+    return np.where(frozen > 0, 0.0, 1.0).astype(np.float32)
 
 
 def fixup_lr_scales(module: torch.nn.Module) -> np.ndarray:

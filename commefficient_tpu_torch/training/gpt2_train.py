@@ -10,9 +10,12 @@ stream continued), `--trace` and `--profile`. The round underneath is the same
 engine cv_train drives; at config #5 it takes the fused client backward
 (Config.fused_client_backward) and the threshold decode (kernel K3),
 and sequences of 256 tokens or more take flash attention (kernel K4).
-What the port does not run yet is refused by Config.validate or here:
-scanned spans (ROADMAP.md Queue 1 item 9), pretrained weights,
---finetune, --remat and --model_parallel (item 7).
+Weights come from a save_pretrained artifact of either package, a
+locally cached HF checkpoint, or random from --seed
+(build_model_and_params); --finetune evaluates the artifact at
+--finetune_path, and --remat recomputes each block in the backward.
+What the port does not run yet is refused by Config.validate: scanned
+spans and --model_parallel (ROADMAP.md Queue 1 item 9).
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
@@ -30,18 +33,21 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from commefficient_tpu_torch.config import Q_GPT2, Config, parse_args
+from commefficient_tpu_torch.config import Config, parse_args
 from commefficient_tpu_torch.data.loader import FedLoader, FedValLoader
 from commefficient_tpu_torch.data.persona import (
     IGNORE_INDEX, FedPERSONA, make_tokenizer,
 )
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
-from commefficient_tpu_torch.models.convert import load_flat, to_jax_params
-from commefficient_tpu_torch.models.gpt2 import (
-    PRESETS, GPT2Config, GPT2DoubleHeads, save_pretrained,
+from commefficient_tpu_torch.models.convert import (
+    from_jax_params, load_flat, to_jax_params,
 )
-from commefficient_tpu_torch.ops import lowp
-from commefficient_tpu_torch.telemetry import NumericTripError
+from commefficient_tpu_torch.models.gpt2 import (
+    PRESETS, GPT2Config, GPT2DoubleHeads, load_pretrained_dir,
+    resize_position_embeddings, resize_token_embeddings, save_pretrained,
+    try_load_pretrained,
+)
+from commefficient_tpu_torch.ops import lowp, prng
 from commefficient_tpu_torch.training import persist
 from commefficient_tpu_torch.utils.checkpoint import save_checkpoint
 from commefficient_tpu_torch.utils.logging import (
@@ -267,27 +273,71 @@ def test_gpt2(model: FedModel, val_loader, timer: Optional[Timer] = None,
 
 # ---------------- main (reference train(), gpt2_train.py:255-313) --------
 
-def build_model_and_params(cfg: Config, tokenizer,
-                           seq_len: int) -> GPT2DoubleHeads:
-    """The GPT2 sized for the tokenizer and corpus, with random weights
-    from `cfg.seed`: the `--test` smoke model (2 layers of width 32), or
-    the `model_checkpoint` preset trained from scratch, its embedding
-    sized to the tokenizer. A pretrained artifact is refused, not
-    loaded."""
+def build_model_and_params(cfg: Config, tokenizer, seq_len: int,
+                           source: Optional[str] = None,
+                           require_load: bool = False) -> GPT2DoubleHeads:
+    """The GPT2 sized for the tokenizer and corpus, its weights from
+    `source` (default --model_checkpoint): a save_pretrained artifact
+    directory of either package (its position table grown to `seq_len`
+    when the corpus pads longer), a locally cached HF checkpoint, or a
+    preset name; random weights from `cfg.seed` otherwise (the --test
+    smoke model of 2 layers of width 32, or the preset with its
+    embedding sized to the tokenizer). `require_load` (--finetune)
+    turns the random fallback into FileNotFoundError. A loaded
+    embedding smaller than the tokenizer grows to it. --remat applies
+    whatever the weights' origin."""
     vocab = len(tokenizer)
-    source = cfg.model_checkpoint
-    if os.path.isfile(os.path.join(source, "config.json")):
-        raise NotImplementedError(
-            f"loading the pretrained artifact at {source!r} is not ported "
-            f"to commefficient_tpu_torch yet (ROADMAP.md {Q_GPT2})")
-    if cfg.do_test:
+    key = prng.PRNGKey(cfg.seed)
+    source = source or cfg.model_checkpoint
+    loaded = load_pretrained_dir(source, key=key)
+    if loaded is not None:
+        pretrained, gcfg = loaded
+        if seq_len > gcfg.n_positions:
+            pretrained = resize_position_embeddings(
+                pretrained, seq_len, key=key,
+                initializer_range=gcfg.initializer_range)
+            gcfg = gcfg.replace(n_positions=seq_len)
+    elif require_load:
+        gcfg = PRESETS["gpt2"].replace(
+            n_positions=max(PRESETS["gpt2"].n_positions, seq_len))
+        pretrained = try_load_pretrained(source, gcfg, key=key)
+        if pretrained is None:
+            raise FileNotFoundError(
+                f"--finetune: no loadable artifact at {source!r} (expected "
+                "config.json + pytorch_model.bin/.npz from a previous "
+                "run's save_pretrained, or a local HF checkpoint)")
+    elif cfg.do_test:
         gcfg = GPT2Config(vocab_size=vocab, n_positions=max(seq_len, 8),
                           n_embd=32, n_layer=2, n_head=2)
+        pretrained = None
     else:
         base = PRESETS.get(source, PRESETS["gpt2"])
-        gcfg = base.replace(n_positions=max(base.n_positions, seq_len),
-                            vocab_size=vocab)
-    return GPT2DoubleHeads(gcfg, seed=cfg.seed)
+        gcfg = base.replace(n_positions=max(base.n_positions, seq_len))
+        pretrained = try_load_pretrained(source, gcfg, key=key)
+        if pretrained is None:
+            gcfg = gcfg.replace(vocab_size=vocab)
+    gcfg = gcfg.replace(remat=cfg.do_remat)
+    if pretrained is None:
+        return GPT2DoubleHeads(gcfg, seed=cfg.seed)
+    if vocab > gcfg.vocab_size:
+        # special-token embedding resize (reference :101-112)
+        pretrained = resize_token_embeddings(pretrained, vocab, key=key)
+        gcfg = gcfg.replace(vocab_size=vocab)
+    module = GPT2DoubleHeads(gcfg, seed=cfg.seed)
+    from_jax_params(module, pretrained)
+    return module
+
+
+def finetune_source(cfg: Config) -> str:
+    """Where the weights come from: --finetune swaps --model_checkpoint
+    for --finetune_path (reference gpt2_train.py:270-272), under --test
+    only when a saved artifact is there."""
+    if cfg.do_finetune and (
+            not cfg.do_test
+            or any(os.path.isfile(os.path.join(cfg.finetune_path, f))
+                   for f in ("pytorch_model.bin", "pytorch_model.npz"))):
+        return cfg.finetune_path
+    return cfg.model_checkpoint
 
 
 def build(cfg: Config, tokenizer, device="cuda",
@@ -299,7 +349,10 @@ def build(cfg: Config, tokenizer, device="cuda",
     # each split pads to its own corpus max; the position table must
     # cover both
     seq_len = max(train_loader.dataset.seq_len, val_loader.dataset.seq_len)
-    module = build_model_and_params(cfg, tokenizer, seq_len)
+    source = finetune_source(cfg)
+    module = build_model_and_params(
+        cfg, tokenizer, seq_len, source=source,
+        require_load=cfg.do_finetune and source == cfg.finetune_path)
     model = FedModel(module, make_compute_loss_train(module, cfg), cfg,
                      loss_val=make_compute_loss_val(module), device=device,
                      num_clients=train_loader.dataset.num_clients)
@@ -322,9 +375,10 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
         timer: Optional[Timer] = None,
         on_round: Optional[Callable[[int, list], None]] = None) -> bool:
     """What main() does around train_gpt2(): --resume, the telemetry
-    session, --checkpoint; the session is closed (`run_end`) whatever
-    happens. A numeric trip re-raises, or raises the rollback's
-    NotImplementedError (persist.numeric_rollback)."""
+    session (a numeric trip rolls back to the newest finite checkpoint
+    and re-enters train_gpt2, persist.train_with_rollback),
+    --checkpoint; the session is closed (`run_end`) whatever
+    happens."""
     fallbacks = []
     if cfg.resume:
         persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks)
@@ -332,13 +386,11 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
                                    fallbacks)
     ok = False
     try:
-        try:
-            ok = train_gpt2(model, opt, lr_scheduler, train_loader, cfg,
-                            logger=logger, timer=timer, on_round=on_round,
-                            log_dir=log_dir)
-        except NumericTripError as trip:
-            persist.numeric_rollback(model, _ckpt_path(cfg), cfg, tele,
-                                     trip)
+        ok = persist.train_with_rollback(
+            lambda: train_gpt2(model, opt, lr_scheduler, train_loader, cfg,
+                               logger=logger, timer=timer,
+                               on_round=on_round, log_dir=log_dir),
+            model, lr_scheduler, _ckpt_path(cfg), cfg, tele)
         if cfg.do_checkpoint:
             persist.checkpoint_final(model, lr_scheduler, _ckpt_path(cfg),
                                      cfg)
@@ -367,6 +419,18 @@ def main(argv=None) -> bool:
     print("Steps per epoch", train_loader.steps_per_epoch)
     log_dir = make_logdir(cfg)
     print(f"Finished initializing in {timer():.2f} seconds")
+    if cfg.do_finetune:
+        # --finetune evaluates the loaded artifact and trains nothing
+        # (the reference's and the JAX driver's contract)
+        tele = persist.start_telemetry(model, model.cfg, log_dir,
+                                       "gpt2_train")
+        try:
+            test_gpt2(model, val_loader, timer=timer)
+        finally:
+            if tele is not None:
+                tele.close(ok=True)
+        model.finalize()
+        return True
     ok = run(model, opt, lr_scheduler, train_loader, model.cfg, log_dir,
              timer=timer)
     # the final server state beside the run's artifacts, as the JAX

@@ -12,7 +12,6 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from commefficient_tpu_torch.config import Q_SCALE
 from commefficient_tpu_torch.telemetry import (
     NumericTripError, attach_run_telemetry,
 )
@@ -96,18 +95,19 @@ def checkpoint_final(model, lr_scheduler, prefix: str, cfg) -> str:
 
 
 def numeric_rollback(model, prefix: str, cfg, tele,
-                     trip: NumericTripError):
+                     trip: NumericTripError) -> Optional[int]:
     """After a numeric trip (its `numeric_trip` event already durable):
-    with no finite checkpoint to return to, or no rollback allowed,
-    re-raise the trip. The JAX drivers roll back to the newest finite
-    checkpoint and replay with update screening forced on; screening is
-    ROADMAP.md Queue 1 item 9, so the port raises NotImplementedError
-    there, chained from the trip."""
+    load the newest checkpoint whose manifest records finite state,
+    falling back past the others (each journaled as a
+    `checkpoint_fallback` event), and force update screening on for the
+    next --rollback_screen_rounds rounds, so the replayed rounds draw
+    the identical poison and screen it out. Returns the restored
+    scheduler step for the caller, which re-enters its loop; None when
+    no finite checkpoint exists (the caller re-raises the trip)."""
     if tele is not None:
-        # the buffered round would trip again
+        # the buffered round carries the same non-finite row and would
+        # trip again at once
         tele.discard_pending()
-    if cfg.max_numeric_rollbacks < 1:
-        raise trip
     fallbacks: List[Tuple[str, str]] = []
     loaded = load_resilient(
         prefix, expect_fingerprint=model.checkpoint_fingerprint,
@@ -118,12 +118,35 @@ def numeric_rollback(model, prefix: str, cfg, tele,
             tele.journal_event("checkpoint_fallback", path=p,
                                error=why[:200])
     if loaded is None:
-        raise trip
-    raise NotImplementedError(
-        f"numeric trip at round {trip.round_idx}: rolling back to "
-        f"{loaded[0]} replays with update screening forced on, which "
-        f"is not ported to commefficient_tpu_torch yet (ROADMAP.md "
-        f"{Q_SCALE})") from trip
+        return None
+    path, ckpt = loaded
+    step = model.load_state(ckpt)
+    # after load_state: the window counts from the restored round
+    model.force_screen_rounds(cfg.rollback_screen_rounds)
+    print(f"numeric trip at round {trip.round_idx} "
+          f"({', '.join(trip.metrics) or 'telemetry'}): rolled back to "
+          f"{path} (round {int(ckpt.server.round_idx)}); update "
+          f"screening forced for {cfg.rollback_screen_rounds} rounds")
+    return step
+
+
+def train_with_rollback(train, model, lr_scheduler, prefix: str, cfg,
+                        tele):
+    """Run `train()` until it returns, rolling back on each numeric trip
+    (numeric_rollback) up to --max_numeric_rollbacks times; past that,
+    or with no finite checkpoint, the trip re-raises."""
+    trips = 0
+    while True:
+        try:
+            return train()
+        except NumericTripError as trip:
+            trips += 1
+            if trips > cfg.max_numeric_rollbacks:
+                raise
+            step = numeric_rollback(model, prefix, cfg, tele, trip)
+            if step is None:
+                raise
+            lr_scheduler.load_state_dict({"step_count": step})
 
 
 class EpochProfile:

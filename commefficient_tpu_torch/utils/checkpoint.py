@@ -19,9 +19,10 @@ files and a `<prefix>.latest` JSON manifest with each file's per-array
 CRC32s and a finite bit; `load_resilient` walks that rotation
 newest-first and falls back past a corrupt file.
 
-The JAX package's writer thread (AsyncCheckpointWriter, --pipeline)
-belongs to ROADMAP.md Queue 1 item 9, `transfer_for_finetune`
-(--finetune) to item 7.
+`transfer_for_finetune` (--finetune) carries an old model's weights
+into a new one and says which coordinates it froze. The JAX package's
+writer thread (AsyncCheckpointWriter, --pipeline) belongs to
+ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.federated.round import ClientState, ServerState
+from commefficient_tpu_torch.models.convert import load_flat
+from commefficient_tpu_torch.ops.flat import flatten_params, module_layout
 from commefficient_tpu_torch.utils.atomic_io import atomic_write_text
 
 # the config fields a checkpoint must agree on to load into a run
@@ -458,3 +461,32 @@ def load_latest(prefix: str,
     if path is None:
         return None
     return load_checkpoint(path, expect_fingerprint=expect_fingerprint)
+
+
+def transfer_for_finetune(old_module: torch.nn.Module, old_vec,
+                          new_module: torch.nn.Module):
+    """Head-swap transfer (reference resnet9.py:105-130, cv_train.py:
+    377-384): every parameter of `new_module` whose flax path and shape
+    match one of `old_module` (whose weights are the flat vector
+    `old_vec`) takes the old values; the others (a classifier head for
+    another class count) keep the new model's initialization. The
+    result is loaded into `new_module`. Returns (the new flat vector,
+    the frozen mask: [D] float32 numpy, 1.0 at transferred coordinates,
+    in the flat order of ops/flat.py)."""
+    old_layout = module_layout(old_module)
+    old_vec = torch.as_tensor(np.asarray(old_vec, np.float32)).reshape(-1)
+    old = {e.path: (e.flat_shape, seg) for e, seg in zip(
+        old_layout, torch.split(old_vec, [e.size for e in old_layout]))}
+    new_layout = module_layout(new_module)
+    new_vec, _ = flatten_params(new_module)
+    new_vec = new_vec.detach().cpu()
+    segs, frozen = [], []
+    for e, seg in zip(new_layout,
+                      torch.split(new_vec, [e.size for e in new_layout])):
+        prev = old.get(e.path)
+        moved = prev is not None and prev[0] == e.flat_shape
+        segs.append(prev[1] if moved else seg)
+        frozen.append(np.full(e.size, 1.0 if moved else 0.0, np.float32))
+    vec = torch.cat(segs)
+    load_flat(new_module, vec.to(next(new_module.parameters()).device))
+    return vec, np.concatenate(frozen)

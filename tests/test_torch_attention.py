@@ -6,6 +6,7 @@ it), its einsum reference and `jax.grad` of its custom VJP. The card
 case (the CUDA kernel against its plain version) is in
 test_torch_kernels.py, which imports no jax."""
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,11 @@ from commefficient_tpu_torch.ops import attention as T
 from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 # f32 forward: the same online-softmax fold over the same 128-key
 # blocks, summed in another order -> 2e-6 absolute on outputs of O(1)

@@ -48,6 +48,11 @@ from commefficient_tpu_torch.utils.checkpoint import (
 
 pytestmark = pytest.mark.torch_port
 
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 D = 8
 
 

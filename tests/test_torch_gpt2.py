@@ -3,6 +3,8 @@ the same flax parameters (loaded through models/convert.py) and the same
 numpy batches — the flat layout, the weight bridge, logits on both
 attention routes, and the flat gradient of the double-heads train loss.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,11 @@ from commefficient_tpu_torch.training.gpt2_train import (
 )
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 # f32 forward through a few layers, reductions in another order: logits
 # to 2e-6 absolute (they are O(1)); the flat gradient to 1e-5 of its

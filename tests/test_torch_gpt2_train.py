@@ -24,11 +24,18 @@ from commefficient_tpu_torch.federated.api import (
     FedModel as TFedModel, FedOptimizer as TFedOptimizer,
 )
 from commefficient_tpu_torch.models import gpt2 as TG
-from commefficient_tpu_torch.models.convert import from_jax_params
+from commefficient_tpu_torch.models.convert import (
+    from_jax_params, to_jax_params,
+)
 from commefficient_tpu_torch.ops import sketch as tsketch
 from commefficient_tpu_torch.training import gpt2_train
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def _argv(tmp_path, *extra):
@@ -176,17 +183,35 @@ def test_fedmodel_rounds_match_jax_in_the_threshold_regime(monkeypatch):
     (("--finetune",), "--finetune"),
 ])
 def test_what_the_gpt2_path_leaves_is_refused(tmp_path, flags, needle):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7") as e:
-        parse_args(default_lr=gpt2_train.DEFAULT_LR,
-                   argv=_argv(tmp_path, *flags))
+    # item 7 is ported: --remat and --finetune parse; --model_parallel
+    # > 1 waits for item 9's multi-device step
+    argv = _argv(tmp_path, *flags)
+    if needle != "--model_parallel":
+        cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=argv)
+        assert cfg.do_remat or cfg.do_finetune
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9") as e:
+        parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=argv)
     assert needle in str(e.value)
 
 
 def test_pretrained_artifact_is_refused_not_loaded(tmp_path):
+    # a directory with config.json but no weights is not an artifact:
+    # the --test model is built from the seed; with the weights beside
+    # it, the artifact is loaded
     (tmp_path / "config.json").write_text("{}")
-    cfg = TConfig(device="cpu", model_checkpoint=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        gpt2_train.build_model_and_params(cfg, HashTokenizer(100), 32)
+    cfg = TConfig(device="cpu", model_checkpoint=str(tmp_path),
+                  do_test=True)
+    module = gpt2_train.build_model_and_params(cfg, HashTokenizer(100), 32)
+    assert module.cfg.n_embd == 32 and module.cfg.vocab_size == 100
+    saved = TG.GPT2DoubleHeads(TG.GPT2Config(
+        vocab_size=100, n_positions=32, n_embd=16, n_layer=1, n_head=2),
+        seed=9)
+    TG.save_pretrained(str(tmp_path), to_jax_params(saved), saved.cfg)
+    module = gpt2_train.build_model_and_params(cfg, HashTokenizer(100), 32)
+    assert module.cfg.n_embd == 16
+    for a, b in zip(module.parameters(), saved.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_defaults_are_config5_and_the_card(tmp_path):

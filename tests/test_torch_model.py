@@ -2,6 +2,8 @@
 against the flax ResNet9 on the same weights and inputs, through the
 weight bridge (models/convert.py). The port's flat vector must be the
 JAX flat vector: the same ravel_pytree order and leaf shapes."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,11 @@ from commefficient_tpu_torch.training.cv_train import (
 )
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TINY = {"prep": 4, "layer1": 8, "layer2": 8, "layer3": 16}
 

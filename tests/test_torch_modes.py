@@ -3,6 +3,8 @@ the JAX package: the server steps, local_topk's residual, the
 per-client top-k on both of its routes and fedavg's local SGD, on the
 same numpy inputs made from a seed. JAX runs on the CPU, the port on
 the CPU."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,11 @@ from commefficient_tpu_torch.training.cv_train import (
 )
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TINY = {"prep": 4, "layer1": 8, "layer2": 8, "layer3": 16}
 

@@ -28,6 +28,7 @@ A float32 run sits ~4e-7 from float64, 1e-5 of bf16's error: the band
 refuses it by four orders of magnitude (at least 2x is asked for).
 """
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +55,11 @@ from commefficient_tpu_torch.ops.flat import flatten_params
 from commefficient_tpu_torch.ops.kernels import quant as tquant
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 BF16_GRAD_LIMIT = 1.5
 BF16_ACCURACY_BAND = (1 / 3, 3.0)

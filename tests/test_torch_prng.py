@@ -8,6 +8,8 @@ computes as XLA's float32 polynomial; its log1p and products round as
 torch rounds them, so a normal is held to NORMAL_RTOL (measured on the
 CPU against jax 0.9: 2.4e-7 relative at most, 3 float32 ulps, 95%
 bit-equal over 2**20 draws)."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,11 @@ from commefficient_tpu_torch.ops import prng
 from commefficient_tpu_torch.ops.flat import dp_noise as t_dp_noise
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 NORMAL_RTOL = 1e-6
 # the lower end of the normal's uniform, nextafter(-1, 0)

@@ -10,6 +10,9 @@ shared model config and the Fixup learning-rate vector.
 PyTorch's CPU convolutions take the native route here, not oneDNN (see
 tests/test_torch_model.py: this CPU build's multi-threaded oneDNN
 convolution backward aborts on strided blocks)."""
+import functools
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +35,11 @@ from commefficient_tpu_torch.ops.flat import flatten_params, module_layout
 from commefficient_tpu_torch.training import cv_train
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 NEW_NAMES = ["ResNet34", "ResNet50", "ResNet101", "ResNet152",
              "WideResNet50_2", "WideResNet101_2", "ResNet101LN",
@@ -126,15 +134,25 @@ STAGES = (2, 1, 1, 1)
 NC = 10
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_tiny(case):
+    """A case's flax net and its jitted init, compiled once a case for
+    every seed."""
+    kw, _ = TINY[case]
+    jm = jresnets.ResNet(stage_sizes=STAGES, num_classes=NC,
+                         **{"width": 4, **kw})
+    return jm, jax.jit(jm.init)
+
+
 def _tiny_pair(case, seed):
     """The flax net and the port's at a tiny width, from the same random
     weights: JAX's init moved by 0.05 x N(0, 1) a leaf, so the Fixup
     net's zero conv3 and head carry gradient too."""
     kw, hw = TINY[case]
     kw = {"width": 4, **kw}
-    jm = jresnets.ResNet(stage_sizes=STAGES, num_classes=NC, **kw)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(seed),
-                              jnp.zeros((2, hw, hw, 3), jnp.float32))
+    jm, init = _jax_tiny(case)
+    params = init(jax.random.PRNGKey(seed),
+                  jnp.zeros((2, hw, hw, 3), jnp.float32))
     flat, unravel = ravel_pytree(params)
     rng = np.random.RandomState(seed + 100)
     params = unravel(flat + 0.05 * rng.randn(flat.shape[0])
@@ -156,10 +174,15 @@ def test_tiny_forward_and_flat_grad_match_jax(case):
     mask = np.array([1, 1, 1, 0], np.float32)
     jvec, unravel = ravel_pytree(params)
     jloss_fn = j_make_compute_loss(jm)
-    (jl, (jacc,)), jg = jax.jit(jax.value_and_grad(
-        lambda v: jloss_fn(unravel(v), (jnp.asarray(x), jnp.asarray(y)),
-                           jnp.asarray(mask)), has_aux=True))(jvec)
-    jlogits = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+    def loss_grad_logits(v):
+        # one compile: the loss, its gradient and the logits
+        return (jax.value_and_grad(
+            lambda u: jloss_fn(unravel(u), (jnp.asarray(x), jnp.asarray(y)),
+                               jnp.asarray(mask)), has_aux=True)(v),
+            jm.apply(unravel(v), jnp.asarray(x)))
+
+    ((jl, (jacc,)), jg), jlogits = jax.jit(loss_grad_logits)(jvec)
+    jlogits = np.asarray(jlogits)
     jg = np.asarray(jg)
     with torch.backends.mkldnn.flags(enabled=False):
         tlogits = tm(torch.from_numpy(x)).detach().numpy()

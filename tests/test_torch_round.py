@@ -2,6 +2,9 @@
 JAX package's, from the same weights and batches (numpy inputs made
 from a seed). JAX runs on the CPU test mesh; the port on the CPU with
 its kernels' plain versions."""
+import functools
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +36,11 @@ from commefficient_tpu_torch.training.cv_train import (
 )
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TINY = {"prep": 4, "layer1": 8, "layer2": 8, "layer3": 16}
 
@@ -183,6 +191,17 @@ CASE_MODELS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(name, **fields):
+    """A registry model of the JAX package at 10 classes and its init
+    from PRNGKey(0) on 32-px images, built once a process (the ResNet50
+    one serves resnet50_sketch and the plain-init test)."""
+    from commefficient_tpu.models import build_model as j_build_model
+    jm = j_build_model(name, num_classes=10, **fields)
+    return jm, jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                jnp.zeros((2, 32, 32, 3), jnp.float32))
+
+
 def _case_models(case):
     """The JAX model, its parameters and the port's model loaded with
     them. FixupResNet50 starts from JAX's init moved by 0.05 x N(0, 1) a
@@ -201,11 +220,8 @@ def _case_models(case):
         tm = build_model("ResNet9", channels=TINY)
         from_jax_params(tm, params)
         return jm, params, tm
-    from commefficient_tpu.models import build_model as j_build_model
     name, fields = CASE_MODELS[case]
-    jm = j_build_model(name, num_classes=10, **fields)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
-                              jnp.zeros((2, 32, 32, 3), jnp.float32))
+    jm, params = _jax_init(name, **fields)
     if name.startswith("Fixup"):
         flat, unravel = ravel_pytree(params)
         rng = np.random.RandomState(1)
@@ -291,12 +307,9 @@ def test_resnet50_plain_init_gradient_no_less_accurate_than_jax():
     # the first round's batch: both float32 gradients sit far from the
     # float64 one there (see _case_models), so no closeness to JAX is
     # asked, only that the port's float32 error is within 3x JAX's
-    from commefficient_tpu.models import build_model as j_build_model
     from commefficient_tpu_torch.federated.client import make_flat_grad_fn
     from commefficient_tpu_torch.ops.flat import flatten_params
-    jm = j_build_model("ResNet50", num_classes=10, width=4)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
-                              jnp.zeros((2, 32, 32, 3), jnp.float32))
+    jm, params = _jax_init("ResNet50", width=4)
     tm = build_model("ResNet50", num_classes=10, width=4, input_hw=(32, 32))
     vec = from_jax_params(tm, params)
     _, (x, y), mask = _batches(1, 4, 6, 12, seed=7)[0]

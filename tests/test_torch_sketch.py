@@ -2,6 +2,8 @@
 sketch.py, plain kernel versions on the CPU) against the JAX CSVec on
 the same numpy inputs — the XLA route and the Pallas route (interpret
 mode off-TPU, as tests/test_kernels.py runs it)."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,11 @@ from commefficient_tpu_torch.ops import sketch as tsketch
 from commefficient_tpu_torch.ops.sketch import CSVec as TCSVec
 
 pytestmark = pytest.mark.torch_port
+
+# one intra-op thread in each xdist worker: torch's default of a thread
+# a core in each of several test processes oversubscribes the cores
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 # the three tests/test_kernels.py geometries plus one more even r
 GEOMETRIES = [
