@@ -180,6 +180,32 @@ the result line:
                --checkpoint, then `--finetune --finetuned_from CIFAR10`
                on the synthetic CIFAR100 for 3 rounds: the transferred
                coordinates bitwise unmoved, the head trained.
+27. powersgd — config #2 with `--mode powersgd --error_type local
+               --powersgd_rank 2` (POWERSGD), ROUNDS rounds: no sketch or
+               attention kernel; every upload (2,564 + 2,562) x 2 x 4
+               bytes; the Q factor warm in every sampled client's
+               velocity row and the others zero; one client's residual
+               seam card vs CPU vs float64 at POWERSGD_RTOL, with a TF32
+               control it must refuse; ms/round beside phase 4's.
+28. dp_sketch — config #2 with `--mode dp_sketch --dp_clip 1.0
+               --dp_noise_mult 0.5` and a journal, ROUNDS rounds: K1 8
+               times a round, K2 once; one `privacy` event a round at
+               RdpAccountant(0.5, 1e-5).epsilon(n + 1); every client
+               table at Frobenius norm <= dp_clip; one K1 launch on a
+               client's gradient bitwise its plain version
+               (sketch_encode_dp_sketch on the kernels line).
+29. privacy — phase 28 with --dp_target_epsilon between epsilon(2) and
+               epsilon(3): the raise after round 2's event, 3 privacy
+               events in the journal.
+30. spans   — config #2 each way of SPANS, deterministic: bitwise equal
+               final states and bytes; ms/round and busy share each;
+               --profile_spans 1:2 writes a trace holding kernels.
+31. imagenet_pipeline — config #4 as imagenet.sh runs it, each way of
+               IMAGENET_SPANS (run on phase 13's corpus, after it):
+               ms/round, busy share and the host batch's share.
+Phases 27-31 print their peak memory as read in the full script, beside
+the memory earlier phases leave allocated (live_gib).
+
 Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
 prints its ms/round, the host's batch ms, peak memory, the client-state
 bytes and one per-client masked_topk at its D timed on the card, and
@@ -193,10 +219,11 @@ second run A: B must then lie within 2x A's own spread, and the phase
 names the arrays that differ.
 
 Before the last two lines comes {"kernels": [...]}, one entry per
-kernel and main path: K1 five times (sketch_encode at config #2's
-shapes, sketch_encode_dp and sketch_encode_byzantine at the same shapes
-for the dp and byzantine paths, sketch_encode_r50 at config #4's,
-sketch_encode_gpt2 at config #5's),
+kernel and main path: K1 six times (sketch_encode at config #2's
+shapes, sketch_encode_dp, sketch_encode_byzantine and
+sketch_encode_dp_sketch at the same shapes for the dp, byzantine and
+dp_sketch paths, sketch_encode_r50 at config #4's, sketch_encode_gpt2
+at config #5's),
 K2 twice (config #2's, sketch_estimate_all_r50), K3a, K3b, and K4 twice
 (flash_fwd on f32 operands, flash_fwd_bf16 on bf16 ones, config #5 and
 config #5 with --bf16), each with the launches of its own path's run
@@ -215,6 +242,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import glob
 import json
 import math
@@ -430,6 +458,46 @@ RESUME_CIFAR = (RESUME_CIFAR_CLIENTS * 64, 512)
 RESUME_GPT2_CORPUS = (8, 1, 24)
 
 
+# phases 27-31 (ROADMAP items 9b and 9c), at config #2's full width.
+# Phase 27: PowerSGD at rank 2; its [D] update is the [2,564, 2,562]
+# matrix, so a client uploads (2,564 + 2,562) x 2 float32 factors. The
+# residual seam card vs CPU: its three GEMMs sum 2,562-2,564 products in
+# float32 (relative L2 ~1e-7 between two orders); POWERSGD_RTOL sits
+# well above that and below TF32's 10-bit products (~1e-3), which the
+# control run must show
+POWERSGD = ["--mode", "powersgd", "--error_type", "local",
+            "--local_momentum", "0", "--powersgd_rank", "2"]
+POWERSGD_MN = (2564, 2562)
+POWERSGD_UPLOAD = (2564 + 2562) * 2 * 4
+POWERSGD_RTOL = 1e-5
+# phase 28: dp_sketch, noise std 0.5 x 1.0 on the aggregate a round;
+# phase 29 sets --dp_target_epsilon between epsilon(N - 1) and
+# epsilon(N) for N = PRIVACY_N
+DP_SKETCH = ["--mode", "dp_sketch", "--error_type", "virtual",
+             "--local_momentum", "0", "--dp_clip", "1.0",
+             "--dp_noise_mult", "0.5"]
+DP_SKETCH_SIGMA, DP_SKETCH_DELTA = 0.5, 1e-5
+PRIVACY_N = 3
+# phase 30: config #2 over ROUNDS rounds (spans of 4: 4, 4 and a tail
+# of 2): the plain loop, spans, spans pipelined with a checkpoint every
+# span (the issue's three), and pipelined without the checkpoints
+SPANS = (("plain", []),
+         ("spans", ["--scan_rounds", "--scan_span", "4"]),
+         ("pipeline", ["--scan_rounds", "--scan_span", "4", "--pipeline",
+                       "--checkpoint_every", "1", "--ckpt_every_spans",
+                       "1"]),
+         ("pipeline_nockpt", ["--scan_rounds", "--scan_span", "4",
+                              "--pipeline"]))
+# phase 31: config #4 as imagenet.sh runs it, plain against one span of
+# IMAGENET_ROUNDS pipelined (the issue's pair) and spans of 1 pipelined
+# (where span t + 1's host batch can overlap span t on the card)
+IMAGENET_SPANS = (("plain", []),
+                  ("span5_pipeline", ["--scan_rounds", "--scan_span", "5",
+                                      "--pipeline"]),
+                  ("span1_pipeline", ["--scan_rounds", "--scan_span", "1",
+                                      "--pipeline"]))
+
+
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
@@ -563,12 +631,15 @@ def kernel_phase(sc, CSVec):
                 estimate_row(sc, sk, sk.encode(x),
                              "sketch_estimate_all" + suffix, path)]
         if path == "config2":
-            # the dp path (phase 16) and the robust aggregators (phase
-            # 23) encode each client's [D] transmit at config #2's
-            # shapes, 8 a round
+            # the dp path (phase 16), the robust aggregators (phase 23)
+            # and dp_sketch (phase 28) encode each client's [D] transmit
+            # at config #2's shapes, 8 a round
             rows.append(encode_row(sc, sk, x, "sketch_encode_dp", "dp"))
             rows.append(encode_row(sc, sk, x, "sketch_encode_byzantine",
                                    "byzantine"))
+            # dp_sketch (phase 28): one encode a client, 8 a round
+            rows.append(encode_row(sc, sk, x, "sketch_encode_dp_sketch",
+                                   "dp_sketch"))
         out += [timed_row(row, max_err[row["counter"]]) for row in rows]
         del sk, x, rows
     phase("kernels", "sketch_estimate_all store policy: plain write-back "
@@ -822,11 +893,10 @@ def drive_rounds(label, sc, ac, model, loader, rounds, run) -> RoundsRun:
                      uploads)
 
 
-def config2_variant(label, sc, ac, cv_train, parse_args, data_dir,
-                    extra=(), rounds=ROUNDS):
-    """Drive cv_train.train() for `rounds` rounds of config #2 with the
-    flags `extra` added; returns (model, the rounds' run, the train
-    loader)."""
+def config2_build(cv_train, parse_args, data_dir, extra=(),
+                  rounds=ROUNDS):
+    """cv_train.build() of config #2 with the flags `extra` added, its
+    schedule over `rounds` rounds; returns build()'s five."""
     n_train = CLIENTS * EXAMPLES_PER_CLIENT
     spe = math.ceil(n_train / (8 * 32))
     cfg = parse_args(argv=CONFIG2 + list(extra) + [
@@ -834,10 +904,22 @@ def config2_variant(label, sc, ac, cv_train, parse_args, data_dir,
         "--device", "cuda", "--dataset_dir", data_dir,
         "--num_epochs", str(rounds / spe),
         "--pivot_epoch", str(rounds / spe / 2), "--seed", "21"])
-    model, opt, sched, train_loader, val_loader = cv_train.build(
-        cfg, device="cuda", synthetic_examples=(n_train, 512))
-    assert model.cfg.grad_size == MAIN_D, model.cfg.grad_size
-    assert train_loader.steps_per_epoch == spe
+    built = cv_train.build(cfg, device="cuda",
+                           synthetic_examples=(n_train, 512))
+    assert built[0].cfg.grad_size == MAIN_D, built[0].cfg.grad_size
+    assert built[3].steps_per_epoch == spe
+    return built
+
+
+def config2_variant(label, sc, ac, cv_train, parse_args, data_dir,
+                    extra=(), rounds=ROUNDS, setup=None):
+    """Drive cv_train.train() for `rounds` rounds of config #2 with the
+    flags `extra` added (`setup(model)` first, when given); returns
+    (model, the rounds' run, the train loader)."""
+    model, opt, sched, train_loader, val_loader = config2_build(
+        cv_train, parse_args, data_dir, extra, rounds)
+    if setup is not None:
+        setup(model)
     rr = drive_rounds(label, sc, ac, model, train_loader, rounds,
                       lambda timed, on_round: cv_train.train(
                           model, opt, sched, timed, val_loader, model.cfg,
@@ -2365,6 +2447,442 @@ def cvfinetune_phase(sc, ac, cv_train, parse_args, flat, models, tmp
     torch.cuda.empty_cache()
 
 
+def live_gib() -> float:
+    """Device memory still allocated by earlier phases, after a garbage
+    collection (the peaks of phases 27-31 are read in the full script,
+    with this much carried in)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def powersgd_phase(sc, ac, cv_train, parse_args, data_dir, fclient, prng,
+                   main_ms) -> None:
+    """Phase 27: config #2 with --mode powersgd --error_type local
+    --powersgd_rank 2, ROUNDS rounds: no sketch or attention kernel;
+    every client's upload exactly POWERSGD_UPLOAD bytes; the Q factor in
+    each sampled client's velocity row ([:n * 2], the rest zero) and the
+    rows of clients never sampled still zero; then one client's residual
+    seam (approximation, error residual, Q) from its warm rows on the
+    card against the CPU at POWERSGD_RTOL, each against float64, and a
+    TF32 control on the card that the limit must refuse."""
+    live = live_gib()
+    model, rr, loader = config2_variant("powersgd", sc, ac, cv_train,
+                                        parse_args, data_dir, POWERSGD)
+    cfg = model.cfg
+    check_launches("powersgd", rr.launches,
+                   {n: 0 for n in SKETCH_AND_ATTENTION})
+    for r, up in enumerate(rr.uploads):
+        if not np.all(np.asarray(up) == POWERSGD_UPLOAD):
+            raise AssertionError(f"powersgd: round {r} uploads {up}, "
+                                 f"{POWERSGD_UPLOAD} a client expected")
+    from commefficient_tpu_torch.compress.powersgd import factor_shape
+    m, n = factor_shape(MAIN_D)
+    assert (m, n) == POWERSGD_MN, (m, n)
+    vel = model.clients.velocities
+    touched = torch.tensor(sorted(model._touched), device=vel.device)
+    fresh = torch.ones(vel.shape[0], dtype=torch.bool, device=vel.device)
+    fresh[touched] = False
+    q = vel[touched, :2 * n]
+    if not (bool((q.abs().sum(dim=1) > 0).all())
+            and not bool(vel[:, 2 * n:].any())
+            and not bool(vel[fresh].any())):
+        raise AssertionError("powersgd: the Q rows are not warm where "
+                             "sampled and zero elsewhere")
+    med = statistics.median
+    phase("powersgd", f"{ROUNDS} rounds, [{m}, {n}] rank 2: every upload "
+          f"{POWERSGD_UPLOAD} bytes; Q warm in all {len(touched)} sampled "
+          f"clients' rows, the {int(fresh.sum())} others zero; median "
+          f"{med(rr.round_ms[1:]):.2f} ms/round beside config #2's "
+          f"{med(main_ms[1:]):.2f}; peak {rr.peak / 2 ** 30:.3f} GiB (read "
+          f"in the full script, {live:.3f} GiB live before the phase); "
+          f"mean client loss first/last {float(rr.losses[0].mean()):.4f}/"
+          f"{float(rr.losses[-1].mean()):.4f}")
+    # the seam on one client's real accumulator: its error row plus its
+    # count-scaled gradient on a batch, from its warm Q row
+    ids, data, mask = next(iter(loader.epoch()))
+    c = int(ids[0])
+    flat_grad = fclient.make_flat_grad_fn(
+        cv_train.make_compute_loss(model.module), model.unravel)
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(cfg.seed),
+                                    model.server.round_idx), 0)
+    g, _, _, count = fclient.forward_grad(
+        flat_grad, model.ps_weights,
+        tuple(torch.as_tensor(np.asarray(x[0])).cuda() for x in data),
+        torch.as_tensor(mask[0]).cuda(), cfg, key)
+    acc = model.clients.errors[c] + g * count
+    v = model.clients.velocities[c]
+    comp = cfg.compressor
+
+    def seam(dev, dtype=torch.float32):
+        return [t.to(torch.float64).cpu() for t in comp.residual(
+            cfg, acc.to(dev, dtype), None, v.to(dev, dtype), key)]
+
+    card, cpu, f64 = seam("cuda"), seam("cpu"), seam("cpu", torch.float64)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = seam("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("approximation", "residual", "Q")
+    errs = [_rel(a, b) for a, b in zip(card, cpu)]
+    acc_card = [_rel(a, b) for a, b in zip(card, f64)]
+    acc_cpu = [_rel(a, b) for a, b in zip(cpu, f64)]
+    err_tf32 = max(_rel(a, b) for a, b in zip(tf32, cpu))
+    phase("powersgd", f"client {c}'s residual seam card vs CPU: "
+          + ", ".join(f"{nm} {e:.3e}" for nm, e in zip(names, errs))
+          + " (vs float64: card " + ", ".join(f"{e:.3e}" for e in acc_card)
+          + "; CPU " + ", ".join(f"{e:.3e}" for e in acc_cpu)
+          + f"); tolerance {POWERSGD_RTOL:g}; TF32 control {err_tf32:.3e}")
+    if not max(errs) <= POWERSGD_RTOL:
+        raise AssertionError("powersgd: the card's seam differs from the "
+                             "CPU's")
+    if not err_tf32 > POWERSGD_RTOL:
+        raise AssertionError("powersgd: the TF32 control passed the limit, "
+                             "which therefore cannot tell TF32 from f32")
+    del model, loader
+    torch.cuda.empty_cache()
+
+
+def dp_sketch_phase(sc, ac, cv_train, parse_args, data_dir, fclient,
+                    fserver, compress, main_ms, tmp):
+    """Phase 28: config #2 with --mode dp_sketch --dp_clip 1.0
+    --dp_noise_mult 0.5, ROUNDS rounds with a journal: K1 8 times a
+    round (each client's table on its own), K2 once; every upload the
+    f32 table; one `privacy` event a round with epsilon
+    RdpAccountant(0.5, 1e-5).epsilon(n + 1); each client's clipped
+    table at Frobenius norm <= dp_clip; one K1 launch on a client's
+    gradient bitwise its plain version. Returns the rounds' launches."""
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    live = live_gib()
+    jpath = os.path.join(tmp, "dp_sketch.jsonl")
+    model, rr, loader = config2_variant(
+        "dp_sketch", sc, ac, cv_train, parse_args, data_dir, DP_SKETCH,
+        setup=lambda m: m.attach_telemetry(
+            TelemetrySession(journal=RunJournal(jpath))))
+    model.telemetry.close(ok=True)
+    cfg = model.cfg
+    assert not cfg.defer_sketch_encode and not cfg.fused_client_backward
+    check_launches("dp_sketch", rr.launches, {
+        "sketch_encode": 8 * ROUNDS, "sketch_estimate_all": ROUNDS,
+        "threshold_sample": 0, "threshold_mask": 0, "flash_fwd": 0})
+    wire = 4 * MAIN_R * MAIN_C
+    if not all(np.all(np.asarray(up) == wire) for up in rr.uploads):
+        raise AssertionError(f"dp_sketch: uploads {rr.uploads}")
+    acc = compress.RdpAccountant(DP_SKETCH_SIGMA, DP_SKETCH_DELTA)
+    records, problems = read_journal(jpath)
+    priv = [r for r in records if r["event"] == "privacy"]
+    if problems or [r["round"] for r in priv] != list(range(ROUNDS)) or any(
+            r["epsilon"] != round(acc.epsilon(r["round"] + 1), 6)
+            for r in priv):
+        raise AssertionError(f"dp_sketch: privacy events {priv}, problems "
+                             f"{problems}")
+    # each client's table through its own local_step, clipped
+    ids, data, mask = next(iter(loader.epoch()))
+    flat_grad = fclient.make_flat_grad_fn(
+        cv_train.make_compute_loss(model.module), model.unravel)
+    dummy = model.ps_weights.new_zeros(())
+    norms = []
+    for c in range(len(ids)):
+        res = fclient.local_step(
+            flat_grad, model.ps_weights,
+            tuple(torch.as_tensor(np.asarray(x[c])).cuda() for x in data),
+            torch.as_tensor(mask[c]).cuda(), dummy, dummy, cfg)
+        norms.append(float(torch.linalg.vector_norm(res.transmit.double())))
+    if not max(norms) <= cfg.dp_clip * (1 + 1e-6):
+        raise AssertionError(f"dp_sketch: table norms {norms}")
+    # one K1 launch on client 0's gradient against the plain version
+    _, _, grad = flat_grad(model.ps_weights,
+                           tuple(torch.as_tensor(np.asarray(x[0])).cuda()
+                                 for x in data),
+                           torch.as_tensor(mask[0]).cuda())
+    sk = fserver.args2sketch(cfg)
+    off, eps, delta = sk.tables(grad.device)
+    t_k = sk.encode(grad)
+    t_p = sc.encode_plain(grad, off, delta, eps, sk.c)
+    torch.cuda.synchronize()
+    if not torch.equal(t_k, t_p):
+        raise AssertionError("dp_sketch: K1 differs from its plain version, "
+                             f"max abs err {float((t_k - t_p).abs().max())}")
+    med = statistics.median
+    phase("dp_sketch", f"{ROUNDS} rounds, clip {cfg.dp_clip:g}, noise "
+          f"std {cfg.dp_noise_mult * cfg.dp_clip:g}: median "
+          f"{med(rr.round_ms[1:]):.2f} ms/round beside config #2's "
+          f"{med(main_ms[1:]):.2f}; launches {rr.launches}; every upload "
+          f"{wire} bytes; {len(priv)} privacy events, epsilon "
+          f"{priv[0]['epsilon']} .. {priv[-1]['epsilon']} as "
+          "RdpAccountant(0.5, 1e-5).epsilon(n + 1); client table norms "
+          f"max {max(norms):.7f} (clip {cfg.dp_clip:g}); K1 on client 0's "
+          f"[{grad.numel()}] gradient equal to its plain version (exact); "
+          f"peak {rr.peak / 2 ** 30:.3f} GiB (read in the full script, "
+          f"{live:.3f} GiB live before the phase)")
+    del model, loader
+    torch.cuda.empty_cache()
+    return rr.launches
+
+
+def privacy_drill_phase(cv_train, parse_args, data_dir, compress, tmp
+                        ) -> None:
+    """Phase 29: phase 28's run with --dp_target_epsilon between
+    epsilon(N - 1) and epsilon(N), N = PRIVACY_N: it raises naming the
+    flag after round N - 1's event; the journal holds exactly N privacy
+    events and the crossing round committed."""
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    acc = compress.RdpAccountant(DP_SKETCH_SIGMA, DP_SKETCH_DELTA)
+    target = 0.5 * (acc.epsilon(PRIVACY_N - 1) + acc.epsilon(PRIVACY_N))
+    model, opt, sched, loader, val = config2_build(
+        cv_train, parse_args, data_dir,
+        DP_SKETCH + ["--dp_target_epsilon", repr(target)])
+    jpath = os.path.join(tmp, "privacy_drill.jsonl")
+    tele = TelemetrySession(journal=RunJournal(jpath))
+    model.attach_telemetry(tele)
+    try:
+        cv_train.train(model, opt, sched, loader, val, model.cfg)
+    except RuntimeError as e:
+        err = e
+    else:
+        raise AssertionError("privacy drill: no raise past the budget")
+    finally:
+        tele.close(ok=False)
+    records, _ = read_journal(jpath)
+    priv = [r["epsilon"] for r in records if r["event"] == "privacy"]
+    if ("dp_target_epsilon" not in str(err) or len(priv) != PRIVACY_N
+            or not priv[-1] > target >= priv[-2]
+            or model.server.round_idx != PRIVACY_N):
+        raise AssertionError(f"privacy drill: {err}; events {priv}, target "
+                             f"{target}, rounds {model.server.round_idx}")
+    phase("privacy", f"--dp_target_epsilon {target:.6f} (between "
+          f"epsilon({PRIVACY_N - 1}) {acc.epsilon(PRIVACY_N - 1):.6f} and "
+          f"epsilon({PRIVACY_N}) {acc.epsilon(PRIVACY_N):.6f}): raised "
+          f"after round {PRIVACY_N - 1}'s event with {len(priv)} privacy "
+          f"events in the journal: {err}")
+    del model, loader
+    torch.cuda.empty_cache()
+
+
+class _Rows:
+    """A logger that keeps the driver's epoch rows."""
+
+    def __init__(self):
+        self.rows = []
+
+    def append(self, row):
+        self.rows.append(row)
+
+
+class TimedRun(NamedTuple):
+    ms: float               # wall ms a round, first round to last emit
+    busy: float             # device kernel time over that wall, or nan
+    host_batch: float       # the host's batch making over that wall
+    launches: dict
+    rows: list              # the driver's epoch rows (bytes in MiB)
+
+
+def timed_train(sc, ac, cv_train, model, opt, sched, loader, val, rounds,
+                traced=False) -> TimedRun:
+    """`rounds` more rounds of `model` through cv_train.train(), timed
+    from the call to the last round's emit (the card synchronized
+    there, nowhere else), the host's batch making recorded
+    (TimedLoader). With `traced`, torch.profiler records the card's
+    kernels over the same window: busy share = their device time over
+    the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    spe = loader.steps_per_epoch
+    budget = model.cfg.replace(
+        num_epochs=(model.server.round_idx + rounds) / spe)
+    timed = TimedLoader(loader)
+    rows = _Rows()
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if traced
+            else None)
+    end = []
+
+    def on_round(i, out):
+        end.append(i)
+        if len(end) == rounds:
+            torch.cuda.synchronize()
+            end.append(time.perf_counter())
+            if prof is not None:
+                prof.stop()
+
+    if prof is not None:
+        prof.start()
+    reset_counts(sc, ac)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = cv_train.train(model, opt, sched, timed, val, budget,
+                        loggers=(rows,), on_round=on_round)
+    launches = read_counts(sc, ac)
+    if not ok or len(end) != rounds + 1:
+        raise AssertionError(f"{len(end) - 1} of {rounds} rounds ran "
+                             f"(ok={ok})")
+    wall = end[-1] - t0
+    busy = float("nan")
+    if prof is not None:
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith("ProfilerStep"))
+        busy = dev_us / 1e6 / wall
+    return TimedRun(1e3 * wall / rounds, busy,
+                    sum(timed.seconds[:rounds]) / wall, launches, rows.rows)
+
+
+def spans_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp
+                ) -> None:
+    """Phase 30: config #2 for ROUNDS rounds each way of SPANS (the
+    plain loop, spans of 4, spans of 4 pipelined with a checkpoint every
+    span, and without it), each under deterministic algorithms: the
+    final weights, server state, accountant and the run's
+    download/upload bytes bitwise equal across them (else within 2x a
+    second plain run's spread). For each: ms/round over all ROUNDS
+    rounds, the first included (untraced), and the busy share from a
+    second, traced run of the same rounds; K1 and K2 once a round. Then
+    --profile_spans 1:2 on a pipelined run of 3 spans writes its Chrome
+    trace."""
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    live = live_gib()
+    finals = {}
+    med = statistics.median
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def run(label, extra, traced=False):
+        ck = os.path.join(tmp, f"spans_{label}{'_traced' * traced}")
+        model, opt, sched, loader, val = config2_build(
+            cv_train, parse_args, data_dir,
+            extra + ["--checkpoint_path", ck])
+        torch.cuda.reset_peak_memory_stats()
+        res = timed_train(sc, ac, cv_train, model, opt, sched, loader, val,
+                          ROUNDS, traced=traced)
+        model.close_persistence()
+        state = [t.detach().cpu().clone() for t in model.server[:3]]
+        acct = model.accountant.state_dict()
+        nbytes = (res.rows[-1]["down (MiB)"], res.rows[-1]["up (MiB)"])
+        peak = torch.cuda.max_memory_allocated()
+        del model, opt, loader, val
+        torch.cuda.empty_cache()
+        return state, acct, nbytes, res, peak
+
+    try:
+        for label, extra in SPANS:
+            state, acct, nbytes, res, peak = run(label, extra)
+            traced = run(label, extra, traced=True)[3]
+            check_launches(f"spans_{label}", res.launches, {
+                "sketch_encode": ROUNDS, "sketch_estimate_all": ROUNDS})
+            finals[label] = (state, acct, nbytes)
+            phase("spans", f"{label} ({' '.join(extra) or 'per round'}): "
+                  f"{res.ms:.2f} ms/round over {ROUNDS} rounds (phase 4's "
+                  f"median {med(main_ms[1:]):.2f}); busy share "
+                  f"{traced.busy:.3f} over {ROUNDS} traced rounds "
+                  f"({traced.ms:.2f} ms/round traced); host batch "
+                  f"{res.host_batch:.3f} of the wall; down/up "
+                  f"{nbytes[0]:.6f}/{nbytes[1]:.6f} MiB; peak "
+                  f"{peak / 2 ** 30:.3f} GiB (read in the full script, "
+                  f"{live:.3f} GiB live before the phase)")
+        want = finals["plain"]
+        diff = []
+        for label in [lb for lb, _ in SPANS[1:]]:
+            got = finals[label]
+            if not all(torch.equal(a, b) for a, b in zip(got[0], want[0])):
+                diff.append(f"{label}: server state")
+            if any(not np.array_equal(got[1][k], want[1][k])
+                   for k in want[1]):
+                diff.append(f"{label}: accountant")
+            if got[2] != want[2]:
+                diff.append(f"{label}: bytes {got[2]} vs {want[2]}")
+        verdict = "bitwise equal"
+        if diff:
+            again = run("plain2", [])[0]
+            spread = max(float((a - b).abs().max())
+                         for a, b in zip(again, want[0]))
+            dist = max(float((a - b).abs().max()) for label, _ in SPANS[1:]
+                       for a, b in zip(finals[label][0], want[0]))
+            verdict = (f"NOT bitwise ({'; '.join(diff)}): max |diff| "
+                       f"{dist:.3e}, two plain runs {spread:.3e} apart")
+            if any("bytes" in d or "accountant" in d for d in diff) or \
+                    not dist <= 2 * spread:
+                raise AssertionError(f"spans: {verdict}")
+        phase("spans", f"final weights, server state, accountant and "
+              f"bytes of the {len(SPANS)} runs: {verdict}")
+        # --profile_spans 1:2 on a pipelined run of 3 spans of 2
+        pdir = os.path.join(tmp, "profile_spans")
+        model, opt, sched, loader, val = config2_build(
+            cv_train, parse_args, data_dir,
+            ["--scan_rounds", "--scan_span", "2", "--pipeline"], rounds=6)
+        tele = TelemetrySession(
+            journal=RunJournal(os.path.join(tmp, "profile_spans.jsonl")),
+            profile_spans="1:2", profile_dir=pdir, profile_cuda=True)
+        model.attach_telemetry(tele)
+        try:
+            ok = cv_train.train(model, opt, sched, loader, val, model.cfg)
+        finally:
+            tele.close(ok=True)
+            model.close_persistence()
+        trace = os.path.join(pdir, "spans_1_2.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        if not ok or not kernels:
+            raise AssertionError(f"spans: --profile_spans trace {trace} "
+                                 f"holds {kernels} kernels (ok={ok})")
+        phase("spans", f"--profile_spans 1:2: {trace} written, "
+              f"{os.path.getsize(trace)} bytes, {kernels} kernel events")
+        del model, opt, loader, val
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+
+
+def imagenet_pipeline_phase(sc, ac, cv_train, parse_args, corpus,
+                            imagenet_ms) -> None:
+    """Phase 31: config #4 as imagenet.sh runs it (phase 13's flags and
+    corpus), IMAGENET_ROUNDS rounds each way (IMAGENET_SPANS): ms/round
+    untraced, the busy share from a second, traced run of the same
+    rounds, and the host batch's share of the wall. No kernel of the
+    port launches. No gain is claimed: the measurement."""
+    live = live_gib()
+    med = statistics.median
+    for label, extra in IMAGENET_SPANS:
+        cfg = parse_args(argv=CONFIG4 + extra + [
+            "--device", "cuda", "--dataset_dir", corpus, "--seed", "21"])
+        runs = []
+        for traced in (False, True):
+            model, opt, sched, loader, val = cv_train.build(cfg,
+                                                            device="cuda")
+            assert model.cfg.grad_size == FIXUP50_D
+            torch.cuda.reset_peak_memory_stats()
+            runs.append(timed_train(sc, ac, cv_train, model, opt, sched,
+                                    loader, val, IMAGENET_ROUNDS,
+                                    traced=traced))
+            peak = torch.cuda.max_memory_allocated() if not traced else peak
+            model.close_persistence()
+            del model, opt, loader, val
+            torch.cuda.empty_cache()
+        res, traced = runs
+        check_launches(f"imagenet_{label}", res.launches,
+                       {n: 0 for n in SKETCH_AND_ATTENTION})
+        phase("imagenet_pipeline", f"{label} "
+              f"({' '.join(extra) or 'per round'}): {res.ms:.2f} ms/round "
+              f"over {IMAGENET_ROUNDS} rounds (phase 13's median "
+              f"{med(imagenet_ms[1:]):.2f}); host batch {res.host_batch:.3f} "
+              f"of the wall; busy share {traced.busy:.3f} over "
+              f"{IMAGENET_ROUNDS} traced rounds ({traced.ms:.2f} ms/round "
+              f"traced, host batch {traced.host_batch:.3f}); peak "
+              f"{peak / 2 ** 30:.3f} GiB (read in the full script, "
+              f"{live:.3f} GiB live before the phase)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
@@ -2524,6 +3042,9 @@ def main(argv=None) -> int:
         i_rr = rr
         del model, rr, loader
         torch.cuda.empty_cache()
+        # phase 31: config #4 plain against spans pipelined (item 9c)
+        imagenet_pipeline_phase(sc, ac, cv_train, parse_args, corpus,
+                                i_rr.round_ms)
 
         # phase 19: config #4 per imagenet.sh with --bf16
         model, rr, loader = imagenet_path(
@@ -2664,11 +3185,28 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(late_tmp, ignore_errors=True)
 
+    # phases 27-30: the compressor plugins and the privacy budget (item
+    # 9b), spans and the pipelined engine on config #2 (item 9c)
+    from commefficient_tpu_torch import compress
+    plugin_tmp = tempfile.mkdtemp(prefix="chip_smoke_item9bc_")
+    try:
+        powersgd_phase(sc, ac, cv_train, parse_args, c2_dir, fclient, prng,
+                       round_ms)
+        dps_launches = dp_sketch_phase(sc, ac, cv_train, parse_args, c2_dir,
+                                       fclient, fserver, compress, round_ms,
+                                       plugin_tmp)
+        privacy_drill_phase(cv_train, parse_args, c2_dir, compress,
+                            plugin_tmp)
+        spans_phase(sc, ac, cv_train, parse_args, c2_dir, round_ms,
+                    plugin_tmp)
+    finally:
+        shutil.rmtree(plugin_tmp, ignore_errors=True)
+
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,
                      "config4": s_launches, "dp": dp_launches,
                      "config5_bf16": gb_launches,
-                     "byzantine": byz_launches}
+                     "byzantine": byz_launches, "dp_sketch": dps_launches}
     kernels += g_kernels
     for k in kernels:
         k["launches"] = path_launches[k["path"]][k.pop("counter")]

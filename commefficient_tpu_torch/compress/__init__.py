@@ -1,14 +1,19 @@
 """compress/: the port's Compressor plugin registry, one plugin per
-ported Config.mode (sketch, true_topk, local_topk, fedavg,
-uncompressed)."""
+Config.mode (sketch, true_topk, local_topk, fedavg, uncompressed,
+powersgd, dp_sketch), asserted to cover config.MODES exactly."""
 from __future__ import annotations
 
 from typing import Dict
 
 from commefficient_tpu_torch.compress.base import Compressor
+from commefficient_tpu_torch.compress.dp_sketch import DpSketchCompressor
 from commefficient_tpu_torch.compress.modes import (
     FedavgCompressor, LocalTopkCompressor, SketchCompressor,
     TrueTopkCompressor, UncompressedCompressor,
+)
+from commefficient_tpu_torch.compress.powersgd import PowerSGDCompressor
+from commefficient_tpu_torch.compress.privacy import (
+    RdpAccountant, closed_form_epsilon,
 )
 
 _REGISTRY: Dict[str, Compressor] = {}
@@ -31,10 +36,28 @@ def get_compressor(mode: str) -> Compressor:
                        f"registered: {sorted(_REGISTRY)}") from None
 
 
+def registered_modes() -> tuple:
+    return tuple(sorted(_REGISTRY))
+
+
 for _comp in (SketchCompressor(), TrueTopkCompressor(),
               LocalTopkCompressor(), FedavgCompressor(),
-              UncompressedCompressor()):
+              UncompressedCompressor(), PowerSGDCompressor(),
+              DpSketchCompressor()):
     register(_comp)
 del _comp
 
-__all__ = ["Compressor", "get_compressor", "register"]
+
+def _assert_covers_modes() -> None:
+    # every Config.mode has a plugin and every plugin is a mode
+    from commefficient_tpu_torch.config import MODES
+    if set(_REGISTRY) != set(MODES):
+        raise AssertionError(
+            f"compressor registry {sorted(_REGISTRY)} != config.MODES "
+            f"{sorted(MODES)}")
+
+
+_assert_covers_modes()
+
+__all__ = ["Compressor", "RdpAccountant", "closed_form_epsilon",
+           "get_compressor", "register", "registered_modes"]

@@ -10,8 +10,10 @@ static specs (host-side config math): `state_shape`, `wire_floats`,
 the four seams of the round, each the identity by default:
   * `encode(cfg, grad, key)` — per client, the mean gradient -> the
     wire quantity;
-  * `residual(cfg, to_transmit, error, velocity)` — per client, after
-    count scaling: wire payload plus the error/velocity carries;
+  * `residual(cfg, to_transmit, error, velocity, key)` — per client,
+    after count scaling: wire payload plus the error/velocity carries
+    (local_topk's sparsify-and-mask, PowerSGD's low-rank factors,
+    dp_sketch's sensitivity clip);
   * `post_aggregate(cfg, transmit, key)` — once a round on the cohort
     sum;
   * `decode(cfg, gradient, Vvelocity, Verror, lr, key)` — the server
@@ -59,7 +61,7 @@ class Compressor:
     def encode(self, cfg, grad, key=None):
         return grad
 
-    def residual(self, cfg, to_transmit, error, velocity):
+    def residual(self, cfg, to_transmit, error, velocity, key=None):
         return to_transmit, error, velocity
 
     def post_aggregate(self, cfg, transmit, key=None):

@@ -1,7 +1,7 @@
 """The five classic modes as Compressor plugins: sketch, true_topk,
 local_topk, fedavg and uncompressed (the port of
-commefficient_tpu/compress/modes.py; powersgd and dp_sketch are
-ROADMAP.md Queue 1 item 9).
+commefficient_tpu/compress/modes.py; powersgd and dp_sketch have
+modules of their own).
 
 The server helpers are imported inside `decode`: federated/server
 imports config, and config's spec properties import this package.
@@ -70,7 +70,7 @@ class LocalTopkCompressor(Compressor):
     def wire_floats(self, cfg) -> int:
         return cfg.k
 
-    def residual(self, cfg, to_transmit, error, velocity):
+    def residual(self, cfg, to_transmit, error, velocity, key=None):
         to_transmit = masked_topk(to_transmit, k=cfg.k)
         not_sent = (to_transmit == 0).to(to_transmit.dtype)
         if cfg.error_type == "local":

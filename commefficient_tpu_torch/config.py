@@ -26,9 +26,6 @@ from typing import Optional, Tuple
 
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed",
          "powersgd", "dp_sketch")
-# the modes whose client, round and server paths are ported
-PORTED_MODES = ("sketch", "true_topk", "local_topk", "fedavg",
-                "uncompressed")
 ERROR_TYPES = ("none", "local", "virtual")
 DP_MODES = ("worker", "server")
 SCREEN_MODES = ("off", "finite", "norm")
@@ -416,6 +413,43 @@ class Config:
             raise ValueError(
                 "--trace requires telemetry (drop --no_telemetry: "
                 "the session drains the trace rings into the journal)")
+        if self.ckpt_every_spans < 0:
+            raise ValueError(
+                "ckpt_every_spans must be >= 0 (0 = no span-boundary "
+                "saves, only the epoch cadence)")
+        if self.profile_spans:
+            # a malformed spec fails here, with the flag named
+            from commefficient_tpu_torch.telemetry import (
+                parse_profile_spans,
+            )
+            parse_profile_spans(self.profile_spans)
+            if not self.scan_rounds:
+                raise ValueError(
+                    "--profile_spans requires --scan_rounds (span "
+                    "indices select SCANNED spans; use --profile for "
+                    "the per-round path's whole-first-epoch trace)")
+            if not self.telemetry:
+                raise ValueError(
+                    "--profile_spans requires telemetry (drop "
+                    "--no_telemetry: the session drives the capture)")
+        if self.writer_drain_timeout_s < 0:
+            raise ValueError(
+                "writer_drain_timeout_s must be >= 0 (0 = wait "
+                "forever; positive = a hung journal/checkpoint writer "
+                "drain raises TimeoutError naming the writer)")
+        if self.dp_noise_mult != 0 and self.mode != "dp_sketch":
+            raise ValueError(
+                "--dp_noise_mult calibrates the dp_sketch Gaussian "
+                f"mechanism and requires --mode dp_sketch (got "
+                f"{self.mode!r}; --dp/--noise_multiplier is the "
+                "separate per-gradient DP path)")
+        if self.dp_target_epsilon != 0 and self.mode != "dp_sketch":
+            raise ValueError(
+                "--dp_target_epsilon bounds the dp_sketch privacy "
+                "budget and requires --mode dp_sketch (got "
+                f"{self.mode!r})")
+        # the plugin's own invariants
+        self.compressor.validate(self)
 
     def _refuse_unported(self) -> None:
         def refuse(what: str, where: str):
@@ -423,9 +457,6 @@ class Config:
                 f"{what} is not ported to commefficient_tpu_torch yet "
                 f"(ROADMAP.md {where})")
 
-        if self.mode not in PORTED_MODES:
-            # powersgd and dp_sketch, the plugins of item 9
-            refuse(f"--mode {self.mode}", Q_SCALE)
         if self.debug_transfer_guard:
             # the JAX guard forbids IMPLICIT transfers; CUDA's sync debug
             # mode would also trip on the port's explicit one-round-late
@@ -439,10 +470,6 @@ class Config:
                 ("--sampler", self.sampler != "uniform"),
                 ("--deadline_quantile", self.deadline_quantile > 0),
                 ("--target_survivors", self.target_survivors > 0),
-                ("--scan_rounds", self.scan_rounds),
-                # captures of scanned spans
-                ("--profile_spans", bool(self.profile_spans)),
-                ("--pipeline", self.pipeline),
                 ("--async_admit_rounds", self.async_admit_rounds > 0),
                 ("--speed_match", self.speed_match),
                 ("--scan_span_palette", bool(self.scan_span_palette.strip())),

@@ -1,6 +1,6 @@
 """Reference-shaped high-level API: FedModel + FedOptimizer, the port
 of commefficient_tpu/federated/api.py (single process, no scheduler,
-transport, state tiers or scanned spans).
+transport or state tiers).
 
 The call contract is the JAX package's:
 
@@ -32,14 +32,39 @@ or a rollback's forced window, `force_screen_rounds`) the poison or
 adversary mask with the screen flag. The accountant bills the round's
 admitted (or contributing) clients; the journal gets `schedule`,
 `screened`, `aggregator` and `injected_fault` events.
+
+dp_sketch runs the RDP accountant (compress/privacy.py) on the host:
+each committed round journals a `privacy` event with the cumulative
+epsilon, and the run raises once --dp_target_epsilon is exceeded,
+after that round's event. Epsilon is a function of the rounds done, so
+a resumed run re-derives it; no accountant state is checkpointed.
+
+Spans (--scan_rounds, training/scanloop.py): `dispatch_rounds` takes N
+rounds staged on the host as [N, W, B, ...], places them on the device
+once (pinned memory, asynchronous copies on the card) and queues the N
+rounds back to back with no host read between them; each round is the
+per-round path's `train_round`, operation for operation. The change
+bits stay on the device as [N, D/32] until `collect_rounds`, which
+brings them to the host in one copy and runs each round's accounting,
+journal events and the telemetry of the whole span, in round order.
+Under --pipeline the span loop dispatches span t+1 before it collects
+span t, so the host stages t+1 while the card's queue still holds t.
+A FaultSchedule `crash_after` inside a span cuts the span at that round;
+a `crash_in_span` commits nothing. The dispatch runs under
+utils/retry.with_retries, which replays it only while the client rows it
+writes in place are untouched. With --pipeline the checkpoint writes
+ride `ckpt_writer`, an AsyncCheckpointWriter (`drain_persistence`,
+`close_persistence`).
 """
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from commefficient_tpu_torch.compress import RdpAccountant
 from commefficient_tpu_torch.config import Q_SCALE, Config
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.federated import round as fround
@@ -51,11 +76,14 @@ from commefficient_tpu_torch.ops.prng import PRNGKey
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
 from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.utils.checkpoint import (
-    config_fingerprint, validate_fingerprint,
+    AsyncCheckpointWriter, config_fingerprint, validate_fingerprint,
 )
 from commefficient_tpu_torch.utils.faults import (
     FaultSchedule, InjectedFault, bernoulli_survivors, byzantine_mask,
     poison_mask, straggler_work_fractions,
+)
+from commefficient_tpu_torch.utils.retry import (
+    is_transient_error, with_retries,
 )
 
 # the JAX scheduler's counters: bookkeeping of a uniform, deadline-free
@@ -70,6 +98,80 @@ def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _staged(x, device) -> torch.Tensor:
+    """A host array on `device` for a span: on the card through pinned
+    memory with an asynchronous copy, so placing the span never waits
+    for the work already queued there."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t` queued on the card's stream behind the work
+    already there (pinned memory, asynchronous); `t` itself on the CPU.
+    Read it after its _HostCopies.wait()."""
+    if t.device.type != "cuda":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class _HostCopies:
+    """Tensors copied to the host behind the queued work, and the event
+    their copies complete at. Queued right after a span's rounds, the
+    copies wait for that span only: a copy queued at its collect, under
+    --pipeline, would wait behind the next span already dispatched."""
+
+    def __init__(self, device: torch.device, tensors: dict):
+        self._tensors = {k: None if v is None else _host_copy(v)
+                         for k, v in tensors.items()}
+        self._event = None
+        if device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def wait(self) -> dict:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._tensors
+
+
+def _host_rows(rows: Optional[dict], host: dict) -> Optional[dict]:
+    """FedModel._client_rows' `rows` completed with the host copies of
+    its tensors (numpy, or a ClientState of the dense blocks)."""
+    if rows is None:
+        return None
+    if "dense" in rows:
+        return {"dense": fround.ClientState(
+            *[host[f"dense{i}"] for i in range(3)])}
+    return {**rows, **{k: host[k].numpy() for k in
+                       ("errors", "velocities", "weights") if k in host}}
+
+
+# a round's fault operands on the host: (survivors, work, poison,
+# screen), each None where the round has none
+Operands = Tuple[Optional[np.ndarray], Optional[np.ndarray],
+                 Optional[np.ndarray], Optional[np.float32]]
+
+
+class _SpanHandle(NamedTuple):
+    """One dispatched span, to be collected in dispatch order."""
+    first: int                   # the span's first round index
+    ids_host: np.ndarray         # [N, W]
+    operands: List[Operands]     # each round's fault operands
+    crash_at: Optional[int]      # a FaultSchedule crash_after inside it
+    host: _HostCopies            # the rounds' stacked metrics and bits
+    n_metrics: int
+    last_bits: torch.Tensor      # the last round's change bits, on device
+    t_dispatch0: float
+    t_dispatched: float
+    span_idx: int
 
 
 def _owned(x, device) -> torch.Tensor:
@@ -147,9 +249,21 @@ class FedModel:
                              else _as_tensor(np.asarray(lr_scale_vec,
                                                         np.float32),
                                              self.device))
-        # the previous round's packed change bits, still on the device
+        # the previous round's packed change bits, on the device, and
+        # their host words when a span's collect already has them
         self._prev_change_bits: Optional[torch.Tensor] = None
+        self._prev_words_host: Optional[np.ndarray] = None
         self._optimizer: Optional["FedOptimizer"] = None
+        # dp_sketch: epsilon is a pure function of the rounds done
+        self.privacy = (RdpAccountant(cfg.dp_noise_mult, cfg.dp_delta)
+                        if cfg.mode == "dp_sketch" else None)
+        # the spans dispatched so far (training/scanloop.py counts them;
+        # --profile_spans selects on it)
+        self._spans_dispatched = 0
+        # --pipeline: checkpoint serialization off the round loop
+        self.ckpt_writer = (
+            AsyncCheckpointWriter(drain_timeout=cfg.writer_drain_timeout_s)
+            if cfg.pipeline else None)
 
     def train(self, training: bool):
         self.training = training
@@ -161,6 +275,19 @@ class FedModel:
 
     def finalize(self):
         """Nothing to tear down; kept for API parity."""
+
+    def drain_persistence(self) -> None:
+        """Block until every queued checkpoint write (--pipeline) is
+        durable, re-raising a writer failure here; a no-op otherwise.
+        The drivers call it before any synchronous save and on their
+        way out."""
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.drain()
+
+    def close_persistence(self) -> None:
+        """drain_persistence, then stop the writer thread. Idempotent."""
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.close()
 
     @property
     def ps_weights(self) -> torch.Tensor:
@@ -197,34 +324,82 @@ class FedModel:
     def _prev_change_words(self) -> Optional[np.ndarray]:
         """The previous round's change bits as host uint32 words (the
         checkpoint's `acct_prev_change_words`)."""
+        if self._prev_words_host is not None:
+            return self._prev_words_host
         return (None if self._prev_change_bits is None
                 else to_words(self._prev_change_bits))
+
+    def _set_prev_bits(self, bits: Optional[torch.Tensor],
+                       words: Optional[np.ndarray] = None) -> None:
+        self._prev_change_bits = bits
+        self._prev_words_host = words
 
     @property
     def checkpoint_fingerprint(self) -> dict:
         return config_fingerprint(self.cfg, self.num_clients)
 
+    def _client_rows(self):
+        """(rows, tensors): client_rows_payload's dict with each tracked
+        block's rows gathered on the device, or {"dense": None} after a
+        dense load, or None for a stateless config; and the tensors to
+        copy to the host by key."""
+        tracked = [block.ndim == 2 for block in self.clients]
+        if not any(tracked):
+            return None, {}
+        if not self._sparse_rows_ok:
+            # a copy: the next round writes the blocks in place
+            return {"dense": None}, {
+                f"dense{i}": block.clone()
+                for i, block in enumerate(self.clients)}
+        ids = (np.sort(np.fromiter(self._touched, np.int64))
+               if self._touched else np.zeros((0,), np.int64))
+        rows = {"ids": ids}
+        if self._init_weights_host is not None:
+            rows["base_weights"] = self._init_weights_host
+        index = _staged(ids, self.device)
+        tensors = {}
+        for name, used in zip(("errors", "velocities", "weights"),
+                              tracked):
+            if used and len(ids):
+                tensors[name] = getattr(self.clients, name)[index]
+            else:
+                rows[name] = np.zeros((0,), np.float32)
+        return rows, tensors
+
+    def state_snapshot(self) -> dict:
+        """The server state and the client rows as they stand now,
+        copied to the host behind the queued work, so the next span's
+        in-place row writes cannot reach them. The pipelined span
+        checkpoint takes one at each span's boundary; `wait_snapshot`
+        reads it."""
+        rows, tensors = self._client_rows()
+        s = self.server
+        copies = _HostCopies(self.device, {
+            **tensors, "ps_weights": s.ps_weights,
+            "Vvelocity": s.Vvelocity, "Verror": s.Verror})
+        return {"rows": rows, "copies": copies, "round_idx": s.round_idx}
+
+    @staticmethod
+    def wait_snapshot(snap: dict) -> Tuple[fround.ServerState,
+                                           Optional[dict]]:
+        """(server state, client rows) of a state_snapshot on the host:
+        the rows as client_rows_payload gives them, {"dense":
+        ClientState} after a dense load, or None."""
+        host = snap["copies"].wait()
+        server = fround.ServerState(host["ps_weights"], host["Vvelocity"],
+                                    host["Verror"], snap["round_idx"])
+        return server, _host_rows(snap["rows"], host)
+
     def client_rows_payload(self) -> Optional[dict]:
-        """The O(cohort) `crows_*` payload: the sorted ids of every
-        client ever sampled, each tracked block's rows for exactly
+        """The O(cohort) `crows_*` payload on the host: the sorted ids of
+        every client ever sampled, each tracked block's rows for exactly
         those ids ([0] for untracked blocks) and, under --topk_down,
         `base_weights`. None for a stateless config or after a dense
         load; the caller then saves the dense blocks."""
-        tracked = [block.ndim == 2 for block in self.clients]
-        if not any(tracked) or not self._sparse_rows_ok:
+        rows, tensors = self._client_rows()
+        if rows is None or "dense" in rows:
             return None
-        ids = (np.sort(np.fromiter(self._touched, np.int64))
-               if self._touched else np.zeros((0,), np.int64))
-        payload = {"ids": ids}
-        if self._init_weights_host is not None:
-            payload["base_weights"] = self._init_weights_host
-        index = torch.from_numpy(ids).to(self.device)
-        for name, used in zip(("errors", "velocities", "weights"),
-                              tracked):
-            payload[name] = (
-                getattr(self.clients, name)[index].cpu().numpy()
-                if used and len(ids) else np.zeros((0,), np.float32))
-        return payload
+        return _host_rows(rows, _HostCopies(self.device, tensors).wait())
 
     def load_state(self, ckpt) -> int:
         """Install a loaded utils.checkpoint.Checkpoint (written by
@@ -307,9 +482,10 @@ class FedModel:
             # attach the run's sampler BEFORE load_state; the drivers
             # then continue the restored stream (sampler.resolve_resume)
             self.data_sampler.load_state_dict(ckpt.sampler)
-        self._prev_change_bits = (
-            None if ckpt.prev_change_words is None
-            else from_words(ckpt.prev_change_words, self.device))
+        words = ckpt.prev_change_words
+        self._set_prev_bits(
+            None if words is None else from_words(words, self.device),
+            None if words is None else np.asarray(words, np.uint32))
 
     def _lr(self):
         """The scheduler's learning rate: a float, or a [D] tensor with
@@ -465,26 +641,85 @@ class FedModel:
                              else -1.0),
                 n_contrib=int(agg_stats[3]))
 
+    def _journal_privacy(self, round_idx: int) -> None:
+        """One committed round's `privacy` event (the cumulative epsilon
+        over the rounds committed so far), then the raise once the
+        budget is exceeded: the crossing round is journaled first."""
+        eps = float(self.privacy.epsilon(round_idx + 1))
+        if self.telemetry is not None:
+            self.telemetry.journal_event(
+                "privacy", round=int(round_idx), epsilon=round(eps, 6),
+                sigma=float(self.cfg.dp_noise_mult),
+                clip=float(self.cfg.dp_clip),
+                delta=float(self.cfg.dp_delta))
+        target = float(self.cfg.dp_target_epsilon)
+        if target > 0 and eps > target:
+            raise RuntimeError(
+                f"privacy budget exhausted at round {round_idx}: "
+                f"cumulative epsilon {eps:.4f} exceeds "
+                f"--dp_target_epsilon {target:g} at delta "
+                f"{self.cfg.dp_delta:g}. Raise --dp_noise_mult, "
+                f"raise --dp_target_epsilon, or train fewer rounds.")
+
+    def _round_operands(self, round_idx: int,
+                        ids_host: np.ndarray) -> Operands:
+        """A round's fault operands, drawn on the host as pure
+        functions of (seed, round): survivors, work, and in the screened
+        family the poison mask and screen flag (survivors then always
+        present)."""
+        survivors, work = self._faults_for_round(round_idx, ids_host)
+        pois = screen = None
+        if self._screened_dispatch(round_idx):
+            W = len(ids_host)
+            pois = self._poison_values(round_idx, W)
+            screen = self._screen_flag(round_idx)
+            if survivors is None:
+                survivors = np.ones(W, np.float32)
+        return survivors, work, pois, screen
+
+    def _commit_round(self, round_idx: int, ids_host: np.ndarray,
+                      ops: Operands, prev_words, admitted, contributors,
+                      agg_stats):
+        """A round's host commit, in the JAX engine's order: the
+        accountant bills the clients that completed it (the admitted
+        ones in the screened family, the contributors under a robust
+        aggregator) against the previous round's change bits
+        `prev_words`; then the fault events, the `compressor` event and
+        dp_sketch's `privacy` event. Returns (download, upload)."""
+        survivors, _, pois, screen = ops
+        bill = admitted if contributors is None else contributors
+        if bill is None:
+            bill = survivors
+        download, upload = self.accountant.record_round(
+            ids_host, prev_words, survivors=bill)
+        if self.telemetry is not None:
+            if survivors is not None:
+                self._journal_round_faults(round_idx, ids_host, survivors,
+                                           pois, screen, admitted,
+                                           agg_stats)
+            # the mode's wire geometry and the round's billed upload
+            self.telemetry.journal_event(
+                "compressor", round=round_idx, mode=self.cfg.mode,
+                wire_bytes=float(self.cfg.upload_bytes),
+                up_bytes=round(float(upload.sum()), 3),
+                frozen_count=self.frozen_count)
+        if self.privacy is not None:
+            self._journal_privacy(round_idx)
+        return download, upload
+
     def _call_train(self, batch):
         """batch = (client_ids [W], data tuple of [W, B, ...],
         mask [W, B])."""
         client_ids, data, mask = batch
         ids_host = np.asarray(client_ids).reshape(-1)
         this_round = self.server.round_idx
-        W = len(ids_host)
         if (self.fault_schedule is not None
                 and self.fault_schedule.should_crash_in_span(this_round, 1)):
             # preempted while this round is in flight: nothing commits
             self._journal_fault("crash_in_span", this_round - 1)
             raise InjectedFault(this_round - 1)
         with TRACE.span("plan", round=this_round):
-            survivors, work = self._faults_for_round(this_round, ids_host)
-            pois = screen = None
-            if self._screened_dispatch(this_round):
-                pois = self._poison_values(this_round, W)
-                screen = self._screen_flag(this_round)
-                if survivors is None:
-                    survivors = np.ones(W, np.float32)
+            ops = self._round_operands(this_round, ids_host)
         with TRACE.span("stage", round=this_round):
             # the previous round's change bits come to the host BEFORE
             # this round is queued, so the copy waits on that round only
@@ -498,8 +733,7 @@ class FedModel:
                 _as_tensor(ids_host.astype(np.int64), self.device),
                 tuple(_as_tensor(d, self.device) for d in data),
                 _as_tensor(mask, self.device).to(torch.float32),
-                operand(survivors), operand(work), operand(pois),
-                operand(screen))
+                *[operand(x) for x in ops])
             lr = self._lr()
         prev_weights = self.server.ps_weights
         with TRACE.span("dispatch", round=this_round):
@@ -507,32 +741,18 @@ class FedModel:
                 self.server, self.clients, placed, lr, self._key)
         self._touched.update(int(i) for i in ids_host)
         with TRACE.span("collect", round=this_round):
-            self._prev_change_bits = pack_change_bits(
-                self.server.ps_weights - prev_weights)
-            # bill the clients that completed the round: the admitted
-            # ones in the screened family, the contributors under a
-            # robust aggregator (the host copy waits for this round)
-            admitted = (None if metrics.admitted is None
-                        else metrics.admitted.cpu().numpy())
-            bill = (admitted if metrics.contributors is None
-                    else metrics.contributors.cpu().numpy())
-            if bill is None:
-                bill = survivors
-            download, upload = self.accountant.record_round(
-                ids_host, prev_words, survivors=bill)
+            self._set_prev_bits(pack_change_bits(
+                self.server.ps_weights - prev_weights))
+            # the host copies wait for this round
+            admitted, contrib, agg = (
+                None if t is None else t.cpu().numpy()
+                for t in (metrics.admitted, metrics.contributors,
+                          metrics.agg_stats))
+            download, upload = self._commit_round(
+                this_round, ids_host, ops, prev_words, admitted, contrib,
+                agg)
         if self.telemetry is not None:
-            if survivors is not None:
-                self._journal_round_faults(
-                    this_round, ids_host, survivors, pois, screen, admitted,
-                    None if metrics.agg_stats is None
-                    else metrics.agg_stats.cpu().numpy())
-            # the mode's wire geometry and the round's billed upload,
-            # then the round's metric tensors (journaled one round late)
-            self.telemetry.journal_event(
-                "compressor", round=this_round, mode=self.cfg.mode,
-                wire_bytes=float(self.cfg.upload_bytes),
-                up_bytes=round(float(upload.sum()), 3),
-                frozen_count=self.frozen_count)
+            # the round's metric tensors, journaled one round late
             self.telemetry.on_round(
                 this_round, ids_host,
                 metrics.telemetry if self.cfg.telemetry else None,
@@ -545,6 +765,173 @@ class FedModel:
             self._journal_fault("crash_after", this_round)
             raise InjectedFault(this_round)
         return [metrics.losses, *metrics.metrics, download, upload]
+
+    # -- spans (training/scanloop.py) -------------------------------------
+    def _state_versions(self) -> tuple:
+        """The version counters of the state tensors: a round writes the
+        client rows in place (scatter_back), which moves them."""
+        return tuple(t._version for t in (*self.server[:3], *self.clients))
+
+    def run_rounds(self, client_ids, data, mask, lrs):
+        """N rounds as one span: dispatch_rounds then collect_rounds,
+        back to back. client_ids [N, W]; data a tuple of [N, W, B, ...];
+        mask [N, W, B]; lrs N learning rates. Returns (losses [N, W],
+        metrics [N, W]..., download, upload) on the host, the last two
+        the span's byte totals."""
+        return self.collect_rounds(
+            self.dispatch_rounds(client_ids, data, mask, lrs))
+
+    def dispatch_rounds(self, client_ids, data, mask, lrs) -> _SpanHandle:
+        """Stage and queue one span without waiting for it: the fault
+        operands of each round, one placement of the span's arrays, the
+        rounds queued back to back under with_retries, and the copies to
+        the host of what collect reads (the rounds' metrics and change
+        bits). The model's state is the span's result when this returns
+        (its tensors still being computed on the card). Returns the
+        handle collect_rounds takes; collect handles in dispatch
+        order."""
+        ids_host = np.asarray(client_ids)
+        lrs = [float(lr) for lr in lrs]
+        n_rounds = ids_host.shape[0]
+        first = self.server.round_idx
+        sched = self.fault_schedule
+        if sched is not None and sched.should_crash_in_span(first,
+                                                            n_rounds):
+            # preempted while the span is in flight: nothing commits
+            self._journal_fault("crash_in_span", first - 1)
+            raise InjectedFault(first - 1)
+        crash_at = None
+        if (sched is not None and sched.crash_after is not None
+                and first <= sched.crash_after < first + n_rounds):
+            # the span ends at the crash round, which commits
+            crash_at = int(sched.crash_after)
+            n_rounds = crash_at - first + 1
+            ids_host = ids_host[:n_rounds]
+            lrs = lrs[:n_rounds]
+            data = tuple(np.asarray(d)[:n_rounds] for d in data)
+            mask = np.asarray(mask)[:n_rounds]
+        span_idx = self._spans_dispatched
+        with TRACE.span("plan", round=first, span=span_idx):
+            operands = [self._round_operands(first + n, ids_host[n])
+                        for n in range(n_rounds)]
+
+        def dispatch():
+            dev = self.device
+            with TRACE.span("stage", round=first, span=span_idx):
+                ids_d = _staged(ids_host.astype(np.int64), dev)
+                data_d = tuple(_staged(d, dev) for d in data)
+                mask_d = _staged(mask, dev).to(torch.float32)
+                ops_d = [[None if x is None else _staged(
+                    np.asarray(x, np.float32), dev) for x in ops]
+                    for ops in operands]
+            server, clients = self.server, self.clients
+            ms, bits = [], []
+            for n in range(n_rounds):
+                placed = fround.RoundBatch(
+                    ids_d[n], tuple(d[n] for d in data_d), mask_d[n],
+                    *ops_d[n])
+                lr = (lrs[n] if self.lr_scale_vec is None
+                      else lrs[n] * self.lr_scale_vec)
+                prev = server.ps_weights
+                server, clients, m = self._train_round(
+                    server, clients, placed, lr, self._key)
+                bits.append(pack_change_bits(server.ps_weights - prev))
+                ms.append(m)
+
+            def rows(get):
+                vals = [get(m) for m in ms]
+                return None if vals[0] is None else torch.stack(vals)
+
+            # what collect reads, queued to the host behind this span
+            host = _HostCopies(dev, {
+                "bits": torch.stack(bits),
+                "losses": rows(lambda m: m.losses),
+                "counts": rows(lambda m: m.num_examples),
+                "telemetry": (rows(lambda m: m.telemetry)
+                              if self.cfg.telemetry else None),
+                "admitted": rows(lambda m: m.admitted),
+                "contributors": rows(lambda m: m.contributors),
+                "agg_stats": rows(lambda m: m.agg_stats),
+                **{f"metric{i}": rows(lambda m, i=i: m.metrics[i])
+                   for i in range(len(ms[0].metrics))}})
+            return server, clients, host, len(ms[0].metrics), bits[-1]
+
+        versions = self._state_versions()
+
+        def classify(exc: BaseException) -> bool:
+            # transient AND the state untouched: a dispatch that wrote
+            # client rows in place must not be replayed over them
+            return (is_transient_error(exc)
+                    and self._state_versions() == versions)
+
+        def journal_retry(attempt: int, exc: BaseException,
+                          delay: float) -> None:
+            if self.telemetry is not None:
+                self.telemetry.journal_event(
+                    "retry", op="round span", attempt=int(attempt),
+                    delay_s=round(delay, 3), error=repr(exc)[:200])
+
+        t0 = time.monotonic()
+        with TRACE.span("dispatch", round=first, span=span_idx):
+            (self.server, self.clients, host, n_metrics,
+             last_bits) = with_retries(
+                dispatch, describe="round span", classify=classify,
+                on_retry=journal_retry)
+        t1 = time.monotonic()
+        self._touched.update(int(i) for i in ids_host.reshape(-1))
+        return _SpanHandle(first, ids_host, operands, crash_at, host,
+                           n_metrics, last_bits, t0, t1, span_idx)
+
+    def collect_rounds(self, handle: _SpanHandle):
+        """Wait for a dispatched span and commit it: its host copies
+        (queued behind its rounds at dispatch), then round by round the
+        accounting
+        (round n against round n - 1's bits, the first against the
+        previous span's last), the journal events and dp_sketch's
+        privacy event; then the span's telemetry (`on_span`) and the
+        crash_after boundary. Returns (losses [N, W], metrics [N, W]...,
+        download, upload) as host arrays, the last two the span's byte
+        totals."""
+        first, ids_host = handle.first, handle.ids_host
+        host = {k: None if v is None else v.numpy()
+                for k, v in handle.host.wait().items()}   # the span done
+        words = host["bits"].astype(np.uint32)
+        t_blocked = time.monotonic()
+        TRACE.record("device_execute", handle.t_dispatched, t_blocked,
+                     round=first, span=handle.span_idx)
+        download = upload = 0.0
+        comm_rows = []
+        with TRACE.span("collect", round=first, span=handle.span_idx):
+            admitted, contrib, agg = (host["admitted"],
+                                      host["contributors"],
+                                      host["agg_stats"])
+            prev_words = self._prev_change_words
+            for n in range(ids_host.shape[0]):
+                d, u = self._commit_round(
+                    first + n, ids_host[n], handle.operands[n], prev_words,
+                    None if admitted is None else admitted[n],
+                    None if contrib is None else contrib[n],
+                    None if agg is None else agg[n])
+                # the next round bills against this one's bits
+                prev_words = words[n]
+                download += float(d.sum())
+                upload += float(u.sum())
+                comm_rows.append((float(d.sum()), float(u.sum())))
+            self._set_prev_bits(handle.last_bits, prev_words)
+            losses, counts, tele = (host["losses"], host["counts"],
+                                    host["telemetry"])
+            mets = [host[f"metric{i}"] for i in range(handle.n_metrics)]
+        if self.telemetry is not None:
+            self.telemetry.on_span(
+                first, ids_host, tele, counts,
+                dispatch_s=handle.t_dispatched - handle.t_dispatch0,
+                block_s=t_blocked - handle.t_dispatched,
+                comm_rows=comm_rows)
+        if handle.crash_at is not None:
+            # every round up to the crash committed above
+            self._journal_fault("crash_after", handle.crash_at)
+            raise InjectedFault(handle.crash_at)
+        return [losses, *mets, np.float64(download), np.float64(upload)]
 
     def _call_val(self, batch):
         """batch = (data tuple of [S, vb, ...], mask [S, vb]); returns

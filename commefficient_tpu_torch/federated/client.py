@@ -251,8 +251,9 @@ def local_step(flat_grad_fn, weights, batch, mask, error, velocity,
         to_transmit = error
     else:
         to_transmit = velocity if cfg.local_momentum > 0 else g
+    # the plugin's residual seam: wire payload and the new carries
     to_transmit, error, velocity = cfg.compressor.residual(
-        cfg, to_transmit, error, velocity)
+        cfg, to_transmit, error, velocity, key)
     return ClientResult(to_transmit, error, velocity, loss, metrics, count)
 
 

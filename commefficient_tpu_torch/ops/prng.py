@@ -119,7 +119,9 @@ def random_bits(key: torch.Tensor, shape: Shape,
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """x rounded to float32 as a 0-d tensor on `device`: a fill, so no
+    host-to-device copy waits on the card's queue."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,

@@ -10,15 +10,19 @@ the model's throughput tracker (telemetry/clients.py), flushes the
 stage tracer (telemetry/trace.py) at every round boundary, and trips
 on a non-finite update or error norm.
 
-The JAX package's scanned-span path (`on_span`, the `--profile_spans`
-capture) belongs to item 9 (ROADMAP.md Queue 1). The port compiles
-nothing, so it journals no `compile` events.
+On the scanned-span path (training/scanloop.py) `on_span` takes a
+whole span's host rows at its collect and journals one `span` record
+and the span's `round` records in one append; `span_profile_begin` /
+`span_profile_end` run torch.profiler over the span indices of
+`--profile_spans A:B` and write its Chrome trace under
+`<log dir>/profile_spans`. The port compiles nothing, so it journals
+no `compile` events.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +35,7 @@ from commefficient_tpu_torch.telemetry.trace import TRACE
 __all__ = [
     "ClientThroughputTracker", "NumericTripError", "RunJournal",
     "TRACE", "TelemetrySession", "append_event", "attach_run_telemetry",
-    "materialize", "tmetrics",
+    "materialize", "parse_profile_spans", "tmetrics",
 ]
 
 # the metrics the finite-frontier watch trips on: a non-finite update
@@ -49,6 +53,26 @@ class NumericTripError(RuntimeError):
             f"{round_idx}: value corruption reached the server state")
         self.round_idx = int(round_idx)
         self.metrics = tuple(metrics)
+
+
+def parse_profile_spans(spec: str) -> Optional[Tuple[int, int]]:
+    """`--profile_spans A:B` as the half-open span-index range (A, B),
+    or None for the empty spec; ValueError on a malformed one."""
+    if not spec:
+        return None
+    lo, sep, hi = spec.partition(":")
+    try:
+        if not sep:
+            raise ValueError
+        a, b = int(lo), int(hi)
+    except ValueError:
+        raise ValueError(
+            f"--profile_spans expects 'A:B' (half-open span indices, "
+            f"e.g. '2:4'), got {spec!r}") from None
+    if a < 0 or b <= a:
+        raise ValueError(
+            f"--profile_spans {spec!r}: need 0 <= A < B")
+    return a, b
 
 
 def materialize(x) -> np.ndarray:
@@ -71,11 +95,16 @@ def attach_run_telemetry(model, cfg, log_dir: str, driver: str,
         return None
     jpath = cfg.journal_path or os.path.join(log_dir or ".",
                                              "journal.jsonl")
+    # --pipeline: the appends ride a writer thread
     journal = RunJournal(jpath, run_id=log_dir or driver,
-                         async_writer=bool(cfg.pipeline))
-    tele = TelemetrySession(journal=journal, tracker=model.throughput,
-                            materialize=materialize,
-                            trace=bool(cfg.trace))
+                         async_writer=bool(cfg.pipeline),
+                         drain_timeout=float(cfg.writer_drain_timeout_s))
+    tele = TelemetrySession(
+        journal=journal, tracker=model.throughput,
+        profile_spans=cfg.profile_spans,
+        profile_dir=os.path.join(log_dir or ".", "profile_spans"),
+        profile_cuda=model.device.type == "cuda",
+        materialize=materialize, trace=bool(cfg.trace))
     model.attach_telemetry(tele)
     tele.journal_event(
         "run_start", driver=driver, mode=cfg.mode, trace=bool(cfg.trace),
@@ -96,17 +125,26 @@ class TelemetrySession:
 
     journal: RunJournal or None; tracker: ClientThroughputTracker or
     None (FedModel.attach_telemetry fills in the model's own);
+    profile_spans: the `--profile_spans` spec ("" = no capture), traced
+    into `profile_dir` (CUDA activity too when `profile_cuda`);
     materialize: device -> host function for the buffered tensors;
     trace: enable the global stage tracer for this run (disabled again
     at close)."""
 
     def __init__(self, journal: Optional[RunJournal] = None,
                  tracker: Optional[ClientThroughputTracker] = None,
+                 profile_spans: str = "",
+                 profile_dir: str = "profile_spans",
+                 profile_cuda: bool = False,
                  materialize: Callable = materialize,
                  clock: Callable[[], float] = time.monotonic,
                  trace: bool = False, controller: int = 0):
         self.journal = journal
         self.tracker = tracker
+        self._spans = parse_profile_spans(profile_spans)
+        self._profile_dir = profile_dir
+        self._profile_cuda = bool(profile_cuda)
+        self._profiler = None
         self._owns_trace = bool(trace)
         if trace:
             TRACE.enable(controller=controller)
@@ -229,18 +267,98 @@ class TelemetrySession:
         self.journal_flush()
 
     def journal_flush(self) -> None:
-        """Barrier the journal only (its records are durable already:
-        the port's journal writes synchronously)."""
+        """Barrier the journal only, leaving the one-round-lag buffer
+        alone (a no-op for the synchronous writer)."""
         if self.journal is not None:
             self._safe_write(self.journal.flush)
 
+    # ---------------- span path (FedModel.collect_rounds) ----------------
+    def on_span(self, first_round: int, ids_rows: np.ndarray,
+                telemetry_rows: Optional[np.ndarray],
+                counts_rows: np.ndarray,
+                dispatch_s: float, block_s: float,
+                comm_rows=None) -> None:
+        """Consume one collected span: host [N, W] ids and counts and
+        [N, M] metric rows (None without telemetry). Journals one `span`
+        record and a `round` record a round in ONE append, feeds the
+        tracker the span's wall time amortized over its rounds, flushes
+        the tracer, and trips on the first non-finite watched metric in
+        round order. comm_rows: per-round (download, upload) totals."""
+        # a buffered per-round record is older: journal it first
+        self.flush()
+        n = int(np.asarray(ids_rows).shape[0])
+        per_round_s = (dispatch_s + block_s) / max(n, 1)
+        if self.tracker is not None:
+            for i in range(n):
+                self.tracker.update_round(ids_rows[i], counts_rows[i],
+                                          per_round_s)
+        named_rows = [None if telemetry_rows is None else tmetrics.named(
+            np.asarray(telemetry_rows[i], np.float32)) for i in range(n)]
+        if self.journal is not None:
+            batch = [("span", {"first_round": int(first_round),
+                               "rounds": n,
+                               "dispatch_s": round(dispatch_s, 6),
+                               "block_s": round(block_s, 6)})]
+            for i in range(n):
+                fields = {"round": int(first_round) + i,
+                          "seconds": round(per_round_s, 6)}
+                if named_rows[i]:
+                    fields["metrics"] = named_rows[i]
+                if comm_rows is not None:
+                    self._record_comm(fields, comm_rows[i])
+                batch.append(("round", fields))
+            self._safe_write(lambda: self.journal.events(batch))
+        elif comm_rows is not None:
+            for comm in comm_rows:
+                self._record_comm({}, comm)
+        self._flush_trace()
+        for i in range(n):
+            self._check_trip(int(first_round) + i, named_rows[i])
+
+    # ---------------- --profile_spans -------------------------------------
+    def span_profile_begin(self, span_idx: int) -> None:
+        """Start torch.profiler as span `span_idx` enters the [A, B)
+        window (scanloop calls this before each span's dispatch); one
+        capture covers the whole window."""
+        if (self._spans is None or self._profiler is not None
+                or not self._spans[0] <= span_idx < self._spans[1]):
+            return
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self._profile_cuda:
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+        self.journal_event("profile_start", span=span_idx,
+                           dir=self._profile_dir)
+
+    def span_profile_end(self, span_idx: int) -> None:
+        """Stop the capture once the window's last span is collected
+        (its results on the host, so the trace holds its device work)
+        and write its Chrome trace."""
+        if self._profiler is None or span_idx < self._spans[1] - 1:
+            return
+        self._stop_profile(span_idx)
+
+    def _stop_profile(self, span_idx: int) -> None:
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        a, b = self._spans
+        prof.export_chrome_trace(os.path.join(
+            self._profile_dir, f"spans_{a}_{b}.json"))
+        self.journal_event("profile_stop", span=span_idx,
+                           dir=self._profile_dir)
+
     def close(self, **fields) -> None:
-        """Drain the buffer and journal `run_end` with `fields` and the
-        run's cumulative byte totals."""
+        """Drain the buffer, stop a live capture and journal `run_end`
+        with `fields` and the run's cumulative byte totals."""
         if self._closed:
             return
         self._closed = True
         self.flush()
+        if self._profiler is not None:
+            self._stop_profile(-1)
         if self.journal is not None:
             if self._comm_seen:
                 fields.setdefault("down_bytes_total",

@@ -26,21 +26,33 @@ when non-finite, `n_contrib`) and injected_fault (`fault`, `round`).
 Durability: every append goes through
 utils/atomic_io.atomic_append_lines (flush + fsync a batch); a
 preemption can tear at most the final line, which `read_journal`
-reports without losing the committed records before it.
+reports without losing the committed records before it. Under
+--pipeline (`async_writer=True`) the appends ride one bounded-queue
+writer thread: the records are serialized on the caller's thread and
+written FIFO through the same path, so their content, order, batching
+and the torn-tail seal are the synchronous writer's; `flush()` is the
+barrier.
+
+The scanned-span path adds `span` (`first_round`, `rounds`,
+`dispatch_s`, `block_s`), `privacy` (dp_sketch: `round`, `epsilon`,
+`sigma`, `clip`, `delta`), `retry` and `profile_start` /
+`profile_stop` (`span`, `dir`).
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import queue
+import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
-from commefficient_tpu_torch.config import Q_SCALE
 from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.utils.atomic_io import atomic_append_lines
+from commefficient_tpu_torch.utils.watchdog import drain_queue
 
 SCHEMA_VERSION = 1
 
@@ -99,26 +111,39 @@ def _unfinite(obj):
 class RunJournal:
     """Append-only JSONL writer for one run. Construction creates the
     parent directory and writes nothing; the first `event()` creates
-    the file. Every record is durable when `event` returns.
+    the file. Synchronously, every record is durable when `event`
+    returns. With `async_writer` (--pipeline) the serialized lines go
+    through a queue of `max_queue` appends to one writer thread:
+    `flush()` blocks until everything queued is durable, `close()`
+    flushes and stops the thread; a writer-side I/O failure warns once
+    and training continues. `drain_timeout` bounds both waits
+    (utils/watchdog)."""
 
-    async_writer=True (a writer thread, the JAX package's --pipeline)
-    belongs to the pipelined engine and raises NotImplementedError."""
+    _SENTINEL = object()
 
     def __init__(self, path: str, run_id: str = "",
                  clock: Callable[[], float] = time.time,
                  mono_clock: Callable[[], float] = time.monotonic,
-                 async_writer: bool = False):
-        if async_writer:
-            raise NotImplementedError(
-                "the journal's writer thread (--pipeline) is not ported "
-                f"to commefficient_tpu_torch yet (ROADMAP.md {Q_SCALE})")
+                 async_writer: bool = False, max_queue: int = 256,
+                 drain_timeout: float = 0.0):
         self.path = path
         self.run_id = run_id
         self._clock = clock
         self._mono = mono_clock
         # a torn tail can only predate this writer's first append
         self._tail_checked = False
+        self._seq = 0
+        self._drain_timeout = float(drain_timeout)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._q: Optional["queue.Queue"] = None
+        self._thread = None
+        self._warned = False
+        if async_writer:
+            self._q = queue.Queue(maxsize=max(max_queue, 1))
+            self._thread = threading.Thread(
+                target=self._drain_loop, args=(self._q,),
+                name="journal-writer", daemon=True)
+            self._thread.start()
 
     def _record(self, kind: str, fields: dict) -> dict:
         rec = {"v": SCHEMA_VERSION, "event": str(kind),
@@ -129,13 +154,51 @@ class RunJournal:
         rec.update(fields)
         return rec
 
+    def _drain_loop(self, q: "queue.Queue") -> None:
+        # the queue comes in as an argument: close() detaches self._q
+        # before the final join
+        while True:
+            item = q.get()
+            try:
+                if item is self._SENTINEL:
+                    return
+                lines, check_tail, enq_mono, seq, tags = item
+                try:
+                    if enq_mono is not None:
+                        TRACE.record("journal_qwait", enq_mono,
+                                     time.monotonic(), seq=seq, **tags)
+                        with TRACE.span("journal_write", seq=seq, **tags):
+                            atomic_append_lines(self.path, lines,
+                                                check_tail)
+                    else:
+                        atomic_append_lines(self.path, lines, check_tail)
+                except (OSError, ValueError) as e:
+                    # observability never kills training
+                    if not self._warned:
+                        print(f"journal writer: append failed ({e}); "
+                              f"further failures silent")
+                        self._warned = True
+            finally:
+                q.task_done()
+
     def _emit(self, lines, trace_tags: Optional[dict]) -> None:
-        """Append serialized lines, inside a `journal_write` span when
-        tracing (trace_tags None: the flush of `trace` records itself,
-        never traced)."""
+        """Append (or queue) serialized lines, inside a `journal_write`
+        span when tracing (trace_tags None: the flush of `trace`
+        records itself, never traced)."""
         check_tail = not self._tail_checked
         self._tail_checked = True
-        if trace_tags is not None and TRACE.enabled:
+        traced = trace_tags is not None and TRACE.enabled
+        if self._q is not None:
+            if traced:
+                seq, self._seq = self._seq, self._seq + 1
+                TRACE.instant("journal_enqueue", seq=seq,
+                              q=self._q.qsize(), **trace_tags)
+                self._q.put((list(lines), check_tail, time.monotonic(),
+                             seq, dict(trace_tags)))
+            else:
+                self._q.put((list(lines), check_tail, None, 0, {}))
+            return
+        if traced:
             with TRACE.span("journal_write", **trace_tags):
                 atomic_append_lines(self.path, lines, check_tail)
         else:
@@ -163,18 +226,27 @@ class RunJournal:
         return rec
 
     def events(self, batch) -> List[dict]:
-        """Append many (kind, fields) records with ONE flush + fsync."""
+        """Append many (kind, fields) records with ONE flush + fsync
+        (one queued append under the writer thread)."""
         recs = [self._record(kind, fields) for kind, fields in batch]
         self._emit([json.dumps(_finite(r), default=_jsonable)
                     for r in recs], self._tags_of(recs))
         return recs
 
     def flush(self) -> None:
-        """Nothing is buffered: `event` already fsynced."""
+        """Block until every queued record is durable (a no-op for the
+        synchronous writer, whose `event` already fsynced)."""
+        if self._q is not None:
+            drain_queue(self._q, self._drain_timeout, "journal")
 
     def close(self) -> None:
-        """Nothing to release; kept so callers treat the journal like a
-        file handle."""
+        """Flush and stop the writer thread. Idempotent."""
+        if self._q is not None:
+            q, self._q = self._q, None
+            drain_queue(q, self._drain_timeout, "journal")
+            q.put(self._SENTINEL)
+            self._thread.join()
+            self._thread = None
 
 
 def append_event(path: str, kind: str, /, **fields) -> dict:

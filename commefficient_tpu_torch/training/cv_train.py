@@ -9,9 +9,11 @@ the run directory or --journal_path), `--checkpoint_every`,
 `--checkpoint`, `--resume` (training/persist.py), `--trace`,
 `--profile` and `--tensorboard`; `--finetune --finetuned_from
 <dataset>` (finetune_from_checkpoint) and the fault flags of
-utils/faults.py with the numeric rollback. What the port does not run
-yet is refused by Config.validate: scanned spans and the scheduler
-layers (ROADMAP.md Queue 1).
+utils/faults.py with the numeric rollback; `--scan_rounds` (spans of
+--scan_span rounds, training/scanloop.py), `--pipeline`,
+`--ckpt_every_spans` and `--profile_spans`. What the port does not run
+yet is refused by Config.validate: the scheduler layers and the rest of
+ROADMAP.md Queue 1.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.cv_train --mode sketch \
@@ -41,6 +43,9 @@ from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import module_layout
 from commefficient_tpu_torch.training import persist
+from commefficient_tpu_torch.training.scanloop import (
+    make_span_checkpoint, run_scanned_rounds,
+)
 from commefficient_tpu_torch.utils.checkpoint import (
     latest_checkpoint_path, load_checkpoint, transfer_for_finetune,
 )
@@ -141,9 +146,10 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
     resumed model counts its restored rounds against that budget and
     continues the restored sampler stream. `on_round(i, outputs)` is
     called after round i's dispatch with model(batch)'s outputs (a
-    measuring caller synchronizes the device there). Returns False on a
-    NaN/divergent loss. EMNIST prints a line a round (reference
-    cv_train.py:233-237)."""
+    measuring caller synchronizes the device there); under
+    --scan_rounds it is called as round i is emitted, with its (loss,
+    acc) rows. Returns False on a NaN/divergent loss. EMNIST prints a
+    line a round (reference cv_train.py:233-237)."""
     timer = timer or Timer()
     per_step_log = cfg.dataset_name == "EMNIST"
     spe = train_loader.steps_per_epoch
@@ -191,10 +197,42 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
         pending = None
         stream = iter(train_loader.epoch(skip=skip_rounds))
         skip_rounds = 0
+        if cfg.scan_rounds:
+            def span_stream():
+                # the budget before the draw, as the loop below
+                nonlocal rounds_done
+                while rounds_done < total_rounds:
+                    try:
+                        client_ids, data, mask = next(stream)
+                    except StopIteration:
+                        return
+                    lr_scheduler.step()
+                    lr = opt.param_groups[0]["lr"]
+                    rounds_done += 1
+                    yield (rounds_done - 1, lr), client_ids, data, mask, lr
+                sampler.abandon_epoch()
+
+            def span_emit(tag, loss_w, acc_w) -> bool:
+                if on_round is not None:
+                    on_round(tag[0], [loss_w, acc_w])
+                return emit((loss_w, acc_w, tag[1]))
+
+            def on_comm(d, u):
+                nonlocal down, up
+                down += float(d)
+                up += float(u)
+
+            run_scanned_rounds(
+                model, span_stream(),
+                cfg.scan_span if cfg.scan_span > 0 else spe,
+                span_emit, on_comm,
+                checkpoint=make_span_checkpoint(ckpt_prefix, model, cfg,
+                                                lr_scheduler),
+                pipeline=cfg.pipeline)
         # the round budget is checked BEFORE the next round is drawn, so
         # ending early never draws (and discards) a round; the stream is
         # then abandoned, so a later checkpoint records no live epoch
-        while True:
+        while not cfg.scan_rounds:
             if rounds_done >= total_rounds:
                 sampler.abandon_epoch()
                 break
@@ -292,8 +330,7 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
             persist.checkpoint_final(model, lr_scheduler, _ckpt_path(cfg),
                                      cfg)
     finally:
-        if tele is not None:
-            tele.close(ok=bool(ok))
+        persist.close(model, tele, ok)
     return ok
 
 

@@ -14,8 +14,10 @@ Weights come from a save_pretrained artifact of either package, a
 locally cached HF checkpoint, or random from --seed
 (build_model_and_params); --finetune evaluates the artifact at
 --finetune_path, and --remat recomputes each block in the backward.
-What the port does not run yet is refused by Config.validate: scanned
-spans and --model_parallel (ROADMAP.md Queue 1 item 9).
+`--scan_rounds`, `--pipeline`, `--ckpt_every_spans` and
+`--profile_spans` run the rounds in spans (training/scanloop.py). What
+the port does not run yet is refused by Config.validate:
+--model_parallel and the rest of ROADMAP.md Queue 1 item 9.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
@@ -49,6 +51,9 @@ from commefficient_tpu_torch.models.gpt2 import (
 )
 from commefficient_tpu_torch.ops import lowp, prng
 from commefficient_tpu_torch.training import persist
+from commefficient_tpu_torch.training.scanloop import (
+    make_span_checkpoint, run_scanned_rounds,
+)
 from commefficient_tpu_torch.utils.checkpoint import save_checkpoint
 from commefficient_tpu_torch.utils.logging import (
     TableLogger, Timer, make_logdir,
@@ -165,8 +170,9 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
     resumed model counts its restored rounds against the budget and
     continues the restored sampler stream. `on_round(i, outputs)` is
     called after round i's dispatch with model(batch)'s outputs (a
-    measuring caller synchronizes the device there). Returns False on a
-    NaN/divergent loss."""
+    measuring caller synchronizes the device there); under
+    --scan_rounds it is called as round i is emitted, with its (loss,
+    lm, mc) rows. Returns False on a NaN/divergent loss."""
     timer = timer or Timer()
     logger = logger or TableLogger()
     spe = train_loader.steps_per_epoch
@@ -204,7 +210,41 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
         aborted = False
         stream = iter(train_loader.epoch(skip=skip_rounds))
         skip_rounds = 0
-        while True:
+        if cfg.scan_rounds:
+            def span_stream():
+                # the epoch's cap before the draw, as the loop below
+                nonlocal batch_idx
+                while batch_idx - epoch * spe < spe * frac:
+                    try:
+                        client_ids, data, mask = next(stream)
+                    except StopIteration:
+                        return
+                    lr_scheduler.step()
+                    batch_idx += 1
+                    lr_v = float(opt.param_groups[0]["lr"])
+                    yield ((batch_idx, lr_v), client_ids, data, mask,
+                           opt.param_groups[0]["lr"])
+                sampler.abandon_epoch()
+
+            def span_emit(tag, l_, lm_, mc_) -> bool:
+                if on_round is not None:
+                    on_round(tag[0] - 1, [l_, lm_, mc_])
+                return emit((tag[0], tag[1], l_, lm_, mc_))
+
+            def on_comm(d, u):
+                nonlocal epoch_download, epoch_upload
+                if epoch == 0:
+                    epoch_download += float(d) / (1024 ** 2)
+                    epoch_upload += float(u) / (1024 ** 2)
+
+            aborted = not run_scanned_rounds(
+                model, span_stream(),
+                cfg.scan_span if cfg.scan_span > 0 else spe,
+                span_emit, on_comm,
+                checkpoint=make_span_checkpoint(ckpt_prefix, model, cfg,
+                                                lr_scheduler),
+                pipeline=cfg.pipeline)
+        while not cfg.scan_rounds:
             if batch_idx - epoch * spe >= spe * frac:
                 # the epoch's cap: abandon without drawing, so a later
                 # checkpoint records no live epoch
@@ -395,8 +435,7 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
             persist.checkpoint_final(model, lr_scheduler, _ckpt_path(cfg),
                                      cfg)
     finally:
-        if tele is not None:
-            tele.close(ok=bool(ok))
+        persist.close(model, tele, ok)
     return ok
 
 

@@ -3,6 +3,10 @@ the per-epoch rotated checkpoint, the final checkpoint, the run's
 telemetry session, the numeric trip's rollback, `--profile` and
 `--tensorboard`. The port of the matching parts of
 commefficient_tpu/training/{cv_train,gpt2_train,scanloop}.py.
+
+Under --pipeline the span checkpoints are written by the model's
+writer thread: every synchronous save and the rollback drain it first,
+and `close` drains it on the way out, a crash included.
 """
 from __future__ import annotations
 
@@ -70,6 +74,8 @@ def checkpoint_epoch(model, lr_scheduler, prefix: str, cfg,
     """--checkpoint_every: the rotated save inside a `checkpoint` span,
     journaled as a `checkpoint` event with its seconds and bytes."""
     t0 = time.monotonic()
+    # queued span saves land before this one rotates the manifest
+    model.drain_persistence()
     with TRACE.span("checkpoint", round=int(round_idx)):
         path = save_rotating(prefix, model.server, model.clients,
                              keep_last=cfg.keep_checkpoints,
@@ -86,6 +92,7 @@ def checkpoint_epoch(model, lr_scheduler, prefix: str, cfg,
 
 def checkpoint_final(model, lr_scheduler, prefix: str, cfg) -> str:
     """--checkpoint: the rotated save plus the fixed `<prefix>.npz`."""
+    model.drain_persistence()
     path = save_final(prefix, model.server, model.clients,
                       keep_last=cfg.keep_checkpoints,
                       max_age_hours=cfg.ckpt_max_age_hours,
@@ -104,6 +111,7 @@ def numeric_rollback(model, prefix: str, cfg, tele,
     the identical poison and screen it out. Returns the restored
     scheduler step for the caller, which re-enters its loop; None when
     no finite checkpoint exists (the caller re-raises the trip)."""
+    model.drain_persistence()
     if tele is not None:
         # the buffered round carries the same non-finite row and would
         # trip again at once
@@ -147,6 +155,17 @@ def train_with_rollback(train, model, lr_scheduler, prefix: str, cfg,
             if step is None:
                 raise
             lr_scheduler.load_state_dict({"step_count": step})
+
+
+def close(model, tele, ok) -> None:
+    """The drivers' way out, whatever happened: drain and stop the
+    checkpoint writer (a queued span save lands at a crash as at a
+    clean end), then close the telemetry session (`run_end`)."""
+    try:
+        model.close_persistence()
+    finally:
+        if tele is not None:
+            tele.close(ok=bool(ok))
 
 
 class EpochProfile:

@@ -20,9 +20,12 @@ CRC32s and a finite bit; `load_resilient` walks that rotation
 newest-first and falls back past a corrupt file.
 
 `transfer_for_finetune` (--finetune) carries an old model's weights
-into a new one and says which coordinates it froze. The JAX package's
-writer thread (AsyncCheckpointWriter, --pipeline) belongs to
-ROADMAP.md Queue 1 item 9.
+into a new one and says which coordinates it froze.
+
+`AsyncCheckpointWriter` (--pipeline) moves the serialization, fsync,
+rename and manifest of `save_rotating(..., writer=)` onto one bounded
+FIFO writer thread; the device-to-host gather stays on the caller's
+thread.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ import errno
 import glob as _glob
 import json
 import os
+import queue
 import shutil
+import threading
 import time
 import zipfile
 import zlib
@@ -42,7 +47,9 @@ import torch
 from commefficient_tpu_torch.federated.round import ClientState, ServerState
 from commefficient_tpu_torch.models.convert import load_flat
 from commefficient_tpu_torch.ops.flat import flatten_params, module_layout
+from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.utils.atomic_io import atomic_write_text
+from commefficient_tpu_torch.utils.watchdog import drain_queue
 
 # the config fields a checkpoint must agree on to load into a run
 # (order fixed; serialized as strings)
@@ -84,6 +91,98 @@ def validate_fingerprint(found: dict, expected: dict,
             raise CheckpointMismatchError(path, k, found[k], expected[k])
 
 
+class AsyncCheckpointWriter:
+    """A bounded-queue writer thread for checkpoint persistence
+    (--pipeline). Jobs (write closures) run strictly FIFO on one thread,
+    so a stamped file lands before its manifest entry and the rotation
+    order holds; the atomic `.tmp` + os.replace discipline is the
+    synchronous one's. The queue holds `max_pending` jobs (default one
+    running plus one queued), so a slow disk back-pressures the round
+    loop. `drain()` blocks until every submitted write is durable and
+    re-raises the writer's first failure on the caller's thread;
+    `submit` re-raises an earlier job's failure too. `drain_timeout`
+    (--writer_drain_timeout_s) bounds drain() and close()
+    (utils/watchdog)."""
+
+    _SENTINEL = object()
+
+    def __init__(self, max_pending: int = 2, drain_timeout: float = 0.0,
+                 name: str = "checkpoint"):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(max_pending, 1))
+        # the writer's first failure, handed to the caller's thread
+        self._exc: Optional[BaseException] = None
+        self._exc_lock = threading.Lock()
+        self._closed = False
+        self._drain_timeout = float(drain_timeout)
+        self._name = str(name)
+        # submission sequence: the enqueue instant and the writer-side
+        # qwait / write spans of one job share it
+        self._seq = 0
+        self._thread = threading.Thread(
+            target=self._run, name=f"{name}-writer", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            try:
+                if item is self._SENTINEL:
+                    return
+                job, enq_mono, seq, tags = item
+                try:
+                    if enq_mono is not None:
+                        TRACE.record(f"{self._name}_qwait", enq_mono,
+                                     time.monotonic(), seq=seq, **tags)
+                        with TRACE.span(f"{self._name}_write", seq=seq,
+                                        **tags):
+                            job()
+                    else:
+                        job()
+                # re-raised on the caller's thread by drain() / submit()
+                except BaseException as e:
+                    with self._exc_lock:
+                        if self._exc is None:
+                            self._exc = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        with self._exc_lock:
+            exc, self._exc = self._exc, None
+        if exc is not None:
+            raise exc
+
+    def submit(self, job: Callable[[], None]) -> None:
+        """Queue one write closure; blocks while the queue is full."""
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointWriter is closed")
+        self._raise_pending()
+        if TRACE.enabled:
+            seq, self._seq = self._seq, self._seq + 1
+            tags = TRACE.current_tags()
+            TRACE.instant(f"{self._name}_enqueue", seq=seq,
+                          q=self._q.qsize(), **tags)
+            self._q.put((job, time.monotonic(), seq, tags))
+        else:
+            self._q.put((job, None, 0, {}))
+
+    def drain(self) -> None:
+        """Block until every submitted write is durable; re-raise the
+        first writer-side failure here."""
+        drain_queue(self._q, self._drain_timeout, self._name)
+        self._raise_pending()
+
+    def close(self) -> None:
+        """Drain, then stop the thread. Idempotent."""
+        if self._closed:
+            return
+        drain_queue(self._q, self._drain_timeout, self._name)
+        self._closed = True
+        self._q.put(self._SENTINEL)
+        self._thread.join()
+        self._raise_pending()
+
+
 class Checkpoint(NamedTuple):
     """Loaded training state, as CPU tensors (server, dense client
     blocks) and numpy arrays (everything else). `clients` and
@@ -118,10 +217,13 @@ def save_checkpoint(path: str, server: ServerState,
                     scheduler: Optional[dict] = None,
                     sampler: Optional[dict] = None,
                     client_rows: Optional[dict] = None,
-                    async_admit: Optional[dict] = None) -> str:
+                    async_admit: Optional[dict] = None,
+                    writer: Optional[AsyncCheckpointWriter] = None) -> str:
     """Write training state to `path` (.npz appended if absent),
     atomically. `client_rows` (FedModel.client_rows_payload) takes
-    precedence over the dense `clients` blocks."""
+    precedence over the dense `clients` blocks. With `writer`, the
+    arrays are gathered to the host here and the file is written on the
+    writer's thread (durable after `writer.drain()`)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if not path.endswith(".npz"):
         path = path + ".npz"
@@ -154,23 +256,29 @@ def save_checkpoint(path: str, server: ServerState,
         for k in FINGERPRINT_FIELDS:
             arrays[f"fp_{k}"] = np.asarray(str(fingerprint[k]))
 
-    tmp = path + ".tmp"
-    try:
-        with open(tmp, "wb") as f:
-            np.savez(f, **arrays)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except OSError as e:
-        if e.errno == errno.ENOSPC:
-            raise OSError(
-                e.errno,
-                f"checkpoint write to {path!r} failed: disk full "
-                "(ENOSPC). Free space on the checkpoint "
-                "filesystem or point --checkpoint_path at a "
-                "volume with room; the previous checkpoint is "
-                "intact (atomic .tmp+replace).") from e
-        raise
+    def _write():
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except OSError as e:
+            if e.errno == errno.ENOSPC:
+                raise OSError(
+                    e.errno,
+                    f"checkpoint write to {path!r} failed: disk full "
+                    "(ENOSPC). Free space on the checkpoint "
+                    "filesystem or point --checkpoint_path at a "
+                    "volume with room; the previous checkpoint is "
+                    "intact (atomic .tmp+replace).") from e
+            raise
+
+    if writer is None:
+        _write()
+    else:
+        writer.submit(_write)
     return path
 
 
@@ -353,6 +461,7 @@ def load_resilient(prefix: str,
 def save_rotating(prefix: str, server: ServerState,
                   clients: Optional[ClientState] = None,
                   keep_last: int = 3, max_age_hours: float = 0.0,
+                  writer: Optional[AsyncCheckpointWriter] = None,
                   **kw) -> str:
     """Atomic round-stamped save (`<prefix>-r<round:08d>.npz`), then
     the `<prefix>.latest` manifest {"latest", "history" newest-first,
@@ -360,11 +469,25 @@ def save_rotating(prefix: str, server: ServerState,
     keep-last-k pruning of every stamped file outside the kept history
     (entries stamped after this round belong to an abandoned timeline
     and go too). max_age_hours > 0 also prunes kept entries older than
-    that, never the file just written. Returns the written path."""
+    that, never the file just written. With `writer`, the file and then
+    the manifest are written on its thread, in that order. Returns the
+    written path."""
     round_idx = int(_host(server.round_idx))
     path = f"{prefix}-r{round_idx:08d}.npz"
-    save_checkpoint(path, server, clients, **kw)
+    save_checkpoint(path, server, clients, writer=writer, **kw)
+    if writer is None:
+        _manifest_and_prune(prefix, path, round_idx, keep_last,
+                            max_age_hours)
+    else:
+        writer.submit(lambda: _manifest_and_prune(
+            prefix, path, round_idx, keep_last, max_age_hours))
+    return path
 
+
+def _manifest_and_prune(prefix: str, path: str, round_idx: int,
+                        keep_last: int, max_age_hours: float) -> None:
+    """save_rotating's manifest update and pruning, after `path` is on
+    disk."""
     base = os.path.basename(path)
     mpath = _manifest_path(prefix)
     history: list = []
@@ -411,18 +534,22 @@ def save_rotating(prefix: str, server: ServerState,
                 os.remove(old)
             except OSError:
                 pass
-    return path
 
 
 def save_final(prefix: str, server: ServerState,
                clients: Optional[ClientState] = None,
                keep_last: int = 3, max_age_hours: float = 0.0,
+               writer: Optional[AsyncCheckpointWriter] = None,
                **kw) -> str:
     """End-of-run save: the rotated stamped checkpoint (and manifest)
     plus an atomic copy of its bytes at the fixed `<prefix>.npz`.
     Returns the fixed-name path."""
     stamped = save_rotating(prefix, server, clients, keep_last=keep_last,
-                            max_age_hours=max_age_hours, **kw)
+                            max_age_hours=max_age_hours, writer=writer,
+                            **kw)
+    if writer is not None:
+        # the copy below reads the stamped bytes
+        writer.drain()
     fixed = prefix if prefix.endswith(".npz") else prefix + ".npz"
     tmp = fixed + ".tmp"
     shutil.copyfile(stamped, tmp)

@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Phases 27-31 of chip_smoke.py alone on one CUDA card, and the host
+timeline of config #4's rounds, for work on the plugins and the span
+loop without the whole script:
+
+    python3 scripts/chip_phases.py [powersgd dp_sketch privacy spans
+                                    imagenet timeline]
+
+With no argument it runs every phase. Phase 4 (config #2) runs first
+for the ms/round the new phases print beside theirs, and `imagenet`
+runs phase 13 before phase 31 for the same reason. `timeline` drives
+config #4 (chip_smoke.CONFIG4) plain and each way of
+chip_smoke.IMAGENET_SPANS for TIMELINE_ROUNDS rounds with the stage
+tracer on, and prints every stage span (plan, stage, dispatch,
+device_execute, collect, the checkpoint and journal writes) and every
+host batch as start and end ms from the run's start, and the
+per-stage durations: where the host and the card wait on each other.
+"""
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import chip_smoke as cs  # noqa: E402
+import torch  # noqa: E402
+
+PHASES = ("powersgd", "dp_sketch", "privacy", "spans", "imagenet",
+          "timeline")
+TIMELINE_ROUNDS = 6
+
+
+def timeline(cv_train, parse_args, corpus) -> None:
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    for label, extra in cs.IMAGENET_SPANS:
+        cfg = parse_args(argv=cs.CONFIG4 + extra + [
+            "--device", "cuda", "--dataset_dir", corpus, "--seed", "21"])
+        model, opt, sched, loader, val = cv_train.build(cfg, device="cuda")
+        jpath = os.path.join(corpus, f"timeline_{label}.jsonl")
+        tele = TelemetrySession(journal=RunJournal(jpath), trace=True)
+        model.attach_telemetry(tele)
+        batches = []
+
+        class Timed:
+            steps_per_epoch = loader.steps_per_epoch
+            sampler = loader.sampler
+
+            @staticmethod
+            def epoch(skip=0):
+                it = loader.epoch(skip=skip)
+                while True:
+                    t = time.monotonic()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    batches.append((t, time.monotonic()))
+                    yield item
+
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        cv_train.train(model, opt, sched, Timed, val, model.cfg.replace(
+            num_epochs=TIMELINE_ROUNDS / loader.steps_per_epoch))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        tele.close(ok=True)
+        model.close_persistence()
+        spans = [s for r in read_journal(jpath)[0] if r["event"] == "trace"
+                 for s in r["spans"]]
+        cs.phase("timeline", f"{label}: {1e3 * wall / TIMELINE_ROUNDS:.1f} "
+                 "ms/round, the eval included")
+        durs = {}
+        for s in spans:
+            durs.setdefault(s["name"], []).append(1e3 * s["dur"])
+        for name, ms in sorted(durs.items()):
+            cs.phase("timeline", f"  {name}: " + " ".join(
+                f"{m:.0f}" for m in ms[:10]) + " ms")
+        cs.phase("timeline", "  batches: " + " ".join(
+            f"{1e3 * (b - a):.0f}" for a, b in batches) + " ms")
+        events = sorted([(s["t0"], s["t0"] + s["dur"], s["name"],
+                          s.get("round")) for s in spans]
+                        + [(a, b, "batch", None) for a, b in batches])
+        for a, b, name, rnd in events:
+            print(f"    {1e3 * (a - t0):9.0f} {1e3 * (b - t0):9.0f} "
+                  f"{name} {'' if rnd is None else rnd}")
+        del model, opt, loader, val
+        torch.cuda.empty_cache()
+
+
+def main(argv) -> int:
+    which = argv or list(PHASES)
+    unknown = set(which) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; choose from "
+                         f"{PHASES}")
+    if not torch.cuda.is_available():
+        print("chip_phases: needs a CUDA card", file=sys.stderr)
+        return 2
+    from commefficient_tpu_torch import compress
+    from commefficient_tpu_torch.config import parse_args
+    from commefficient_tpu_torch.device import resolve_device
+    from commefficient_tpu_torch.federated import client as fclient
+    from commefficient_tpu_torch.federated import server as fserver
+    from commefficient_tpu_torch.ops import prng
+    from commefficient_tpu_torch.ops.kernels import _build
+    from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
+    from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
+    from commefficient_tpu_torch.training import cv_train
+
+    t_start = time.perf_counter()
+    resolve_device("cuda")
+    cs.phase("device", f"{torch.cuda.get_device_name(0)}; {cs.smi_line()}; "
+             f"torch {torch.__version__}")
+    _build.build()
+    c2 = os.path.join(HERE, "build", "chip_smoke_data")
+    tmp = tempfile.mkdtemp(prefix="chip_phases_")
+    try:
+        if set(which) & {"powersgd", "dp_sketch", "privacy", "spans"}:
+            model, round_ms, _, _, _ = cs.main_path(sc, ac, cv_train,
+                                                    parse_args, c2)
+            del model
+            torch.cuda.empty_cache()
+        if "powersgd" in which:
+            cs.powersgd_phase(sc, ac, cv_train, parse_args, c2, fclient,
+                              prng, round_ms)
+        if "dp_sketch" in which:
+            cs.dp_sketch_phase(sc, ac, cv_train, parse_args, c2, fclient,
+                               fserver, compress, round_ms, tmp)
+        if "privacy" in which:
+            cs.privacy_drill_phase(cv_train, parse_args, c2, compress, tmp)
+        if "spans" in which:
+            cs.spans_phase(sc, ac, cv_train, parse_args, c2, round_ms, tmp)
+        if {"imagenet", "timeline"} & set(which):
+            corpus = os.path.join(tmp, "imagenet")
+            cs.write_imagenet_corpus(corpus)
+            if "imagenet" in which:
+                model, rr, loader = cs.imagenet_path(
+                    "imagenet", sc, ac, cv_train, parse_args, cs.CONFIG4,
+                    cs.FIXUP50_D, corpus)
+                del model, loader
+                torch.cuda.empty_cache()
+                cs.imagenet_pipeline_phase(sc, ac, cv_train, parse_args,
+                                           corpus, rr.round_ms)
+            if "timeline" in which:
+                timeline(cv_train, parse_args, corpus)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cs.phase("wall", f"{time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -64,13 +64,14 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (("--mode", "powersgd"), "powersgd"),
-    (("--scan_rounds",), "--scan_rounds"),
+    (("--async_admit_rounds", "1"), "--async_admit_rounds"),
+    (("--scan_rounds", "--scan_span_palette", "1,2"),
+     "--scan_span_palette"),
     (("--update_screen", "norm", "--target_screened_rate", "0.1"),
      "--target_screened_rate"),
     (("--debug_transfer_guard",), "--debug_transfer_guard"),
     (("--multihost",), "--multihost"),
-    (("--profile_spans", "0:1"), "--profile_spans"),
+    (("--target_survivors", "2"), "--target_survivors"),
     (("--sampler", "throughput"), "--sampler"),
     (("--deadline_quantile", "0.9"), "--deadline_quantile"),
     (("--model_parallel", "2"), "--model_parallel"),
@@ -231,9 +232,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     # a fresh interpreter imports every module of the port (walking the
-    # package) and runs one round of cv_train's model, with the fault
-    # operands on, then checks sys.modules (the resume is held by
-    # tests/test_torch_checkpoint.py)
+    # package; the plugins, the span loop and the writer threads named),
+    # runs one round of cv_train's model with the fault operands on, one
+    # powersgd and one dp_sketch round and a pipelined span, then checks
+    # sys.modules (the resume is held by tests/test_torch_checkpoint.py)
     code = r"""
 import importlib, pkgutil, sys
 import torch
@@ -253,6 +255,30 @@ model, opt, sched, loader, _ = cv_train.build(cfg, device="cpu",
 opt.param_groups[0]["lr"] = 0.1
 out = model(next(iter(loader.epoch())))
 assert torch.isfinite(out[0]).all()
+for flags in (["--mode", "powersgd", "--error_type", "local"],
+              ["--mode", "dp_sketch", "--error_type", "virtual",
+               "--dp_noise_mult", "0.5", "--scan_rounds", "--pipeline"]):
+    cfg = parse_args(argv=["--test", "--device", "cpu", "--local_momentum",
+                           "0", "--num_workers", "4", "--local_batch_size",
+                           "8", "--dataset_dir", "ds", *flags])
+    model, opt, sched, loader, _ = cv_train.build(cfg, device="cpu",
+                                                  synthetic_examples=(64, 8))
+    it = iter(loader.epoch())
+    if cfg.scan_rounds:
+        from commefficient_tpu_torch.training.scanloop import (
+            run_scanned_rounds)
+        stream = [(i, *next(it), 0.1) for i in range(2)]
+        assert run_scanned_rounds(model, iter(stream), 1,
+                                  lambda t, l, a: bool(torch.isfinite(
+                                      torch.as_tensor(l)).all()),
+                                  pipeline=True)
+        model.close_persistence()
+    else:
+        opt.param_groups[0]["lr"] = 0.1
+        assert torch.isfinite(model(next(it))[0]).all()
+for name in ("compress.powersgd", "compress.dp_sketch", "compress.privacy",
+             "training.scanloop", "utils.retry", "utils.watchdog"):
+    assert "commefficient_tpu_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "commefficient_tpu" or n.startswith("commefficient_tpu."))

@@ -607,16 +607,12 @@ def test_fault_flag_invariants_are_jax_validate(tmp_path, flags, match):
 
 # every option item 9 still holds, refused with its queue item named
 ITEM_9_REFUSED = {
-    "--mode powersgd": dict(mode="powersgd"),
     "--target_screened_rate": dict(update_screen="norm",
                                    target_screened_rate=0.1),
     "--model_parallel > 1": dict(model_parallel=2),
     "--sampler": dict(sampler="throughput"),
     "--deadline_quantile": dict(deadline_quantile=0.9),
     "--target_survivors": dict(target_survivors=6),
-    "--scan_rounds": dict(scan_rounds=True),
-    "--profile_spans": dict(profile_spans="0:1"),
-    "--pipeline": dict(pipeline=True),
     "--async_admit_rounds": dict(async_admit_rounds=1),
     "--speed_match": dict(speed_match=True),
     "--scan_span_palette": dict(scan_span_palette="1,2"),

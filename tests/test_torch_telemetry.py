@@ -299,8 +299,15 @@ def test_nonfinite_metrics_stay_strict_json(tmp_path):
 
 
 def test_async_journal_writer_names_item_9(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        RunJournal(str(tmp_path / "j.jsonl"), async_writer=True)
+    # item 9's writer thread (--pipeline) is ported: it writes the
+    # synchronous writer's records (tests/test_torch_pipeline.py holds
+    # them byte for byte)
+    j = RunJournal(str(tmp_path / "j.jsonl"), async_writer=True)
+    j.event("round", round=0)
+    j.flush()
+    (rec,), problems = read_journal(str(tmp_path / "j.jsonl"))
+    assert problems == [] and rec["round"] == 0
+    j.close()
 
 
 def _nan_argv(tmp_path, *extra):
