@@ -203,7 +203,32 @@ the result line:
 31. imagenet_pipeline — config #4 as imagenet.sh runs it, each way of
                IMAGENET_SPANS (run on phase 13's corpus, after it):
                ms/round, busy share and the host batch's share.
-Phases 27-31 print their peak memory as read in the full script, beside
+32. sched   — config #2, ROUNDS rounds, with SCHED (throughput sampling,
+               a deadline, a survivor target of 6, 10% dropout) and the
+               telemetry session's clock scripted (scripted_time): K1
+               and K2 once a round; each slot billed the wire bytes
+               exactly when the plan keeps it active and the dropout
+               draw keeps it (an idle slot 0, a deadline-truncated one
+               its full table, as a straggler); one `schedule` journal
+               event a round holding its plan's fields (read without
+               JAX); then run A and run B (preempted, resumed) of the
+               same flags on phase 20's corpus: final checkpoints
+               bitwise equal, thr_* included.
+33. async_admit — config #2, ROUNDS rounds, with ASYNC (stragglers at
+               0.5, cutoff 0.2, admitted 2 rounds late at decay 0.5):
+               K1 and K2 once a round; each slot billed as the admission
+               buffer composes it (replayed on the host); the same flags
+               at --async_admit_rounds 0 and with a k = 0 buffer forced
+               in, bitwise equal (deterministic algorithms); runs A and
+               B with entries pending at B's checkpoint, bitwise equal.
+34. statetier — config #3, LTOPK_ROUNDS rounds, deterministic: the
+               device tier, then TIER (a working set of 16 rows), then
+               TIER with --state_spill_dir and --scan_rounds --scan_span
+               2 --pipeline: weights and every client row (the device
+               block's, against the working set's and the tail's)
+               bitwise equal; device rows 0.67 against 4.20 GB; peak
+               beside phase 11's; spills, restores and ms/round.
+Phases 27-34 print their peak memory as read in the full script, beside
 the memory earlier phases leave allocated (live_gib).
 
 Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
@@ -496,6 +521,18 @@ IMAGENET_SPANS = (("plain", []),
                                       "--pipeline"]),
                   ("span1_pipeline", ["--scan_rounds", "--scan_span", "1",
                                       "--pipeline"]))
+
+# phases 32-34 (ROADMAP items 9d and 9e). Phase 32: the round scheduler
+# on config #2 (a survivor target of 6 at the 0.9 survival prior samples
+# 7 of the 8 slots); phase 33: async admission; phase 34: the tiered
+# client state on config #3, whose 100 clients' error and velocity rows
+# take 4.20 GB on the device tier and a working set of 16 rows 0.67 GB
+SCHED = ["--sampler", "throughput", "--explore_floor", "0.1",
+         "--deadline_quantile", "0.8", "--deadline_min_work", "0.25",
+         "--target_survivors", "6", "--client_dropout", "0.1"]
+ASYNC = ["--straggler_rate", "0.5", "--straggler_cutoff", "0.2",
+         "--async_admit_rounds", "2", "--async_staleness_decay", "0.5"]
+TIER = ["--state_tier", "host", "--state_working_set", "16"]
 
 
 def phase(name: str, msg: str) -> None:
@@ -876,7 +913,8 @@ def drive_rounds(label, sc, ac, model, loader, rounds, run) -> RoundsRun:
         raise AssertionError("the driver reported a NaN/divergent loss")
     if len(stamps) != rounds:
         raise AssertionError(f"{len(stamps)} rounds ran, {rounds} expected")
-    loss_vals = torch.stack(losses).cpu()
+    # per-round tensors, or a span's host rows under --scan_rounds
+    loss_vals = torch.stack([torch.as_tensor(v) for v in losses]).cpu()
     if not torch.isfinite(loss_vals).all():
         raise AssertionError(f"non-finite losses: {loss_vals}")
     if torch.equal(model.ps_weights, w0):
@@ -1578,7 +1616,7 @@ def mode_path(label, sc, ac, cv_train, flat, parse_args, flags, rounds,
     """Drive cv_train.train() for `rounds` rounds of one of the remaining
     modes at full width, with the SM clock, power and host load sampled
     beside them; no sketch or attention kernel may launch. Returns (the
-    model, the timed loader, the train loader)."""
+    model, the rounds' run, the train loader)."""
     n_train = CLIENTS * EXAMPLES_PER_CLIENT
     cfg = parse_args(argv=flags + [
         "--num_clients", str(CLIENTS), "--device", "cuda",
@@ -1614,7 +1652,7 @@ def mode_path(label, sc, ac, cv_train, flat, parse_args, flags, rounds,
           f"sampled-threshold route above {flat.TOPK_THRESHOLD_MIN_D}): "
           f"{topk_ms:.4f} ms (device time, median of 20, L2 flushed), kept "
           f"{kept}")
-    return model, rr.timed, train_loader
+    return model, rr, train_loader
 
 
 def ttopk_checks(model, timed) -> None:
@@ -1895,13 +1933,14 @@ def final_checkpoint(ck_dir: str, name: str) -> str:
     return sorted(glob.glob(os.path.join(ck_dir, f"{name}-r*.npz")))[-1]
 
 
-def checkpoint_diff(a: str, b: str) -> dict:
+def checkpoint_diff(a: str, b: str, thr: bool = False) -> dict:
     """{key: max |a - b|} of the keys whose arrays differ (thr_*, the
-    wall-clock throughput EMAs, excepted); a missing key counts inf."""
+    wall-clock throughput EMAs, excepted unless `thr`); a missing key
+    counts inf."""
     out = {}
     with np.load(a) as za, np.load(b) as zb:
         for k in sorted(set(za.files) | set(zb.files)):
-            if k.startswith("thr_"):
+            if k.startswith("thr_") and not thr:
                 continue
             if k not in za.files or k not in zb.files:
                 out[k] = math.inf
@@ -2217,7 +2256,9 @@ def rollback_phase(sc, ac, cv_train, parse_args, faults, tmp) -> None:
     finishes finite. The journal, read without the JAX package, holds
     one numeric_trip, one checkpoint_fallback, and after the trip the
     poisoned round screened (its schedule record screen_on 1,
-    n_poisoned 1)."""
+    n_poisoned 1). A survivor target of every slot (--target_survivors
+    8) makes the scheduler plan each round without changing it: only a
+    planned round journals its schedule record (the JAX rule)."""
     from commefficient_tpu_torch.telemetry.journal import read_journal
     from commefficient_tpu_torch.utils.checkpoint import (
         latest_checkpoint_path,
@@ -2230,7 +2271,7 @@ def rollback_phase(sc, ac, cv_train, parse_args, faults, tmp) -> None:
         "--num_epochs", str(ROLLBACK_EPOCHS), "--pivot_epoch", "1",
         "--seed", "21", "--checkpoint_every", "1", "--checkpoint_path", ck,
         "--journal_path", journal, "--poison_kind", "nan",
-        "--rollback_screen_rounds", "64"])
+        "--rollback_screen_rounds", "64", "--target_survivors", "8"])
     model, opt, sched, loader, val = cv_train.build(
         cfg, device="cuda", synthetic_examples=RESUME_CIFAR)
     model.set_fault_schedule(faults.FaultSchedule(
@@ -2883,6 +2924,366 @@ def imagenet_pipeline_phase(sc, ac, cv_train, parse_args, corpus,
               f"{live:.3f} GiB live before the phase)")
 
 
+# ---------------- items 9d and 9e: phases 32-34 ----------------------------
+
+def scripted_time(round_idx: int) -> float:
+    """The scripted clock of phases 32-33, read by the telemetry session
+    at the end of each round: a function of the rounds done alone
+    (rounds of 0.5, 0.75 and 1.0 s in turn), so a resumed run feeds the
+    throughput tracker what the uninterrupted one did."""
+    q, m = divmod(int(round_idx), 3)
+    return 2.25 * q + (0.0, 0.5, 1.25)[m]
+
+
+class ScriptedClock:
+    """Within the block, the drivers' telemetry sessions
+    (persist.attach_run_telemetry) read scripted_time instead of the
+    wall clock."""
+
+    def __init__(self, persist):
+        self.persist = persist
+
+    def __enter__(self):
+        real = self.real = self.persist.attach_run_telemetry
+
+        def attach(model, *args, **kw):
+            tele = real(model, *args, **kw)
+            if tele is not None:
+                tele._clock = lambda: scripted_time(model.server.round_idx)
+            return tele
+
+        self.persist.attach_run_telemetry = attach
+        return self
+
+    def __exit__(self, *exc):
+        self.persist.attach_run_telemetry = self.real
+        return False
+
+
+class Deterministic:
+    """cuDNN's deterministic algorithms and torch's (warn_only) within
+    the block, the settings restored after."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+        return False
+
+
+def resume_pair(label, sc, ac, cv_train, parse_args, extra, tmp,
+                check=None) -> None:
+    """Runs A and B (preempted as epoch 2 opens, resumed) of config #2
+    with `extra` on phase 20's corpus, a checkpoint an epoch, the clock
+    scripted: the client ids and bytes of every round and the final
+    checkpoints bitwise equal, thr_* included (on a miss, A again: B
+    within 2x A's own spread). `check(path)` reads B's first
+    checkpoint."""
+    from commefficient_tpu_torch.training import persist
+    c2_data = os.path.join(HERE, "build", "chip_smoke_resume_data")
+    c2_spe = math.ceil(RESUME_CIFAR[0] / (8 * 32))
+    rounds = RESUME_EPOCHS * c2_spe
+
+    def build(ck, journal, resume):
+        cfg = parse_args(argv=CONFIG2 + list(extra) + [
+            "--local_batch_size", "32", "--num_clients",
+            str(RESUME_CIFAR_CLIENTS), "--device", "cuda",
+            "--dataset_dir", c2_data, "--num_epochs", str(RESUME_EPOCHS),
+            "--pivot_epoch", "1", "--seed", "21", "--checkpoint_every",
+            "1", "--checkpoint_path", ck, "--journal_path", journal]
+            + (["--resume"] if resume else []))
+        model, opt, sched, loader, val = cv_train.build(
+            cfg, device="cuda", synthetic_examples=RESUME_CIFAR)
+        return model, loader, lambda tl, on_round: cv_train.run(
+            model, opt, sched, tl, val, model.cfg, ck, on_round=on_round)
+
+    with ScriptedClock(persist), Deterministic():
+        runs = resume_runs(label, sc, ac, build, tmp)
+        (a_ok, a_log, _), (_, b1_log, _), (b_ok, b2_log, _) = (
+            runs["A"], runs["B1"], runs["B2"])
+        if not (a_ok and b_ok) or len(a_log.ends) != rounds or \
+                len(b1_log.ends) + len(b2_log.ends) != rounds:
+            raise AssertionError(f"{label}: rounds A {len(a_log.ends)}, B "
+                                 f"{len(b1_log.ends)} + {len(b2_log.ends)}")
+        b_rows = b1_log.ids + b2_log.ids
+        if not (all(np.array_equal(x, y) for x, y in zip(a_log.ids, b_rows))
+                and a_log.bytes == b1_log.bytes + b2_log.bytes):
+            raise AssertionError(f"{label}: B's client ids or bytes differ "
+                                 "from A's")
+        if check is not None:
+            check(sorted(glob.glob(os.path.join(tmp, "B",
+                                                "ResNet9-r*.npz")))[0])
+        fa = final_checkpoint(os.path.join(tmp, "A"), "ResNet9")
+        fb = final_checkpoint(os.path.join(tmp, "B"), "ResNet9")
+        diff = checkpoint_diff(fa, fb, thr=True)
+        verdict = "bitwise equal, thr_* included"
+        if os.path.basename(fa) != os.path.basename(fb) or diff:
+            resume_runs(label, sc, ac, build, tmp,
+                        plan=(("A2", "A2", None, False),))
+            spread = checkpoint_diff(fa, final_checkpoint(
+                os.path.join(tmp, "A2"), "ResNet9"), thr=True)
+            verdict = (f"NOT bitwise: differ in {diff}; A from itself by "
+                       f"{spread}")
+            if not spread or any(v > 2 * spread.get(k, 0.0)
+                                 for k, v in diff.items()):
+                raise AssertionError(f"{label}: {verdict}")
+    phase(label, f"resume: final checkpoints {os.path.basename(fa)} "
+          f"{verdict}; client ids and bytes of all {rounds} rounds equal")
+
+
+def sched_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp):
+    """Phase 32 (header). Returns the rounds' launches."""
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    from commefficient_tpu_torch.utils import faults
+    live = live_gib()
+    jpath = os.path.join(tmp, "sched.jsonl")
+    plans = {}
+
+    def setup(model):
+        model.attach_telemetry(TelemetrySession(
+            journal=RunJournal(jpath), tracker=model.throughput,
+            clock=lambda: scripted_time(model.server.round_idx)))
+        take = model.scheduler.take_plan
+
+        def recorded(r):
+            plans[r] = take(r)
+            return plans[r]
+        model.scheduler.take_plan = recorded
+
+    model, rr, loader = config2_variant("sched", sc, ac, cv_train,
+                                        parse_args, data_dir, SCHED,
+                                        setup=setup)
+    model.telemetry.close(ok=True)
+    check_launches("sched", rr.launches, {"sketch_encode": ROUNDS,
+                                          "sketch_estimate_all": ROUNDS})
+    wire = float(model.cfg.upload_bytes)
+    idle = truncated = deadlines = 0
+    for r, up in enumerate(rr.uploads):
+        plan = plans.get(r)
+        if plan is None:
+            raise AssertionError(f"sched: round {r} had no plan")
+        active = (np.ones(8, np.float32) if plan.active is None
+                  else plan.active)
+        want = active * faults.bernoulli_survivors(model.cfg.seed, r, 8,
+                                                   0.1)
+        idle += int((active == 0).sum())
+        truncated += 0 if plan.work is None else int((plan.work < 1).sum())
+        deadlines += plan.deadline_s is not None
+        if not np.array_equal(np.asarray(up), wire * want):
+            raise AssertionError(f"sched: round {r} uploads {up}, the plan "
+                                 f"and the dropout draw keep {want}")
+    records, problems = read_journal(jpath)
+    events = [rec for rec in records if rec["event"] == "schedule"]
+    fail = list(problems)
+    if [e["round"] for e in events] != list(range(ROUNDS)):
+        fail.append(f"schedule rounds {[e['round'] for e in events]}")
+    for e in events:
+        want = plans[e["round"]].journal_fields()
+        if {k: e[k] for k in want} != want or e["sampler"] != "throughput":
+            fail.append(f"schedule event {e} against the plan {want}")
+    if fail:
+        raise AssertionError("sched journal: " + "; ".join(
+            str(f) for f in fail[:5]))
+    if not (idle and truncated and deadlines):
+        raise AssertionError(f"sched: idle {idle}, truncated {truncated}, "
+                             f"deadline rounds {deadlines}")
+    med = statistics.median
+    phase("sched", f"{ROUNDS} rounds: {idle} idle slots billed 0 bytes, "
+          f"{truncated} deadline-truncated slots billed {wire:.0f} (the "
+          f"straggler path), {deadlines} rounds with a deadline; "
+          f"{len(events)} schedule events equal to the plans; median "
+          f"{med(rr.round_ms[1:]):.2f} ms/round beside config #2's "
+          f"{med(main_ms[1:]):.2f}; peak {rr.peak / 2 ** 30:.3f} GiB "
+          f"({live:.3f} GiB live before the phase); scheduler "
+          f"{model.scheduler.state_dict()['rounds_scheduled']} rounds, "
+          f"{model.scheduler.clients_sampled} clients sampled; launches "
+          f"{rr.launches}")
+    launches = rr.launches
+    del model, loader
+    torch.cuda.empty_cache()
+    resume_pair("sched", sc, ac, cv_train, parse_args, SCHED,
+                os.path.join(tmp, "sched_resume"))
+    return launches
+
+
+def async_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp):
+    """Phase 33 (header). Returns the rounds' launches."""
+    from commefficient_tpu_torch.federated.async_agg import AsyncAdmitBuffer
+    from commefficient_tpu_torch.utils import faults
+    live = live_gib()
+    model, rr, loader = config2_variant("async_admit", sc, ac, cv_train,
+                                        parse_args, data_dir, ASYNC)
+    check_launches("async_admit", rr.launches, {
+        "sketch_encode": ROUNDS, "sketch_estimate_all": ROUNDS})
+    # the composition replayed on the host: the straggler draw with the
+    # cutoff, then the buffer
+    wire = float(model.cfg.upload_bytes)
+    replay = AsyncAdmitBuffer(2, 0.5)
+    deferred = admitted = 0
+    dummy = (np.zeros((8, 1), np.float32),)
+    for r, up in enumerate(rr.uploads):
+        work = faults.straggler_work_fractions(model.cfg.seed, r, 8, 0.5,
+                                               0.1)
+        surv = (work >= 0.2).astype(np.float32)
+        work = np.where(work < 0.2, np.float32(1.0), work)
+        if np.all(work >= 1.0):
+            work = None
+        before = replay.pending_count
+        _, _, _, surv_c, _ = replay.compose(
+            r, np.arange(8), dummy, np.ones((8, 1), np.float32), surv, work)
+        admitted += len(replay.last_admits)
+        deferred += replay.pending_count - before + len(replay.last_admits)
+        want = np.ones(8, np.float32) if surv_c is None else surv_c
+        if not np.array_equal(np.asarray(up), wire * want):
+            raise AssertionError(f"async_admit: round {r} uploads {up}, the "
+                                 f"composition keeps {want}")
+    if model.async_admit.pending_count != replay.pending_count or \
+            not (deferred and admitted):
+        raise AssertionError(f"async_admit: deferred {deferred}, admitted "
+                             f"{admitted}, pending "
+                             f"{model.async_admit.pending_count} vs "
+                             f"{replay.pending_count}")
+    med = statistics.median
+    phase("async_admit", f"{ROUNDS} rounds: {deferred} straggling slots "
+          f"deferred (billed 0 at their round), {admitted} admitted 2 "
+          f"rounds late at 0.25 x their work (billed {wire:.0f}), "
+          f"{replay.pending_count} pending at the end, as the host replay "
+          f"composes them; median {med(rr.round_ms[1:]):.2f} ms/round "
+          f"beside config #2's {med(main_ms[1:]):.2f}; peak "
+          f"{rr.peak / 2 ** 30:.3f} GiB ({live:.3f} GiB live before the "
+          f"phase); launches {rr.launches}")
+    launches = rr.launches
+    del model, loader
+    torch.cuda.empty_cache()
+
+    k0 = ASYNC[:4] + ["--async_admit_rounds", "0"]
+    finals = []
+    with Deterministic():
+        for label, setup in (
+                ("async_k0", None),
+                ("async_k0_buffer", lambda m: setattr(
+                    m, "async_admit", AsyncAdmitBuffer(0, 0.5)))):
+            model, rr, _ = config2_variant(label, sc, ac, cv_train,
+                                           parse_args, data_dir, k0,
+                                           setup=setup)
+            finals.append(([t.detach().cpu() for t in model.server[:3]],
+                           [np.asarray(u) for u in rr.uploads]))
+            del model
+            torch.cuda.empty_cache()
+    same = (all(torch.equal(a, b) for a, b in zip(finals[0][0],
+                                                  finals[1][0]))
+            and all(np.array_equal(a, b) for a, b in zip(finals[0][1],
+                                                         finals[1][1])))
+    if not same:
+        raise AssertionError("async_admit: --async_admit_rounds 0 and a "
+                             "k = 0 buffer differ")
+    phase("async_admit", "--async_admit_rounds 0 (the synchronous "
+          "straggler path) and the same rounds with a k = 0 buffer forced "
+          "in: weights, server state and every round's uploads bitwise "
+          "equal")
+
+    def pending_at_b(path):
+        with np.load(path) as z:
+            n = int(z["asyb_ids"].size) if "asyb_ids" in z.files else 0
+        if not n:
+            raise AssertionError(f"async_admit: {path} holds no pending "
+                                 "admission")
+        phase("async_admit", f"B's checkpoint {os.path.basename(path)} "
+              f"holds {n} pending admissions")
+
+    resume_pair("async_admit", sc, ac, cv_train, parse_args, ASYNC,
+                os.path.join(tmp, "async_resume"), check=pending_at_b)
+    return launches
+
+
+def statetier_phase(sc, ac, cv_train, parse_args, ltopk_peak, tmp) -> None:
+    """Phase 34 (header)."""
+    spe = math.ceil(CLIENTS * EXAMPLES_PER_CLIENT / (8 * 32))
+    data_dir = os.path.join(HERE, "build", "chip_smoke_cifar100_data")
+    runs = {}
+
+    def run(label, extra):
+        # the model and optimizer reference each other: collect the
+        # previous run's before this one's peak is read
+        live = live_gib()
+        n_train = CLIENTS * EXAMPLES_PER_CLIENT
+        cfg = parse_args(argv=CONFIG3 + list(extra) + [
+            "--num_clients", str(CLIENTS), "--device", "cuda",
+            "--dataset_dir", data_dir, "--num_epochs",
+            str(LTOPK_ROUNDS / spe), "--pivot_epoch",
+            str(LTOPK_ROUNDS / spe / 2), "--seed", "21"])
+        model, opt, sched, loader, val = cv_train.build(
+            cfg, device="cuda", synthetic_examples=(n_train, 512))
+        assert model.cfg.grad_size == CONFIG3_D
+        rr = drive_rounds(label, sc, ac, model, loader, LTOPK_ROUNDS,
+                          lambda timed, on_round: cv_train.train(
+                              model, opt, sched, timed, val, model.cfg,
+                              on_round=on_round))
+        check_launches(label, rr.launches,
+                       {n: 0 for n in SKETCH_AND_ATTENTION})
+        model.drain_persistence()
+        rows = sum(t.numel() * t.element_size() for t in model.clients)
+        store = model.state_store
+        if store is None:
+            full = {f: getattr(model.clients, f).cpu().numpy()
+                    for f in ("errors", "velocities")}
+        else:
+            payload = model.client_rows_payload()
+            full = {}
+            for f in ("errors", "velocities"):
+                full[f] = np.zeros((CLIENTS, CONFIG3_D), np.float32)
+                full[f][payload["ids"]] = payload[f]
+        runs[label] = (model.ps_weights.cpu(), full, rows, rr, store and (
+            store.spills, store.restores, store.hits, store.misses), live)
+        model.close_persistence()
+        del model, opt, loader, val
+        torch.cuda.empty_cache()
+
+    with Deterministic():
+        run("statetier_device", [])
+        run("statetier", TIER)
+        run("statetier_spill_span", TIER + [
+            "--state_spill_dir", os.path.join(tmp, "tail"),
+            "--scan_rounds", "--scan_span", "2", "--pipeline"])
+    w0, rows0, bytes0, rr0, _, live0 = runs["statetier_device"]
+    med = statistics.median
+    for label in ("statetier", "statetier_spill_span"):
+        w, rows, nbytes, rr, counts, live = runs[label]
+        same = torch.equal(w, w0) and all(
+            np.array_equal(rows[f], rows0[f]) for f in rows0)
+        if not same:
+            raise AssertionError(f"{label}: weights or client rows differ "
+                                 "from the device tier's")
+        if not counts[0]:
+            raise AssertionError(f"{label}: the working set never spilled")
+        phase(label, f"{' '.join(TIER)}"
+              f"{' + spill dir, spans of 2, pipelined' if 'spill' in label else ''}"
+              f": weights and all {CLIENTS} clients' error and velocity rows "
+              f"bitwise the device tier's; device rows {nbytes / 1e9:.3f} GB "
+              f"against {bytes0 / 1e9:.3f} GB; {counts[0]} spills, "
+              f"{counts[1]} restores, {counts[2]} hits, {counts[3]} misses; "
+              f"{statistics.mean(rr.round_ms):.2f} ms/round over all "
+              f"{LTOPK_ROUNDS} rounds, the first included (median "
+              f"{med(rr.round_ms[1:]):.2f}) beside the device tier's "
+              f"{statistics.mean(rr0.round_ms):.2f} "
+              f"({med(rr0.round_ms[1:]):.2f}); peak "
+              f"{rr.peak / 2 ** 30:.3f} GiB beside the device tier's "
+              f"{rr0.peak / 2 ** 30:.3f} and phase 11's "
+              f"{ltopk_peak / 2 ** 30:.3f} ({live:.3f} and {live0:.3f} GiB "
+              f"live before the two runs)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
@@ -3010,12 +3411,14 @@ def main(argv=None) -> int:
             ("ttopk", TTOPK, TTOPK_ROUNDS, spe, MAIN_D, cifar_dir),
             ("ltopk", CONFIG3, LTOPK_ROUNDS, spe, CONFIG3_D,
              os.path.join(HERE, "build", "chip_smoke_cifar100_data"))):
-        model, timed, loader = mode_path(
+        model, rr, loader = mode_path(
             label, sc, ac, cv_train, flat, parse_args, flags, rounds,
             path_spe, d, data_dir)
+        timed = rr.timed
         if label == "ttopk":
             ttopk_checks(model, timed)
         if label == "ltopk":
+            ltopk_peak = rr.peak
             ltopk_checks(model, timed)
             ltopk_parity(model, timed, next(iter(loader.epoch())), cv_train,
                          models, convert, fclient, flat)
@@ -3024,7 +3427,7 @@ def main(argv=None) -> int:
                            os.path.join(args.profile,
                                         f"profile_{label}_rounds.txt"),
                            f"{label} profile")
-        del model, timed, loader
+        del model, rr, timed, loader
         torch.cuda.empty_cache()
     # BASELINE config #4 (phases 13-15), on a corpus written for this run
     corpus = tempfile.mkdtemp(prefix="chip_smoke_imagenet_")
@@ -3201,6 +3604,19 @@ def main(argv=None) -> int:
                     plugin_tmp)
     finally:
         shutil.rmtree(plugin_tmp, ignore_errors=True)
+
+    # phases 32-34: the round scheduler, async admission and the tiered
+    # client state (items 9d and 9e)
+    sched_tmp = tempfile.mkdtemp(prefix="chip_smoke_item9de_")
+    try:
+        sched_launches = sched_phase(sc, ac, cv_train, parse_args, c2_dir,
+                                     round_ms, sched_tmp)
+        async_launches = async_phase(sc, ac, cv_train, parse_args, c2_dir,
+                                     round_ms, sched_tmp)
+        statetier_phase(sc, ac, cv_train, parse_args, ltopk_peak,
+                        sched_tmp)
+    finally:
+        shutil.rmtree(sched_tmp, ignore_errors=True)
 
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,

@@ -386,9 +386,105 @@ class Config:
                 "max_numeric_rollbacks must be >= 0 (0 = a numeric trip "
                 "fails loud at once)")
         if self.sampler not in ("uniform", "throughput"):
-            raise ValueError(f"unknown sampler {self.sampler!r}")
+            raise ValueError(
+                f"unknown sampler {self.sampler!r} (choices: uniform, "
+                "throughput — commefficient_tpu/scheduler)")
+        if not 0.0 <= self.explore_floor <= 1.0:
+            raise ValueError(
+                f"explore_floor={self.explore_floor} must be in [0, 1] "
+                "(1.0 degenerates throughput sampling to uniform)")
+        if not 0.0 <= self.deadline_quantile <= 1.0:
+            raise ValueError(
+                f"deadline_quantile={self.deadline_quantile} must be "
+                "in [0, 1] (0 = no deadline)")
+        if not 0.0 < self.deadline_min_work <= 1.0:
+            raise ValueError(
+                f"deadline_min_work={self.deadline_min_work} must be "
+                "in (0, 1] — zero work is dropout, not a deadline "
+                "truncation (use straggler_cutoff for degradation)")
+        if self.target_survivors < 0:
+            raise ValueError("target_survivors must be >= 0 (0 = fill "
+                             "every participant slot)")
+        if self.target_survivors > self.num_workers:
+            raise ValueError(
+                f"target_survivors={self.target_survivors} exceeds "
+                f"num_workers={self.num_workers}: a round cannot "
+                "produce more survivors than compiled participant "
+                "slots")
+        if not self.telemetry and (self.sampler != "uniform"
+                                   or self.deadline_quantile > 0):
+            # nothing would feed the tracker these policies read
+            raise ValueError(
+                "--sampler throughput / --deadline_quantile require "
+                "telemetry (drop --no_telemetry: the session feeds "
+                "the throughput measurements these policies read)")
+        if self.async_admit_rounds < 0:
+            raise ValueError(
+                "async_admit_rounds must be >= 0 (0 = synchronous "
+                "stragglers, k = admit late contributions k rounds on)")
+        if not 0.0 < self.async_staleness_decay <= 1.0:
+            raise ValueError(
+                f"async_staleness_decay={self.async_staleness_decay} "
+                "must be in (0, 1] (1.0 = undiscounted late admission)")
+        if (self.multihost and not self.plan_transport
+                and (self.sampler != "uniform"
+                     or self.deadline_quantile > 0
+                     or self.target_survivors > 0)):
+            raise ValueError(
+                "scheduler policies (--sampler throughput / "
+                "--deadline_quantile / --target_survivors) derive from "
+                "process-local wall-clock throughput measurements and "
+                "would diverge across controllers without a plan "
+                "transport: attach --plan_transport collective (the "
+                "coordinator broadcasts each round's RoundPlan and "
+                "every process installs the received plan — "
+                "parallel/plantransport.py)")
+        if (self.multihost and self.async_admit_rounds > 0
+                and not self.plan_transport):
+            raise ValueError(
+                "--async_admit_rounds needs a plan transport in "
+                "multihost runs: the defer/admit merges are control "
+                "decisions every controller must prove identical "
+                "(each process defers/admits its OWN batch rows, but "
+                "the slot/weight stream is digest-cross-checked) — "
+                "attach --plan_transport collective "
+                "(parallel/plantransport.py)")
         if self.state_tier not in ("device", "host"):
-            raise ValueError(f"unknown state_tier {self.state_tier!r}")
+            raise ValueError(
+                f"unknown state_tier {self.state_tier!r} (choices: "
+                "device — full population in device HBM, the default — "
+                "or host — LRU working set on device, cold tail on "
+                "host; federated/statestore.py)")
+        if self.state_working_set < 0:
+            raise ValueError("state_working_set must be >= 0")
+        if self.state_tier != "device":
+            if self.state_working_set <= 0:
+                raise ValueError(
+                    "--state_tier host requires --state_working_set N "
+                    "(the device-HBM row budget; must be >= "
+                    "num_workers)")
+            if self.state_working_set < self.num_workers:
+                raise ValueError(
+                    f"state_working_set={self.state_working_set} < "
+                    f"num_workers={self.num_workers}: one round's "
+                    "whole cohort must fit in the device working set")
+            if self.multihost:
+                raise ValueError(
+                    "--state_tier host is single-controller only for "
+                    "now: the host tail is process-local state and "
+                    "would need per-process sharded spill/restore "
+                    "(the coordinator-broadcast ROADMAP opening)")
+        if self.state_spill_dir and self.state_tier == "device":
+            raise ValueError(
+                "--state_spill_dir backs the HOST tail and requires "
+                "--state_tier host (the device tier has no tail to "
+                "spill)")
+        if self.state_working_set > 0 and self.state_tier == "device":
+            # the full population blocks would be allocated anyway
+            raise ValueError(
+                "--state_working_set caps the device-resident rows of "
+                "the HOST tier and requires --state_tier host (the "
+                "device tier keeps every row in HBM, uncapped)")
         if self.plan_transport not in ("", "collective", "emulated"):
             raise ValueError(
                 f"unknown plan_transport {self.plan_transport!r}")
@@ -467,14 +563,11 @@ class Config:
                 ("--target_screened_rate", self.target_screened_rate >= 0),
                 # the multi-device step
                 ("--model_parallel > 1", self.model_parallel > 1),
-                ("--sampler", self.sampler != "uniform"),
-                ("--deadline_quantile", self.deadline_quantile > 0),
-                ("--target_survivors", self.target_survivors > 0),
-                ("--async_admit_rounds", self.async_admit_rounds > 0),
+                # the control/ bank
                 ("--speed_match", self.speed_match),
                 ("--scan_span_palette", bool(self.scan_span_palette.strip())),
                 ("--adapt_staleness", self.adapt_staleness),
-                ("--state_tier host", self.state_tier != "device"),
+                # the multi-host layer
                 ("--plan_transport", bool(self.plan_transport)),
                 ("--multihost", self.multihost),
                 ("--num_slices > 1", self.num_slices > 1)):

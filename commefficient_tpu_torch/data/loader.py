@@ -41,13 +41,19 @@ class FedLoader:
             per_client = []
             for w in range(len(r.client_ids)):
                 n_valid = int(r.mask[w].sum())
-                got = self.dataset.get_client_batch(
+                # an idle slot (the scheduler sampled fewer than
+                # num_workers) fetches nothing: its rows stay zeros
+                got = (self.dataset.get_client_batch(
                     int(r.client_ids[w]), r.idx_within[w, :n_valid])
+                    if n_valid else None)
                 per_client.append((n_valid, got))
-            protos = per_client[0][1]
+            # the scheduler selects at least one participant
+            protos = next(got for _, got in per_client if got is not None)
             data = tuple(np.zeros((len(per_client), B) + p.shape[1:],
                                   p.dtype) for p in protos)
             for i, (n_valid, got) in enumerate(per_client):
+                if got is None:
+                    continue
                 for buf, g in zip(data, got):
                     buf[i, :n_valid] = g
             yield r.client_ids, data, r.mask

@@ -16,8 +16,14 @@ replaying the epoch head. The train transform's augmentation generator
 (`aug_rng`, set by FedLoader) rides along as `aug_rng_*` keys, which
 the JAX package neither writes nor reads: its resumes restart the
 augmentation from the seed, and so does the port's resume of a
-checkpoint without them (ROADMAP.md Queue 3). Throughput sampling and idle-slot padding
-are the scheduler's, ROADMAP.md Queue 1 item 9.
+checkpoint without them (ROADMAP.md Queue 3).
+
+With a round scheduler attached (`scheduler`, commefficient_tpu_torch/
+scheduler), the scheduler picks each round's participants: the uniform
+default makes the same `rng.choice` call, so the stream is unchanged.
+A policy may pick fewer than num_workers (a survivor target); the other
+slots are padded with distinct unchosen ids and all-zero masks, which
+the scheduler's plan marks dead (survivor 0), as the JAX sampler does.
 """
 from __future__ import annotations
 
@@ -35,15 +41,18 @@ class RoundIndices(NamedTuple):
 class FedSampler:
     def __init__(self, data_per_client: np.ndarray, num_workers: int,
                  local_batch_size: int, seed: int = 0,
-                 max_local_batch: int = -1):
+                 max_local_batch: int = -1, scheduler=None):
         """max_local_batch caps the static batch dim B when
-        local_batch_size == -1 (whole-client batches)."""
+        local_batch_size == -1 (whole-client batches); scheduler: an
+        optional RoundScheduler (scheduler.attach_round_scheduler sets
+        it after construction)."""
         self.data_per_client = np.asarray(data_per_client)
         self.num_clients = len(self.data_per_client)
         self.num_workers = num_workers
         self.local_batch_size = local_batch_size
         self.max_local_batch = max_local_batch
         self.rng = np.random.RandomState(seed)
+        self.scheduler = scheduler
         # `_epoch` mirrors the live epoch generator's permutations,
         # cursor and position (state_dict reads it); `_pending` holds a
         # restored mid-epoch stream the next epoch() continues;
@@ -99,7 +108,20 @@ class FedSampler:
             if len(alive) < self.num_workers:
                 self._epoch = None
                 return
-            chosen = self.rng.choice(alive, self.num_workers, replace=False)
+            if self.scheduler is not None:
+                chosen = np.asarray(self.scheduler.select(
+                    alive, self.num_workers, self.rng))
+            else:
+                chosen = self.rng.choice(alive, self.num_workers,
+                                         replace=False)
+            slot_ids = chosen
+            if len(chosen) < self.num_workers:
+                # idle slots: distinct unchosen ids, zero masks, cursors
+                # untouched (a duplicate id would race the live
+                # client's row in the scatter-back)
+                pad = np.setdiff1d(np.arange(self.num_clients),
+                                   chosen)[:self.num_workers - len(chosen)]
+                slot_ids = np.concatenate([chosen, pad])
             idx = np.zeros((self.num_workers, B), np.int32)
             mask = np.zeros((self.num_workers, B), np.float32)
             for w, cid in enumerate(chosen):
@@ -110,8 +132,10 @@ class FedSampler:
                 idx[w, :take] = perms[cid][cursor[cid]:cursor[cid] + take]
                 mask[w, :take] = 1.0
                 cursor[cid] += take
+            if self.scheduler is not None:
+                self.scheduler.commit_round(slot_ids, mask.sum(axis=1))
             self._epoch["pos"] += 1
-            yield RoundIndices(chosen.astype(np.int32), idx, mask)
+            yield RoundIndices(slot_ids.astype(np.int32), idx, mask)
 
     # ---------------- checkpointable stream state ------------------------
 

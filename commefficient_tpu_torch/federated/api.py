@@ -1,6 +1,6 @@
 """Reference-shaped high-level API: FedModel + FedOptimizer, the port
-of commefficient_tpu/federated/api.py (single process, no scheduler,
-transport or state tiers).
+of commefficient_tpu/federated/api.py (single process, no plan
+transport).
 
 The call contract is the JAX package's:
 
@@ -30,8 +30,21 @@ and scripted slow slots (work; a fraction below --straggler_cutoff
 degrades to a drop), and in the screened family (round.screened_family,
 or a rollback's forced window, `force_screen_rounds`) the poison or
 adversary mask with the screen flag. The accountant bills the round's
-admitted (or contributing) clients; the journal gets `schedule`,
-`screened`, `aggregator` and `injected_fault` events.
+admitted (or contributing) clients; the journal gets `screened`,
+`aggregator` and `injected_fault` events.
+
+A round scheduler (commefficient_tpu_torch/scheduler,
+`attach_scheduler`) plans rounds at selection; `_faults_for_round`
+composes a plan's `active` mask into the survivors (an idle slot is a
+dropped client) and its `work` fractions into the straggler draw by
+minimum, and the plan is journaled as a `schedule` event as the round
+is planned, before it is queued (the JAX rule: no plan, no event).
+Under --async_admit_rounds (federated/async_agg.py) the plan stage then
+defers the round's stragglers and admits the entries due. Under
+--state_tier host (federated/statestore.py) the planned cohort gets
+device slots (`plan_round`, after admission) and the rows move before
+the round (`execute`); spans plan every round of the span first
+(`plan_span`).
 
 dp_sketch runs the RDP accountant (compress/privacy.py) on the host:
 each committed round journals a `privacy` event with the cumulative
@@ -65,11 +78,15 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.compress import RdpAccountant
-from commefficient_tpu_torch.config import Q_SCALE, Config
+from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.federated import round as fround
 from commefficient_tpu_torch.federated.accounting import (
     CommAccountant, from_words, pack_change_bits, to_words,
+)
+from commefficient_tpu_torch.federated.async_agg import AsyncAdmitBuffer
+from commefficient_tpu_torch.federated.statestore import (
+    TieredStateStore, tracked_fields,
 )
 from commefficient_tpu_torch.ops.flat import flatten_params
 from commefficient_tpu_torch.ops.prng import PRNGKey
@@ -86,12 +103,9 @@ from commefficient_tpu_torch.utils.retry import (
     is_transient_error, with_retries,
 )
 
-# the JAX scheduler's counters: bookkeeping of a uniform, deadline-free
-# schedule, which the port's rounds equal; any other `sched_*` key, or a
-# deadline round, is scheduler state the port cannot continue
-_SCHED_COUNTERS = ("rounds_scheduled", "clients_sampled",
-                   "deadline_rounds", "truncated_slots",
-                   "last_deadline_s", "rounds_committed")
+# `sched_*` keys of the adaptive screen and the controller bank (ROADMAP
+# item 9f), whose controllers the port does not have yet
+_CONTROLLER_KEYS = ("screen_", "ctl_")
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -144,9 +158,14 @@ class _HostCopies:
 
 def _host_rows(rows: Optional[dict], host: dict) -> Optional[dict]:
     """FedModel._client_rows' `rows` completed with the host copies of
-    its tensors (numpy, or a ClientState of the dense blocks)."""
+    its tensors (numpy, or a ClientState of the dense blocks, or under
+    the tiered store its payload)."""
     if rows is None:
         return None
+    if "tier" in rows:
+        store = rows["store"]
+        return store.checkpoint_rows(
+            {f: host[f].numpy() for f in store.fields}, rows["tier"])
     if "dense" in rows:
         return {"dense": fround.ClientState(
             *[host[f"dense{i}"] for i in range(3)])}
@@ -163,7 +182,7 @@ Operands = Tuple[Optional[np.ndarray], Optional[np.ndarray],
 class _SpanHandle(NamedTuple):
     """One dispatched span, to be collected in dispatch order."""
     first: int                   # the span's first round index
-    ids_host: np.ndarray         # [N, W]
+    ids_host: np.ndarray         # [N, W] client ids, admissions merged
     operands: List[Operands]     # each round's fault operands
     crash_at: Optional[int]      # a FaultSchedule crash_after inside it
     host: _HostCopies            # the rounds' stacked metrics and bits
@@ -217,8 +236,17 @@ class FedModel:
             loss_val if loss_val is not None else loss_train,
             self.unravel, cfg)
         self.server = fround.init_server_state(cfg, vec)
-        self.clients = fround.init_client_state(cfg, self.num_clients,
-                                                self.device, vec)
+        # under --state_tier host the blocks hold the working set only,
+        # and the store moves rows between them and the host tail
+        self.clients = fround.init_client_state(
+            cfg, fround.client_state_rows(cfg, self.num_clients),
+            self.device, vec)
+        self.state_store = None
+        if cfg.state_tier != "device" and any(tracked_fields(cfg).values()):
+            self.state_store = TieredStateStore(
+                cfg, self.device,
+                (vec.detach().cpu().numpy() if cfg.do_topk_down
+                 else None), self.num_clients)
         self.accountant = CommAccountant(cfg, self.num_clients,
                                          frozen_count=self.frozen_count)
         # fault injection: an optional script (set_fault_schedule), and
@@ -239,10 +267,17 @@ class FedModel:
         self.telemetry = None
         # the run's FedSampler, whose stream rides in checkpoints
         self.data_sampler = None
-        # the JAX package's scheduler / async-admission checkpoint state
-        # of a loaded file, written back as read (load_state)
-        self._carried_sched: Optional[dict] = None
-        self._carried_asyb: Optional[dict] = None
+        # the run's RoundScheduler (attach_scheduler), the plans' active
+        # masks by round (idle slots are kept out of the tracker) and
+        # their `schedule` journal fields
+        self.scheduler = None
+        self._plan_active: dict = {}
+        self._plan_journal: dict = {}
+        # --async_admit_rounds: the defer/admit buffer
+        self.async_admit = (
+            AsyncAdmitBuffer(cfg.async_admit_rounds,
+                             cfg.async_staleness_decay)
+            if cfg.async_admit_rounds > 0 else None)
         # the run's threefry key; every round folds in its index
         self._key = PRNGKey(cfg.seed)
         self.lr_scale_vec = (None if lr_scale_vec is None
@@ -277,17 +312,21 @@ class FedModel:
         """Nothing to tear down; kept for API parity."""
 
     def drain_persistence(self) -> None:
-        """Block until every queued checkpoint write (--pipeline) is
-        durable, re-raising a writer failure here; a no-op otherwise.
-        The drivers call it before any synchronous save and on their
-        way out."""
+        """Block until every queued checkpoint write (--pipeline) and
+        every queued spill of the tiered store is durable, re-raising a
+        writer failure here; a no-op otherwise. The drivers call it
+        before any synchronous save and on their way out."""
         if self.ckpt_writer is not None:
             self.ckpt_writer.drain()
+        if self.state_store is not None:
+            self.state_store.flush()
 
     def close_persistence(self) -> None:
-        """drain_persistence, then stop the writer thread. Idempotent."""
+        """drain_persistence, then stop the writer threads. Idempotent."""
         if self.ckpt_writer is not None:
             self.ckpt_writer.close()
+        if self.state_store is not None:
+            self.state_store.close()
 
     @property
     def ps_weights(self) -> torch.Tensor:
@@ -311,14 +350,26 @@ class FedModel:
         return (self.data_sampler.state_dict()
                 if self.data_sampler is not None else None)
 
+    def attach_scheduler(self, scheduler) -> None:
+        """Install a scheduler.RoundScheduler (or None): its plans are
+        consumed at dispatch (_faults_for_round), its state rides in
+        checkpoints under `sched_*`, and under the tiered store it
+        prefetches a plan's host rows."""
+        self.scheduler = scheduler
+        if scheduler is not None:
+            scheduler.state_prefetch = (
+                self.state_store.prefetch_host_rows
+                if self.state_store is not None else None)
+
     def scheduler_state(self) -> Optional[dict]:
-        """The `sched_*` payload: what a loaded JAX checkpoint carried
-        (the port runs no scheduler)."""
-        return self._carried_sched
+        """The `sched_*` payload of the attached scheduler, or None."""
+        return (self.scheduler.state_dict()
+                if self.scheduler is not None else None)
 
     def async_admit_state(self) -> Optional[dict]:
-        """The `asyb_*` payload: what a loaded JAX checkpoint carried."""
-        return self._carried_asyb
+        """The `asyb_*` payload: the pending admissions, or None."""
+        return (self.async_admit.state_dict()
+                if self.async_admit is not None else None)
 
     @property
     def _prev_change_words(self) -> Optional[np.ndarray]:
@@ -341,8 +392,14 @@ class FedModel:
     def _client_rows(self):
         """(rows, tensors): client_rows_payload's dict with each tracked
         block's rows gathered on the device, or {"dense": None} after a
-        dense load, or None for a stateless config; and the tensors to
-        copy to the host by key."""
+        dense load, or None for a stateless config, or under the tiered
+        store its LRU bookkeeping (completed by _host_rows); and the
+        tensors to copy to the host by key."""
+        store = self.state_store
+        if store is not None:
+            tier = store.snapshot_tier()
+            return ({"tier": tier, "store": store},
+                    store.resident_rows(self.clients, tier))
         tracked = [block.ndim == 2 for block in self.clients]
         if not any(tracked):
             return None, {}
@@ -416,6 +473,7 @@ class FedModel:
         self.server = fround.ServerState(
             _owned(s.ps_weights, dev), _owned(s.Vvelocity, dev),
             _owned(s.Verror, dev), int(s.round_idx))
+        store = self.state_store
         if ckpt.client_rows is not None:
             # init (zeros, or the init weights under --topk_down) plus
             # the saved rows IS the full state: untouched rows never
@@ -428,7 +486,16 @@ class FedModel:
                     if self._init_weights_host is not None
                     else np.asarray(s.ps_weights, np.float32))
             self.clients = fround.init_client_state(
-                self.cfg, self.num_clients, dev, _owned(base, dev))
+                self.cfg, fround.client_state_rows(self.cfg,
+                                                   self.num_clients),
+                dev, _owned(base, dev))
+            if store is not None:
+                # the store rebuilds its tiers: rows recorded resident
+                # back to their slots, the rest to the tail
+                store.set_init_weights(self._init_weights_host)
+                store.load_rows(self.clients, rows)
+                self._finish_load(ckpt)
+                return ckpt.scheduler_step
             ids = np.asarray(rows["ids"], np.int64)
             self._touched = set(int(i) for i in ids)
             self._sparse_rows_ok = True
@@ -439,6 +506,12 @@ class FedModel:
                     block = getattr(self.clients, name)
                     if data.ndim == 2 and block.ndim == 2:
                         block[index] = _owned(data, dev)
+        elif ckpt.clients is not None and store is not None:
+            # dense blocks into the tiered store: the rows that differ
+            # from init go to the tail, the working set starts cold
+            store.import_dense({name: np.asarray(getattr(ckpt.clients,
+                                                         name))
+                                for name in store.fields})
         elif ckpt.clients is not None:
             # dense blocks: the touched set is unrecoverable, so this
             # model's own saves stay dense from here on
@@ -449,39 +522,37 @@ class FedModel:
         self._finish_load(ckpt)
         return ckpt.scheduler_step
 
-    def _check_unported_state(self, ckpt) -> None:
-        """Scheduler or async-admission state that would steer the
-        resumed rounds needs item 9's layers: refuse it. A uniform,
-        deadline-free schedule's counters and an empty admission buffer
-        are carried and written back as read."""
-        sched = ckpt.scheduler or {}
-        steering = (set(sched) - set(_SCHED_COUNTERS)
-                    or any(int(np.asarray(sched.get(k, 0)))
-                           for k in ("deadline_rounds", "truncated_slots")))
-        pending = int(np.asarray(
-            (ckpt.async_admit or {}).get("ids", ())).size)
-        if steering or pending:
-            what = ("scheduler state (sched_*)" if steering
-                    else f"{pending} pending async admissions (asyb_*)")
+    @staticmethod
+    def _check_unported_state(ckpt) -> None:
+        """The adaptive screen's and the controller bank's state
+        (`sched_*` keys screen_* and ctl_*) would steer the resumed
+        rounds through controllers the port does not have: refuse it."""
+        held = sorted(k for k in (ckpt.scheduler or {})
+                      if k.startswith(_CONTROLLER_KEYS))
+        if held:
             raise NotImplementedError(
-                f"the checkpoint carries {what} that the resumed rounds "
-                "would need; the scheduler and async admission are not "
-                f"ported to commefficient_tpu_torch yet (ROADMAP.md "
-                f"{Q_SCALE})")
-        self._carried_sched = ckpt.scheduler
-        self._carried_asyb = ckpt.async_admit
+                f"the checkpoint carries controller state ({held}) that "
+                "the resumed rounds would need; the adaptive screen and "
+                "the controller bank are not ported to "
+                "commefficient_tpu_torch yet (ROADMAP.md Queue 1 item "
+                "9f)")
 
     def _finish_load(self, ckpt) -> None:
-        """Accounting, throughput, sampler stream and the previous
-        round's change bits."""
+        """Accounting, throughput, scheduler, sampler stream, pending
+        admissions and the previous round's change bits. Attach the
+        run's scheduler and sampler BEFORE load_state."""
         if ckpt.accountant_state:
             self.accountant.load_state_dict(ckpt.accountant_state)
         if ckpt.throughput:
             self.throughput.load_state_dict(ckpt.throughput)
+        if ckpt.scheduler and self.scheduler is not None:
+            self.scheduler.load_state_dict(ckpt.scheduler)
         if ckpt.sampler and self.data_sampler is not None:
-            # attach the run's sampler BEFORE load_state; the drivers
-            # then continue the restored stream (sampler.resolve_resume)
+            # the drivers then continue the restored stream
+            # (sampler.resolve_resume)
             self.data_sampler.load_state_dict(ckpt.sampler)
+        if ckpt.async_admit and self.async_admit is not None:
+            self.async_admit.load_state_dict(ckpt.async_admit)
         words = ckpt.prev_change_words
         self._set_prev_bits(
             None if words is None else from_words(words, self.device),
@@ -539,9 +610,25 @@ class FedModel:
         """(survivors, work) with --straggler_cutoff applied: a fraction
         below it degrades to a drop (survivor bit 0, work 1.0); a work
         vector left all ones is None, so the round runs exactly the
-        dropout variant; work always rides with survivors."""
+        dropout variant; work always rides with survivors.
+
+        The scheduler's plan composes in before the cutoff: its idle
+        slots zero the survivors (a dropped client's path) and its
+        deadline fractions take the minimum with the straggler draw; its
+        `schedule` journal fields wait for the round's seal."""
         surv = self._survivors_for_round(round_idx, ids)
         work = self._work_for_round(round_idx, len(ids))
+        plan = (self.scheduler.take_plan(round_idx)
+                if self.scheduler is not None else None)
+        if plan is not None:
+            if plan.active is not None:
+                surv = (plan.active if surv is None
+                        else surv * plan.active)
+                self._plan_active[int(round_idx)] = plan.active
+            if plan.work is not None:
+                w = np.asarray(plan.work, np.float32)
+                work = w if work is None else np.minimum(work, w)
+            self._plan_journal[int(round_idx)] = plan.journal_fields()
         if work is not None:
             work = np.asarray(work, np.float32)
             cutoff = self.cfg.straggler_cutoff
@@ -607,21 +694,25 @@ class FedModel:
                                          round=int(round_idx))
             self.telemetry.flush()
 
-    def _journal_round_faults(self, round_idx, ids, survivors, pois, screen,
-                              admitted, agg_stats) -> None:
-        """A faulted round's journal: the `schedule` record (clients
-        that completed it; the poisoned count and the screen flag in the
-        screened family), a `screened` event when the admission mask
-        refused survivors, an `aggregator` event under a robust
-        aggregator. The JAX writer's keys."""
-        tele = self.telemetry
-        fields = {"round": int(round_idx), "sampler": self.cfg.sampler,
-                  "n_sampled": int(len(ids) if survivors is None
-                                   else (survivors > 0).sum())}
+    def _seal_plan(self, round_idx: int, pois, screen) -> None:
+        """Journal a planned round's `schedule` event as it is planned,
+        before it is queued: the plan's fields, and in the screened
+        family the screen flag and the poisoned count. A round without a
+        plan journals none (the JAX rule)."""
+        fields = self._plan_journal.pop(int(round_idx), None)
+        if fields is None or self.telemetry is None:
+            return
         if pois is not None:
             fields["screen_on"] = float(screen)
-            fields["n_poisoned"] = int((pois > 0).sum())
-        tele.journal_event("schedule", **fields)
+            fields["n_poisoned"] = int((np.asarray(pois) > 0).sum())
+        self.telemetry.journal_event("schedule", **fields)
+
+    def _journal_round_faults(self, round_idx, survivors, admitted,
+                              agg_stats) -> None:
+        """A faulted round's journal: a `screened` event when the
+        admission mask refused survivors, an `aggregator` event under a
+        robust aggregator. The JAX writer's keys."""
+        tele = self.telemetry
         if admitted is not None:
             n_screened = int((survivors > 0).sum() - (admitted > 0).sum())
             if n_screened > 0:
@@ -661,13 +752,18 @@ class FedModel:
                 f"{self.cfg.dp_delta:g}. Raise --dp_noise_mult, "
                 f"raise --dp_target_epsilon, or train fewer rounds.")
 
-    def _round_operands(self, round_idx: int,
-                        ids_host: np.ndarray) -> Operands:
-        """A round's fault operands, drawn on the host as pure
-        functions of (seed, round): survivors, work, and in the screened
-        family the poison mask and screen flag (survivors then always
-        present)."""
+    def _plan_round(self, round_idx: int, ids_host: np.ndarray, data,
+                    mask):
+        """A round's plan stage on the host: the fault operands, drawn
+        as pure functions of (seed, round), with the scheduler's plan;
+        the async admission merge; in the screened family the poison
+        mask and screen flag (survivors then always present); the
+        `schedule` event. Returns (ids, data, mask, operands) with the
+        admissions merged into ids, data and mask."""
         survivors, work = self._faults_for_round(round_idx, ids_host)
+        if self.async_admit is not None:
+            ids_host, data, mask, survivors, work = self.async_admit.compose(
+                round_idx, ids_host, data, mask, survivors, work)
         pois = screen = None
         if self._screened_dispatch(round_idx):
             W = len(ids_host)
@@ -675,7 +771,8 @@ class FedModel:
             screen = self._screen_flag(round_idx)
             if survivors is None:
                 survivors = np.ones(W, np.float32)
-        return survivors, work, pois, screen
+        self._seal_plan(round_idx, pois, screen)
+        return ids_host, data, mask, (survivors, work, pois, screen)
 
     def _commit_round(self, round_idx: int, ids_host: np.ndarray,
                       ops: Operands, prev_words, admitted, contributors,
@@ -684,9 +781,10 @@ class FedModel:
         accountant bills the clients that completed it (the admitted
         ones in the screened family, the contributors under a robust
         aggregator) against the previous round's change bits
-        `prev_words`; then the fault events, the `compressor` event and
-        dp_sketch's `privacy` event. Returns (download, upload)."""
-        survivors, _, pois, screen = ops
+        `prev_words`; then the screened and aggregator events, the
+        `compressor` event and dp_sketch's `privacy` event. Returns
+        (download, upload)."""
+        survivors = ops[0]
         bill = admitted if contributors is None else contributors
         if bill is None:
             bill = survivors
@@ -694,8 +792,7 @@ class FedModel:
             ids_host, prev_words, survivors=bill)
         if self.telemetry is not None:
             if survivors is not None:
-                self._journal_round_faults(round_idx, ids_host, survivors,
-                                           pois, screen, admitted,
+                self._journal_round_faults(round_idx, survivors, admitted,
                                            agg_stats)
             # the mode's wire geometry and the round's billed upload
             self.telemetry.journal_event(
@@ -719,7 +816,14 @@ class FedModel:
             self._journal_fault("crash_in_span", this_round - 1)
             raise InjectedFault(this_round - 1)
         with TRACE.span("plan", round=this_round):
-            ops = self._round_operands(this_round, ids_host)
+            ids_host, data, mask, ops = self._plan_round(
+                this_round, ids_host, data, mask)
+        # the tiered store's slots for the cohort, admissions included
+        tier_plan = None
+        ids_device = ids_host
+        if self.state_store is not None:
+            tier_plan = self.state_store.plan_round(ids_host)
+            ids_device = tier_plan.slots
         with TRACE.span("stage", round=this_round):
             # the previous round's change bits come to the host BEFORE
             # this round is queued, so the copy waits on that round only
@@ -730,16 +834,21 @@ class FedModel:
                     np.asarray(x, np.float32), self.device)
 
             placed = fround.RoundBatch(
-                _as_tensor(ids_host.astype(np.int64), self.device),
+                _as_tensor(np.asarray(ids_device, np.int64), self.device),
                 tuple(_as_tensor(d, self.device) for d in data),
                 _as_tensor(mask, self.device).to(torch.float32),
                 *[operand(x) for x in ops])
             lr = self._lr()
         prev_weights = self.server.ps_weights
+        if tier_plan is not None:
+            with TRACE.span("tier_motion", round=this_round):
+                self.clients = self.state_store.execute(self.clients,
+                                                        tier_plan)
         with TRACE.span("dispatch", round=this_round):
             self.server, self.clients, metrics = self._train_round(
                 self.server, self.clients, placed, lr, self._key)
-        self._touched.update(int(i) for i in ids_host)
+        if self.state_store is None:
+            self._touched.update(int(i) for i in ids_host)
         with TRACE.span("collect", round=this_round):
             self._set_prev_bits(pack_change_bits(
                 self.server.ps_weights - prev_weights))
@@ -751,13 +860,17 @@ class FedModel:
             download, upload = self._commit_round(
                 this_round, ids_host, ops, prev_words, admitted, contrib,
                 agg)
+        sched_mask = self._plan_active.pop(this_round, None)
         if self.telemetry is not None:
-            # the round's metric tensors, journaled one round late
+            # the round's metric tensors, journaled one round late; idle
+            # slots are kept out of the tracker
             self.telemetry.on_round(
                 this_round, ids_host,
                 metrics.telemetry if self.cfg.telemetry else None,
                 metrics.num_examples,
-                comm=(float(download.sum()), float(upload.sum())))
+                comm=(float(download.sum()), float(upload.sum())),
+                scheduled=sched_mask)
+            self._journal_tier(round=this_round)
         if (self.fault_schedule is not None
                 and self.fault_schedule.should_crash(this_round)):
             # the round above fully completed: crash at the boundary a
@@ -765,6 +878,17 @@ class FedModel:
             self._journal_fault("crash_after", this_round)
             raise InjectedFault(this_round)
         return [metrics.losses, *metrics.metrics, download, upload]
+
+    def _journal_tier(self, **where) -> None:
+        """The tiered store's `state_tier` event (its counters' deltas)
+        and a `state_quarantine` event a re-initialized tail row."""
+        store = self.state_store
+        if store is None:
+            return
+        self.telemetry.journal_event("state_tier", **where,
+                                     **store.take_journal_fields())
+        for q in store.take_quarantine_events():
+            self.telemetry.journal_event("state_quarantine", **where, **q)
 
     # -- spans (training/scanloop.py) -------------------------------------
     def _state_versions(self) -> tuple:
@@ -812,13 +936,42 @@ class FedModel:
             mask = np.asarray(mask)[:n_rounds]
         span_idx = self._spans_dispatched
         with TRACE.span("plan", round=first, span=span_idx):
-            operands = [self._round_operands(first + n, ids_host[n])
-                        for n in range(n_rounds)]
+            operands = []
+            copied = False
+            for n in range(n_rounds):
+                row = (ids_host[n], tuple(np.asarray(d)[n] for d in data),
+                       np.asarray(mask)[n])
+                ids_n, data_n, mask_n, ops = self._plan_round(
+                    first + n, *row)
+                operands.append(ops)
+                if ids_n is not row[0]:
+                    # an admission rewrote this round's rows: copy the
+                    # span's arrays once, the caller's stay untouched
+                    if not copied:
+                        ids_host = np.array(ids_host, copy=True)
+                        data = tuple(np.array(np.asarray(d), copy=True)
+                                     for d in data)
+                        mask = np.array(np.asarray(mask), copy=True)
+                        copied = True
+                    ids_host[n] = ids_n
+                    for d, d_n in zip(data, data_n):
+                        d[n] = d_n
+                    mask[n] = mask_n
+        ids_device = ids_host
+        if self.state_store is not None:
+            # every restore of the span before its rounds are queued;
+            # each round's plan pins the span's clients resident
+            with TRACE.span("tier_motion", round=first, span=span_idx):
+                plans = self.state_store.plan_span(ids_host)
+                for plan in plans:
+                    self.clients = self.state_store.execute(self.clients,
+                                                            plan)
+                ids_device = np.stack([p.slots for p in plans])
 
         def dispatch():
             dev = self.device
             with TRACE.span("stage", round=first, span=span_idx):
-                ids_d = _staged(ids_host.astype(np.int64), dev)
+                ids_d = _staged(np.asarray(ids_device, np.int64), dev)
                 data_d = tuple(_staged(d, dev) for d in data)
                 mask_d = _staged(mask, dev).to(torch.float32)
                 ops_d = [[None if x is None else _staged(
@@ -878,7 +1031,8 @@ class FedModel:
                 dispatch, describe="round span", classify=classify,
                 on_retry=journal_retry)
         t1 = time.monotonic()
-        self._touched.update(int(i) for i in ids_host.reshape(-1))
+        if self.state_store is None:
+            self._touched.update(int(i) for i in ids_host.reshape(-1))
         return _SpanHandle(first, ids_host, operands, crash_at, host,
                            n_metrics, last_bits, t0, t1, span_idx)
 
@@ -921,12 +1075,20 @@ class FedModel:
             losses, counts, tele = (host["losses"], host["counts"],
                                     host["telemetry"])
             mets = [host[f"metric{i}"] for i in range(handle.n_metrics)]
+        sched_rows = [self._plan_active.pop(first + n, None)
+                      for n in range(ids_host.shape[0])]
         if self.telemetry is not None:
             self.telemetry.on_span(
                 first, ids_host, tele, counts,
                 dispatch_s=handle.t_dispatched - handle.t_dispatch0,
                 block_s=t_blocked - handle.t_dispatched,
-                comm_rows=comm_rows)
+                comm_rows=comm_rows,
+                scheduled_rows=(None if all(r is None for r in sched_rows)
+                                else sched_rows))
+            # under --pipeline the deltas include the next span's motion,
+            # already planned (as in the JAX package)
+            self._journal_tier(first_round=first,
+                               rounds=int(ids_host.shape[0]))
         if handle.crash_at is not None:
             # every round up to the crash committed above
             self._journal_fault("crash_after", handle.crash_at)

@@ -72,9 +72,10 @@ class ServerState(NamedTuple):
 
 
 class ClientState(NamedTuple):
-    """Per-client persistent rows, [num_clients, D] per tracked block
-    (local error, local velocity, --topk_down's stale weights) or a [0]
-    placeholder."""
+    """Per-client persistent rows, [client_state_rows, D] per tracked
+    block (local error, local velocity, --topk_down's stale weights) or
+    a [0] placeholder. The round addresses them by `RoundBatch.
+    client_ids`: client ids, or under --state_tier host device slots."""
     errors: torch.Tensor
     velocities: torch.Tensor
     weights: torch.Tensor
@@ -300,6 +301,14 @@ def _has_errors(cfg: Config) -> bool:
 
 def _has_velocities(cfg: Config) -> bool:
     return cfg.compressor.has_velocities(cfg)
+
+
+def client_state_rows(cfg: Config, num_clients: int) -> int:
+    """The rows of the ClientState blocks: the population, or under
+    --state_tier host the working set (federated/statestore.py)."""
+    if cfg.state_tier != "device":
+        return int(cfg.state_working_set)
+    return int(num_clients)
 
 
 def init_client_state(cfg: Config, num_clients: int, device,

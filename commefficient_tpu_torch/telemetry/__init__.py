@@ -277,21 +277,25 @@ class TelemetrySession:
                 telemetry_rows: Optional[np.ndarray],
                 counts_rows: np.ndarray,
                 dispatch_s: float, block_s: float,
-                comm_rows=None) -> None:
+                comm_rows=None, scheduled_rows=None) -> None:
         """Consume one collected span: host [N, W] ids and counts and
         [N, M] metric rows (None without telemetry). Journals one `span`
         record and a `round` record a round in ONE append, feeds the
         tracker the span's wall time amortized over its rounds, flushes
         the tracer, and trips on the first non-finite watched metric in
-        round order. comm_rows: per-round (download, upload) totals."""
+        round order. comm_rows: per-round (download, upload) totals;
+        scheduled_rows: per-round [W] masks (or None) whose zero slots
+        are idle scheduler pads, kept out of the tracker."""
         # a buffered per-round record is older: journal it first
         self.flush()
         n = int(np.asarray(ids_rows).shape[0])
         per_round_s = (dispatch_s + block_s) / max(n, 1)
         if self.tracker is not None:
             for i in range(n):
-                self.tracker.update_round(ids_rows[i], counts_rows[i],
-                                          per_round_s)
+                self.tracker.update_round(
+                    ids_rows[i], counts_rows[i], per_round_s,
+                    scheduled=(None if scheduled_rows is None
+                               else scheduled_rows[i]))
         named_rows = [None if telemetry_rows is None else tmetrics.named(
             np.asarray(telemetry_rows[i], np.float32)) for i in range(n)]
         if self.journal is not None:

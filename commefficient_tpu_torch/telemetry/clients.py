@@ -7,13 +7,15 @@ triple a round, from the interval between two dispatches. Storage is
 sparse: only clients ever sampled own a row. `state_dict` and
 `load_state_dict` round-trip the rows bit for bit; the checkpoint
 carries them under `thr_*` keys. The rates are wall-clock EMAs, so two
-runs of one seed differ in them; nothing of the round reads them. The
-consumers (deadline estimation, the throughput-aware sampler) are the
-scheduler's, ROADMAP.md Queue 1 item 9.
+runs of one seed differ in them; the round itself never reads them. The
+reader half (`examples_per_sec`, `measured`, `estimate_round_seconds`)
+feeds the round scheduler (commefficient_tpu_torch/scheduler): the
+throughput-aware sampler and the deadline policy. `force` sets records
+directly, for tests and drills that need rates off the wall clock.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -130,6 +132,80 @@ class ClientThroughputTracker:
         self._rate[done_rows] = np.where(
             first, sample, d * prev + (np.float32(1.0) - d) * sample)
         self.version += 1
+
+    # -- the reader half (the scheduler's inputs) --------------------------
+    def examples_per_sec(self, client_ids=None) -> np.ndarray:
+        """EMA rates of `client_ids` (0.0 for unmeasured or unseen
+        clients); with None the dense [num_clients] vector."""
+        if client_ids is None:
+            out = np.zeros(self.num_clients, np.float32)
+            out[self._ids[:self._n]] = self._rate[:self._n]
+            return out
+        return self._lookup(self._rate, client_ids,
+                            np.float32(0.0)).astype(np.float32)
+
+    def participation_counts(self, client_ids) -> np.ndarray:
+        return self._lookup(self._participations, client_ids, 0)
+
+    def completion_counts(self, client_ids) -> np.ndarray:
+        return self._lookup(self._completions, client_ids, 0)
+
+    def _lookup(self, arr, client_ids, default):
+        ids = np.asarray(client_ids, np.int64).reshape(-1)
+        return np.array([arr[self._slot[int(c)]]
+                         if int(c) in self._slot else default
+                         for c in ids], arr.dtype)
+
+    def measured(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids, rates) of every client with a nonzero EMA: the alias
+        sampler's table basis."""
+        m = self._rate[:self._n] > 0
+        return (self._ids[:self._n][m].copy(),
+                self._rate[:self._n][m].copy())
+
+    def estimate_round_seconds(self, client_ids, num_examples,
+                               cold_start_seconds: Optional[float]
+                               = None) -> np.ndarray:
+        """Expected seconds for each client's batch at its EMA rate.
+        Zero examples estimate 0.0; an unmeasured client +inf, or with
+        `cold_start_seconds` its batch at the slowest measured rate
+        (that value itself when nothing is measured). Never NaN."""
+        ex = np.asarray(num_examples, np.float64)
+        r = self.examples_per_sec(client_ids).astype(np.float64)
+        with np.errstate(divide="ignore"):
+            out = np.where(r > 0, ex / np.maximum(r, 1e-30), np.inf)
+        out = np.where(ex <= 0, 0.0, out)
+        unmeasured = (r <= 0) & (ex > 0)
+        if unmeasured.any() and cold_start_seconds is not None:
+            rows = self._rate[:self._n]
+            live = rows[rows > 0]
+            if live.size:
+                out[unmeasured] = ex[unmeasured] / float(live.min())
+            else:
+                out[unmeasured] = float(cold_start_seconds)
+        return out
+
+    def force(self, client_ids, rate=None, participations=None,
+              completions=None, busy_seconds=None) -> None:
+        """Set per-client records directly (rows allocated as needed);
+        a rate bumps `version` as a measurement does."""
+        rows = self._rows_for(
+            np.asarray(client_ids, np.int64).reshape(-1))
+        if rate is not None:
+            self._rate[rows] = np.asarray(rate, np.float32)
+            self.version += 1
+        if participations is not None:
+            new = np.asarray(participations, np.int64)
+            self.total_participations += int(
+                new.sum() - self._participations[rows].sum())
+            self._participations[rows] = new
+        if completions is not None:
+            new = np.asarray(completions, np.int64)
+            self.total_completions += int(
+                new.sum() - self._completions[rows].sum())
+            self._completions[rows] = new
+        if busy_seconds is not None:
+            self._busy[rows] = np.asarray(busy_seconds, np.float64)
 
     def state_dict(self) -> dict:
         n = self._n

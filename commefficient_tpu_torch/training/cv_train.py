@@ -11,8 +11,10 @@ the run directory or --journal_path), `--checkpoint_every`,
 <dataset>` (finetune_from_checkpoint) and the fault flags of
 utils/faults.py with the numeric rollback; `--scan_rounds` (spans of
 --scan_span rounds, training/scanloop.py), `--pipeline`,
-`--ckpt_every_spans` and `--profile_spans`. What the port does not run
-yet is refused by Config.validate: the scheduler layers and the rest of
+`--ckpt_every_spans` and `--profile_spans`; the round scheduler
+(`--sampler`, `--deadline_quantile`, `--target_survivors`,
+scheduler/), `--async_admit_rounds` and `--state_tier host`. What the
+port does not run yet is refused by Config.validate: the rest of
 ROADMAP.md Queue 1.
 
 Run on the card:
@@ -42,6 +44,7 @@ from commefficient_tpu_torch.data import (
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import module_layout
+from commefficient_tpu_torch.scheduler import attach_round_scheduler
 from commefficient_tpu_torch.training import persist
 from commefficient_tpu_torch.training.scanloop import (
     make_span_checkpoint, run_scanned_rounds,
@@ -195,6 +198,10 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
             return not np.isnan(losses[-1])
 
         pending = None
+        if model.scheduler is not None:
+            # the scheduler's counter starts at the epoch's first round:
+            # a resumed epoch re-selects its skipped head
+            model.scheduler.begin_epoch(rounds_done - skip_rounds)
         stream = iter(train_loader.epoch(skip=skip_rounds))
         skip_rounds = 0
         if cfg.scan_rounds:
@@ -367,8 +374,10 @@ def build(cfg: Config, device="cuda",
     model = FedModel(module, make_compute_loss(module), cfg, device=device,
                      num_clients=train_loader.dataset.num_clients,
                      lr_scale_vec=lr_scale_vec)
-    # the sampler's stream rides in checkpoints (before any --resume)
-    model.attach_data_sampler(train_loader.sampler)
+    # the round scheduler on the loader's sampler and the model, and the
+    # sampler's stream in checkpoints (before any --resume, so sched_*
+    # and smp_* land in them)
+    attach_round_scheduler(model, train_loader)
     opt = FedOptimizer(model)
     # cifar10-fast schedule: knots [0, pivot, num_epochs] -> [0, lr, 0]
     lr_scale = cfg.lr_scale if cfg.lr_scale is not None else 0.4

@@ -15,9 +15,11 @@ locally cached HF checkpoint, or random from --seed
 (build_model_and_params); --finetune evaluates the artifact at
 --finetune_path, and --remat recomputes each block in the backward.
 `--scan_rounds`, `--pipeline`, `--ckpt_every_spans` and
-`--profile_spans` run the rounds in spans (training/scanloop.py). What
-the port does not run yet is refused by Config.validate:
---model_parallel and the rest of ROADMAP.md Queue 1 item 9.
+`--profile_spans` run the rounds in spans (training/scanloop.py); the
+round scheduler, `--async_admit_rounds` and `--state_tier host` run as
+in cv_train. What the port does not run yet is refused by
+Config.validate: --model_parallel and the rest of ROADMAP.md Queue 1
+item 9.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
@@ -50,6 +52,7 @@ from commefficient_tpu_torch.models.gpt2 import (
     try_load_pretrained,
 )
 from commefficient_tpu_torch.ops import lowp, prng
+from commefficient_tpu_torch.scheduler import attach_round_scheduler
 from commefficient_tpu_torch.training import persist
 from commefficient_tpu_torch.training.scanloop import (
     make_span_checkpoint, run_scanned_rounds,
@@ -208,6 +211,9 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
                 if epoch == math.ceil(cfg.num_epochs) - 1 else 1.0)
         pending = None
         aborted = False
+        if model.scheduler is not None:
+            # the scheduler's counter starts at the epoch's first round
+            model.scheduler.begin_epoch(batch_idx - skip_rounds)
         stream = iter(train_loader.epoch(skip=skip_rounds))
         skip_rounds = 0
         if cfg.scan_rounds:
@@ -396,8 +402,10 @@ def build(cfg: Config, tokenizer, device="cuda",
     model = FedModel(module, make_compute_loss_train(module, cfg), cfg,
                      loss_val=make_compute_loss_val(module), device=device,
                      num_clients=train_loader.dataset.num_clients)
-    # the sampler's stream rides in checkpoints (before any --resume)
-    model.attach_data_sampler(train_loader.sampler)
+    # the round scheduler on the loader's sampler and the model, and the
+    # sampler's stream in checkpoints (before any --resume, so sched_*
+    # and smp_* land in them)
+    attach_round_scheduler(model, train_loader)
     opt = FedOptimizer(model)
     spe = train_loader.steps_per_epoch
     lr = cfg.lr_scale if cfg.lr_scale is not None else DEFAULT_LR

@@ -255,9 +255,11 @@ def make_span_checkpoint(prefix: str, model, cfg, lr_scheduler):
     Its `.snapshot` attribute takes the boundary state for a save made
     one span late (--pipeline): FedModel.state_snapshot's host copies of
     the server state and the client rows, queued behind the span's own
-    rounds (the next span writes the live rows in place); its `.cursor`
-    the LR step and the sampler's cursor as of the span's draws (the
-    staging thread takes it). The accountant and
+    rounds (the next span writes the live rows in place; under the
+    tiered store the resident rows and the LRU bookkeeping), and the
+    pending async admissions (composed at dispatch); its `.cursor` the
+    LR step, the sampler's cursor and the scheduler's state as of the
+    span's draws (the staging thread takes it). The accountant and
     the change bits commit at collect in span order, so they are read
     live at save time. Under --pipeline the file is written by the
     model's AsyncCheckpointWriter."""
@@ -270,10 +272,13 @@ def make_span_checkpoint(prefix: str, model, cfg, lr_scheduler):
 
     def stream_cursor() -> dict:
         return {"scheduler_step": lr_scheduler.step_count,
-                "sampler": model.sampler_state()}
+                "sampler": model.sampler_state(),
+                "scheduler": model.scheduler_state()}
 
     def take_snapshot() -> dict:
-        return {"state": model.state_snapshot(), **stream_cursor()}
+        return {"state": model.state_snapshot(),
+                "async_admit": model.async_admit_state(),
+                **stream_cursor()}
 
     def span_checkpoint(snapshot=None):
         spans_done[0] += 1
@@ -295,9 +300,9 @@ def make_span_checkpoint(prefix: str, model, cfg, lr_scheduler):
                 fingerprint=model.checkpoint_fingerprint,
                 throughput=snapshot.get("throughput",
                                         model.throughput.state_dict()),
-                scheduler=model.scheduler_state(),
+                scheduler=snapshot["scheduler"],
                 sampler=snapshot["sampler"],
-                async_admit=model.async_admit_state(),
+                async_admit=snapshot["async_admit"],
                 client_rows=None if dense else rows,
                 writer=model.ckpt_writer)
         if model.telemetry is not None:

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Phases 27-31 of chip_smoke.py alone on one CUDA card, and the host
-timeline of config #4's rounds, for work on the plugins and the span
-loop without the whole script:
+"""Phases 27-34 of chip_smoke.py alone on one CUDA card, and the host
+timeline of config #4's rounds, for work on the plugins, the span
+loop, the scheduler, async admission and the tiered client state
+without the whole script:
 
     python3 scripts/chip_phases.py [powersgd dp_sketch privacy spans
-                                    imagenet timeline]
+                                    imagenet timeline sched async_admit
+                                    statetier]
 
 With no argument it runs every phase. Phase 4 (config #2) runs first
-for the ms/round the new phases print beside theirs, and `imagenet`
-runs phase 13 before phase 31 for the same reason. `timeline` drives
+for the ms/round the new phases print beside theirs, `imagenet` runs
+phase 13 before phase 31 and `statetier` phase 11 before phase 34 for
+the same reason. `timeline` drives
 config #4 (chip_smoke.CONFIG4) plain and each way of
 chip_smoke.IMAGENET_SPANS for TIMELINE_ROUNDS rounds with the stage
 tracer on, and prints every stage span (plan, stage, dispatch,
@@ -30,7 +33,7 @@ import chip_smoke as cs  # noqa: E402
 import torch  # noqa: E402
 
 PHASES = ("powersgd", "dp_sketch", "privacy", "spans", "imagenet",
-          "timeline")
+          "timeline", "sched", "async_admit", "statetier")
 TIMELINE_ROUNDS = 6
 
 
@@ -108,7 +111,7 @@ def main(argv) -> int:
     from commefficient_tpu_torch.device import resolve_device
     from commefficient_tpu_torch.federated import client as fclient
     from commefficient_tpu_torch.federated import server as fserver
-    from commefficient_tpu_torch.ops import prng
+    from commefficient_tpu_torch.ops import flat, prng
     from commefficient_tpu_torch.ops.kernels import _build
     from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
     from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
@@ -122,7 +125,8 @@ def main(argv) -> int:
     c2 = os.path.join(HERE, "build", "chip_smoke_data")
     tmp = tempfile.mkdtemp(prefix="chip_phases_")
     try:
-        if set(which) & {"powersgd", "dp_sketch", "privacy", "spans"}:
+        if set(which) & {"powersgd", "dp_sketch", "privacy", "spans",
+                         "sched", "async_admit"}:
             model, round_ms, _, _, _ = cs.main_path(sc, ac, cv_train,
                                                     parse_args, c2)
             del model
@@ -137,6 +141,19 @@ def main(argv) -> int:
             cs.privacy_drill_phase(cv_train, parse_args, c2, compress, tmp)
         if "spans" in which:
             cs.spans_phase(sc, ac, cv_train, parse_args, c2, round_ms, tmp)
+        if "sched" in which:
+            cs.sched_phase(sc, ac, cv_train, parse_args, c2, round_ms, tmp)
+        if "async_admit" in which:
+            cs.async_phase(sc, ac, cv_train, parse_args, c2, round_ms, tmp)
+        if "statetier" in which:
+            spe = -(-cs.CLIENTS * cs.EXAMPLES_PER_CLIENT // (8 * 32))
+            model, rr, _ = cs.mode_path(
+                "ltopk", sc, ac, cv_train, flat, parse_args, cs.CONFIG3,
+                cs.LTOPK_ROUNDS, spe, cs.CONFIG3_D,
+                os.path.join(HERE, "build", "chip_smoke_cifar100_data"))
+            del model
+            torch.cuda.empty_cache()
+            cs.statetier_phase(sc, ac, cv_train, parse_args, rr.peak, tmp)
         if {"imagenet", "timeline"} & set(which):
             corpus = os.path.join(tmp, "imagenet")
             cs.write_imagenet_corpus(corpus)

@@ -427,24 +427,31 @@ def test_dense_client_blocks_turn_sparse_saves_off(tmp_path):
 
 
 def test_unported_scheduler_state_is_refused(tmp_path):
+    # the scheduler's counters and alias snapshot (item 9d) and pending
+    # admissions (item 9e) now load into the run's scheduler and buffer;
+    # the adaptive screen's and the controller bank's keys (item 9f)
+    # would steer the resumed rounds through controllers the port does
+    # not have, and are refused
+    from commefficient_tpu_torch.scheduler import RoundScheduler
     jm = JResNet9(num_classes=10, channels=TINY)
     params = jm.init(jax.random.PRNGKey(0),
                      jnp.zeros((2, 32, 32, 3), jnp.float32))
     model, _ = _make("port", "sketch-virtual", params)
+    model.attach_scheduler(RoundScheduler(model.cfg, 12, model.throughput))
     counters = dict(rounds_scheduled=np.int64(3), clients_sampled=np.int64(
-        12), deadline_rounds=np.int64(0), truncated_slots=np.int64(0),
-        last_deadline_s=np.float64(0), rounds_committed=np.int64(3))
-    # a uniform, deadline-free schedule's counters are carried as read
+        12), deadline_rounds=np.int64(1), truncated_slots=np.int64(2),
+        last_deadline_s=np.float64(0.5), rounds_committed=np.int64(3))
     path = save_checkpoint(str(tmp_path / "a"), model.server,
                            scheduler=counters)
     model.load_state(load_checkpoint(path))
-    assert model.scheduler_state().keys() == counters.keys()
-    for sched, asyb in (({**counters, "deadline_rounds": np.int64(1)}, None),
-                        ({**counters, "alias_ids": np.arange(3)}, None),
-                        (None, {"ids": np.arange(2)})):
+    got = model.scheduler_state()
+    assert {k: float(got[k]) for k in counters} == {
+        k: float(v) for k, v in counters.items()}
+    for extra in ({"screen_mult": np.float64(4.0)},
+                  {"ctl_speed_ratio": np.float64(0.5)}):
         path = save_checkpoint(str(tmp_path / "b"), model.server,
-                               scheduler=sched, async_admit=asyb)
-        with pytest.raises(NotImplementedError, match="item 9"):
+                               scheduler={**counters, **extra})
+        with pytest.raises(NotImplementedError, match="item 9f"):
             model.load_state(load_checkpoint(path))
 
 

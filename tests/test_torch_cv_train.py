@@ -64,17 +64,16 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (("--async_admit_rounds", "1"), "--async_admit_rounds"),
     (("--scan_rounds", "--scan_span_palette", "1,2"),
      "--scan_span_palette"),
     (("--update_screen", "norm", "--target_screened_rate", "0.1"),
      "--target_screened_rate"),
     (("--debug_transfer_guard",), "--debug_transfer_guard"),
     (("--multihost",), "--multihost"),
-    (("--target_survivors", "2"), "--target_survivors"),
-    (("--sampler", "throughput"), "--sampler"),
-    (("--deadline_quantile", "0.9"), "--deadline_quantile"),
     (("--model_parallel", "2"), "--model_parallel"),
+    (("--async_admit_rounds", "1", "--speed_match"), "--speed_match"),
+    (("--adapt_staleness",), "--adapt_staleness"),
+    (("--plan_transport", "emulated"), "--plan_transport"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):

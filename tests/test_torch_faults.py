@@ -482,14 +482,17 @@ def test_poison_trip_rolls_back_and_screens_the_replay(tmp_path):
     off trips the numeric watch, the driver loads the newest finite
     checkpoint, replays with screening forced on and finishes finite;
     the journal holds the trip, the screened replay and validates with
-    the JAX package's reader."""
+    the JAX package's reader. A survivor target of every slot
+    (--target_survivors 4) makes the scheduler plan each round without
+    changing it, so each round journals its `schedule` record (only
+    planned rounds do, as in the JAX package)."""
     from commefficient_tpu.telemetry.journal import validate_journal
     from commefficient_tpu_torch.training import cv_train
     ck, jr = tmp_path / "ck", tmp_path / "j.jsonl"
     cfg = parse_args(argv=_cv_argv(
         tmp_path, "--num_epochs", "3", "--checkpoint_every", "1",
         "--checkpoint_path", str(ck), "--journal_path", str(jr),
-        "--rollback_screen_rounds", "64"))
+        "--rollback_screen_rounds", "64", "--target_survivors", "4"))
     model, opt, sched, loader, val = cv_train.build(
         cfg, device="cpu", synthetic_examples=(160, 32))
     # poison slot 1 of round 8, inside the second epoch (the non-IID
@@ -584,7 +587,9 @@ def test_fault_flags_run_through_cv_train(tmp_path, flags):
     assert torch.isfinite(model.ps_weights).all()
     records, problems = validate_journal(str(jr))
     assert not problems, problems
-    assert any(r["event"] == "schedule" for r in records)
+    # no scheduler plan, no `schedule` record (the JAX rule)
+    assert not any(r["event"] == "schedule" for r in records)
+    assert any(r["event"] == "round" for r in records)
 
 
 @pytest.mark.parametrize("flags,match", [
@@ -610,18 +615,34 @@ ITEM_9_REFUSED = {
     "--target_screened_rate": dict(update_screen="norm",
                                    target_screened_rate=0.1),
     "--model_parallel > 1": dict(model_parallel=2),
-    "--sampler": dict(sampler="throughput"),
-    "--deadline_quantile": dict(deadline_quantile=0.9),
-    "--target_survivors": dict(target_survivors=6),
-    "--async_admit_rounds": dict(async_admit_rounds=1),
     "--speed_match": dict(speed_match=True),
     "--scan_span_palette": dict(scan_span_palette="1,2"),
     "--adapt_staleness": dict(adapt_staleness=True),
-    "--state_tier host": dict(state_tier="host"),
     "--plan_transport": dict(plan_transport="emulated"),
     "--multihost": dict(multihost=True),
     "--num_slices > 1": dict(num_slices=2),
 }
+# the options items 9d and 9e brought, which now validate
+ITEM_9DE_PORTED = {
+    "--sampler": dict(sampler="throughput", explore_floor=0.2),
+    "--deadline_quantile": dict(deadline_quantile=0.9,
+                                deadline_min_work=0.25),
+    "--target_survivors": dict(target_survivors=6),
+    "--async_admit_rounds": dict(async_admit_rounds=1,
+                                 async_staleness_decay=0.7),
+    "--state_tier host": dict(mode="local_topk", error_type="local",
+                              state_tier="host", state_working_set=8),
+    "--state_spill_dir": dict(mode="local_topk", error_type="local",
+                              state_tier="host", state_working_set=8,
+                              state_spill_dir="tail"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(ITEM_9DE_PORTED))
+def test_what_items_9d_9e_ported_validates(flag):
+    cfg = TConfig(**{**dict(mode="uncompressed", local_momentum=0.0,
+                            num_workers=8), **ITEM_9DE_PORTED[flag]})
+    assert cfg.validate() is cfg
 
 
 @pytest.mark.parametrize("flag", sorted(ITEM_9_REFUSED))
