@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, each printing its own line; any failure exits non-zero before
-the result line:
+Phases, each printing its own lines (tagged with the phase's name and
+the seconds since the script started); any failure exits non-zero
+before the result line:
 
 1. device   — a CUDA card or fail; its name and power limit
                (nvidia-smi).
@@ -228,7 +229,43 @@ the result line:
                block's, against the working set's and the tail's)
                bitwise equal; device rows 0.67 against 4.20 GB; peak
                beside phase 11's; spills, restores and ms/round.
-Phases 27-34 print their peak memory as read in the full script, beside
+35. control — config #2, ROUNDS rounds each, with a journal and the
+               session's clock scripted: (a) control_screen, BYZANTINE with
+               --aggregator trimmed_mean --target_screened_rate 0.1 (K1 8
+               a round, as phase 23's): every round at its plan's
+               multiplier, and a fresh AdaptiveScreenController fed the
+               journaled screened counts reproduces the journaled
+               screen_adapt moves and the final multiplier bitwise; (b)
+               control_speed, SCHED + ASYNC + --speed_match on the clock
+               control_time (rounds of 2.0 and 0.25 s, so the clients of
+               the slow rounds measure 8x slower): every slot billed as
+               the host replays the plan, the draws and the admission
+               buffer; speed_match control events; (c) control_staleness,
+               ASYNC + --adapt_staleness: every round composed at its
+               plan's decay; (d) control_span, --scan_rounds
+               --scan_span_palette 1,2,4 --pipeline against the same flags
+               without the palette, deterministic: weights, server state,
+               accountant and every round's journaled bytes bitwise
+               equal, the picks printed; (e) control_resume, (a)-(c)
+               combined (CONTROL_RESUME) as runs A and B on phase 20's
+               corpus: final checkpoints bitwise equal, screen_* and ctl_*
+               keys and thr_* included. K1 and K2 once a round in the
+               other runs; ms/round beside phase 4's and peak memory.
+36. gpt2medium — at [5, 500,000], B = 710 chunks: K1 at d = 354,829,313
+               and K2 on windows of 134 chunks (the first, a middle one,
+               the ragged last chunk of 329,313) against their plain
+               versions, exact; the blockwise decode's (idx, vals) at
+               k = 50,000 bitwise the same decode on plain windows, both
+               timed; K4 on GPT2-medium's [16, 16, L, 64] head views
+               within K4_RTOL. Then config #5 with GPT2M_FLAGS
+               (GPT2-medium, --remat) on phase 7's corpus, GPT2M_ROUNDS
+               rounds of 8 clients x GPT2M_EXAMPLES examples: every loss
+               finite, the weights moved, K1 once a round (the update's
+               re-sketch takes the scatter route at r * k = 250,000), K2
+               on 6 windows a round, K4 2 x 24 x 8 a round (--remat runs
+               each block's forward twice), K3a and K3b never; every
+               upload 10,000,000 bytes; peak memory.
+Phases 27-36 print their peak memory as read in the full script, beside
 the memory earlier phases leave allocated (live_gib).
 
 Phases 9-11 run on the synthetic CIFAR of phase 4 at full width; each
@@ -249,10 +286,12 @@ shapes, sketch_encode_dp, sketch_encode_byzantine and
 sketch_encode_dp_sketch at the same shapes for the dp, byzantine and
 dp_sketch paths, sketch_encode_r50 at config #4's, sketch_encode_gpt2
 at config #5's),
-K2 twice (config #2's, sketch_estimate_all_r50), K3a, K3b, and K4 twice
+K1 once more (sketch_encode_gpt2medium, phase 36), K2 twice
+(config #2's, sketch_estimate_all_r50) and its windowed launch
+(sketch_estimate_window, phase 36), K3a, K3b, and K4 three times
 (flash_fwd on f32 operands, flash_fwd_bf16 on bf16 ones, config #5 and
-config #5 with --bf16), each with the launches of its own path's run
-("path"). The line before the last holds
+config #5 with --bf16, and flash_fwd_gpt2medium), each with the launches
+of its own path's run ("path"). The line before the last holds
 the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 `--profile [DIR]` additionally traces three more rounds of each path
@@ -392,7 +431,8 @@ CONFIG3_D = 5_252_388
 FEDAVG_ROUNDS, TTOPK_ROUNDS, LTOPK_ROUNDS = 5, 3, 10
 # counters of the kernels no path of these modes may launch
 SKETCH_AND_ATTENTION = ("sketch_encode", "sketch_estimate_all",
-                        "threshold_sample", "threshold_mask", "flash_fwd")
+                        "sketch_estimate_window", "threshold_sample",
+                        "threshold_mask", "flash_fwd")
 
 # BASELINE config #4 (phases 13-15) on a corpus written in FedImageNet's
 # preprocessed/ layout: 224-px uint8 images from IMAGENET_SEED, one file
@@ -514,10 +554,14 @@ SPANS = (("plain", []),
          ("pipeline_nockpt", ["--scan_rounds", "--scan_span", "4",
                               "--pipeline"]))
 # phase 31: config #4 as imagenet.sh runs it, plain against one span of
-# IMAGENET_ROUNDS pipelined (the issue's pair) and spans of 1 pipelined
-# (where span t + 1's host batch can overlap span t on the card)
+# IMAGENET_PIPE_ROUNDS pipelined and spans of 1 pipelined (where span
+# t + 1's host batch can overlap span t on the card). Its depth is cut
+# to 3 rounds a run (it ran 5, the six runs ~118 s of the script), to
+# keep the whole script near the time it took before phases 35-36
+IMAGENET_PIPE_ROUNDS = 3
 IMAGENET_SPANS = (("plain", []),
-                  ("span5_pipeline", ["--scan_rounds", "--scan_span", "5",
+                  ("span3_pipeline", ["--scan_rounds", "--scan_span",
+                                      str(IMAGENET_PIPE_ROUNDS),
                                       "--pipeline"]),
                   ("span1_pipeline", ["--scan_rounds", "--scan_span", "1",
                                       "--pipeline"]))
@@ -535,8 +579,13 @@ ASYNC = ["--straggler_rate", "0.5", "--straggler_cutoff", "0.2",
 TIER = ["--state_tier", "host", "--state_working_set", "16"]
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started
+    (where the run's time goes)."""
+    print(f"[{name} {time.perf_counter() - _T0:.0f}s] {msg}", flush=True)
 
 
 def smi_line() -> str:
@@ -1489,6 +1538,7 @@ def gpt2_main_path(sc, ac, gpt2_train, parse_args, HashTokenizer, data_dir,
     launches = rr.launches
     want = {"threshold_sample": GPT2_ROUNDS, "threshold_mask": GPT2_ROUNDS,
             "sketch_encode": 2 * GPT2_ROUNDS, "sketch_estimate_all": 0,
+            "sketch_estimate_window": 0,
             "flash_fwd": 0, "flash_fwd_bf16": 0}
     want[attn] = 12 * 8 * GPT2_ROUNDS
     check_launches(label, launches, want)
@@ -2888,7 +2938,7 @@ def spans_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp
 def imagenet_pipeline_phase(sc, ac, cv_train, parse_args, corpus,
                             imagenet_ms) -> None:
     """Phase 31: config #4 as imagenet.sh runs it (phase 13's flags and
-    corpus), IMAGENET_ROUNDS rounds each way (IMAGENET_SPANS): ms/round
+    corpus), IMAGENET_PIPE_ROUNDS rounds each way (IMAGENET_SPANS): ms/round
     untraced, the busy share from a second, traced run of the same
     rounds, and the host batch's share of the wall. No kernel of the
     port launches. No gain is claimed: the measurement."""
@@ -2904,7 +2954,7 @@ def imagenet_pipeline_phase(sc, ac, cv_train, parse_args, corpus,
             assert model.cfg.grad_size == FIXUP50_D
             torch.cuda.reset_peak_memory_stats()
             runs.append(timed_train(sc, ac, cv_train, model, opt, sched,
-                                    loader, val, IMAGENET_ROUNDS,
+                                    loader, val, IMAGENET_PIPE_ROUNDS,
                                     traced=traced))
             peak = torch.cuda.max_memory_allocated() if not traced else peak
             model.close_persistence()
@@ -2915,11 +2965,11 @@ def imagenet_pipeline_phase(sc, ac, cv_train, parse_args, corpus,
                        {n: 0 for n in SKETCH_AND_ATTENTION})
         phase("imagenet_pipeline", f"{label} "
               f"({' '.join(extra) or 'per round'}): {res.ms:.2f} ms/round "
-              f"over {IMAGENET_ROUNDS} rounds (phase 13's median "
+              f"over {IMAGENET_PIPE_ROUNDS} rounds (phase 13's median "
               f"{med(imagenet_ms[1:]):.2f}); host batch {res.host_batch:.3f} "
               f"of the wall; busy share {traced.busy:.3f} over "
-              f"{IMAGENET_ROUNDS} traced rounds ({traced.ms:.2f} ms/round "
-              f"traced, host batch {traced.host_batch:.3f}); peak "
+              f"{IMAGENET_PIPE_ROUNDS} traced rounds ({traced.ms:.2f} "
+              f"ms/round traced, host batch {traced.host_batch:.3f}); peak "
               f"{peak / 2 ** 30:.3f} GiB (read in the full script, "
               f"{live:.3f} GiB live before the phase)")
 
@@ -3039,6 +3089,16 @@ def resume_pair(label, sc, ac, cv_train, parse_args, extra, tmp,
           f"{verdict}; client ids and bytes of all {rounds} rounds equal")
 
 
+def _recorded_plans(model, plans: dict) -> None:
+    """Keep every plan the model takes, by round."""
+    take = model.scheduler.take_plan
+
+    def recorded(r):
+        plans[r] = take(r)
+        return plans[r]
+    model.scheduler.take_plan = recorded
+
+
 def sched_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp):
     """Phase 32 (header). Returns the rounds' launches."""
     from commefficient_tpu_torch.telemetry import (
@@ -3054,12 +3114,7 @@ def sched_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp):
         model.attach_telemetry(TelemetrySession(
             journal=RunJournal(jpath), tracker=model.throughput,
             clock=lambda: scripted_time(model.server.round_idx)))
-        take = model.scheduler.take_plan
-
-        def recorded(r):
-            plans[r] = take(r)
-            return plans[r]
-        model.scheduler.take_plan = recorded
+        _recorded_plans(model, plans)
 
     model, rr, loader = config2_variant("sched", sc, ac, cv_train,
                                         parse_args, data_dir, SCHED,
@@ -3282,6 +3337,449 @@ def statetier_phase(sc, ac, cv_train, parse_args, ltopk_peak, tmp) -> None:
               f"{rr0.peak / 2 ** 30:.3f} and phase 11's "
               f"{ltopk_peak / 2 ** 30:.3f} ({live:.3f} and {live0:.3f} GiB "
               f"live before the two runs)")
+
+
+# ---------------- item 9f and item 1's blockwise decode: phases 35-36 -----
+
+# phase 35: config #2 with each controller (CONTROL: label, flags, K1
+# launches a round), then the three combined as a resume pair. The
+# screen runs under phase 23's trimmed_mean: over 10 rounds the colluding
+# clients' updates, sized to the multiplier the screen admits, drive
+# config #2 to a divergent loss under the mean (a numeric trip by round
+# 8) and under coord_median (by round 9, with the static multiplier
+# too), and a scaled poison of half the cohort moves the even cohort's
+# median past the screen (H100 runs). The speed run's clock
+# alternates rounds of 2.0 s and 0.25 s (control_time), so the clients
+# of the slow rounds measure 8x slower and speed matching flags some
+BYZANTINE_CTL = BYZANTINE + ["--aggregator", "trimmed_mean",
+                             "--target_screened_rate", "0.1"]
+CONTROL = (("control_screen", BYZANTINE_CTL, 8),
+           ("control_speed", SCHED + ASYNC + ["--speed_match"], 1),
+           ("control_staleness", ASYNC + ["--adapt_staleness"], 1))
+CONTROL_SPAN = ["--scan_rounds", "--pipeline"]
+CONTROL_PALETTE = ["--scan_span_palette", "1,2,4"]
+CONTROL_RESUME = (BYZANTINE_CTL + SCHED + ASYNC
+                  + ["--speed_match", "--adapt_staleness"])
+# phase 36: config #5 on GPT2-medium (24 blocks of width 1024), --remat,
+# phase 7's corpus, GPT2M_ROUNDS rounds of 8 clients x GPT2M_EXAMPLES
+GPT2M_D = 354_829_313
+GPT2M_FLAGS = ["--model_checkpoint", "gpt2-medium", "--remat"]
+GPT2M_ROUNDS = 3
+GPT2M_EXAMPLES = 8
+GPT2M_LAYERS, GPT2M_HEADS = 24, 16
+GPT2M_K = 50_000
+
+
+def control_time(round_idx: int) -> float:
+    """Phase 35's scripted clock: rounds of 2.0 s and 0.25 s in turn,
+    a function of the rounds done alone."""
+    q, m = divmod(int(round_idx), 2)
+    return 2.25 * q + (0.0, 0.25)[m]
+
+
+def _control_run(label, sc, ac, cv_train, parse_args, data_dir, extra,
+                 tmp, k1=1, clock=scripted_time, rounds=ROUNDS):
+    """One phase 35 run of config #2 with `extra`, a journal, the
+    session's clock scripted, the plans and each round's admission decay
+    (at compose) kept. Returns (model, rr, plans, decays, journal
+    path, live GiB before)."""
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    live = live_gib()
+    jpath = os.path.join(tmp, f"{label}.jsonl")
+    plans, decays = {}, {}
+
+    def setup(model):
+        model.attach_telemetry(TelemetrySession(
+            journal=RunJournal(jpath), tracker=model.throughput,
+            clock=lambda: clock(model.server.round_idx)))
+        _recorded_plans(model, plans)
+        buf = model.async_admit
+        if buf is not None:
+            compose = buf.compose
+
+            def recorded(r, *args, **kw):
+                decays[int(r)] = buf.decay
+                return compose(r, *args, **kw)
+            buf.compose = recorded
+
+    model, rr, _ = config2_variant(label, sc, ac, cv_train, parse_args,
+                                   data_dir, extra, rounds=rounds,
+                                   setup=setup)
+    model.telemetry.close(ok=True)
+    model.close_persistence()
+    check_launches(label, rr.launches, {"sketch_encode": k1 * rounds,
+                                        "sketch_estimate_all": rounds})
+    return model, rr, plans, decays, jpath, live
+
+
+def _journal(label, path):
+    from commefficient_tpu_torch.telemetry.journal import read_journal
+    records, problems = read_journal(path)
+    if problems:
+        raise AssertionError(f"{label} journal: {problems[:3]}")
+    return records
+
+
+def _run_line(label, rr, main_ms, live) -> str:
+    """ms/round beside phase 4's: the median of rounds 2-N, and the mean
+    of all N, the first included (a span's rounds end together, so its
+    median is not a round's time), the peak, the launches."""
+    med, mean = statistics.median, statistics.mean
+    return (f"median {med(rr.round_ms[1:]):.2f}, mean "
+            f"{mean(rr.round_ms):.2f} ms/round beside config #2's "
+            f"{med(main_ms[1:]):.2f}, {mean(main_ms):.2f}; peak "
+            f"{rr.peak / 2 ** 30:.3f} GiB ({live:.3f} GiB live before the "
+            f"run); launches {rr.launches}")
+
+
+def control_phase(sc, ac, cv_train, parse_args, data_dir, main_ms,
+                  tmp) -> None:
+    """Phase 35 (header)."""
+    from commefficient_tpu_torch.control import AdaptiveScreenController
+    from commefficient_tpu_torch.federated.async_agg import AsyncAdmitBuffer
+    from commefficient_tpu_torch.utils import faults
+
+    # (a) the adaptive screen: every round at its plan's multiplier, a
+    # fresh controller fed the journaled screened counts reproduces the
+    # journaled moves and the final multiplier bitwise
+    label, extra, k1 = CONTROL[0]
+    model, rr, plans, _, jpath, live = _control_run(
+        label, sc, ac, cv_train, parse_args, data_dir, extra, tmp, k1)
+    records = _journal(label, jpath)
+    screened = {rec["round"]: rec["n_screened"] for rec in records
+                if rec["event"] == "screened"}
+    journaled = [(rec["round"], rec["old_mult"], rec["new_mult"],
+                  rec["rate"]) for rec in records
+                 if rec["event"] == "screen_adapt"]
+    replay = AdaptiveScreenController(model.cfg)
+    moves, mults = [], []
+    for r in range(ROUNDS):
+        mults.append(plans[r].screen_mult)
+        if plans[r].screen_mult != replay.plan_mult():
+            raise AssertionError(f"{label}: round {r} ran at "
+                                 f"{plans[r].screen_mult}, the replay's "
+                                 f"multiplier is {replay.plan_mult()}")
+        moved = replay.observe(r, screened.get(r, 0), 8)
+        if moved is not None:
+            moves.append((r, *(round(v, 6) for v in moved)))
+    if not journaled or moves != journaled or \
+            replay.plan_mult() != model.screen_ctl.plan_mult():
+        raise AssertionError(f"{label}: journaled moves {journaled}, the "
+                             f"replay's {moves}")
+    phase(label, f"{' '.join(extra)}: multipliers by round {mults} "
+          f"(screen_norm_mult {model.cfg.screen_norm_mult:g}); "
+          f"{sum(screened.values())} updates screened; {len(journaled)} "
+          "screen_adapt events, reproduced bitwise by a fresh controller "
+          "fed the journaled counts; " + _run_line(label, rr, main_ms, live))
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) speed matching: each slot billed as the plan, the draws and
+    # the admission buffer compose it, replayed on the host
+    label, extra, k1 = CONTROL[1]
+    model, rr, plans, _, jpath, live = _control_run(
+        label, sc, ac, cv_train, parse_args, data_dir, extra, tmp, k1,
+        clock=control_time)
+    wire = float(model.cfg.upload_bytes)
+    seed = model.cfg.seed
+    replay = AsyncAdmitBuffer(2, 0.5)
+    dummy = (np.zeros((8, 1), np.float32),)
+    deferred = admitted = 0
+    for r, up in enumerate(rr.uploads):
+        plan = plans[r]
+        surv = faults.bernoulli_survivors(seed, r, 8, 0.1)
+        if plan.active is not None:
+            surv = surv * plan.active
+        work = faults.straggler_work_fractions(seed, r, 8, 0.5, 0.1)
+        if plan.work is not None:
+            work = np.minimum(work, plan.work)
+        below = work < 0.2
+        surv = np.where(below, np.float32(0.0), surv).astype(np.float32)
+        work = np.where(below, np.float32(1.0), work).astype(np.float32)
+        before = replay.pending_count
+        _, _, _, surv_c, _ = replay.compose(
+            r, np.arange(8), dummy, np.ones((8, 1), np.float32), surv,
+            None if np.all(work >= 1.0) else work)
+        admitted += len(replay.last_admits)
+        deferred += replay.pending_count - before + len(replay.last_admits)
+        if not np.array_equal(np.asarray(up), wire * surv_c):
+            raise AssertionError(f"{label}: round {r} uploads {up}, the "
+                                 f"composition keeps {surv_c}")
+    moves = [rec for rec in _journal(label, jpath)
+             if rec["event"] == "control"]
+    if not (moves and deferred and admitted) or any(
+            rec["controller"] != "speed_match" for rec in moves):
+        raise AssertionError(f"{label}: control events {moves[:3]}, "
+                             f"deferred {deferred}, admitted {admitted}")
+    phase(label, f"{' '.join(extra)}, clock control_time: "
+          f"{deferred} slots deferred and {admitted} admitted, every "
+          "round's uploads as the host replay of the plans, the draws and "
+          f"the buffer bills them; ratios "
+          f"{[plans[r].controls['speed_ratio'] for r in range(ROUNDS)]}; "
+          f"{len(moves)} speed_match control events; "
+          + _run_line(label, rr, main_ms, live))
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) staleness decay: each round composed at its plan's decay
+    label, extra, k1 = CONTROL[2]
+    model, rr, plans, decays, jpath, live = _control_run(
+        label, sc, ac, cv_train, parse_args, data_dir, extra, tmp, k1)
+    stamped = [plans[r].controls["staleness_decay"] for r in range(ROUNDS)]
+    applied = [decays[r] for r in range(ROUNDS)]
+    if applied != [float(np.float32(v)) for v in stamped]:
+        raise AssertionError(f"{label}: decays applied {applied}, the "
+                             f"plans' {stamped}")
+    moves = [rec for rec in _journal(label, jpath)
+             if rec["event"] == "control"]
+    phase(label, f"{' '.join(extra)}: every round composed at its plan's "
+          f"decay {applied}; {len(moves)} staleness_decay control events "
+          f"(lag {model.control_bank.controllers[0].lag}); "
+          + _run_line(label, rr, main_ms, live))
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) span cadence: pipelined spans of the palette's picks, bitwise
+    # the same flags without a palette
+    finals = {}
+    with Deterministic():
+        for label, extra in (("control_span", CONTROL_SPAN + CONTROL_PALETTE),
+                             ("control_span_plain", CONTROL_SPAN)):
+            model, rr, plans, _, jpath, live = _control_run(
+                label, sc, ac, cv_train, parse_args, data_dir, extra, tmp)
+            records = _journal(label, jpath)
+            picks = [rec["scan_span"] for rec in records
+                     if rec["event"] == "schedule" and "scan_span" in rec]
+            spans = [rec["rounds"] for rec in records
+                     if rec["event"] == "span"]
+            # a span's rows carry no bytes: each round's from the journal
+            finals[label] = (
+                [t.detach().cpu() for t in model.server[:3]],
+                [(rec["round"], rec["down_bytes"], rec["up_bytes"])
+                 for rec in records if rec["event"] == "round"],
+                model.accountant.state_dict())
+            phase(label, f"{' '.join(extra)}: spans of {spans}"
+                  + (f", the plans' picks {picks}, "
+                     f"{sum(rec['event'] == 'control' for rec in records)} "
+                     "span_cadence control events" if picks else "")
+                  + "; " + _run_line(label, rr, main_ms, live))
+            del model
+            torch.cuda.empty_cache()
+    (wa, ua, aa), (wb, ub, ab) = (finals["control_span"],
+                                  finals["control_span_plain"])
+    if not (all(torch.equal(a, b) for a, b in zip(wa, wb))
+            and ua == ub and len(ua) == ROUNDS
+            and sorted(aa) == sorted(ab)
+            and all(np.array_equal(np.asarray(aa[k]), np.asarray(ab[k]))
+                    for k in aa)):
+        raise AssertionError("control_span: the palette's spans differ from "
+                             "the plain spans")
+    phase("control_span", "weights, server state, the accountant and every "
+          "round's journaled bytes bitwise the run without a palette "
+          "(deterministic algorithms)")
+
+    # (e) the three round controllers combined, run A and run B
+    # (preempted, resumed) on phase 20's corpus
+    def ctl_keys(path):
+        with np.load(path) as z:
+            keys = [k for k in z.files
+                    if k.startswith(("sched_screen_", "sched_ctl_"))]
+        if len(keys) < 6:
+            raise AssertionError(f"control_resume: {path} holds {keys}")
+        phase("control_resume", f"B's checkpoint {os.path.basename(path)} "
+              f"holds {sorted(keys)}")
+
+    resume_pair("control_resume", sc, ac, cv_train, parse_args,
+                CONTROL_RESUME, os.path.join(tmp, "control_resume"),
+                check=ctl_keys)
+
+
+def gpt2medium_kernels(sc, ac, CSVec):
+    """Phase 36's kernel checks at [5, 500,000] and B = 710: K1 at
+    d = GPT2M_D and K2 on windows of chunks (the first, a middle one, the
+    ragged last chunk) against their plain versions, exact; the whole
+    blockwise decode at k = GPT2M_K bitwise its plain version's; K4 on
+    GPT2-medium's head views. Returns the kernels-line rows (launches
+    filled in after the phase 36 rounds)."""
+    from commefficient_tpu_torch.ops import sketch as tsketch
+    dev = torch.device("cuda")
+    d, c, r = GPT2M_D, MAIN_C, MAIN_R
+    sk = CSVec(d=d, c=c, r=r)
+    B = sk.n_chunks
+    nb = tsketch.window_chunks(c)
+    off, eps, delta = sk.tables(dev)
+    eps_bits, delta_bits = sk.sign_bits(dev)
+    x = torch.randn(d, generator=torch.Generator().manual_seed(36)).to(dev)
+    table = sk.encode(x)
+    t_p = sc.encode_plain(x, off, delta, eps, c)
+    torch.cuda.synchronize()
+    err = {"sketch_encode": float((table - t_p).abs().max())}
+    if not torch.equal(table, t_p):
+        raise AssertionError(f"gpt2medium: K1 differs from its plain "
+                             f"version at d={d}: {err['sketch_encode']}")
+    del t_p
+    windows = ((0, nb), (B // 2, nb), (B - 1, 1))
+    err["sketch_estimate_window"] = 0.0
+    for b0, n in windows:
+        got = sc.estimate_window(table, off, delta_bits, eps_bits, d, b0, n)
+        want = sc.estimate_all_plain(table, off, delta, eps, d, b0, n)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err["sketch_estimate_window"] = max(err["sketch_estimate_window"],
+                                            e)
+        if not torch.equal(got, want):
+            raise AssertionError(f"gpt2medium: K2 on chunks [{b0}, "
+                                 f"{b0 + n}) differs from its plain "
+                                 f"version: {e}")
+    tail = d - (B - 1) * c
+    phase("gpt2medium", f"[{r}, {c}] table, B = {B}, windows of {nb} "
+          f"chunks: K1 at d = {d} and K2 on chunks {windows} (the last "
+          f"chunk holds {tail} coordinates) equal to their plain versions "
+          "(exact)")
+
+    def plain_decode():
+        return tsketch.blockwise_topk(
+            lambda b0, n: sc.estimate_all_plain(table, off, delta, eps, d,
+                                                b0, n), B, c, d, GPT2M_K)
+
+    def decode():
+        return sk.decode_topk_sparse(table, GPT2M_K)
+
+    idx, vals = decode()
+    p_idx, p_vals = plain_decode()
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, p_idx) and torch.equal(vals, p_vals)):
+        raise AssertionError("gpt2medium: the blockwise decode's (idx, "
+                             "vals) differ between the kernels and the "
+                             "plain versions")
+    est_ops = 2 * r + r * (r - 1) + 2
+    dec_bytes = (4 * r * c + 4 * r * B + bits_bytes(r * c)
+                 + bits_bytes(r * B) + 12 * GPT2M_K)
+    dec_ms = time_cuda(decode, 10)
+    plain_ms = time_cuda(plain_decode, 2, warmup=1)
+    t_b = dec_bytes / PEAK_BYTES_PER_S * 1e3
+    t_o = d * est_ops / PEAK_F32_FLOPS * 1e3
+    phase("gpt2medium", f"blockwise decode at k = {GPT2M_K}: (idx, vals) "
+          f"bitwise the plain windows'; {int((vals != 0).sum())} nonzero "
+          f"picks; {-(-B // nb)} windows; {dec_ms:.4f} ms (device, L2 "
+          f"flushed), plain {plain_ms:.4f} ms, bound {max(t_b, t_o):.4f} ms "
+          f"({'bytes' if t_b >= t_o else 'operations'}: "
+          f"{dec_bytes / 1e6:.1f} MB, {d * est_ops / 1e9:.2f} GFLOP)")
+    del idx, vals, p_idx, p_vals
+
+    heads = GPT2M_HEADS
+    E = heads * K4_DH
+    qkv = torch.randn(K4_BATCH, GPT2_L, 3 * E,
+                      generator=torch.Generator().manual_seed(7)).to(dev)
+    q, kk, v = (t.reshape(K4_BATCH, GPT2_L, heads, K4_DH).transpose(1, 2)
+                for t in qkv.split(E, dim=-1))
+    o, lse = ac.flash_fwd(q, kk, v, 0.125)
+    po, plse = ac.flash_fwd_plain(q, kk, v, 0.125)
+    torch.cuda.synchronize()
+    err["flash_fwd"] = max(float((o - po).abs().max()),
+                           float((lse - plse).abs().max()))
+    if not (float((o - po).abs().max()) <= K4_RTOL * float(po.abs().max())
+            and float((lse - plse).abs().max())
+            <= K4_RTOL * float(plse.abs().max())):
+        raise AssertionError("gpt2medium: K4 differs from its plain version "
+                             f"on [{K4_BATCH}, {heads}, {GPT2_L}, {K4_DH}]")
+    del o, lse, po, plse
+    bh = K4_BATCH * heads
+    pairs = bh * GPT2_L * (GPT2_L + 1) // 2
+    rows = [
+        encode_row(sc, sk, x, "sketch_encode_gpt2medium", "gpt2medium"),
+        # K2 on the first window: reads the table, off and the delta
+        # bits of its chunks and the eps bits once, writes [nb, c]
+        dict(name="sketch_estimate_window", counter="sketch_estimate_window",
+             path="gpt2medium", route="cuda",
+             source="commefficient_tpu_torch/ops/csrc/sketch.cu",
+             replaces="commefficient_tpu/ops/kernels/sketch_pallas.py:191",
+             fn=lambda: sc.estimate_window(table, off, delta_bits, eps_bits,
+                                           d, 0, nb),
+             plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d,
+                                                 0, nb),
+             library=None,
+             bytes=(4 * r * c + bits_bytes(r * c) + 4 * r * nb
+                    + bits_bytes(r * nb) + 4 * nb * c),
+             ops=nb * c * est_ops),
+        dict(name="flash_fwd_gpt2medium", counter="flash_fwd",
+             path="gpt2medium", route="cuda",
+             source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces="commefficient_tpu/ops/attention.py:91",
+             fn=lambda: ac.flash_fwd(q, kk, v, 0.125),
+             plain=lambda: ac.flash_fwd_plain(q, kk, v, 0.125),
+             library=sdpa_efficient(ac, q, kk, v),
+             bytes=4 * 4 * q.numel() + 4 * bh * GPT2_L,
+             ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
+    ]
+    out = [timed_row(row, err[row["counter"]]) for row in rows]
+    del rows, table, x, q, kk, v, qkv
+    torch.cuda.empty_cache()
+    return out
+
+
+def gpt2medium_phase(sc, ac, gpt2_train, parse_args, HashTokenizer,
+                     data_dir, fserver, gpt2_ms=None):
+    """Phase 36 (header): the rounds. Returns their launches."""
+    live = live_gib()
+    spe = math.ceil(GPT2_CORPUS[0] * GPT2_CORPUS[1] * GPT2_CORPUS[2]
+                    / (8 * GPT2M_EXAMPLES))
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5
+                     + GPT2M_FLAGS + [
+                         "--local_batch_size", str(GPT2M_EXAMPLES),
+                         "--device", "cuda", "--dataset_dir", data_dir,
+                         "--num_epochs", str(GPT2M_ROUNDS / spe),
+                         "--seed", "21"])
+    t0 = time.perf_counter()
+    model, opt, sched, train_loader, _ = gpt2_train.build(
+        cfg, HashTokenizer(GPT2_VOCAB), device="cuda",
+        synthetic_examples=GPT2_CORPUS)
+    sk = fserver.args2sketch(model.cfg)
+    phase("gpt2medium", f"built in {time.perf_counter() - t0:.2f} s: "
+          f"{' '.join(GPT2M_FLAGS)}, d = {model.cfg.grad_size}, "
+          f"{sk.n_chunks} chunks, r * B = {sk.r * sk.n_chunks}, padded d "
+          f"{sk.n_chunks * sk.c}; train L = {train_loader.dataset.seq_len}, "
+          f"8 clients x {GPT2M_EXAMPLES} examples a round")
+    assert model.cfg.grad_size == GPT2M_D, model.cfg.grad_size
+    assert train_loader.dataset.seq_len == GPT2_L
+    assert not sk._threshold_decode and not sk._static_path
+    from commefficient_tpu_torch.ops import sketch as tsketch
+    windows = -(-sk.n_chunks // tsketch.window_chunks(sk.c))
+    rr = drive_rounds("gpt2medium", sc, ac, model, train_loader,
+                      GPT2M_ROUNDS,
+                      lambda timed, on_round: gpt2_train.train_gpt2(
+                          model, opt, sched, timed, model.cfg,
+                          on_round=on_round))
+    # K1 once a round (the cohort sum): the update's re-sketch takes the
+    # scatter route at r * k = 250,000 (ops/sketch.K_SPARSE_DENSE_MIN);
+    # K4 twice a block and client under --remat
+    check_launches("gpt2medium", rr.launches, {
+        "sketch_encode": GPT2M_ROUNDS,
+        "sketch_estimate_window": windows * GPT2M_ROUNDS,
+        "sketch_estimate_all": 0, "threshold_sample": 0,
+        "threshold_mask": 0, "flash_fwd_bf16": 0,
+        "flash_fwd": 2 * GPT2M_LAYERS * 8 * GPT2M_ROUNDS})
+    wire = 4 * MAIN_R * MAIN_C
+    for r, up in enumerate(rr.uploads):
+        if not np.array_equal(np.asarray(up), np.full(8, float(wire))):
+            raise AssertionError(f"gpt2medium: round {r} uploads {up}, "
+                                 f"{wire} a client expected")
+    med = statistics.median
+    phase("gpt2medium", f"{GPT2M_ROUNDS} rounds: mean client loss "
+          f"first/last {float(rr.losses[0].mean()):.4f}/"
+          f"{float(rr.losses[-1].mean()):.4f}; every upload {wire} bytes; "
+          f"K2 on {windows} windows a round; median "
+          f"{med(rr.round_ms[1:]):.2f} ms/round"
+          + ("" if gpt2_ms is None else
+             f" beside config #5's {med(gpt2_ms[1:]):.2f} (GPT2-small)")
+          + f"; peak {rr.peak / 2 ** 30:.3f} GiB ({live:.3f} GiB live "
+          f"before the phase); launches {rr.launches}")
+    launches = rr.launches
+    del model, opt, sched, train_loader, rr
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -3618,12 +4116,25 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(sched_tmp, ignore_errors=True)
 
+    # phases 35-36: the controller bank (item 9f) on config #2, and
+    # GPT2-medium sketched through the blockwise decode (item 1)
+    ctl_tmp = tempfile.mkdtemp(prefix="chip_smoke_item9f_")
+    try:
+        control_phase(sc, ac, cv_train, parse_args, c2_dir, round_ms,
+                      ctl_tmp)
+    finally:
+        shutil.rmtree(ctl_tmp, ignore_errors=True)
+    m_kernels = gpt2medium_kernels(sc, ac, CSVec)
+    m_launches = gpt2medium_phase(sc, ac, gpt2_train, parse_args,
+                                  HashTokenizer, gpt2_dir, fserver, g_ms)
+
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,
+                     "gpt2medium": m_launches,
                      "config4": s_launches, "dp": dp_launches,
                      "config5_bf16": gb_launches,
                      "byzantine": byz_launches, "dp_sketch": dps_launches}
-    kernels += g_kernels
+    kernels += g_kernels + m_kernels
     for k in kernels:
         k["launches"] = path_launches[k["path"]][k.pop("counter")]
 

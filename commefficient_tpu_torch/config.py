@@ -47,7 +47,7 @@ DEFAULT_NUM_CLIENTS = {
 }
 
 # ROADMAP.md Queue 1 items that still hold each unported path
-Q_SCALE = "Queue 1 item 9 (robustness and scale layers)"
+Q_SCALE = "Queue 1 item 9g (the multi-device step)"
 Q_ANALYSIS = "Queue 1 item 10 (the analysis tiers)"
 
 
@@ -269,6 +269,32 @@ class Config:
             return False
         return self.aggregator != "mean"
 
+    @property
+    def adaptive_screen(self) -> bool:
+        """The norm screen's multiplier is the plan-carried value the
+        AdaptiveScreenController moves (the round's screen operand);
+        otherwise the static screen_norm_mult."""
+        return (self.target_screened_rate >= 0.0
+                and self.update_screen == "norm")
+
+    @property
+    def span_palette(self) -> tuple:
+        """--scan_span_palette parsed: ascending unique span lengths, ()
+        when off. Ascending is the warmup order and the argmin's tie
+        break (the shortest span wins a tie)."""
+        s = self.scan_span_palette.strip()
+        if not s:
+            return ()
+        return tuple(sorted({int(tok) for tok in s.split(",")
+                             if tok.strip()}))
+
+    @property
+    def control_loop(self) -> bool:
+        """A bank controller is on: control.make_bank builds a bank
+        exactly then."""
+        return bool(self.speed_match or self.span_palette
+                    or self.adapt_staleness)
+
     def resolved_num_clients(self,
                              dataset_num_clients: Optional[int] = None) -> int:
         if self.num_clients is not None:
@@ -365,18 +391,23 @@ class Config:
         if self.target_screened_rate >= 0:
             if self.update_screen != "norm":
                 raise ValueError(
-                    "--target_screened_rate adapts the norm screen's "
-                    "threshold and requires --update_screen norm")
+                    "--target_screened_rate adapts the NORM-screen "
+                    "threshold and requires --update_screen norm "
+                    "(finite screening has no threshold to adapt)")
             if self.target_screened_rate >= 1.0:
                 raise ValueError(
-                    f"target_screened_rate={self.target_screened_rate} "
-                    "must be < 1")
+                    f"target_screened_rate={self.target_screened_rate}"
+                    " must be < 1 (screening the whole cohort every "
+                    "round is a dead run)")
         if self.screen_adapt_step <= 0:
-            raise ValueError("screen_adapt_step must be > 0")
+            raise ValueError(
+                "screen_adapt_step must be > 0 (the multiplicative "
+                "adjustment factor is 1 + step)")
         if not 1.0 < self.screen_mult_min <= self.screen_mult_max:
             raise ValueError(
                 f"need 1 < screen_mult_min={self.screen_mult_min} <= "
-                f"screen_mult_max={self.screen_mult_max}")
+                f"screen_mult_max={self.screen_mult_max} (same > 1 "
+                "floor as screen_norm_mult)")
         if self.rollback_screen_rounds < 1:
             raise ValueError(
                 "rollback_screen_rounds must be >= 1: a rollback with no "
@@ -449,6 +480,7 @@ class Config:
                 "the slot/weight stream is digest-cross-checked) — "
                 "attach --plan_transport collective "
                 "(parallel/plantransport.py)")
+        self._validate_controllers()
         if self.state_tier not in ("device", "host"):
             raise ValueError(
                 f"unknown state_tier {self.state_tier!r} (choices: "
@@ -547,6 +579,82 @@ class Config:
         # the plugin's own invariants
         self.compressor.validate(self)
 
+    def _validate_controllers(self) -> None:
+        """The JAX package's checks of the controller bank's flags."""
+        if self.speed_match:
+            if self.async_admit_rounds <= 0:
+                raise ValueError(
+                    "--speed_match defers measured-slow clients into "
+                    "async admission slots — it needs "
+                    "--async_admit_rounds > 0 to have somewhere to "
+                    "put them")
+            if not 0.0 < self.speed_match_target < 1.0:
+                raise ValueError(
+                    f"speed_match_target={self.speed_match_target} "
+                    "must be in (0, 1) (the deferred cohort fraction "
+                    "the ratio is steered toward)")
+            if self.speed_match_step <= 0:
+                raise ValueError(
+                    "speed_match_step must be > 0 (the multiplicative "
+                    "adjustment per observed round)")
+            if not (0.0 < self.speed_ratio_min
+                    <= self.speed_ratio_max < 1.0):
+                raise ValueError(
+                    f"need 0 < speed_ratio_min={self.speed_ratio_min} "
+                    f"<= speed_ratio_max={self.speed_ratio_max} < 1: "
+                    "a ratio >= 1 would flag at-median clients as "
+                    "slow and could defer half the cohort every round")
+        if self.scan_span_palette.strip():
+            pal = self.span_palette
+            if any(p <= 0 for p in pal):
+                raise ValueError(
+                    f"scan_span_palette={self.scan_span_palette!r}: "
+                    "span lengths must be positive")
+            if 1 not in pal:
+                raise ValueError(
+                    f"scan_span_palette={self.scan_span_palette!r} "
+                    "must include 1: the stream tail decomposes "
+                    "greedily over the palette, and only a 1-span can "
+                    "finish an arbitrary leftover without tracing a "
+                    "new program shape")
+            if not self.scan_rounds:
+                raise ValueError(
+                    "--scan_span_palette sizes the scanned staging "
+                    "loop — enable --scan_rounds")
+            if self.scan_span > 0:
+                raise ValueError(
+                    "--scan_span and --scan_span_palette are mutually "
+                    "exclusive: the palette controller owns the span "
+                    "length (static spans = --scan_span alone)")
+        if self.adapt_staleness:
+            if self.async_admit_rounds <= 0:
+                raise ValueError(
+                    "--adapt_staleness tunes the async admission "
+                    "staleness discount — it needs "
+                    "--async_admit_rounds > 0 for the discount to "
+                    "apply to anything")
+            if self.staleness_step <= 0:
+                raise ValueError(
+                    "staleness_step must be > 0 (the multiplicative "
+                    "adjustment per observed round)")
+            if not (0.0 < self.staleness_decay_min
+                    <= self.staleness_decay_max <= 1.0):
+                raise ValueError(
+                    f"need 0 < staleness_decay_min="
+                    f"{self.staleness_decay_min} <= staleness_decay_max="
+                    f"{self.staleness_decay_max} <= 1 (1.0 = "
+                    "undiscounted late admission)")
+            if (self.pipeline and self.scan_rounds
+                    and self.scan_span <= 0
+                    and not self.scan_span_palette.strip()):
+                raise ValueError(
+                    "--adapt_staleness stamps a fixed-lag decay (the "
+                    "lag bounds how far staging can run ahead of "
+                    "commits), so pipelined --scan_rounds needs a "
+                    "bounded span: set --scan_span or "
+                    "--scan_span_palette (epoch-sized spans have no "
+                    "static bound)")
+
     def _refuse_unported(self) -> None:
         def refuse(what: str, where: str):
             raise NotImplementedError(
@@ -559,15 +667,8 @@ class Config:
             # copies, so it is not the same guard (ROADMAP.md item 10)
             refuse("--debug_transfer_guard", Q_ANALYSIS)
         for flag, on in (
-                # adaptive screening: the control/ bank
-                ("--target_screened_rate", self.target_screened_rate >= 0),
-                # the multi-device step
                 ("--model_parallel > 1", self.model_parallel > 1),
-                # the control/ bank
-                ("--speed_match", self.speed_match),
-                ("--scan_span_palette", bool(self.scan_span_palette.strip())),
-                ("--adapt_staleness", self.adapt_staleness),
-                # the multi-host layer
+                # the multi-host layer, with the plan transport
                 ("--plan_transport", bool(self.plan_transport)),
                 ("--multihost", self.multihost),
                 ("--num_slices > 1", self.num_slices > 1)):

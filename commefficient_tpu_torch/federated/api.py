@@ -33,6 +33,18 @@ adversary mask with the screen flag. The accountant bills the round's
 admitted (or contributing) clients; the journal gets `screened`,
 `aggregator` and `injected_fault` events.
 
+Controllers (commefficient_tpu_torch/control): under
+--target_screened_rate the adaptive screen's multiplier is the value of
+the round's screen operand (a plan's stamped value wins over the
+controller's own), and each committed round's screened count feeds it
+(`screen_adapt` events); the controller bank (--speed_match,
+--adapt_staleness, --scan_span_palette) stamps each fresh plan, its
+plan-carried values are installed as the round is planned (the
+staleness decay set on the admission buffer before it composes), every
+committed round's metric row feeds its observe_commit and every
+collected span's seconds its feed_span, and its moves are journaled as
+`control` events.
+
 A round scheduler (commefficient_tpu_torch/scheduler,
 `attach_scheduler`) plans rounds at selection; `_faults_for_round`
 composes a plan's `active` mask into the survivors (an idle slot is a
@@ -79,6 +91,9 @@ import torch
 
 from commefficient_tpu_torch.compress import RdpAccountant
 from commefficient_tpu_torch.config import Config
+from commefficient_tpu_torch.control import (
+    AdaptiveScreenController, make_bank,
+)
 from commefficient_tpu_torch.device import resolve_device
 from commefficient_tpu_torch.federated import round as fround
 from commefficient_tpu_torch.federated.accounting import (
@@ -91,6 +106,7 @@ from commefficient_tpu_torch.federated.statestore import (
 from commefficient_tpu_torch.ops.flat import flatten_params
 from commefficient_tpu_torch.ops.prng import PRNGKey
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
+from commefficient_tpu_torch.telemetry.metrics import METRIC_INDEX
 from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.utils.checkpoint import (
     AsyncCheckpointWriter, config_fingerprint, validate_fingerprint,
@@ -102,10 +118,6 @@ from commefficient_tpu_torch.utils.faults import (
 from commefficient_tpu_torch.utils.retry import (
     is_transient_error, with_retries,
 )
-
-# `sched_*` keys of the adaptive screen and the controller bank (ROADMAP
-# item 9f), whose controllers the port does not have yet
-_CONTROLLER_KEYS = ("screen_", "ctl_")
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -273,6 +285,15 @@ class FedModel:
         self.scheduler = None
         self._plan_active: dict = {}
         self._plan_journal: dict = {}
+        # --target_screened_rate: the adaptive screen, and each planned
+        # round's stamped multiplier (a plan's value wins over the
+        # controller's own); the controller bank (None without a bank
+        # flag), and each planned round's `controls`
+        self.screen_ctl = (AdaptiveScreenController(cfg)
+                           if cfg.adaptive_screen else None)
+        self._plan_screen_mult: dict = {}
+        self.control_bank = make_bank(cfg)
+        self._plan_controls: dict = {}
         # --async_admit_rounds: the defer/admit buffer
         self.async_admit = (
             AsyncAdmitBuffer(cfg.async_admit_rounds,
@@ -354,12 +375,16 @@ class FedModel:
         """Install a scheduler.RoundScheduler (or None): its plans are
         consumed at dispatch (_faults_for_round), its state rides in
         checkpoints under `sched_*`, and under the tiered store it
-        prefetches a plan's host rows."""
+        prefetches a plan's host rows. The model's adaptive screen and
+        controller bank are shared with it: it stamps their values into
+        every plan, and their state rides its keys."""
         self.scheduler = scheduler
         if scheduler is not None:
             scheduler.state_prefetch = (
                 self.state_store.prefetch_host_rows
                 if self.state_store is not None else None)
+            scheduler.screen_ctl = self.screen_ctl
+            scheduler.control_bank = self.control_bank
 
     def scheduler_state(self) -> Optional[dict]:
         """The `sched_*` payload of the attached scheduler, or None."""
@@ -467,7 +492,6 @@ class FedModel:
             validate_fingerprint(ckpt.fingerprint,
                                  self.checkpoint_fingerprint,
                                  "<loaded checkpoint>")
-        self._check_unported_state(ckpt)
         dev = self.device
         s = ckpt.server
         self.server = fround.ServerState(
@@ -522,25 +546,11 @@ class FedModel:
         self._finish_load(ckpt)
         return ckpt.scheduler_step
 
-    @staticmethod
-    def _check_unported_state(ckpt) -> None:
-        """The adaptive screen's and the controller bank's state
-        (`sched_*` keys screen_* and ctl_*) would steer the resumed
-        rounds through controllers the port does not have: refuse it."""
-        held = sorted(k for k in (ckpt.scheduler or {})
-                      if k.startswith(_CONTROLLER_KEYS))
-        if held:
-            raise NotImplementedError(
-                f"the checkpoint carries controller state ({held}) that "
-                "the resumed rounds would need; the adaptive screen and "
-                "the controller bank are not ported to "
-                "commefficient_tpu_torch yet (ROADMAP.md Queue 1 item "
-                "9f)")
-
     def _finish_load(self, ckpt) -> None:
-        """Accounting, throughput, scheduler, sampler stream, pending
-        admissions and the previous round's change bits. Attach the
-        run's scheduler and sampler BEFORE load_state."""
+        """Accounting, throughput, scheduler (with the controllers'
+        screen_* and ctl_* keys), sampler stream, pending admissions and
+        the previous round's change bits. Attach the run's scheduler and
+        sampler BEFORE load_state."""
         if ckpt.accountant_state:
             self.accountant.load_state_dict(ckpt.accountant_state)
         if ckpt.throughput:
@@ -628,6 +638,15 @@ class FedModel:
             if plan.work is not None:
                 w = np.asarray(plan.work, np.float32)
                 work = w if work is None else np.minimum(work, w)
+            if plan.screen_mult is not None:
+                self._plan_screen_mult[int(round_idx)] = float(
+                    plan.screen_mult)
+            if plan.controls:
+                # the plan's values are the trajectory: installed as the
+                # bank's live state, the decay kept for the compose
+                self._plan_controls[int(round_idx)] = dict(plan.controls)
+                if self.control_bank is not None:
+                    self.control_bank.install(plan.controls)
             self._plan_journal[int(round_idx)] = plan.journal_fields()
         if work is not None:
             work = np.asarray(work, np.float32)
@@ -673,12 +692,22 @@ class FedModel:
         return mask if scripted is None else np.maximum(mask, scripted)
 
     def _screen_flag(self, round_idx: int) -> np.float32:
-        """1.0 when the admission screen applies this round (configured,
-        or inside a rollback's forced window), else 0.0: poison then
-        reaches the server state."""
+        """Nonzero when the admission screen applies this round
+        (configured, or inside a rollback's forced window), else 0.0:
+        poison then reaches the server state. Under --target_screened_
+        rate the value is the norm multiplier: the round's plan's, or
+        without one the controller's."""
         on = (self.cfg.update_screen != "off"
               or round_idx < self._screen_force_until)
-        return np.float32(1.0 if on else 0.0)
+        mult = self._plan_screen_mult.pop(int(round_idx), None)
+        if not on:
+            return np.float32(0.0)
+        if self.cfg.adaptive_screen:
+            if mult is None and self.screen_ctl is not None:
+                mult = self.screen_ctl.plan_mult()
+            if mult is not None:
+                return np.float32(mult)
+        return np.float32(1.0)
 
     def force_screen_rounds(self, n: int) -> None:
         """Force the admission screen on for the next `n` rounds (a
@@ -732,6 +761,59 @@ class FedModel:
                              else -1.0),
                 n_contrib=int(agg_stats[3]))
 
+    def _observe_screening(self, round_idx: int, survivors,
+                           admitted) -> None:
+        """Feed the adaptive screen one committed round's screened count
+        (every round, zero included) and journal a `screen_adapt` event
+        when the multiplier moved."""
+        n_cohort = int((np.asarray(survivors) > 0).sum())
+        n_screened = n_cohort - int((np.asarray(admitted) > 0).sum())
+        changed = self.screen_ctl.observe(round_idx, n_screened, n_cohort)
+        if changed is not None and self.telemetry is not None:
+            old, new, rate = changed
+            self.telemetry.journal_event(
+                "screen_adapt", round=int(round_idx),
+                old_mult=round(old, 6), new_mult=round(new, 6),
+                rate=round(rate, 6),
+                target=float(self.cfg.target_screened_rate))
+
+    @staticmethod
+    def _control_signals(row) -> dict:
+        """The commit-time signals of one round's [NUM_METRICS]
+        telemetry row ({} with metrics off: the controllers then skip
+        the round)."""
+        if row is None or getattr(row, "size", 0) == 0:
+            return {}
+        row = np.asarray(row, np.float32)
+        return {"estimate_residual": float(
+            row[METRIC_INDEX["estimate_residual"]])}
+
+    def _journal_control_events(self) -> None:
+        """The bank's queued moves (stamps, commits, spans) as `control`
+        events."""
+        if self.control_bank is None:
+            return
+        events = self.control_bank.take_events()
+        if self.telemetry is None:
+            return
+        for adj in events:
+            self.telemetry.journal_event(
+                "control", round=int(adj.round_idx),
+                controller=str(adj.controller),
+                signal=round(float(adj.signal), 6),
+                old=round(float(adj.old), 6),
+                new=round(float(adj.new), 6),
+                clamped=bool(adj.clamped))
+
+    def _apply_plan_controls(self, round_idx: int) -> None:
+        """Set the admission buffer's decay from the round's plan, before
+        the buffer composes the round."""
+        controls = self._plan_controls.pop(int(round_idx), None)
+        if (controls and self.async_admit is not None
+                and "staleness_decay" in controls):
+            self.async_admit.decay = float(
+                np.float32(controls["staleness_decay"]))
+
     def _journal_privacy(self, round_idx: int) -> None:
         """One committed round's `privacy` event (the cumulative epsilon
         over the rounds committed so far), then the raise once the
@@ -761,6 +843,7 @@ class FedModel:
         `schedule` event. Returns (ids, data, mask, operands) with the
         admissions merged into ids, data and mask."""
         survivors, work = self._faults_for_round(round_idx, ids_host)
+        self._apply_plan_controls(round_idx)
         if self.async_admit is not None:
             ids_host, data, mask, survivors, work = self.async_admit.compose(
                 round_idx, ids_host, data, mask, survivors, work)
@@ -776,12 +859,15 @@ class FedModel:
 
     def _commit_round(self, round_idx: int, ids_host: np.ndarray,
                       ops: Operands, prev_words, admitted, contributors,
-                      agg_stats):
+                      agg_stats, bank_row=None):
         """A round's host commit, in the JAX engine's order: the
         accountant bills the clients that completed it (the admitted
         ones in the screened family, the contributors under a robust
         aggregator) against the previous round's change bits
         `prev_words`; then the screened and aggregator events, the
+        adaptive screen's observation, the controller bank's (from
+        `bank_row()`, the round's telemetry row, when given: the span
+        path observes after its span's telemetry instead), the
         `compressor` event and dp_sketch's `privacy` event. Returns
         (download, upload)."""
         survivors = ops[0]
@@ -794,6 +880,14 @@ class FedModel:
             if survivors is not None:
                 self._journal_round_faults(round_idx, survivors, admitted,
                                            agg_stats)
+        if (self.screen_ctl is not None and admitted is not None
+                and survivors is not None):
+            self._observe_screening(round_idx, survivors, admitted)
+        if self.control_bank is not None and bank_row is not None:
+            self.control_bank.observe_commit(
+                round_idx, self._control_signals(bank_row()))
+            self._journal_control_events()
+        if self.telemetry is not None:
             # the mode's wire geometry and the round's billed upload
             self.telemetry.journal_event(
                 "compressor", round=round_idx, mode=self.cfg.mode,
@@ -859,7 +953,8 @@ class FedModel:
                           metrics.agg_stats))
             download, upload = self._commit_round(
                 this_round, ids_host, ops, prev_words, admitted, contrib,
-                agg)
+                agg, bank_row=lambda: (metrics.telemetry.cpu().numpy()
+                                       if self.cfg.telemetry else None))
         sched_mask = self._plan_active.pop(this_round, None)
         if self.telemetry is not None:
             # the round's metric tensors, journaled one round late; idle
@@ -1089,6 +1184,18 @@ class FedModel:
             # already planned (as in the JAX package)
             self._journal_tier(first_round=first,
                                rounds=int(ids_host.shape[0]))
+        if self.control_bank is not None:
+            # each round's metric row, then the span's seconds (dispatch
+            # and device), then the moves journaled, before a crash
+            # boundary raises
+            n_done = int(ids_host.shape[0])
+            for n in range(n_done):
+                self.control_bank.observe_commit(
+                    first + n, self._control_signals(
+                        None if tele is None else tele[n]))
+            self.control_bank.feed_span(first + n_done - 1, n_done,
+                                        t_blocked - handle.t_dispatch0)
+            self._journal_control_events()
         if handle.crash_at is not None:
             # every round up to the crash committed above
             self._journal_fault("crash_after", handle.crash_at)

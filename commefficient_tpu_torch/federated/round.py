@@ -166,13 +166,15 @@ def corrupt(t: torch.Tensor, pois: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def attack(t: torch.Tensor, pois: torch.Tensor, surv: torch.Tensor,
-           cfg: Config) -> torch.Tensor:
+           cfg: Config, screen: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
     """The adversary's replacement of flagged clients' transmits
     ([W, ...]): `sign_flip` (-v), `scaled` (100 v), or one crafted
     update from the honest cohort's statistics (honest: unflagged,
     surviving, finite): `little_is_enough` (mean minus one standard
     deviation a coordinate) or `colluding` (the negated honest mean at
-    0.9 x the norm screen's envelope, mult x the honest median norm)."""
+    0.9 x the norm screen's envelope, mult x the honest median norm;
+    under --target_screened_rate mult is the value of `screen`)."""
     W = t.shape[0]
     V = t.reshape(W, -1).to(torch.float32)
     if cfg.attack == "sign_flip":
@@ -194,7 +196,10 @@ def attack(t: torch.Tensor, pois: torch.Tensor, surv: torch.Tensor,
             med = torch.where(honest.sum() > 0, med, med.new_tensor(1.0))
             # the envelope the norm screen admits (>= 1 keeps the
             # attack meaningful with the screen off)
-            amult = med.new_tensor(max(float(cfg.screen_norm_mult), 1.0))
+            amult = (torch.clamp(screen.to(torch.float32), min=1.0)
+                     if cfg.adaptive_screen
+                     else med.new_tensor(max(float(cfg.screen_norm_mult),
+                                             1.0)))
             d = -hmean
             crafted = d * (med.new_tensor(0.9) * amult * med / torch.clamp(
                 torch.sqrt(torch.square(d).sum()), min=1e-12))
@@ -206,10 +211,11 @@ def attack(t: torch.Tensor, pois: torch.Tensor, surv: torch.Tensor,
 def admission(t: torch.Tensor, surv: torch.Tensor, screen: torch.Tensor,
               cfg: Config) -> torch.Tensor:
     """[W] f32 admit mask of the transmits t ([W, ...]): finite, and
-    under --update_screen norm an l2 at most screen_norm_mult x the
-    median l2 of the eligible clients (surviving, finite, nonzero; a
-    round with none eligible admits all). All ones when `screen` is 0:
-    the mask is computed and not applied."""
+    under --update_screen norm an l2 at most mult x the median l2 of the
+    eligible clients (surviving, finite, nonzero; a round with none
+    eligible admits all), mult being screen_norm_mult or, under
+    --target_screened_rate, the value of `screen`. All ones when
+    `screen` is 0: the mask is computed and not applied."""
     W = t.shape[0]
     ok = torch.isfinite(t).reshape(W, -1).all(dim=1)
     if cfg.update_screen == "norm":
@@ -217,7 +223,9 @@ def admission(t: torch.Tensor, surv: torch.Tensor, screen: torch.Tensor,
                         .reshape(W, -1).sum(dim=1))
         elig = (surv > 0) & torch.isfinite(l2) & (l2 > 0)
         med = masked_median(l2, elig)
-        norm_ok = torch.where(elig.sum() > 0, l2 <= cfg.screen_norm_mult * med,
+        mult = (screen.to(torch.float32) if cfg.adaptive_screen
+                else cfg.screen_norm_mult)
+        norm_ok = torch.where(elig.sum() > 0, l2 <= mult * med,
                               torch.ones_like(ok))
         ok = ok & norm_ok
     return torch.where(screen > 0, ok.to(torch.float32),
@@ -398,7 +406,7 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
         the order statistics. Returns (local_sum or the normalized
         robust aggregate, counts, admitted, contributors, agg_stats)."""
         if cfg.byzantine_rate > 0:
-            tx = attack(tx, pois, surv, cfg)
+            tx = attack(tx, pois, surv, cfg, screen)
         else:
             tx = corrupt(tx, pois, cfg.poison_kind)
         admitted = surv * admission(tx, surv, screen, cfg)

@@ -79,6 +79,10 @@
 // SM (barely faster at r = 5, spills at r = 16), chunk-major block
 // order (no faster), warp-coalesced stores by shuffles and 4 positions
 // a thread (both slower).
+// The blockwise top-k decode (ops/sketch.py, a padded d past 256M or
+// r * B > 2048) launches the same kernel on a window of nb chunks from
+// chunk b0 at a time, written as [nb, c], so the [B, c] estimate is
+// never held at once; the whole-table launch is the window (0, B).
 //
 // K3 (K3a cct_sketch_threshold_sample + K3b cct_sketch_threshold_mask)
 // replaces sketch_pallas.py pallas_threshold_decode's two kernels,
@@ -441,8 +445,9 @@ __device__ __forceinline__ void estimate_run(
   }
 }
 
-// K2: est[b * c + p + k] for the kMaskPositions positions p + k of
-// chunk b a thread owns, 0 at or past d.
+// K2: est[(b - b0) * c + p + k] for the kMaskPositions positions p + k
+// of chunk b = b0 + blockIdx.y a thread owns, 0 where the global index
+// b * c + p + k is at or past d. The whole table is the window (0, B).
 template <int R>
 __global__ void __launch_bounds__(kMaskThreads)
     estimate_all_kernel(const float* __restrict__ table,
@@ -450,12 +455,13 @@ __global__ void __launch_bounds__(kMaskThreads)
                         const uint32_t* __restrict__ delta_bits,
                         const uint32_t* __restrict__ eps_bits,
                         float* __restrict__ est, int c, int B, long long d,
-                        int vec) {
+                        int b0, int vec) {
   constexpr int NP = kMaskPositions;
   const int p = (blockIdx.x * kMaskThreads + threadIdx.x) * NP;
-  const int b = blockIdx.y;
+  const int b = b0 + blockIdx.y;
   if (p >= c) return;
   const long long gi = (long long)b * c + p;
+  est += (long long)blockIdx.y * c + p;
   float res[NP];
   if (gi < d)   // else all NP positions lie in the tail: nothing to gather
     estimate_run<R, NP>(table, off, delta_bits, eps_bits, c, B, b, p, vec,
@@ -466,12 +472,12 @@ __global__ void __launch_bounds__(kMaskThreads)
 #pragma unroll
   for (int i = 0; i < NP; i += 4) {
     if (vec && p + i + 4 <= c) {
-      *reinterpret_cast<float4*>(est + gi + i) =
+      *reinterpret_cast<float4*>(est + i) =
           make_float4(res[i], res[i + 1], res[i + 2], res[i + 3]);
     } else {
 #pragma unroll
       for (int k = i; k < i + 4; ++k)
-        if (p + k < c) est[gi + k] = res[k];
+        if (p + k < c) est[k] = res[k];
     }
   }
 }
@@ -565,10 +571,10 @@ template <int R>
 void launch_estimate_all(const float* table, const int* off,
                          const uint32_t* delta_bits,
                          const uint32_t* eps_bits, float* est, int c, int B,
-                         long long d, cudaStream_t stream) {
-  dim3 grid(run_blocks(c), B);
+                         long long d, int b0, int nb, cudaStream_t stream) {
+  dim3 grid(run_blocks(c), nb);
   estimate_all_kernel<R><<<grid, kMaskThreads, 0, stream>>>(
-      table, off, delta_bits, eps_bits, est, c, B, d,
+      table, off, delta_bits, eps_bits, est, c, B, d, b0,
       run_vec(table, est, c));
 }
 
@@ -598,7 +604,7 @@ void launch_estimate_all(const float* table, const int* off,
                    (cudaStream_t)stream)
 #define LAUNCH_ESTIMATE(R)                                                \
   launch_estimate_all<R>(table, off, delta_bits, eps_bits, est, c, B, d,  \
-                         (cudaStream_t)stream)
+                         b0, nb, (cudaStream_t)stream)
 #define LAUNCH_SAMPLE(R)                                                  \
   launch_sample<R>(table, off, delta_bits, eps_bits, sample, c, B, d,    \
                    stride, ns, (cudaStream_t)stream)
@@ -621,14 +627,17 @@ int cct_sketch_encode(const float* x, long long d, const int* off,
   return (int)cudaGetLastError();
 }
 
-// est[B, c] <- median-of-rows estimate of every coordinate of the
-// sketched vector, the tail at >= d zeroed (K2), eps and delta as
-// packed sign bits. Returns cudaGetLastError().
+// est[nb, c] <- median-of-rows estimate of every coordinate of chunks
+// b0 .. b0 + nb - 1 of the sketched vector, those at >= d zeroed (K2;
+// the whole [B, c] estimate is b0 = 0, nb = B), eps and delta as packed
+// sign bits. Returns cudaGetLastError().
 int cct_sketch_estimate_all(const float* table, const int* off,
                             const uint32_t* delta_bits,
                             const uint32_t* eps_bits, float* est, int r,
-                            int c, int B, long long d, void* stream) {
-  if (c < 1 || B < 1 || B > 65535 || (long long)r * c >= (1LL << 31))
+                            int c, int B, long long d, int b0, int nb,
+                            void* stream) {
+  if (c < 1 || B < 1 || b0 < 0 || nb < 1 || nb > 65535 ||
+      (long long)b0 + nb > B || (long long)r * c >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   CCT_ROWS_SWITCH(r, LAUNCH_ESTIMATE)
   return (int)cudaGetLastError();

@@ -19,6 +19,9 @@ consecutive positions of a chunk) without the select, writing the
 [B, c] estimate with its tail zeroed. Its byte bound counts the table
 and the estimate once (38.3 MB at the ResNet9 geometry); the r-fold
 gather of the table from L2 (140 MB there) is its floor, as for K3b.
+`estimate_window` launches the same kernel on a window of chunks
+[b0, b0 + nb), the blockwise top-k decode's (ops/sketch.py), with its
+own count.
 
 K3 replaces the two kernels of `pallas_threshold_decode`: K3a
 `threshold_sample` (`_sample_kernel`) and K3b `threshold_mask`
@@ -50,7 +53,7 @@ path).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,6 +61,7 @@ from commefficient_tpu_torch.ops.kernels import _build
 
 # kernel name -> launches through its wrapper (plain versions never count)
 LAUNCHES: Dict[str, int] = {"sketch_encode": 0, "sketch_estimate_all": 0,
+                            "sketch_estimate_window": 0,
                             "threshold_sample": 0, "threshold_mask": 0}
 
 # the largest row count the register sort network is instantiated for
@@ -77,7 +81,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.cct_sketch_encode.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i, vp]
     lib.cct_sketch_estimate_all.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll,
-                                            vp]
+                                            i, i, vp]
     lib.cct_sketch_threshold_sample.argtypes = [vp, vp, vp, vp, vp, i, i, i,
                                                 ll, i, i, vp]
     lib.cct_sketch_threshold_mask.argtypes = [vp, vp, vp, vp, vp, vp, i, i,
@@ -227,22 +231,26 @@ def median_rows(vals: torch.Tensor) -> torch.Tensor:
 
 
 def estimate_all_plain(table: torch.Tensor, off: torch.Tensor,
-                       delta: torch.Tensor, eps: torch.Tensor,
-                       d: int) -> torch.Tensor:
-    """est[b, p] = median_j(table[j, (p + off[j, b]) mod c] * eps[j, p]
-    * delta[j, b]), tail (b * c + p >= d) zeroed: stacked rolls, sort,
-    middle."""
+                       delta: torch.Tensor, eps: torch.Tensor, d: int,
+                       b0: int = 0, nb: Optional[int] = None
+                       ) -> torch.Tensor:
+    """est[b - b0, p] = median_j(table[j, (p + off[j, b]) mod c]
+    * eps[j, p] * delta[j, b]) for the chunks b0 <= b < b0 + nb (all B by
+    default), zero where b * c + p >= d: stacked rolls, sort, middle."""
     r, c = table.shape
     B = off.shape[1]
-    offs = off.tolist()
+    nb = B - b0 if nb is None else nb
+    offs = off[:, b0:b0 + nb].tolist()
     ests = []
-    for b in range(B):
-        rows = torch.stack([torch.roll(table[j], -offs[j][b])
+    for i in range(nb):
+        rows = torch.stack([torch.roll(table[j], -offs[j][i])
                             for j in range(r)])
-        ests.append(median_rows(rows * eps * delta[:, b][:, None]))
+        ests.append(median_rows(rows * eps
+                                * delta[:, b0 + i][:, None]))
     est = torch.stack(ests)
-    if B * c != d:
-        est.view(-1)[d:] = 0.0
+    tail = d - b0 * c
+    if nb * c > tail:
+        est.view(-1)[tail:] = 0.0
     return est
 
 
@@ -275,23 +283,42 @@ def estimate_all(table: torch.Tensor, off: torch.Tensor,
     """[B, c] median-of-rows estimates (tail zeroed), the signs as in
     `encode`: K2 on a CUDA tensor reads the bits; on a CPU tensor
     `estimate_all_plain` takes the tables they unpack to."""
+    return _estimate(table, off, delta_bits, eps_bits, d, 0, off.shape[1],
+                     "sketch_estimate_all")
+
+
+def estimate_window(table: torch.Tensor, off: torch.Tensor,
+                    delta_bits: torch.Tensor, eps_bits: torch.Tensor,
+                    d: int, b0: int, nb: int) -> torch.Tensor:
+    """[nb, c]: rows b0 .. b0 + nb - 1 of `estimate_all`'s [B, c], by K2
+    on that window alone on a CUDA tensor (counted as
+    `sketch_estimate_window`), by `estimate_all_plain` on a CPU one."""
+    return _estimate(table, off, delta_bits, eps_bits, d, int(b0), int(nb),
+                     "sketch_estimate_window")
+
+
+def _estimate(table, off, delta_bits, eps_bits, d: int, b0: int, nb: int,
+              name: str) -> torch.Tensor:
     r, c = table.shape
     B = off.shape[1]
-    dev = _check_decode_args("estimate_all", table, off, delta_bits,
-                             eps_bits, d)
+    dev = _check_decode_args(name, table, off, delta_bits, eps_bits, d)
+    if not (0 <= b0 and 1 <= nb and b0 + nb <= B):
+        raise ValueError(f"chunk window [{b0}, {b0 + nb}) is not within "
+                         f"the {B} chunks")
     if dev.type == "cpu":
         return estimate_all_plain(table, off,
                                   unpack_sign_bits(delta_bits, (r, B)),
-                                  unpack_sign_bits(eps_bits, (r, c)), d)
+                                  unpack_sign_bits(eps_bits, (r, c)), d,
+                                  b0, nb)
     lib = _load()
-    est = torch.empty((B, c), dtype=torch.float32, device=dev)
+    est = torch.empty((nb, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cct_sketch_estimate_all(
             table.data_ptr(), off.data_ptr(), delta_bits.data_ptr(),
-            eps_bits.data_ptr(), est.data_ptr(), r, c, B, d, stream)
+            eps_bits.data_ptr(), est.data_ptr(), r, c, B, d, b0, nb, stream)
     _build.check(lib, code, "cct_sketch_estimate_all")
-    LAUNCHES["sketch_estimate_all"] += 1
+    LAUNCHES[name] += 1
     return est
 
 

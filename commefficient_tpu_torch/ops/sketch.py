@@ -21,14 +21,19 @@ either.
 
 Route gates keep the JAX values: STATIC_UNROLL_LIMIT and
 DECODE_MATERIALIZE_LIMIT decide whether `decode_topk_sparse` may
-materialize the full estimate (the blockwise route past them is not
-ported), THRESHOLD_DECODE_MIN_D routes `decode_topk_dense` to the
+materialize the full estimate; past either it takes the blockwise route
+(`blockwise_topk`): K2 estimates a window of chunks at a time
+(`sketch_cuda.estimate_window`, at most DECODE_WINDOW_BYTES of
+estimates), each chunk keeps its top min(k, c), and one top-k over the
+candidates picks the k, in the JAX package's order (its approx_max_k is
+exact off the TPU: ties to the lower chunk, then the lower rank).
+THRESHOLD_DECODE_MIN_D routes `decode_topk_dense` to the
 sampled-threshold decode (kernel K3).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +46,10 @@ from commefficient_tpu_torch.ops.kernels import sketch_cuda
 STATIC_UNROLL_LIMIT = 2048
 DECODE_MATERIALIZE_LIMIT = 256 * 1024 * 1024
 THRESHOLD_DECODE_MIN_D = 32 * 1024 * 1024
+# the blockwise decode's window: as many chunks as an estimate of this
+# many bytes holds (134 chunks of 500,000 columns), at most 65,535 (the
+# kernel's grid)
+DECODE_WINDOW_BYTES = 256 * 1024 * 1024
 # encode_k_sparse re-sketches through the dense encode past this many
 # scattered elements on an accelerator (scatter-add is slow there); on
 # the CPU the scatter always wins
@@ -246,11 +255,14 @@ class CSVec:
         k = min(k, self.d)
         if not (self._static_path
                 and self.n_chunks * self.c <= DECODE_MATERIALIZE_LIMIT):
-            raise NotImplementedError(
-                "decode_topk_sparse's blockwise route (r * B > "
-                f"{STATIC_UNROLL_LIMIT} or a padded d past "
-                "DECODE_MATERIALIZE_LIMIT) is not ported yet "
-                "(ROADMAP.md Queue 1 item 1)")
+            # past the gates the [d] estimate is never held at once
+            off = self.tables(table.device)[0]
+            eps_bits, delta_bits = self.sign_bits(table.device)
+            table = table.float().contiguous()
+            return blockwise_topk(
+                lambda b0, nb: sketch_cuda.estimate_window(
+                    table, off, delta_bits, eps_bits, self.d, b0, nb),
+                self.n_chunks, self.c, self.d, k)
         flat = self._flat_estimates(table)
         idx = topk_indices(flat * flat, k)
         vals = flat[idx]
@@ -263,6 +275,42 @@ class CSVec:
         even-count convention)."""
         return torch.sqrt(sketch_cuda.median_rows(
             torch.sum(table * table, dim=1)))
+
+
+def window_chunks(c: int) -> int:
+    """Chunks in one window of the blockwise decode."""
+    return max(1, min(DECODE_WINDOW_BYTES // (4 * int(c)), 65535))
+
+
+def blockwise_topk(estimate_window: Callable[[int, int], torch.Tensor],
+                   n_chunks: int, c: int, d: int, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(indices [k] int64, values [k]) of the k largest-magnitude
+    estimates, window by window: `estimate_window(b0, nb)` gives chunks
+    b0 .. b0 + nb - 1's [nb, c] estimates, zero at or past d; each chunk
+    keeps its top min(k, c) by a stable sort (ties to the lower index,
+    as lax.top_k), in chunk order, and one stable top-k over those
+    candidates picks the k (ties to the earlier candidate). Zero values
+    carry index d, as in the materialized route."""
+    kc = min(k, c)
+    step = window_chunks(c)
+    cand_idx, cand_vals = [], []
+    for b0 in range(0, n_chunks, step):
+        nb = min(step, n_chunks - b0)
+        est = estimate_window(b0, nb)
+        sel = torch.sort(est * est, dim=1, descending=True,
+                         stable=True).indices[:, :kc]
+        cand_vals.append(torch.gather(est, 1, sel).reshape(-1))
+        base = torch.arange(b0, b0 + nb, device=est.device,
+                            dtype=torch.int64)[:, None] * c
+        cand_idx.append((sel + base).reshape(-1))
+        del est, sel
+    cand_idx = torch.cat(cand_idx)
+    cand_vals = torch.cat(cand_vals)
+    pick = topk_indices(cand_vals * cand_vals, k)
+    idx, vals = cand_idx[pick], cand_vals[pick]
+    idx = torch.where(vals == 0.0, torch.full_like(idx, d), idx)
+    return idx, vals
 
 
 def scatter_drop(d: int, idx: torch.Tensor,

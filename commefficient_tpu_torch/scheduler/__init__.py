@@ -22,9 +22,13 @@ high-water mark of committed rounds ride in checkpoints under `sched_*`
 keys, the JAX package's, so a resumed run replays the same decisions
 from the restored tracker (`thr_*`) and sampler stream (`smp_*`).
 
-Not ported here: the plan transport of the multi-host layer and the
-control bank's controllers (ROADMAP.md Queue 1 items 9g and 9f); their
-hooks (`screen_ctl`, `control_bank`) stay None.
+FedModel shares its controllers (commefficient_tpu_torch/control) with
+the scheduler: the adaptive screen (`screen_ctl`, its multiplier on
+`RoundPlan.screen_mult`) and the controller bank (`control_bank`, which
+stamps each fresh plan's `controls` and min-composes its work
+fractions). Either makes the scheduler plan every round, and their
+state rides the same `sched_*` keys. Not ported here: the plan
+transport of the multi-host layer (ROADMAP.md Queue 1 item 9g).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
+from commefficient_tpu_torch.control.screen import AdaptiveScreenController
 from commefficient_tpu_torch.scheduler.deadline import (
     DeadlineDecision, DeadlinePolicy, overprovision,
 )
@@ -42,9 +47,10 @@ from commefficient_tpu_torch.scheduler.policy import (
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
 
 __all__ = [
-    "DeadlineDecision", "DeadlinePolicy", "ParticipantSampler",
-    "RoundPlan", "RoundScheduler", "SAMPLERS", "ThroughputAwareSampler",
-    "UniformSampler", "attach_round_scheduler", "overprovision",
+    "AdaptiveScreenController", "DeadlineDecision", "DeadlinePolicy",
+    "ParticipantSampler", "RoundPlan", "RoundScheduler", "SAMPLERS",
+    "ThroughputAwareSampler", "UniformSampler", "attach_round_scheduler",
+    "overprovision",
 ]
 
 # the persistent counters, in the checkpoint's order
@@ -117,7 +123,8 @@ class RoundScheduler:
         # the tiered store's host prefetch (FedModel.attach_scheduler):
         # warms the host side of a plan's coming restores; LRU-neutral
         self.state_prefetch = None
-        # item 9f's adaptive screen and controller bank
+        # the model's adaptive screen and controller bank
+        # (FedModel.attach_scheduler)
         self.screen_ctl = None
         self.control_bank = None
 
@@ -222,6 +229,10 @@ class RoundScheduler:
         }
         if hasattr(self.policy, "state_dict"):
             out.update(self.policy.state_dict())
+        if self.screen_ctl is not None:
+            out.update(self.screen_ctl.state_dict())
+        if self.control_bank is not None:
+            out.update(self.control_bank.state_dict())
         return out
 
     def load_state_dict(self, state: dict) -> None:
@@ -237,6 +248,10 @@ class RoundScheduler:
             "rounds_committed", state["rounds_scheduled"])))
         if hasattr(self.policy, "load_state_dict"):
             self.policy.load_state_dict(state)
+        if self.screen_ctl is not None:
+            self.screen_ctl.load_state_dict(state)
+        if self.control_bank is not None:
+            self.control_bank.load_state_dict(state)
 
 
 def attach_round_scheduler(model, train_loader) -> RoundScheduler:

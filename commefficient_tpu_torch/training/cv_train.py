@@ -13,7 +13,9 @@ utils/faults.py with the numeric rollback; `--scan_rounds` (spans of
 --scan_span rounds, training/scanloop.py), `--pipeline`,
 `--ckpt_every_spans` and `--profile_spans`; the round scheduler
 (`--sampler`, `--deadline_quantile`, `--target_survivors`,
-scheduler/), `--async_admit_rounds` and `--state_tier host`. What the
+scheduler/), `--async_admit_rounds`, `--state_tier host` and the
+controllers (`--target_screened_rate`, `--speed_match`,
+`--scan_span_palette`, `--adapt_staleness`, control/). What the
 port does not run yet is refused by Config.validate: the rest of
 ROADMAP.md Queue 1.
 
@@ -231,7 +233,9 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
 
             run_scanned_rounds(
                 model, span_stream(),
-                cfg.scan_span if cfg.scan_span > 0 else spe,
+                # the palette's controller picks each span's length
+                (model.control_bank if cfg.span_palette
+                 else cfg.scan_span if cfg.scan_span > 0 else spe),
                 span_emit, on_comm,
                 checkpoint=make_span_checkpoint(ckpt_prefix, model, cfg,
                                                 lr_scheduler),

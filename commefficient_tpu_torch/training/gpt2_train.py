@@ -8,18 +8,20 @@ artifact and the final validation; the run journal, `--checkpoint_every`,
 `--checkpoint`, `--resume` (training/persist.py, the resumed epoch's
 stream continued), `--trace` and `--profile`. The round underneath is the same
 engine cv_train drives; at config #5 it takes the fused client backward
-(Config.fused_client_backward) and the threshold decode (kernel K3),
-and sequences of 256 tokens or more take flash attention (kernel K4).
+(Config.fused_client_backward) and the threshold decode (kernel K3);
+GPT2-medium and larger sketch past the threshold decode's reach and
+take the blockwise decode (kernel K2 a window of chunks at a time);
+sequences of 256 tokens or more take flash attention (kernel K4).
 Weights come from a save_pretrained artifact of either package, a
 locally cached HF checkpoint, or random from --seed
 (build_model_and_params); --finetune evaluates the artifact at
 --finetune_path, and --remat recomputes each block in the backward.
 `--scan_rounds`, `--pipeline`, `--ckpt_every_spans` and
 `--profile_spans` run the rounds in spans (training/scanloop.py); the
-round scheduler, `--async_admit_rounds` and `--state_tier host` run as
-in cv_train. What the port does not run yet is refused by
-Config.validate: --model_parallel and the rest of ROADMAP.md Queue 1
-item 9.
+round scheduler, `--async_admit_rounds`, `--state_tier host` and the
+controllers run as in cv_train. What the port does not run yet is
+refused by Config.validate: --model_parallel and the rest of ROADMAP.md
+Queue 1 item 9g.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
@@ -245,7 +247,9 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
 
             aborted = not run_scanned_rounds(
                 model, span_stream(),
-                cfg.scan_span if cfg.scan_span > 0 else spe,
+                # the palette's controller picks each span's length
+                (model.control_bank if cfg.span_palette
+                 else cfg.scan_span if cfg.scan_span > 0 else spe),
                 span_emit, on_comm,
                 checkpoint=make_span_checkpoint(ckpt_prefix, model, cfg,
                                                 lr_scheduler),

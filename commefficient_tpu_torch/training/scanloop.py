@@ -5,7 +5,10 @@ commefficient_tpu/training/scanloop.py.
 rounds (the last may be shorter), stages each span on the host as
 [N, W, B, ...] and runs it through FedModel.run_rounds, then emits the
 span's per-round metric rows. Both drivers use it; what they do with a
-round's rows is their `emit`.
+round's rows is their `emit`. Under --scan_span_palette `span_cap` is
+the model's ControllerBank: each span's length is its pick as the span's
+first round is drawn, and the stream's tail is cut into palette lengths
+(control/span.py).
 
 With `pipeline=True` (--pipeline) a span is DISPATCHED as soon as it is
 staged (FedModel.dispatch_rounds, which queues its rounds on the card
@@ -15,6 +18,11 @@ thread runs the stream (sampler draws, batch fetch and transform, the
 LR step, stacking) one span ahead: the host's batch making overlaps the
 loop's dispatch and collect, and the card's work on the span before.
 The synchronous path runs the same halves back to back on one thread.
+With controllers (the adaptive screen or a bank), whose stamps at draw
+time read what collects feed them, the staging thread draws span s only
+once span s - 2 is collected, as the JAX loop's order has it (_Gate):
+the stamps, the span pick and the span's stream cursor then see the same
+collected state on every run, whatever the threads' timing.
 
 There is no scanned device program in the port: a span's rounds are
 the per-round path's, operation for operation, so a spanned or
@@ -34,7 +42,7 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 
 
-def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap: int,
+def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap,
                        emit: Callable[..., bool],
                        on_comm: Optional[Callable[[float, float],
                                                   None]] = None,
@@ -43,7 +51,10 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap: int,
                        pipeline: bool = False) -> bool:
     """Drive spans of at most `span_cap` rounds over `stream`, which
     yields (tag, client_ids, data_tuple, mask, lr) a round; the caller
-    ends the stream at its round budget.
+    ends the stream at its round budget. `span_cap` is an int, or a
+    provider with span_cap(default) (each span's length, read as its
+    first round is drawn) and tail_cap(leftover) (the stream's tail is
+    cut into spans of those lengths).
 
     Per span, once it is collected: on_flush(n_rounds), then
     on_comm(download, upload) with the span's byte totals, then
@@ -80,6 +91,9 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap: int,
     # pipelined: the one dispatched, uncollected span
     pending = []  # [(handle, tags, span_idx, snapshot)]
     tele = getattr(model, "telemetry", None)
+    gate = (_Gate() if pipeline and (
+        getattr(model, "control_bank", None) is not None
+        or getattr(model, "screen_ctl", None) is not None) else None)
 
     def commit(out, span_tags, snap) -> bool:
         *metric_rows, down, up = out
@@ -100,6 +114,8 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap: int,
     def collect_pending():
         handle, span_tags, span_idx, snap = pending.pop()
         out = model.collect_rounds(handle)
+        if gate is not None:
+            gate.collected()
         if tele is not None:
             tele.span_profile_end(span_idx)
         return out, span_tags, snap
@@ -149,8 +165,12 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap: int,
         pending.append((handle, span_tags, span_idx, snap))
         return prev_ok
 
-    spans = _spans(stream, int(span_cap), cursor_fn)
-    staging = _StagingThread(spans) if pipeline else None
+    if hasattr(span_cap, "span_cap"):
+        caps = (lambda: int(span_cap.span_cap(1)), span_cap.tail_cap)
+    else:
+        caps = (lambda: int(span_cap), None)
+    spans = _spans(stream, *caps, cursor_fn, gate)
+    staging = _StagingThread(spans, gate) if pipeline else None
     try:
         for span_tags, args, cursor in (staging or spans):
             if not flush(span_tags, args, cursor):
@@ -164,13 +184,15 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap: int,
     return True
 
 
-def _spans(stream, cap: int, cursor_fn=None):
-    """The stream's rounds in spans of `cap` (the tail shorter), each as
-    (tags, run_rounds' arguments stacked [N, ...], the stream's cursor
-    right after the span's last draw, or None)."""
-    rounds = []
+def _spans(stream, cap_fn, tail_fn=None, cursor_fn=None, gate=None):
+    """The stream's rounds in spans, each as (tags, run_rounds' arguments
+    stacked [N, ...], the stream's cursor right after the span's last
+    draw, or None). A span's length is cap_fn() as its first round is
+    drawn; the stream's tail is one span, or with `tail_fn` spans of
+    tail_fn(leftover) rounds. With a `gate`, span s is drawn (or, in the
+    tail, cut) only once gate.wait(s) lets it."""
 
-    def pack():
+    def pack(rounds):
         tags, ids, datas, masks, lrs = zip(*rounds)
         args = (np.stack(ids),
                 tuple(np.stack([d[i] for d in datas])
@@ -179,13 +201,62 @@ def _spans(stream, cap: int, cursor_fn=None):
         return (list(tags), args,
                 cursor_fn() if cursor_fn is not None else None)
 
-    for item in stream:
-        rounds.append(item)
-        if len(rounds) == cap:
-            yield pack()
+    it = iter(stream)
+    span = 0
+    rounds = []
+    while True:
+        if gate is not None and not gate.wait(span):
+            return
+        cap = None
+        for item in it:
+            rounds.append(item)
+            if cap is None:
+                cap = cap_fn()
+            if len(rounds) >= cap:
+                break
+        if cap is not None and len(rounds) >= cap:
+            yield pack(rounds)
+            span += 1
             rounds = []
-    if rounds:
-        yield pack()
+            continue
+        # the stream ended
+        while rounds:
+            take = (max(1, min(int(tail_fn(len(rounds))), len(rounds)))
+                    if tail_fn is not None else len(rounds))
+            yield pack(rounds[:take])
+            span += 1
+            rounds = rounds[take:]
+            if rounds and gate is not None and not gate.wait(span):
+                return
+        return
+
+
+class _Gate:
+    """--pipeline's order with controllers: the staging thread draws
+    span s only once the loop has collected span s - 2 (the JAX loop
+    draws span s after the flush of span s - 1, which collects s - 2).
+    A stopped gate lets no more spans be drawn."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._collected = 0
+        self._stopped = False
+
+    def wait(self, span: int) -> bool:
+        with self._cond:
+            self._cond.wait_for(lambda: self._stopped
+                                or self._collected >= span - 1)
+            return not self._stopped
+
+    def collected(self) -> None:
+        with self._cond:
+            self._collected += 1
+            self._cond.notify_all()
+
+    def stop(self) -> None:
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()
 
 
 class _StagingThread:
@@ -198,8 +269,9 @@ class _StagingThread:
 
     _END = object()
 
-    def __init__(self, spans):
+    def __init__(self, spans, gate: Optional[_Gate] = None):
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._gate = gate
         self._stopping = threading.Event()
         self._thread = threading.Thread(target=self._run, args=(spans,),
                                         name="span-staging", daemon=True)
@@ -237,6 +309,8 @@ class _StagingThread:
         """Stop staging (an abort or a crash leaves spans undrawn) and
         wait for the thread."""
         self._stopping.set()
+        if self._gate is not None:
+            self._gate.stop()
         self._thread.join()
 
 
@@ -286,6 +360,13 @@ def make_span_checkpoint(prefix: str, model, cfg, lr_scheduler):
             return
         if snapshot is None:
             snapshot = take_snapshot()
+        bank = getattr(model, "control_bank", None)
+        if bank is not None and bank.commit_state_dict():
+            # commit-time controller state (the staleness ring) advances
+            # at collect, in span order: by now this span has collected,
+            # so its live value is the boundary's (the accountant's rule)
+            snapshot["scheduler"] = {**(snapshot["scheduler"] or {}),
+                                     **bank.commit_state_dict()}
         t0 = time.monotonic()
         server, rows = model.wait_snapshot(snapshot["state"])
         dense = rows is not None and "dense" in rows

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Phases 27-34 of chip_smoke.py alone on one CUDA card, and the host
+"""Phases 27-36 of chip_smoke.py alone on one CUDA card, and the host
 timeline of config #4's rounds, for work on the plugins, the span
-loop, the scheduler, async admission and the tiered client state
-without the whole script:
+loop, the scheduler, async admission, the tiered client state, the
+controllers and the blockwise decode without the whole script:
 
     python3 scripts/chip_phases.py [powersgd dp_sketch privacy spans
                                     imagenet timeline sched async_admit
-                                    statetier]
+                                    statetier control gpt2medium]
 
 With no argument it runs every phase. Phase 4 (config #2) runs first
 for the ms/round the new phases print beside theirs, `imagenet` runs
 phase 13 before phase 31 and `statetier` phase 11 before phase 34 for
-the same reason. `timeline` drives
+the same reason; `gpt2medium` runs phase 36's kernel checks, then its
+rounds (without phase 7 beside them). `timeline` drives
 config #4 (chip_smoke.CONFIG4) plain and each way of
 chip_smoke.IMAGENET_SPANS for TIMELINE_ROUNDS rounds with the stage
 tracer on, and prints every stage span (plan, stage, dispatch,
@@ -33,7 +34,8 @@ import chip_smoke as cs  # noqa: E402
 import torch  # noqa: E402
 
 PHASES = ("powersgd", "dp_sketch", "privacy", "spans", "imagenet",
-          "timeline", "sched", "async_admit", "statetier")
+          "timeline", "sched", "async_admit", "statetier", "control",
+          "gpt2medium")
 TIMELINE_ROUNDS = 6
 
 
@@ -115,7 +117,9 @@ def main(argv) -> int:
     from commefficient_tpu_torch.ops.kernels import _build
     from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
     from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
-    from commefficient_tpu_torch.training import cv_train
+    from commefficient_tpu_torch.data.persona import HashTokenizer
+    from commefficient_tpu_torch.ops.sketch import CSVec
+    from commefficient_tpu_torch.training import cv_train, gpt2_train
 
     t_start = time.perf_counter()
     resolve_device("cuda")
@@ -126,7 +130,7 @@ def main(argv) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_phases_")
     try:
         if set(which) & {"powersgd", "dp_sketch", "privacy", "spans",
-                         "sched", "async_admit"}:
+                         "sched", "async_admit", "control"}:
             model, round_ms, _, _, _ = cs.main_path(sc, ac, cv_train,
                                                     parse_args, c2)
             del model
@@ -145,6 +149,18 @@ def main(argv) -> int:
             cs.sched_phase(sc, ac, cv_train, parse_args, c2, round_ms, tmp)
         if "async_admit" in which:
             cs.async_phase(sc, ac, cv_train, parse_args, c2, round_ms, tmp)
+        if "control" in which:
+            cs.control_phase(sc, ac, cv_train, parse_args, c2, round_ms,
+                             tmp)
+        if "gpt2medium" in which:
+            rows = cs.gpt2medium_kernels(sc, ac, CSVec)
+            launches = cs.gpt2medium_phase(
+                sc, ac, gpt2_train, parse_args, HashTokenizer,
+                os.path.join(HERE, "build", "chip_smoke_gpt2_data"),
+                fserver)
+            for row in rows:
+                row["launches"] = launches[row.pop("counter")]
+                cs.phase("gpt2medium", f"kernels-line row: {row}")
         if "statetier" in which:
             spe = -(-cs.CLIENTS * cs.EXAMPLES_PER_CLIENT // (8 * 32))
             model, rr, _ = cs.mode_path(

@@ -326,9 +326,9 @@ def _batches(n, seed=7):
     return out
 
 
-def _make(pkg, case, params):
+def _make(pkg, case, params, **extra):
     kw = {**dict(local_momentum=0.0, num_workers=4, num_clients=12,
-                 local_batch_size=6), **CROSS[case]}
+                 local_batch_size=6), **CROSS[case], **extra}
     if pkg == "jax":
         jm = JResNet9(num_classes=10, channels=TINY)
         model = JFedModel(None, j_make_compute_loss(jm), JConfig(**kw),
@@ -427,32 +427,56 @@ def test_dense_client_blocks_turn_sparse_saves_off(tmp_path):
 
 
 def test_unported_scheduler_state_is_refused(tmp_path):
-    # the scheduler's counters and alias snapshot (item 9d) and pending
-    # admissions (item 9e) now load into the run's scheduler and buffer;
-    # the adaptive screen's and the controller bank's keys (item 9f)
-    # would steer the resumed rounds through controllers the port does
-    # not have, and are refused
-    from commefficient_tpu_torch.scheduler import RoundScheduler
+    # (the name is the refusal this test held until the controllers were
+    # ported) the scheduler's counters, the adaptive screen's screen_*
+    # keys and the controller bank's ctl_* keys, all under sched_*, load
+    # into the other package's scheduler and controllers, both ways, and
+    # come back out bitwise
+    from commefficient_tpu.scheduler import RoundScheduler as JSched
+    from commefficient_tpu_torch.scheduler import RoundScheduler as TSched
     jm = JResNet9(num_classes=10, channels=TINY)
     params = jm.init(jax.random.PRNGKey(0),
                      jnp.zeros((2, 32, 32, 3), jnp.float32))
-    model, _ = _make("port", "sketch-virtual", params)
-    model.attach_scheduler(RoundScheduler(model.cfg, 12, model.throughput))
+    ctl = dict(update_screen="norm", target_screened_rate=0.1,
+               speed_match=True, adapt_staleness=True,
+               async_admit_rounds=1)
     counters = dict(rounds_scheduled=np.int64(3), clients_sampled=np.int64(
         12), deadline_rounds=np.int64(1), truncated_slots=np.int64(2),
         last_deadline_s=np.float64(0.5), rounds_committed=np.int64(3))
-    path = save_checkpoint(str(tmp_path / "a"), model.server,
-                           scheduler=counters)
-    model.load_state(load_checkpoint(path))
-    got = model.scheduler_state()
-    assert {k: float(got[k]) for k in counters} == {
-        k: float(v) for k, v in counters.items()}
-    for extra in ({"screen_mult": np.float64(4.0)},
-                  {"ctl_speed_ratio": np.float64(0.5)}):
-        path = save_checkpoint(str(tmp_path / "b"), model.server,
-                               scheduler={**counters, **extra})
-        with pytest.raises(NotImplementedError, match="item 9f"):
-            model.load_state(load_checkpoint(path))
+    models = {}
+    for pkg, sched_cls in (("jax", JSched), ("port", TSched)):
+        model, _ = _make(pkg, "sketch-virtual", params, **ctl)
+        model.attach_scheduler(sched_cls(model.cfg, 12, model.throughput))
+        models[pkg] = model
+    # moved controllers on the saving side: a screen multiplier, a speed
+    # ratio, and a staleness ring of three commits
+    for pkg, model in models.items():
+        model.screen_ctl.observe(0, 3, 4)
+        bank = model.control_bank
+        bank.controllers[0].ratio = 0.37
+        for r, resid in enumerate((0.9, 0.1, 0.5)):
+            bank.observe_commit(r, {"estimate_residual": resid})
+    for P, Q in (("port", "jax"), ("jax", "port")):
+        save_p, load_q = ((tck.save_checkpoint, jck.load_checkpoint)
+                          if P == "port" else
+                          (jck.save_checkpoint, tck.load_checkpoint))
+        saved = {**counters, **models[P].scheduler_state()}
+        assert {"screen_mult", "screen_rounds_observed",
+                "ctl_speed_match_ratio",
+                "ctl_staleness_decay_ring"} <= set(saved)
+        path = save_p(str(tmp_path / P), models[P].server,
+                      scheduler=saved)
+        q_model, _ = _make(Q, "sketch-virtual", params, **ctl)
+        q_model.attach_scheduler((JSched if Q == "jax" else TSched)(
+            q_model.cfg, 12, q_model.throughput))
+        q_model.load_state(load_q(path))
+        got = q_model.scheduler_state()
+        assert sorted(got) == sorted(saved)
+        for k, v in saved.items():
+            np.testing.assert_array_equal(np.asarray(got[k]),
+                                          np.asarray(v), err_msg=k)
+        assert (q_model.screen_ctl.plan_mult()
+                == models[P].screen_ctl.plan_mult())
 
 
 # ---------------- the port's own resume, bitwise ----------------------------

@@ -64,15 +64,9 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (("--scan_rounds", "--scan_span_palette", "1,2"),
-     "--scan_span_palette"),
-    (("--update_screen", "norm", "--target_screened_rate", "0.1"),
-     "--target_screened_rate"),
     (("--debug_transfer_guard",), "--debug_transfer_guard"),
     (("--multihost",), "--multihost"),
     (("--model_parallel", "2"), "--model_parallel"),
-    (("--async_admit_rounds", "1", "--speed_match"), "--speed_match"),
-    (("--adapt_staleness",), "--adapt_staleness"),
     (("--plan_transport", "emulated"), "--plan_transport"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
@@ -82,6 +76,34 @@ def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
         parse_args(argv=_argv(tmp_path, *flags))
     except NotImplementedError as e:
         assert needle in str(e)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--scan_rounds", "--scan_span_palette", "2,1,4"),
+    ("--update_screen", "norm", "--target_screened_rate", "0.1"),
+    ("--async_admit_rounds", "1", "--speed_match"),
+    ("--async_admit_rounds", "1", "--adapt_staleness"),
+], ids=["scan_span_palette", "target_screened_rate", "speed_match",
+        "adapt_staleness"])
+def test_controller_options_parse_as_jax(tmp_path, flags):
+    # item 9f's four flags parse into the same config as the JAX
+    # package's parser gives, and validate
+    from commefficient_tpu.config import parse_args as j_parse_args
+    argv = _argv(tmp_path, *flags)
+    cfg = parse_args(argv=argv)
+    jcfg = j_parse_args(argv=[a for a in argv if a not in ("--device",
+                                                            "cpu")])
+    for name in ("target_screened_rate", "speed_match",
+                 "scan_span_palette", "adapt_staleness",
+                 "async_admit_rounds"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    assert cfg.span_palette == jcfg.span_palette
+    assert cfg.adaptive_screen == jcfg.adaptive_screen
+    from commefficient_tpu.control import make_bank as j_make_bank
+    from commefficient_tpu_torch.control import make_bank
+    bank, jbank = make_bank(cfg), j_make_bank(jcfg)
+    assert (bank and bank.names) == (jbank and jbank.names)
+    assert cfg.control_loop == jcfg.control_loop == (bank is not None)
 
 
 @pytest.mark.parametrize("flags", [
@@ -231,7 +253,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     # a fresh interpreter imports every module of the port (walking the
-    # package; the plugins, the span loop and the writer threads named),
+    # package; the plugins, the span loop, the writer threads and the
+    # controllers named),
     # runs one round of cv_train's model with the fault operands on, one
     # powersgd and one dp_sketch round and a pipelined span, then checks
     # sys.modules (the resume is held by tests/test_torch_checkpoint.py)
@@ -276,7 +299,9 @@ for flags in (["--mode", "powersgd", "--error_type", "local"],
         opt.param_groups[0]["lr"] = 0.1
         assert torch.isfinite(model(next(it))[0]).all()
 for name in ("compress.powersgd", "compress.dp_sketch", "compress.privacy",
-             "training.scanloop", "utils.retry", "utils.watchdog"):
+             "training.scanloop", "utils.retry", "utils.watchdog",
+             "control.base", "control.screen", "control.speed",
+             "control.span", "control.staleness"):
     assert "commefficient_tpu_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"

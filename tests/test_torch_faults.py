@@ -610,14 +610,10 @@ def test_fault_flag_invariants_are_jax_validate(tmp_path, flags, match):
         j_parse_args(argv=[a for a in argv if a not in ("--device", "cpu")])
 
 
-# every option item 9 still holds, refused with its queue item named
+# every option item 9 still holds (its multi-device step, 9g), refused
+# with its queue item named
 ITEM_9_REFUSED = {
-    "--target_screened_rate": dict(update_screen="norm",
-                                   target_screened_rate=0.1),
     "--model_parallel > 1": dict(model_parallel=2),
-    "--speed_match": dict(speed_match=True),
-    "--scan_span_palette": dict(scan_span_palette="1,2"),
-    "--adapt_staleness": dict(adapt_staleness=True),
     "--plan_transport": dict(plan_transport="emulated"),
     "--multihost": dict(multihost=True),
     "--num_slices > 1": dict(num_slices=2),
@@ -636,6 +632,64 @@ ITEM_9DE_PORTED = {
                               state_tier="host", state_working_set=8,
                               state_spill_dir="tail"),
 }
+
+
+# the controllers item 9f brought, which now validate as in JAX
+ITEM_9F_PORTED = {
+    "--target_screened_rate": dict(update_screen="norm",
+                                   target_screened_rate=0.1),
+    "--speed_match": dict(speed_match=True, async_admit_rounds=1),
+    "--scan_span_palette": dict(scan_rounds=True,
+                                scan_span_palette="1,2"),
+    "--adapt_staleness": dict(adapt_staleness=True, async_admit_rounds=1),
+}
+# and what JAX's validate refuses of them, refused word for word
+ITEM_9F_REFUSED = {
+    "screen-needs-norm": dict(target_screened_rate=0.1),
+    "screen-rate-below-1": dict(update_screen="norm",
+                                target_screened_rate=1.0),
+    "speed-needs-async": dict(speed_match=True),
+    "speed-ratio-below-1": dict(speed_match=True, async_admit_rounds=1,
+                                speed_ratio_max=1.0),
+    "palette-needs-scan": dict(scan_span_palette="1,2"),
+    "palette-needs-1": dict(scan_rounds=True, scan_span_palette="2,4"),
+    "palette-positive": dict(scan_rounds=True, scan_span_palette="1,-2"),
+    "palette-or-span": dict(scan_rounds=True, scan_span=2,
+                            scan_span_palette="1,2"),
+    "staleness-needs-async": dict(adapt_staleness=True),
+    "staleness-bounds": dict(adapt_staleness=True, async_admit_rounds=1,
+                             staleness_decay_min=0.0),
+    "screen-step": dict(update_screen="norm", target_screened_rate=0.1,
+                        screen_adapt_step=0.0),
+    "screen-mult-floor": dict(update_screen="norm",
+                              target_screened_rate=0.1,
+                              screen_mult_min=1.0),
+    "staleness-bounded-span": dict(adapt_staleness=True,
+                                   async_admit_rounds=1, scan_rounds=True,
+                                   pipeline=True),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(ITEM_9F_PORTED))
+def test_what_item_9f_ported_validates_as_jax(flag):
+    kw = {**dict(mode="uncompressed", local_momentum=0.0, num_workers=8),
+          **ITEM_9F_PORTED[flag]}
+    cfg = TConfig(**kw)
+    assert cfg.validate() is cfg
+    jcfg = JConfig(**kw).validate()
+    assert (cfg.adaptive_screen, cfg.span_palette, cfg.control_loop) == (
+        jcfg.adaptive_screen, jcfg.span_palette, jcfg.control_loop)
+
+
+@pytest.mark.parametrize("case", sorted(ITEM_9F_REFUSED))
+def test_item_9f_refusals_are_jax_validate(case):
+    kw = {**dict(mode="uncompressed", local_momentum=0.0, num_workers=8),
+          **ITEM_9F_REFUSED[case]}
+    with pytest.raises(ValueError) as want:
+        JConfig(**kw).validate()
+    with pytest.raises(ValueError) as got:
+        TConfig(**kw).validate()
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("flag", sorted(ITEM_9DE_PORTED))

@@ -24,6 +24,8 @@ GEOMETRIES = [
 ]
 MAIN_PATH = dict(d=6_568_640, c=500_000, r=5)   # full-width ResNet9
 GPT2_PATH = dict(d=124_444_417, c=500_000, r=5)  # full-width GPT2-small
+# full-width GPT2-medium, the blockwise decode's geometry (B = 710)
+MEDIUM_PATH = dict(d=354_829_313, c=500_000, r=5)
 # the threshold-decode geometries of tests/test_kernels.py:112-160
 THRESHOLD_GEOMETRIES = [dict(d=40000, c=10000, r=5),
                         dict(d=20000, c=5000, r=5),
@@ -84,6 +86,9 @@ def test_cpu_tensors_take_the_plain_versions():
     e = sc.estimate_all(t, off, delta_bits, eps_bits, sk.d)
     torch.testing.assert_close(
         e, sc.estimate_all_plain(t, off, delta, eps, sk.d), rtol=0, atol=0)
+    torch.testing.assert_close(
+        sc.estimate_window(t, off, delta_bits, eps_bits, sk.d, 1, 3),
+        e[1:4], rtol=0, atol=0)
     stride, ns = sc.threshold_sample_geometry(sk.n_chunks, sk.c)
     smp = sc.threshold_sample(t, off, delta_bits, eps_bits, sk.d, stride, ns)
     torch.testing.assert_close(
@@ -97,6 +102,7 @@ def test_cpu_tensors_take_the_plain_versions():
     # plain-version calls launch nothing and count nothing
     assert sc.LAUNCHES == {name: 0 for name in sc.LAUNCHES}
     assert set(sc.LAUNCHES) == {"sketch_encode", "sketch_estimate_all",
+                                "sketch_estimate_window",
                                 "threshold_sample", "threshold_mask"}
 
 
@@ -597,3 +603,47 @@ def test_threshold_decode_at_the_gpt2_path_threshold(cuda_device):
     for name in ("threshold_sample", "threshold_mask"):
         assert sc.LAUNCHES[name] == before[name] + 1
     assert sk.sign_packs == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", [dict(d=30007, c=13, r=5),
+                                  dict(d=1000, c=200, r=6), MEDIUM_PATH],
+                         ids=["ragged-c13", "tail-even", "gpt2-medium"])
+def test_window_kernel_matches_plain_on_the_card(cuda_device, geom):
+    # K2 on a window of chunks: the first, a middle one and the ragged
+    # last chunk, each exact against the plain version's rows
+    sk = CSVec(**geom)
+    off, eps, delta = sk.tables(cuda_device)
+    eps_bits, delta_bits = sk.sign_bits(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    t = torch.randn(sk.table_shape, generator=gen, device=cuda_device)
+    B = sk.n_chunks
+    step = min(134, B)
+    before = sc.LAUNCHES["sketch_estimate_window"]
+    windows = ((0, step), (B // 2, min(step, B - B // 2)), (B - 1, 1))
+    for b0, nb in windows:
+        got = sc.estimate_window(t, off, delta_bits, eps_bits, sk.d, b0, nb)
+        assert got.shape == (nb, sk.c)
+        assert _exact(got, sc.estimate_all_plain(t, off, delta, eps, sk.d,
+                                                 b0, nb)), (b0, nb)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["sketch_estimate_window"] == before + len(windows)
+
+
+@pytest.mark.gpu
+def test_blockwise_decode_is_bitwise_its_plain_version_on_the_card(
+        cuda_device):
+    # the whole blockwise decode, windows by K2 against windows by the
+    # plain version on the same table: (idx, vals) equal in order
+    from commefficient_tpu_torch.ops import sketch as tsketch
+    sk = CSVec(d=30007, c=13, r=5)
+    off, eps, delta = sk.tables(cuda_device)
+    x = torch.zeros(sk.d, device=cuda_device)
+    x[::7] = torch.arange(0, sk.d, 7, device=cuda_device) % 5 - 2.0
+    t = sk.encode(x)
+    got = sk.decode_topk_sparse(t, 500)
+    want = tsketch.blockwise_topk(
+        lambda b0, nb: sc.estimate_all_plain(t, off, delta, eps, sk.d, b0,
+                                             nb),
+        sk.n_chunks, sk.c, sk.d, 500)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

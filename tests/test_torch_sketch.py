@@ -1,7 +1,8 @@
 """Count-sketch parity: the port's CSVec (commefficient_tpu_torch/ops/
 sketch.py, plain kernel versions on the CPU) against the JAX CSVec on
 the same numpy inputs — the XLA route and the Pallas route (interpret
-mode off-TPU, as tests/test_kernels.py runs it)."""
+mode off-TPU, as tests/test_kernels.py runs it), and the blockwise
+top-k decode past the materialize gates."""
 import os
 
 import jax.numpy as jnp
@@ -278,3 +279,158 @@ def test_masked_topk_matches_jax(d, k):
     want = np.asarray(j_masked_topk(jnp.asarray(v), k))
     got = masked_topk(torch.from_numpy(v), k).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------- the blockwise decode (past the materialize gates) --------
+
+def _tied_vec(d, seed, zeros=0.3):
+    """A vector with exact ties (values from a short list) and zeros."""
+    rng = np.random.RandomState(seed)
+    v = rng.choice([-3.0, -1.5, 0.5, 1.5, 2.0, 3.0], d).astype(np.float32)
+    v *= rng.rand(d) < 0.2                      # ties among few nonzeros
+    v += (rng.rand(d) < 0.05) * rng.randn(d).astype(np.float32)
+    v[rng.rand(d) < zeros] = 0.0
+    return v
+
+
+BLOCKWISE = {
+    # r * B past STATIC_UNROLL_LIMIT (5 x 3,000 > 2,048), odd and even r
+    "rB-odd-r": (dict(d=30000, c=10, r=5), 50),
+    "rB-even-r": (dict(d=30000, c=10, r=4), 13),
+    "rB-k-past-nonzeros": (dict(d=30000, c=10, r=5), 20000),
+    # a ragged last chunk
+    "rB-ragged": (dict(d=30007, c=13, r=5), 333),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKWISE))
+def test_blockwise_decode_matches_jax_in_order(case):
+    # the per-chunk top-min(k, c) and the final top-k in lax.top_k's
+    # order on both sides (JAX's approx_max_k is exact off the TPU):
+    # (idx, vals) equal element by element, ties and zeros included
+    geom, k = BLOCKWISE[case]
+    js, ts = _pair(geom)
+    assert not ts._static_path
+    for seed, v in enumerate((_vec(geom["d"], 4), _tied_vec(geom["d"], 5))):
+        t = np.array(js.encode(jnp.asarray(v)))
+        ji, jv = js.decode_topk_sparse(jnp.asarray(t), k)
+        ti, tv = ts.decode_topk_sparse(torch.from_numpy(t), k)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        if seed:
+            # the tied vector's estimates tie, and some picks are zeros
+            assert len(np.unique(np.abs(tv.numpy()))) < k
+        np.testing.assert_array_equal(
+            ts.decode_topk(torch.from_numpy(t), k).numpy(),
+            np.asarray(js.decode_topk(jnp.asarray(t), k)))
+
+
+@pytest.mark.parametrize("window_chunks", [7, 100])
+def test_blockwise_decode_past_the_materialize_limit(monkeypatch,
+                                                     window_chunks):
+    # a padded d over DECODE_MATERIALIZE_LIMIT (lowered in both modules
+    # for the test) with r * B inside the unroll gate; the port's window
+    # lowered too, so the decode runs in windows of 7 chunks (the last
+    # ragged) or in one
+    from commefficient_tpu.ops import sketch as jsketch
+    monkeypatch.setattr(jsketch, "DECODE_MATERIALIZE_LIMIT", 4096)
+    monkeypatch.setattr(tsketch, "DECODE_MATERIALIZE_LIMIT", 4096)
+    monkeypatch.setattr(tsketch, "DECODE_WINDOW_BYTES",
+                        window_chunks * 4 * 100)
+    geom = dict(d=9950, c=100, r=5)
+    js, ts = _pair(geom)
+    assert ts._static_path and ts.n_chunks * ts.c > 4096
+    assert tsketch.window_chunks(ts.c) == window_chunks
+    t = np.array(js.encode(jnp.asarray(_tied_vec(geom["d"], 6, 0.0))))
+    for k in (1, 99, 400):
+        ji, jv = js.decode_topk_sparse(jnp.asarray(t), k)
+        ti, tv = ts.decode_topk_sparse(torch.from_numpy(t), k)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("geom", [dict(d=30007, c=13, r=5),
+                                  dict(d=1000, c=200, r=6),
+                                  dict(d=5000, c=301, r=5)])
+def test_window_estimates_are_slices_of_the_full_estimate(geom):
+    from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
+    ts = TCSVec(num_blocks=1, **geom)
+    table = ts.encode(torch.from_numpy(_vec(geom["d"], 8)))
+    off, eps, delta = ts.tables("cpu")
+    full = sc.estimate_all_plain(table, off, delta, eps, geom["d"])
+    B = ts.n_chunks
+    eps_bits, delta_bits = ts.sign_bits("cpu")
+    for b0, nb in ((0, 1), (0, B), (B // 3, max(B // 4, 1)), (B - 1, 1),
+                   (max(B - 5, 0), min(5, B))):
+        want = full[b0:b0 + nb]
+        assert torch.equal(sc.estimate_all_plain(table, off, delta, eps,
+                                                 geom["d"], b0, nb), want)
+        assert torch.equal(sc.estimate_window(table, off, delta_bits,
+                                              eps_bits, geom["d"], b0, nb),
+                           want)
+    with pytest.raises(ValueError, match="chunk window"):
+        sc.estimate_window(table, off, delta_bits, eps_bits, geom["d"],
+                           B - 1, 2)
+
+
+def test_blockwise_round_matches_jax():
+    # two sketched rounds of the tiny ResNet9 at 16 x 60: r * B = 2,160
+    # past the unroll gate, so the server decodes blockwise in both
+    # packages; the weights and the billed bytes match. (A narrower
+    # table is no test: at 5 x 4 each cell sums ~2,000 coordinates,
+    # and the cancellation lifts the gradients' rounding to 8% of the
+    # second round's update in either package.)
+    from commefficient_tpu.config import Config as JConfig
+    from commefficient_tpu.federated.api import (
+        FedModel as JFedModel, FedOptimizer as JFedOptimizer,
+    )
+    from commefficient_tpu.models.resnet9 import ResNet9 as JResNet9
+    from commefficient_tpu.training.cv_train import (
+        make_compute_loss as j_make_compute_loss,
+    )
+    from commefficient_tpu_torch.config import Config as TConfig
+    from commefficient_tpu_torch.federated.api import (
+        FedModel as TFedModel, FedOptimizer as TFedOptimizer,
+    )
+    from commefficient_tpu_torch.models import build_model
+    from commefficient_tpu_torch.models.convert import from_jax_params
+    from commefficient_tpu_torch.training.cv_train import (
+        make_compute_loss as t_make_compute_loss,
+    )
+    import jax
+    tiny = {"prep": 4, "layer1": 8, "layer2": 8, "layer3": 16}
+    jm = JResNet9(num_classes=10, channels=tiny)
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((2, 32, 32, 3), jnp.float32))
+    tm = build_model("ResNet9", channels=tiny)
+    from_jax_params(tm, params)
+    kw = dict(mode="sketch", error_type="virtual", virtual_momentum=0.9,
+              k=300, num_rows=16, num_cols=60, local_momentum=0.0,
+              num_workers=4, num_clients=12, local_batch_size=6)
+    jmodel = JFedModel(None, j_make_compute_loss(jm), JConfig(**kw),
+                       params=params, num_clients=12)
+    tmodel = TFedModel(tm, t_make_compute_loss(tm),
+                       TConfig(**kw, device="cpu"), device="cpu",
+                       num_clients=12)
+    sk = tsketch.cached_sketch(tmodel.cfg.grad_size, 60, 16)
+    assert not sk._static_path and not sk._threshold_decode
+    jopt, topt = JFedOptimizer(jmodel), TFedOptimizer(tmodel)
+    rng = np.random.RandomState(7)
+    for i in range(2):
+        ids = rng.choice(12, 4, replace=False).astype(np.int32)
+        x = rng.randn(4, 6, 32, 32, 3).astype(np.float32)
+        y = rng.randint(0, 10, size=(4, 6)).astype(np.int32)
+        batch = (ids, (x, y), np.ones((4, 6), np.float32))
+        jopt.param_groups[0]["lr"] = topt.param_groups[0]["lr"] = 0.1
+        w0 = tmodel.ps_weights.clone()
+        jl, _, jd, ju = jmodel(batch)
+        tl, _, td, tu = tmodel(batch)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+        np.testing.assert_array_equal(td, jd)
+        np.testing.assert_array_equal(tu, ju)
+        jw = np.asarray(jmodel.ps_weights)
+        np.testing.assert_allclose(tmodel.ps_weights.numpy(), jw, rtol=0,
+                                   atol=1e-5 * np.abs(jw).max(),
+                                   err_msg=f"round {i}")
+        moved = int((tmodel.ps_weights != w0).sum())
+        assert 0 < moved <= kw["k"]
