@@ -265,6 +265,34 @@ before the result line:
                on 6 windows a round, K4 2 x 24 x 8 a round (--remat runs
                each block's forward twice), K3a and K3b never; every
                upload 10,000,000 bytes; peak memory.
+37. grid    — config #2 on GRID_RANKS ranks over torch.distributed,
+               each a subprocess of this script (`--rank`) sharing the
+               card over gloo (NCCL refuses two ranks on one device),
+               4 clients a rank, through cv_train with --multihost.
+               Round one from phase 5's weights and batch: the ranks'
+               all-reduced table within PARITY_RTOL of phase 5's card
+               table, no less accurate against the float64 table (phase
+               5's accuracy rule), >= 99% of the top-k shared. Then
+               ROUNDS rounds: ps_weights bitwise equal on the ranks, K1
+               and K2 once a round on each, every upload r * c * 4
+               bytes, finite losses, the weights moved; ms/round, each
+               rank's peak and the collectives' calls, bytes and host
+               ms beside phase 4. Then two NCCL ranks on the card (its
+               refusal printed) and, beside it, an NCCL world of one rank
+               and the one-process run, NCCL1_ROUNDS rounds each under
+               deterministic algorithms: weights and bytes bitwise equal.
+38. tpgpt2  — config #5's GPT2-small (D = 124,444,417, L = 299) under
+               TP_FLAGS (--model_parallel 2 --remat) on 2 ranks sharing
+               the card over gloo, through gpt2_train, TP_ROUNDS rounds
+               of 8 x 8: from the same weights and batch as the one
+               process (--model_parallel 1), round one's losses within
+               TP_LOSS_RTOL, the cohort gradient within
+               GPT2_PARITY_RTOL, >= 99% of the threshold selections
+               shared; ps_weights bitwise equal on the ranks; on each,
+               K4 2 x 12 x 8 a round on [16, 6, L, 64] head views (held
+               against its plain version and timed there first), K1
+               twice, K3a and K3b once a round; ms/round and each rank's
+               peak beside phase 7's.
 Phases 27-36 print their peak memory as read in the full script, beside
 the memory earlier phases leave allocated (live_gib).
 
@@ -290,8 +318,11 @@ K1 once more (sketch_encode_gpt2medium, phase 36), K2 twice
 (config #2's, sketch_estimate_all_r50) and its windowed launch
 (sketch_estimate_window, phase 36), K3a, K3b, and K4 three times
 (flash_fwd on f32 operands, flash_fwd_bf16 on bf16 ones, config #5 and
-config #5 with --bf16, and flash_fwd_gpt2medium), each with the launches
-of its own path's run ("path"). The line before the last holds
+config #5 with --bf16, and flash_fwd_gpt2medium), and since phases
+37-38 K1 and K2 as a rank of the grid launches them
+(sketch_encode_grid, sketch_estimate_all_grid) and K4 on a
+tensor-parallel rank's 6-head views (flash_fwd_tp), each with the
+launches of its own path's run ("path"; a grid's or TP run's rank 0). The line before the last holds
 the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 `--profile [DIR]` additionally traces three more rounds of each path
@@ -305,6 +336,7 @@ time a launch on the GPT2 rounds' own tables.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import glob
@@ -1138,7 +1170,7 @@ def cohort_grad_sum(fclient, loss_fn, unravel, w, xs, m, cfg):
 
 
 def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
-                 fclient, fserver, flat, tf32_control=False):
+                 fclient, fserver, flat, tf32_control=False, keep=None):
     """One round's client gradient sum (through the path's own client
     function, cohort_grad_sum), sketch table and server selection
     (top-k, or the threshold route's) on the card vs the CPU, from the
@@ -1153,7 +1185,9 @@ def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
     device for two devices to agree within a limit. With
     `tf32_control` the card runs the round once more with TF32 matmuls
     and convolutions: the gradient limits must refuse that run, or they
-    could not tell TF32 from float32."""
+    could not tell TF32 from float32. `keep`, a dict, receives the
+    card's table and selection and the float64 table (phase 37 holds
+    the grid's reduced table to them)."""
     sketch = fserver.args2sketch(cfg)
     runs = [("cuda", torch.float32, False), ("cpu", torch.float32, False),
             ("cpu", torch.float64, False)]
@@ -1187,8 +1221,16 @@ def parity_phase(label, build, w, data, mask, cfg, make_loss, rtol, floor,
             del table, upd
         else:
             out[key] = g.cpu()
+            if keep is not None:
+                from commefficient_tpu_torch.ops.kernels import sketch_cuda
+                off, eps, delta = sketch.tables("cpu")
+                keep["table64"] = sketch_cuda.encode_plain(
+                    g.cpu(), off, delta.double(), eps.double(),
+                    sketch.c) / counts.sum().cpu()
         del module, g
     (gc, tc, kc), (gp, tp, kp), g64 = out["cuda"], out["cpu"], out["f64"]
+    if keep is not None:
+        keep.update(table=tc, top=kc)
     g_err, t_err = _rel(gc, gp), _rel(tc, tp)
     card64, cpu64 = _rel(gc, g64), _rel(gp, g64)
     overlap = len(kc & kp) / max(len(kp), 1)
@@ -3782,6 +3824,541 @@ def gpt2medium_phase(sc, ac, gpt2_train, parse_args, HashTokenizer,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 37-38: ranks over torch.distributed (item 9g). Each rank is a
+# subprocess of this interpreter running this file with --rank; it
+# loads build/'s kernels (built by the parent) and writes its results
+# to the phase's directory (the coordinator's JSON, logs a rank).
+
+# phase 37: config #2 on GRID_RANKS ranks that share the card over gloo
+# (NCCL refuses two ranks on one device), 4 clients a rank; then NCCL
+# with two ranks on the card (expected to refuse, its message printed)
+# and an NCCL world of one rank against the one-process run, both
+# NCCL1_ROUNDS rounds under deterministic algorithms
+GRID_RANKS = 2
+NCCL1_ROUNDS = 3
+RANK_TIMEOUT = 600
+# phase 38: config #5's GPT2-small under --model_parallel 2, two ranks
+# sharing the card over gloo, with --remat so that both fit beside each
+# other; TP_ROUNDS rounds; round one's losses within tests/test_tp.py's
+# limit of the one-process round
+TP_FLAGS = ["--model_parallel", "2", "--remat"]
+TP_ROUNDS = 2
+TP_LOSS_RTOL = 2e-5
+K4_TP_HEADS = K4_HEADS // 2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(kind, n, io, backend="gloo"):
+    """Start `n` ranks of `kind` (0: one process without
+    torch.distributed), each logging to io/<kind><i>.log; returns
+    (kind, processes, log paths) for wait_ranks."""
+    port = free_port()
+    procs, logs = [], []
+    for i in range(max(n, 1)):
+        path = os.path.join(io, f"{kind}{i}.log")
+        logs.append(path)
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", kind,
+                 "--process_id", str(i), "--num_processes", str(n),
+                 "--port", str(port), "--backend", backend, "--io", io],
+                cwd=HERE, stdout=f, stderr=subprocess.STDOUT))
+    return kind, procs, logs
+
+
+def run_ranks(label, kind, n, io, backend="gloo", timeout=RANK_TIMEOUT,
+              expect_ok=True):
+    """start_ranks, then wait_ranks."""
+    return wait_ranks(label, start_ranks(kind, n, io, backend), timeout,
+                      expect_ok)
+
+
+def wait_ranks(label, started, timeout=RANK_TIMEOUT, expect_ok=True):
+    """Wait for started ranks (killed at `timeout`). Returns (exit
+    codes, logs); with `expect_ok` any non-zero exit fails the phase."""
+    kind, procs, logs = started
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{label}: {kind} ranks still running after "
+                             f"{timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for path in logs:
+        with open(path) as f:
+            texts.append(f.read())
+    codes = [p.returncode for p in procs]
+    if expect_ok:
+        for i, (code, text) in enumerate(zip(codes, texts)):
+            if code != 0:
+                raise AssertionError(f"{label}: {kind} rank {i} exited "
+                                     f"{code}:\n{text[-3000:]}")
+    return codes, texts
+
+
+def rank_result(io, kind) -> dict:
+    with open(os.path.join(io, f"{kind}.json")) as f:
+        return json.load(f)
+
+
+def save_batch(path, batch, **extra) -> None:
+    ids, data, mask = batch
+    np.savez(path, ids=np.asarray(ids), mask=np.asarray(mask),
+             n_data=len(data), **{f"data{i}": np.asarray(d)
+                                  for i, d in enumerate(data)}, **extra)
+
+
+def load_batch(path):
+    z = np.load(path)
+    return (z["ids"], tuple(z[f"data{i}"] for i in range(int(z["n_data"]))),
+            z["mask"]), z
+
+
+def per_rank(layout, device, values) -> list:
+    """Every rank's `values` (a list of floats), in rank order: one
+    all_reduce (the identity without ranks)."""
+    n = 1 if layout is None else layout.size
+    me = 0 if layout is None else layout.rank
+    t = torch.zeros((n, len(values)), dtype=torch.float64, device=device)
+    t[me] = torch.tensor(values, dtype=torch.float64)
+    if layout is not None and layout.connected:
+        import torch.distributed as dist
+        dist.all_reduce(t)
+    return t.cpu().tolist()
+
+
+def timed_rank_run(model, run, deterministic=False) -> dict:
+    """A rank's rounds: `run(on_round)` drives the driver's loop, each
+    round ended by a synchronize; the launch counters and the layout's
+    collective counters set to 0 just before and read just after."""
+    from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
+    from commefficient_tpu_torch.ops.kernels import sketch_cuda as sc
+    stamps, losses, uploads = [], [], []
+
+    def on_round(i, out):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append([float(v) for v in torch.as_tensor(out[0]).reshape(-1)])
+        uploads.append([float(v) for v in np.asarray(out[-1]).reshape(-1)])
+
+    lay = model.layout
+    w_start = model.ps_weights.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(sc, ac)
+    if lay is not None:
+        lay.stats.reset()
+    t0 = time.perf_counter()
+    with Deterministic() if deterministic else contextlib.nullcontext():
+        ok = run(on_round)
+        torch.cuda.synchronize()
+    launches = read_counts(sc, ac)
+    peak = torch.cuda.max_memory_allocated()
+    ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+    return dict(ok=bool(ok), round_ms=ms, losses=losses, uploads=uploads,
+                launches=launches, peak=peak,
+                moved=not torch.equal(model.ps_weights, w_start),
+                collectives=None if lay is None else lay.stats.as_dict())
+
+
+def grid_rank(args, mh) -> dict:
+    """A rank of phase 37 (`grid`), or one process of its NCCL world of
+    one (`nccl1`) or of the one-process run beside it (`single`)."""
+    from commefficient_tpu_torch.config import parse_args
+    from commefficient_tpu_torch.parallel.mh_worker import ranks_bitwise_equal
+    from commefficient_tpu_torch.training import cv_train
+    kind = args.rank
+    rounds = ROUNDS if kind == "grid" else NCCL1_ROUNDS
+    extra = [] if kind == "single" else [
+        "--multihost", "--num_processes", str(args.num_processes),
+        "--process_id", str(args.process_id), "--coordinator_address",
+        f"127.0.0.1:{args.port}"]
+    model, opt, sched, loader, val = config2_build(
+        cv_train, parse_args, os.path.join(HERE, "build", "chip_smoke_data"),
+        extra, rounds)
+    lay = model.layout
+    out = {"layout": None if lay is None else lay.ranks.tolist(),
+           "device": str(model.device)}
+    if kind == "grid":
+        # round one's reduced table from phase 5's weights and batch
+        (ids, data, mask), z = load_batch(os.path.join(args.io,
+                                                       "grid_parity.npz"))
+        w0 = model.ps_weights.clone()
+        model.server = model.server._replace(
+            ps_weights=torch.from_numpy(z["w"]).to(model.device))
+        sl = lay.local_row_slice(mask.shape[0])
+        table = model.cohort_transmit(
+            (ids, tuple(d[sl] for d in data), mask[sl]), encoded=True)
+        table = table / float(mask.sum())
+        if mh.is_coordinator():
+            np.save(os.path.join(args.io, "grid_table.npy"),
+                    table.cpu().numpy())
+        model.server = model.server._replace(ps_weights=w0)
+        del table
+    res = timed_rank_run(
+        model, lambda on_round: cv_train.train(
+            model, opt, sched, loader, val, model.cfg, on_round=on_round),
+        deterministic=kind != "grid")
+    l = res["launches"]
+    out.update(res, per_rank=per_rank(lay, model.device, [
+        res["peak"], l["sketch_encode"], l["sketch_estimate_all"],
+        sum(res["round_ms"][1:]) / max(len(res["round_ms"]) - 1, 1)]),
+        equal=bool(ranks_bitwise_equal(model.ps_weights))
+        if lay is not None and lay.connected else True)
+    if kind != "grid" and mh.is_coordinator():
+        np.save(os.path.join(args.io, f"{kind}_weights.npy"),
+                model.ps_weights.cpu().numpy())
+    return out
+
+
+def nccl2_rank(args, mh) -> dict:
+    """Two NCCL ranks on the one card: the communicator is built at the
+    first collective, where NCCL is expected to refuse the duplicate
+    device."""
+    import torch.distributed as dist
+    t = torch.ones(1, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f"nccl2: all_reduce over two ranks on one card gave {t.item()}",
+          flush=True)
+    return {"sum": t.item()}
+
+
+def tp_rank(args, mh) -> dict:
+    """A rank of phase 38: config #5's GPT2-small under TP_FLAGS through
+    gpt2_train; the cohort gradient of phase 38's batch at the initial
+    weights, then TP_ROUNDS rounds."""
+    from commefficient_tpu_torch.config import parse_args
+    from commefficient_tpu_torch.data.persona import HashTokenizer
+    from commefficient_tpu_torch.parallel.mh_worker import ranks_bitwise_equal
+    from commefficient_tpu_torch.training import gpt2_train
+    spe = math.ceil(math.prod(GPT2_CORPUS) / (8 * 8))
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5 + TP_FLAGS
+                     + ["--local_batch_size", "8", "--device", "cuda",
+                        "--dataset_dir", os.path.join(
+                            HERE, "build", "chip_smoke_gpt2_data"),
+                        "--num_epochs", str(TP_ROUNDS / spe), "--seed", "21",
+                        "--multihost", "--num_processes",
+                        str(args.num_processes), "--process_id",
+                        str(args.process_id), "--coordinator_address",
+                        f"127.0.0.1:{args.port}"])
+    t0 = time.perf_counter()
+    model, opt, sched, loader, _ = gpt2_train.build(
+        cfg, HashTokenizer(GPT2_VOCAB), device="cuda",
+        synthetic_examples=GPT2_CORPUS)
+    built_s = time.perf_counter() - t0
+    assert model.cfg.grad_size == GPT2_D, model.cfg.grad_size
+    assert loader.dataset.seq_len == GPT2_L
+    lay = model.layout
+    batch, _ = load_batch(os.path.join(args.io, "tp_batch.npz"))
+    sl = lay.local_row_slice(batch[2].shape[0])
+    opt.param_groups[0]["lr"] = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad = model.cohort_transmit((batch[0], tuple(d[sl] for d in batch[1]),
+                                  batch[2][sl]))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    if mh.is_coordinator():
+        np.save(os.path.join(args.io, "tp_grad.npy"), grad.cpu().numpy())
+    del grad
+    res = timed_rank_run(model, lambda on_round: gpt2_train.train_gpt2(
+        model, opt, sched, loader, model.cfg, logger=_Quiet(),
+        on_round=on_round))
+    l = res["launches"]
+    return dict(res, layout=lay.ranks.tolist(), built_s=built_s,
+                grad_s=grad_s, per_rank=per_rank(lay, model.device, [
+                    res["peak"], l["flash_fwd"], l["sketch_encode"],
+                    l["threshold_sample"], l["threshold_mask"],
+                    sum(res["round_ms"][1:]) / max(len(res["round_ms"])
+                                                   - 1, 1)]),
+                equal=bool(ranks_bitwise_equal(model.ps_weights)))
+
+
+def rank_main(args) -> int:
+    """One rank of phases 37-38 (module docstring)."""
+    sys.path.insert(0, HERE)
+    from commefficient_tpu_torch.device import resolve_device
+    from commefficient_tpu_torch.parallel import multihost as mh
+    resolve_device("cuda")
+    if args.num_processes > 0:
+        mh.initialize(f"127.0.0.1:{args.port}", args.num_processes,
+                      args.process_id, backend=args.backend, device="cuda")
+    try:
+        run = {"grid": grid_rank, "nccl1": grid_rank, "single": grid_rank,
+               "nccl2": nccl2_rank, "tpgpt2": tp_rank}[args.rank]
+        out = run(args, mh)
+        if mh.is_coordinator():
+            with open(os.path.join(args.io, f"{args.rank}.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        mh.shutdown()
+    return 0
+
+
+def grid_rows(sc, CSVec) -> list:
+    """K1 and K2 as each rank of phase 37 launches them: K1 on its
+    block's [D] sum, K2 on the reduced [5, 500000] table, config #2's
+    shapes."""
+    dev = torch.device("cuda")
+    sk = CSVec(d=MAIN_D, c=MAIN_C, r=MAIN_R)
+    x = torch.randn(MAIN_D, generator=torch.Generator().manual_seed(37)
+                    ).to(dev)
+    off, eps, delta = sk.tables(dev)
+    table = sk.encode(x)
+    err_e = float((table - sc.encode_plain(x, off, delta, eps,
+                                           sk.c)).abs().max())
+    eps_bits, delta_bits = sk.sign_bits(dev)
+    err_k = float((sc.estimate_all(table, off, delta_bits, eps_bits, sk.d)
+                   - sc.estimate_all_plain(table, off, delta, eps,
+                                           sk.d)).abs().max())
+    if err_e or err_k:
+        raise AssertionError(f"grid: K1/K2 differ from their plain versions "
+                             f"({err_e}, {err_k})")
+    rows = [encode_row(sc, sk, x, "sketch_encode_grid", "grid"),
+            estimate_row(sc, sk, table, "sketch_estimate_all_grid", "grid")]
+    return [timed_row(rows[0], err_e), timed_row(rows[1], err_k)]
+
+
+def grid_phase(sc, CSVec, main_ms, keep, w, batch, tmp) -> dict:
+    """Phase 37 (module docstring): returns rank 0's launches of the
+    10-round run."""
+    io = os.path.join(tmp, "grid")
+    os.makedirs(io)
+    save_batch(os.path.join(io, "grid_parity.npz"), batch,
+               w=w.cpu().numpy())
+    t0 = time.perf_counter()
+    run_ranks("grid", "grid", GRID_RANKS, io)
+    res = rank_result(io, "grid")
+    phase("grid", f"{GRID_RANKS} ranks over gloo on {res['device']}, "
+          f"layout {res['layout']}, {time.perf_counter() - t0:.1f} s with "
+          "their start")
+    # round one: the reduced table against phase 5's
+    table = torch.from_numpy(np.load(os.path.join(io, "grid_table.npy")))
+    t_err = _rel(table, keep["table"])
+    g64, s64 = _rel(table, keep["table64"]), _rel(keep["table"],
+                                                   keep["table64"])
+    limit = ACCURACY_RATIO * max(s64, ACCURACY_FLOOR)
+    from commefficient_tpu_torch.federated import server as fserver
+    zeros = torch.zeros((MAIN_R, MAIN_C), device="cuda")
+    upd = fserver.get_server_update(table.cuda(), zeros, zeros,
+                                    keep["cfg"], 1.0)
+    top = set(torch.nonzero(upd.update).reshape(-1).cpu().tolist())
+    overlap = len(top & keep["top"]) / max(len(keep["top"]), 1)
+    phase("grid", f"round one from phase 5's weights and batch: the "
+          f"reduced table vs the one-process card table rel err "
+          f"{t_err:.3e} (<= {PARITY_RTOL:g}); vs the float64 table: grid "
+          f"{g64:.3e}, one process {s64:.3e} (grid <= {ACCURACY_RATIO:g} x "
+          f"max(one process, {ACCURACY_FLOOR:g})); top-k overlap "
+          f"{overlap:.5f} of {len(keep['top'])} (>= {TOPK_OVERLAP:g})")
+    if not (t_err <= PARITY_RTOL and g64 <= limit
+            and overlap >= TOPK_OVERLAP):
+        raise AssertionError("grid: the reduced table disagrees with the "
+                             "one-process round")
+    want_up = MAIN_R * MAIN_C * 4
+    ups = [u for rnd in res["uploads"] for u in rnd]
+    losses = [v for rnd in res["losses"] for v in rnd]
+    if not (res["ok"] and res["moved"] and res["equal"]
+            and len(res["round_ms"]) == ROUNDS
+            and all(math.isfinite(v) for v in losses)
+            and ups and all(u == want_up for u in ups)):
+        raise AssertionError(f"grid: the {ROUNDS}-round run failed its "
+                             f"checks: ok {res['ok']}, moved "
+                             f"{res['moved']}, ranks bitwise equal "
+                             f"{res['equal']}, uploads {sorted(set(ups))}")
+    for r, row in enumerate(res["per_rank"]):
+        if row[1] != ROUNDS or row[2] != ROUNDS:
+            raise AssertionError(f"grid: rank {r} launched K1 {row[1]:g} "
+                                 f"and K2 {row[2]:g} times ({ROUNDS} each "
+                                 "expected)")
+    med = statistics.median
+    col = res["collectives"]
+    phase("grid", f"{ROUNDS} rounds: ps_weights bitwise equal on both "
+          f"ranks; every upload {want_up} bytes; K1 and K2 {ROUNDS} times "
+          "on each rank; mean client loss first/last "
+          f"{statistics.mean(res['losses'][0]):.4f}/"
+          f"{statistics.mean(res['losses'][-1]):.4f}")
+    phase("grid", "ms/round (rank 0) " + " ".join(
+        f"{t:.2f}" for t in res["round_ms"]) + f"; median (rounds 2-"
+        f"{ROUNDS}) {med(res['round_ms'][1:]):.2f} beside config #2's "
+        f"{med(main_ms[1:]):.2f} (phase 4); each rank's peak "
+        + ", ".join(f"{row[0] / 2 ** 30:.3f}" for row in res["per_rank"])
+        + " GiB; rank 0's collectives: " f"{col['calls']} calls, "
+        f"{col['bytes'] / 2 ** 20:.1f} MiB, {1e3 * col['seconds']:.1f} ms "
+        f"host ({1e3 * col['seconds'] / ROUNDS:.2f} ms a round, the eval's "
+        "included)")
+
+    # NCCL: two ranks on one card (expected to be refused), and beside
+    # it a world of one rank and the one-process run, to be bitwise equal
+    probe = start_ranks("nccl2", 2, io, backend="nccl")
+    one_run = start_ranks("nccl1", 1, io, backend="nccl")
+    single_run = start_ranks("single", 0, io)
+    try:
+        codes, texts = wait_ranks("grid", probe, timeout=120,
+                                  expect_ok=False)
+    except AssertionError as e:     # killed at its timeout
+        codes, texts = str(e), []
+    said = [ln.strip() for t in texts for ln in t.splitlines()
+            if "uplicate" in ln or "Error" in ln or "nccl2:" in ln]
+    phase("grid", f"nccl with two ranks on one card: exit codes {codes}; "
+          f"it printed: {' | '.join(dict.fromkeys(said))[:600] or '(none)'}")
+    wait_ranks("grid", one_run)
+    wait_ranks("grid", single_run)
+    one, single = rank_result(io, "nccl1"), rank_result(io, "single")
+    wa = np.load(os.path.join(io, "nccl1_weights.npy"))
+    wb = np.load(os.path.join(io, "single_weights.npy"))
+    same = (np.array_equal(wa.view(np.uint32), wb.view(np.uint32))
+            and one["uploads"] == single["uploads"])
+    phase("grid", f"an NCCL world of one rank (layout {one['layout']}) vs "
+          f"the one-process run, {NCCL1_ROUNDS} rounds each, deterministic: "
+          f"weights and bytes bitwise equal {same}; NCCL collectives "
+          f"{one['collectives']['calls']}; ms/round (the two runs side by "
+          f"side on the card) {med(one['round_ms'][1:]):.2f} and "
+          f"{med(single['round_ms'][1:]):.2f}")
+    if not same:
+        raise AssertionError("grid: the NCCL world of one rank differs "
+                             "from the one-process run")
+    return res["launches"]
+
+
+def k4_tp_row(ac) -> dict:
+    """K4 on one rank's [16, 6, L, 64] head views under --model_parallel
+    2: its heads' columns of GPT2-small's fused projection, a [16, L,
+    3 * 384] product (row stride 1152), against its plain version
+    (K4_RTOL), timed with SDPA's time on the same views."""
+    El = K4_TP_HEADS * K4_DH
+    qkv = torch.randn(K4_BATCH, GPT2_L, 3 * El,
+                      generator=torch.Generator().manual_seed(38)
+                      ).to("cuda")
+    q, k, v = (t.reshape(K4_BATCH, GPT2_L, K4_TP_HEADS, K4_DH).transpose(1, 2)
+               for t in qkv.split(El, dim=-1))
+    o, lse = ac.flash_fwd(q, k, v, 0.125)
+    po, plse = ac.flash_fwd_plain(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    e_o = float((o - po).abs().max())
+    e_l = float((lse - plse).abs().max())
+    if not (e_o <= K4_RTOL * float(po.abs().max())
+            and e_l <= K4_RTOL * float(plse.abs().max())):
+        raise AssertionError(f"flash_fwd differs from its plain version on "
+                             f"the 6-head views: o {e_o}, lse {e_l}")
+    phase("tpgpt2", f"[{K4_BATCH}, {K4_TP_HEADS}, {GPT2_L}, {K4_DH}] head "
+          f"views of a rank's fused QKV columns: K4 within {K4_RTOL:g} of "
+          f"its plain version (max abs err o {e_o:.3e}, lse {e_l:.3e})")
+    bh = K4_BATCH * K4_TP_HEADS
+    pairs = bh * GPT2_L * (GPT2_L + 1) // 2
+    return timed_row(dict(
+        name="flash_fwd_tp", counter="flash_fwd", path="tpgpt2",
+        route="cuda", source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
+        replaces="commefficient_tpu/ops/attention.py:91",
+        fn=lambda: ac.flash_fwd(q, k, v, 0.125),
+        plain=lambda: ac.flash_fwd_plain(q, k, v, 0.125),
+        library=sdpa_efficient(ac, q, k, v),
+        bytes=4 * 4 * q.numel() + 4 * bh * GPT2_L,
+        ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
+        max(e_o, e_l))
+
+
+def tpgpt2_phase(gpt2_train, parse_args, HashTokenizer, fserver, g_ms,
+                 g_peak, tmp) -> dict:
+    """Phase 38 (module docstring): returns rank 0's launches."""
+    io = os.path.join(tmp, "tpgpt2")
+    os.makedirs(io)
+    spe = math.ceil(math.prod(GPT2_CORPUS) / (8 * 8))
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5 + [
+        "--remat", "--local_batch_size", "8", "--device", "cuda",
+        "--dataset_dir", os.path.join(HERE, "build", "chip_smoke_gpt2_data"),
+        "--num_epochs", str(TP_ROUNDS / spe), "--seed", "21"])
+    model, opt, _, loader, _ = gpt2_train.build(
+        cfg, HashTokenizer(GPT2_VOCAB), device="cuda",
+        synthetic_examples=GPT2_CORPUS)
+    batch = next(iter(loader.epoch()))
+    save_batch(os.path.join(io, "tp_batch.npz"), batch)
+    opt.param_groups[0]["lr"] = 0.0
+    g1 = model.cohort_transmit(batch).cpu()
+    count = float(np.asarray(batch[2]).sum())
+    m_cfg = model.cfg
+    sketch = fserver.args2sketch(m_cfg)
+    zeros = torch.zeros(sketch.table_shape, device="cuda")
+
+    def selected(g):
+        upd = fserver.get_server_update(sketch.encode(g.cuda()) / count,
+                                        zeros, zeros, m_cfg, 1.0)
+        return set(torch.nonzero(upd.update).reshape(-1).cpu().tolist())
+
+    top1 = selected(g1)
+    losses1 = np.asarray(model(batch)[0].cpu(), np.float64)
+    del model, opt, loader, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("tpgpt2", f"the one-process reference (--model_parallel 1 "
+          f"--remat, seed 21): round one's cohort gradient, {len(top1)} "
+          "coordinates selected, losses; starting 2 ranks")
+    t0 = time.perf_counter()
+    _, texts = run_ranks("tpgpt2", "tpgpt2", 2, io)
+    res = rank_result(io, "tpgpt2")
+    said = [ln.strip() for ln in texts[0].splitlines()
+            if ln.startswith("tensor parallel")]
+    phase("tpgpt2", f"2 ranks over gloo, layout {res['layout']} "
+          f"({'; '.join(said) or 'no TP line'}), {time.perf_counter() - t0:.1f}"
+          f" s with their start, the build {res['built_s']:.1f} s, the "
+          f"gradient probe {res['grad_s']:.1f} s")
+    g2 = torch.from_numpy(np.load(os.path.join(io, "tp_grad.npy")))
+    g_err = _rel(g2, g1)
+    top2 = selected(g2)
+    overlap = len(top1 & top2) / max(len(top1), 1)
+    l_tp = np.asarray(res["losses"][0], np.float64)
+    l_err = float(np.max(np.abs(l_tp - losses1) / np.abs(losses1)))
+    phase("tpgpt2", f"round one vs the one process: losses max rel err "
+          f"{l_err:.3e} (<= {TP_LOSS_RTOL:g}); cohort gradient rel err "
+          f"{g_err:.3e} (<= {GPT2_PARITY_RTOL:g}); threshold selections "
+          f"share {overlap:.5f} of {len(top1)} (>= {TOPK_OVERLAP:g}; TP "
+          f"selected {len(top2)})")
+    if not (l_err <= TP_LOSS_RTOL and g_err <= GPT2_PARITY_RTOL
+            and overlap >= TOPK_OVERLAP):
+        raise AssertionError("tpgpt2: tensor parallelism disagrees with the "
+                             "one-process round")
+    losses = [v for rnd in res["losses"] for v in rnd]
+    if not (res["ok"] and res["moved"] and res["equal"]
+            and len(res["round_ms"]) == TP_ROUNDS
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"tpgpt2: the run failed its checks: ok "
+                             f"{res['ok']}, moved {res['moved']}, ranks "
+                             f"bitwise equal {res['equal']}")
+    want = [2 * 12 * 8 * TP_ROUNDS, 2 * TP_ROUNDS, TP_ROUNDS, TP_ROUNDS]
+    for r, row in enumerate(res["per_rank"]):
+        if row[1:5] != want:
+            raise AssertionError(f"tpgpt2: rank {r} launched K4, K1, K3a, "
+                                 f"K3b {row[1:5]} times ({want} expected)")
+    med = statistics.median
+    col = res["collectives"]
+    phase("tpgpt2", f"{TP_ROUNDS} rounds: ps_weights bitwise equal on both "
+          f"ranks; on each rank K4 {want[0]} (2 x 12 layers x 8, --remat), "
+          f"K1 {want[1]}, K3a and K3b {want[2]}; ms/round (rank 0) "
+          + " ".join(f"{t:.2f}" for t in res["round_ms"])
+          + (" (phase 7 not run)" if g_ms is None else
+             f" beside config #5's median {med(g_ms[1:]):.2f} (phase 7, "
+             f"one process, no remat)") + "; each rank's peak "
+          + ", ".join(f"{row[0] / 2 ** 30:.3f}" for row in res["per_rank"])
+          + (" GiB" if g_peak is None else
+             f" GiB beside phase 7's {g_peak / 2 ** 30:.3f}") + "; rank 0's "
+          f"collectives {col['calls']} calls, {col['bytes'] / 2 ** 30:.2f} "
+          f"GiB, {col['seconds']:.2f} s host over the {TP_ROUNDS} rounds")
+    return res["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
@@ -3794,11 +4371,22 @@ def main(argv=None) -> int:
                          "paths "
                          "into DIR (default chiprun_out/ beside this "
                          "script)")
+    # one rank of phases 37-38, started by the script itself
+    ap.add_argument("--rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--process_id", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--num_processes", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--io", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if args.rank:
+        return rank_main(args)
     sys.path.insert(0, HERE)
     from commefficient_tpu_torch import models
     from commefficient_tpu_torch.config import parse_args
@@ -3843,9 +4431,12 @@ def main(argv=None) -> int:
         convert.load_flat(module, w)
         return module
 
+    # phase 37 holds its ranks' reduced table to this round's
+    parity_keep = {"cfg": model.cfg}
     parity_phase("parity", build_resnet9, w, batch[1], batch[2], model.cfg,
                  cv_train.make_compute_loss, PARITY_RTOL, ACCURACY_FLOOR,
-                 fclient, fserver, flat, tf32_control=True)
+                 fclient, fserver, flat, tf32_control=True, keep=parity_keep)
+    p5_w, p5_batch = w, batch
     if args.profile:
         profile_rounds(model, cv_train.get_data_loaders(
             model.cfg, (CLIENTS * EXAMPLES_PER_CLIENT, 512))[0],
@@ -4128,13 +4719,27 @@ def main(argv=None) -> int:
     m_launches = gpt2medium_phase(sc, ac, gpt2_train, parse_args,
                                   HashTokenizer, gpt2_dir, fserver, g_ms)
 
+    # phases 37-38: config #2 on a grid of ranks and GPT2-small tensor
+    # parallel (item 9g), ranks sharing the card over gloo
+    grid_kernels = grid_rows(sc, CSVec)
+    tp_kernel = k4_tp_row(ac)
+    grid_tmp = tempfile.mkdtemp(prefix="chip_smoke_item9g_")
+    try:
+        grid_launches = grid_phase(sc, CSVec, round_ms, parity_keep, p5_w,
+                                   p5_batch, grid_tmp)
+        tp_launches = tpgpt2_phase(gpt2_train, parse_args, HashTokenizer,
+                                   fserver, g_ms, g_peak, grid_tmp)
+    finally:
+        shutil.rmtree(grid_tmp, ignore_errors=True)
+
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,
                      "gpt2medium": m_launches,
                      "config4": s_launches, "dp": dp_launches,
                      "config5_bf16": gb_launches,
-                     "byzantine": byz_launches, "dp_sketch": dps_launches}
-    kernels += g_kernels + m_kernels
+                     "byzantine": byz_launches, "dp_sketch": dps_launches,
+                     "grid": grid_launches, "tpgpt2": tp_launches}
+    kernels += g_kernels + m_kernels + grid_kernels + [tp_kernel]
     for k in kernels:
         k["launches"] = path_launches[k["path"]][k.pop("counter")]
 

@@ -457,6 +457,12 @@ class Config:
             raise ValueError(
                 f"async_staleness_decay={self.async_staleness_decay} "
                 "must be in (0, 1] (1.0 = undiscounted late admission)")
+        if self.plan_transport == "emulated" and self.multihost:
+            raise ValueError(
+                "--plan_transport emulated is the IN-PROCESS "
+                "N-controller harness (one process pretending to be "
+                "many) and cannot coexist with real multihost; use "
+                "--plan_transport collective there")
         if (self.multihost and not self.plan_transport
                 and (self.sampler != "uniform"
                      or self.deadline_quantile > 0
@@ -470,6 +476,12 @@ class Config:
                 "coordinator broadcasts each round's RoundPlan and "
                 "every process installs the received plan — "
                 "parallel/plantransport.py)")
+        if self.multihost and self.pipeline:
+            raise ValueError(
+                "--pipeline is single-controller only for now: the "
+                "persistence writer threads and the one-span-late "
+                "commit would need cross-process barriers (a ROADMAP "
+                "opening — the plan transport does not cover it)")
         if (self.multihost and self.async_admit_rounds > 0
                 and not self.plan_transport):
             raise ValueError(
@@ -666,14 +678,10 @@ class Config:
             # mode would also trip on the port's explicit one-round-late
             # copies, so it is not the same guard (ROADMAP.md item 10)
             refuse("--debug_transfer_guard", Q_ANALYSIS)
-        for flag, on in (
-                ("--model_parallel > 1", self.model_parallel > 1),
-                # the multi-host layer, with the plan transport
-                ("--plan_transport", bool(self.plan_transport)),
-                ("--multihost", self.multihost),
-                ("--num_slices > 1", self.num_slices > 1)):
-            if on:
-                refuse(flag, Q_SCALE)
+        if self.plan_transport:
+            # the rest of the multi-device layer: the coordinator's plan
+            # broadcast and the followers' install
+            refuse("--plan_transport", Q_SCALE)
 
 
 def _build_parser(default_lr: Optional[float] = None) -> argparse.ArgumentParser:

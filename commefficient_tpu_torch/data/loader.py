@@ -1,10 +1,20 @@
 """Round-batch assembly: the port's copy of
-commefficient_tpu/data/loader.py (single process, no feed slices).
-Each round is (client_ids [W], data tuple of [W, B, ...] NHWC numpy
-arrays, mask [W, B]); FedModel moves it to the device."""
+commefficient_tpu/data/loader.py. Each round is (client_ids [W], data
+tuple of [W, B, ...] NHWC numpy arrays, mask [W, B]); FedModel moves it
+to the device.
+
+`feed_slice` (a multi-rank run, parallel/multihost.apply_feed_slices):
+the sampler still draws the whole round on every rank (seeded index
+math, the same everywhere), but only the rows of the slice are fetched,
+transformed and materialized; the batch then carries the whole cohort's
+client ids and the rank's rows of data and mask, FedModel's multi-rank
+contract. A transform that draws from a stateful generator (CIFAR's
+crop and flip) draws for the fetched rows only, so a rank's
+augmentations differ from the same rows of a one-process run, in both
+packages."""
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -15,8 +25,10 @@ from commefficient_tpu_torch.data.sampler import FedSampler, ValSampler
 class FedLoader:
     def __init__(self, dataset: FedDataset, num_workers: int,
                  local_batch_size: int, seed: int = 0,
-                 max_local_batch: int = -1):
+                 max_local_batch: int = -1,
+                 feed_slice: Optional[slice] = None):
         self.dataset = dataset
+        self.feed_slice = feed_slice
         self.sampler = FedSampler(dataset.data_per_client, num_workers,
                                   local_batch_size, seed=seed,
                                   max_local_batch=max_local_batch)
@@ -38,8 +50,16 @@ class FedLoader:
             if skip > 0:
                 skip -= 1
                 continue
+            W = len(r.client_ids)
+            rows = (range(W) if self.feed_slice is None
+                    else range(*self.feed_slice.indices(W)))
+            if len(rows) == 0:
+                raise NotImplementedError(
+                    "this process owns no rows of the clients axis; "
+                    "zero-row feeding is not supported — use a mesh "
+                    "layout that gives every process client shards")
             per_client = []
-            for w in range(len(r.client_ids)):
+            for w in rows:
                 n_valid = int(r.mask[w].sum())
                 # an idle slot (the scheduler sampled fewer than
                 # num_workers) fetches nothing: its rows stay zeros
@@ -48,7 +68,14 @@ class FedLoader:
                     if n_valid else None)
                 per_client.append((n_valid, got))
             # the scheduler selects at least one participant
-            protos = next(got for _, got in per_client if got is not None)
+            protos = next((got for _, got in per_client
+                           if got is not None), None)
+            if protos is None:
+                raise NotImplementedError(
+                    "every row this process feeds is an idle "
+                    "(zero-mask) slot; feeding cannot derive batch "
+                    "shapes — scheduler over-provisioning is single-"
+                    "controller only (Config.validate enforces this)")
             data = tuple(np.zeros((len(per_client), B) + p.shape[1:],
                                   p.dtype) for p in protos)
             for i, (n_valid, got) in enumerate(per_client):
@@ -56,24 +83,32 @@ class FedLoader:
                     continue
                 for buf, g in zip(data, got):
                     buf[i, :n_valid] = g
-            yield r.client_ids, data, r.mask
+            mask = (r.mask if self.feed_slice is None
+                    else r.mask[self.feed_slice])
+            yield r.client_ids, data, mask
 
 
 class FedValLoader:
     """Validation batches as [num_shards, valid_batch_size] blocks."""
 
     def __init__(self, dataset: FedDataset, valid_batch_size: int,
-                 num_shards: int):
+                 num_shards: int, feed_slice: Optional[slice] = None):
+        """feed_slice: as FedLoader's, over the shards."""
         self.dataset = dataset
         self.sampler = ValSampler(dataset.num_val_images, valid_batch_size,
                                   num_shards)
         self.vb = valid_batch_size
         self.num_shards = num_shards
+        self.feed_slice = feed_slice
 
     def batches(self):
         for r in self.sampler.batches():
             idx = r.idx_within
+            mask = r.mask
+            if self.feed_slice is not None:
+                idx = idx[self.feed_slice]
+                mask = mask[self.feed_slice]
             got = self.dataset.get_val_batch(idx.reshape(-1))
             data = tuple(g.reshape((idx.shape[0], self.vb) + g.shape[1:])
                          for g in got)
-            yield data, r.mask
+            yield data, mask

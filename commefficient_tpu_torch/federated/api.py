@@ -1,6 +1,5 @@
 """Reference-shaped high-level API: FedModel + FedOptimizer, the port
-of commefficient_tpu/federated/api.py (single process, no plan
-transport).
+of commefficient_tpu/federated/api.py (no plan transport).
 
 The call contract is the JAX package's:
 
@@ -64,6 +63,24 @@ epsilon, and the run raises once --dp_target_epsilon is exceeded,
 after that round's event. Epsilon is a function of the rounds done, so
 a resumed run re-derives it; no accountant state is checkpointed.
 
+Ranks (parallel/): given a parallel/mesh.Layout, or by default under
+torch.distributed, --model_parallel > 1 or --num_slices > 1 (the JAX
+FedModel's mesh rule, mesh.default_layout), the model runs as one rank
+of a process grid. A round's batch then carries the whole cohort's
+client ids and only the rank's rows of data and mask (its block of the
+clients axis, `local_row_slice`; the drivers' loaders materialize only
+those, data/loader.py); the fault operands, drawn on every rank from
+the same seed, are cut to the block here. The round engine gathers the
+per-client outputs, so losses, metrics, the byte accounting and the
+accountant are the whole cohort's and identical on every rank; the
+drivers attach the journal on the coordinator only. Eval gathers its
+per-shard values. The client rows are sharded by rank: checkpoints
+gather them (client_rows_payload, utils/checkpoint.save_checkpoint)
+and a load installs each rank's block. A loss wrapped by
+parallel/tp.tp_loss on a layout with a model axis shards the module
+(tensor parallelism) and completes the flat gradient over the model
+group.
+
 Spans (--scan_rounds, training/scanloop.py): `dispatch_rounds` takes N
 rounds staged on the host as [N, W, B, ...], places them on the device
 once (pinned memory, asynchronous copies on the card) and queues the N
@@ -100,11 +117,16 @@ from commefficient_tpu_torch.federated.accounting import (
     CommAccountant, from_words, pack_change_bits, to_words,
 )
 from commefficient_tpu_torch.federated.async_agg import AsyncAdmitBuffer
+from commefficient_tpu_torch.federated import server as fserver
 from commefficient_tpu_torch.federated.statestore import (
     TieredStateStore, tracked_fields,
 )
 from commefficient_tpu_torch.ops.flat import flatten_params
-from commefficient_tpu_torch.ops.prng import PRNGKey
+from commefficient_tpu_torch.ops.kernels.quant import wire_roundtrip
+from commefficient_tpu_torch.ops.prng import PRNGKey, fold_in
+from commefficient_tpu_torch.parallel import multihost as mh
+from commefficient_tpu_torch.parallel import tp as tensor_parallel
+from commefficient_tpu_torch.parallel.mesh import default_layout
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
 from commefficient_tpu_torch.telemetry.metrics import METRIC_INDEX
 from commefficient_tpu_torch.telemetry.trace import TRACE
@@ -218,7 +240,8 @@ class FedModel:
     def __init__(self, module: torch.nn.Module, loss_train, cfg: Config,
                  loss_val=None, device="cuda",
                  num_clients: Optional[int] = None,
-                 lr_scale_vec: Optional[np.ndarray] = None):
+                 lr_scale_vec: Optional[np.ndarray] = None,
+                 layout=None):
         """module: the torch model (its flat vector is laid out as the
         JAX package's, ops/flat.py). loss_*: loss_fn(params, batch_tuple,
         mask) -> (loss, metrics), with `params` the {name: tensor} dict
@@ -227,7 +250,11 @@ class FedModel:
         groups); the round then takes lr x that vector, in every mode.
         Its exact zeros mark frozen coordinates (--finetune): their
         gradients are zeroed at the source (the round's `grad_mask`), so
-        they take no share of the compression budget."""
+        they take no share of the compression budget. layout: the
+        rank layout (parallel/mesh.py), or the default one under
+        torch.distributed, --model_parallel > 1 or --num_slices > 1
+        (module docstring); `device` is then this rank's
+        (multihost.rank_device)."""
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.training = True
@@ -235,24 +262,38 @@ class FedModel:
         cfg = cfg.replace(grad_size=int(vec.shape[0])).validate()
         self.cfg = cfg
         self.num_clients = cfg.resolved_num_clients(num_clients)
+        self.layout = self._resolve_layout(cfg, layout, loss_train)
+        train_unravel = self.unravel
+        rules = getattr(loss_train, "tp_rules", None)
+        if (rules is not None and self.layout is not None
+                and self.layout.model > 1):
+            # tensor parallelism: the module takes its slices, and the
+            # flat gradient is completed over the model group
+            tensor_parallel.shard_module(self.module, self.layout)
+            sharded = torch.from_numpy(tensor_parallel.sharded_coordinates(
+                self.module, rules)).to(self.device)
+            train_unravel = tensor_parallel.complete_grad_unravel(
+                self.unravel, self.layout, sharded)
         grad_mask = None
         if lr_scale_vec is not None and np.any(np.asarray(lr_scale_vec) == 0):
             grad_mask = (np.asarray(lr_scale_vec) != 0).astype(np.float32)
         self.frozen_count = (0 if grad_mask is None
                              else int((grad_mask == 0).sum()))
         self._train_round = fround.make_train_fn(
-            loss_train, self.unravel, cfg,
+            loss_train, train_unravel, cfg,
             grad_mask=(None if grad_mask is None
-                       else _as_tensor(grad_mask, self.device)))
+                       else _as_tensor(grad_mask, self.device)),
+            layout=self.layout)
         self._eval_batch = fround.make_eval_fn(
             loss_val if loss_val is not None else loss_train,
-            self.unravel, cfg)
+            self.unravel, cfg, layout=self.layout)
         self.server = fround.init_server_state(cfg, vec)
         # under --state_tier host the blocks hold the working set only,
-        # and the store moves rows between them and the host tail
+        # and the store moves rows between them and the host tail; with
+        # a layout, the rank's block of the population
         self.clients = fround.init_client_state(
             cfg, fround.client_state_rows(cfg, self.num_clients),
-            self.device, vec)
+            self.device, vec, layout=self.layout)
         self.state_store = None
         if cfg.state_tier != "device" and any(tracked_fields(cfg).values()):
             self.state_store = TieredStateStore(
@@ -320,6 +361,47 @@ class FedModel:
         self.ckpt_writer = (
             AsyncCheckpointWriter(drain_timeout=cfg.writer_drain_timeout_s)
             if cfg.pipeline else None)
+
+    @staticmethod
+    def _resolve_layout(cfg: Config, layout, loss_train):
+        """The given layout (bound to this rank), the tp-wrapped loss's,
+        the default one when a grid or a model/slice axis is asked for,
+        else None (the single-process path)."""
+        if layout is None:
+            layout = getattr(loss_train, "tp_layout", None)
+        if layout is None and (mh.is_distributed() or cfg.model_parallel > 1
+                               or cfg.num_slices > 1):
+            layout = default_layout(cfg)
+        if layout is None:
+            return None
+        if layout.rank is None:
+            layout.bind()
+        if cfg.num_workers % layout.clients:
+            raise ValueError(
+                f"num_workers={cfg.num_workers} not divisible by the "
+                f"{layout.clients}-way clients axis")
+        return layout
+
+    def _block(self, x):
+        """The rank's block of a whole-cohort [W, ...] host operand (x
+        itself without a layout, or when None or a scalar)."""
+        if (self.layout is None or x is None
+                or np.ndim(x) == 0):
+            return x
+        return np.asarray(x)[self.layout.local_row_slice(len(x))]
+
+    def _check_rows(self, mask, W: int, leading: int = 0) -> None:
+        """A rank feeds only its block's rows (multihost.local_row_slice)."""
+        if self.layout is None:
+            return
+        got = np.shape(mask)[leading]
+        want = W // self.layout.clients
+        if got != want:
+            raise ValueError(
+                f"this rank feeds rows {self.layout.local_row_slice(W)} "
+                f"of the {W}-client cohort ({want} rows), got {got}: "
+                "pass the client ids of the whole cohort and only the "
+                "rank's rows of data and mask")
 
     def train(self, training: bool):
         self.training = training
@@ -429,7 +511,12 @@ class FedModel:
         if not any(tracked):
             return None, {}
         if not self._sparse_rows_ok:
-            # a copy: the next round writes the blocks in place
+            # a copy: the next round writes the blocks in place (the
+            # whole population's, gathered, with a layout)
+            if self.layout is not None:
+                return {"dense": None}, {
+                    f"dense{i}": torch.from_numpy(block)
+                    for i, block in enumerate(self.checkpoint_clients())}
             return {"dense": None}, {
                 f"dense{i}": block.clone()
                 for i, block in enumerate(self.clients)}
@@ -443,10 +530,31 @@ class FedModel:
         for name, used in zip(("errors", "velocities", "weights"),
                               tracked):
             if used and len(ids):
-                tensors[name] = getattr(self.clients, name)[index]
+                # collective with a layout: every rank takes part
+                tensors[name] = fround.gather_rows_by_id(
+                    getattr(self.clients, name), index, self.layout)
             else:
                 rows[name] = np.zeros((0,), np.float32)
         return rows, tensors
+
+    def checkpoint_clients(self, chunk_rows: int = 256
+                           ) -> fround.ClientState:
+        """The client blocks a dense checkpoint writes: the model's own
+        without a layout; with one, the whole population's rows gathered
+        in chunks of `chunk_rows` (collective: every rank calls it) as
+        host arrays on the coordinator, [0] placeholders elsewhere."""
+        if self.layout is None:
+            return self.clients
+        coord = mh.is_coordinator()
+        out = []
+        for b in self.clients:
+            if b.ndim == 2:
+                b = fround.gather_population(b, self.layout, chunk_rows,
+                                             keep=coord)
+                out.append(np.zeros((0,), np.float32) if b is None else b)
+            else:
+                out.append(b.detach().cpu().numpy())
+        return fround.ClientState(*out)
 
     def state_snapshot(self) -> dict:
         """The server state and the client rows as they stand now,
@@ -512,7 +620,7 @@ class FedModel:
             self.clients = fround.init_client_state(
                 self.cfg, fround.client_state_rows(self.cfg,
                                                    self.num_clients),
-                dev, _owned(base, dev))
+                dev, _owned(base, dev), layout=self.layout)
             if store is not None:
                 # the store rebuilds its tiers: rows recorded resident
                 # back to their slots, the rest to the tail
@@ -523,13 +631,20 @@ class FedModel:
             ids = np.asarray(rows["ids"], np.int64)
             self._touched = set(int(i) for i in ids)
             self._sparse_rows_ok = True
+            sel = np.arange(len(ids))
+            if self.layout is not None and len(ids):
+                # the rows of the clients this rank holds
+                R = fround.local_rows(self.num_clients, self.layout)
+                lo = self.layout.clients_index * R
+                sel = np.nonzero((ids >= lo) & (ids < lo + R))[0]
+                ids = ids[sel] - lo
             if len(ids):
                 index = torch.from_numpy(ids).to(dev)
                 for name in ("errors", "velocities", "weights"):
                     data = np.asarray(rows.get(name, ()))
                     block = getattr(self.clients, name)
                     if data.ndim == 2 and block.ndim == 2:
-                        block[index] = _owned(data, dev)
+                        block[index] = _owned(data[sel], dev)
         elif ckpt.clients is not None and store is not None:
             # dense blocks into the tiered store: the rows that differ
             # from init go to the tail, the working set starts cold
@@ -538,9 +653,18 @@ class FedModel:
                                 for name in store.fields})
         elif ckpt.clients is not None:
             # dense blocks: the touched set is unrecoverable, so this
-            # model's own saves stay dense from here on
+            # model's own saves stay dense from here on. With a layout,
+            # each rank takes its block (--topk_down's missing padding
+            # rows from the loaded weights)
+            blocks = list(ckpt.clients)
+            if self.layout is not None:
+                fill = [None, None, np.asarray(s.ps_weights, np.float32)]
+                blocks = [fround.own_block(np.asarray(b), self.num_clients,
+                                           self.layout, f)
+                          if np.ndim(b) == 2 else b
+                          for b, f in zip(blocks, fill)]
             self.clients = fround.ClientState(
-                *[_owned(block, dev) for block in ckpt.clients])
+                *[_owned(block, dev) for block in blocks])
             if any(block.ndim == 2 for block in ckpt.clients):
                 self._sparse_rows_ok = False
         self._finish_load(ckpt)
@@ -903,6 +1027,7 @@ class FedModel:
         mask [W, B])."""
         client_ids, data, mask = batch
         ids_host = np.asarray(client_ids).reshape(-1)
+        self._check_rows(mask, len(ids_host))
         this_round = self.server.round_idx
         if (self.fault_schedule is not None
                 and self.fault_schedule.should_crash_in_span(this_round, 1)):
@@ -924,8 +1049,9 @@ class FedModel:
             prev_words = self._prev_change_words
 
             def operand(x):
+                # the rank's block of a per-client operand
                 return None if x is None else _as_tensor(
-                    np.asarray(x, np.float32), self.device)
+                    np.asarray(self._block(x), np.float32), self.device)
 
             placed = fround.RoundBatch(
                 _as_tensor(np.asarray(ids_device, np.int64), self.device),
@@ -974,6 +1100,38 @@ class FedModel:
             raise InjectedFault(this_round)
         return [metrics.losses, *metrics.metrics, download, upload]
 
+    def cohort_transmit(self, batch, encoded: bool = False
+                        ) -> torch.Tensor:
+        """The summed client transmit of a round's batch (client_ids,
+        data, mask: the rank's rows, as __call__ takes them) on the
+        current weights: in the gradient modes the cohort's gradient
+        sum, summed over the clients group with a layout (and completed
+        over the model group under tensor parallelism). With `encoded`,
+        what crosses the ranks in the round instead: each rank's block
+        sum encoded (sketch mode's deferred encode) and rounded on the
+        wire, then summed. A probe for parity checks: no fault
+        operands, and the state is left as it was."""
+        client_ids, data, mask = batch
+        ids = np.asarray(client_ids).reshape(-1)
+        self._check_rows(mask, len(ids))
+        placed = fround.RoundBatch(
+            _as_tensor(np.asarray(ids, np.int64), self.device),
+            tuple(_as_tensor(d, self.device) for d in data),
+            _as_tensor(mask, self.device).to(torch.float32))
+        cohort = fround.gather_cohort(self.cfg, self.clients,
+                                      placed.client_ids, self.layout)
+        key = fold_in(self._key, self.server.round_idx)
+        local_sum = self._train_round.client_phase(
+            self.server.ps_weights, placed, cohort, self._lr(), key)[0]
+        if encoded and self.cfg.defer_sketch_encode:
+            local_sum = fserver.args2sketch(self.cfg).encode(local_sum)
+        if encoded and self.cfg.mode == "sketch":
+            local_sum = wire_roundtrip(local_sum,
+                                       self.cfg.sketch_table_dtype)
+        if self.layout is not None:
+            local_sum = self.layout.all_reduce(local_sum.contiguous())
+        return local_sum
+
     def _journal_tier(self, **where) -> None:
         """The tiered store's `state_tier` event (its counters' deltas)
         and a `state_quarantine` event a re-initialized tail row."""
@@ -1010,6 +1168,7 @@ class FedModel:
         handle collect_rounds takes; collect handles in dispatch
         order."""
         ids_host = np.asarray(client_ids)
+        self._check_rows(mask, ids_host.shape[1], leading=1)
         lrs = [float(lr) for lr in lrs]
         n_rounds = ids_host.shape[0]
         first = self.server.round_idx
@@ -1070,8 +1229,8 @@ class FedModel:
                 data_d = tuple(_staged(d, dev) for d in data)
                 mask_d = _staged(mask, dev).to(torch.float32)
                 ops_d = [[None if x is None else _staged(
-                    np.asarray(x, np.float32), dev) for x in ops]
-                    for ops in operands]
+                    np.asarray(self._block(x), np.float32), dev)
+                    for x in ops] for ops in operands]
             server, clients = self.server, self.clients
             ms, bits = [], []
             for n in range(n_rounds):

@@ -18,8 +18,31 @@ fold_in(key, round_idx), client c's (c its place in the cohort)
 fold_in(round_key, c), the server's fold_in(round_key, num_workers).
 
 What the JAX engine runs as one jitted SPMD program over a `clients`
-mesh axis runs here as eager PyTorch on one device: the `lax.psum`
-over the clients axis is the identity.
+mesh axis runs here as eager PyTorch, on one device or, given a
+parallel/mesh.Layout, on one rank of a process grid. Each rank then
+computes its contiguous W / n block of the cohort (RoundBatch carries
+only its rows, but the whole cohort's client ids), and the JAX
+engine's collectives become the layout's:
+  * the `lax.psum` of the transmit is an all_reduce over the clients
+    group. In sketch mode each rank encodes its block's sum once (K1)
+    and rounds it on the --sketch_table_dtype wire first, JAX's
+    per-shard rounding, so the [r, c] table is what crosses ranks;
+  * the per-client vectors (losses, metrics, example counts, the
+    survivor and admission masks) are gathered in cohort order, so
+    everything after the sum (the example total, the server step:
+    K2, the stable top-k, the re-sketch; the telemetry row) runs
+    replicated on every rank from identical inputs, and every rank
+    holds bitwise the same ps_weights;
+  * the screened family's `lax.all_gather`s (the cohort-median l2, the
+    adversary's honest statistics, the robust aggregators' [W, ...]
+    tables) are gathers in cohort order, and its `axis_index` the
+    rank's clients position;
+  * the per-client rows are sharded by rank: each holds its contiguous
+    block of ceil(population / n) rows, the round's gather of the
+    cohort's rows by client id is one all_reduce of a [W, D] buffer a
+    tracked block, and so is the scatter back.
+Without a layout (or on a layout of one rank) every collective is the
+identity.
 
 The fault variants (utils/faults.py) ride RoundBatch operands, as in
 the JAX engine, and keep its NaN rules:
@@ -51,6 +74,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from commefficient_tpu_torch.config import Config
@@ -208,6 +232,19 @@ def attack(t: torch.Tensor, pois: torch.Tensor, surv: torch.Tensor,
     return out.reshape(t.shape).to(t.dtype)
 
 
+def client_checks(t: torch.Tensor, cfg: Config):
+    """Per-client (finite [W] bool, l2 [W] f32 or None) of the transmits
+    t ([W, ...]): what admission reads of each client; the l2 only
+    under --update_screen norm."""
+    W = t.shape[0]
+    ok = torch.isfinite(t).reshape(W, -1).all(dim=1)
+    l2 = None
+    if cfg.update_screen == "norm":
+        l2 = torch.sqrt(torch.square(t.to(torch.float32))
+                        .reshape(W, -1).sum(dim=1))
+    return ok, l2
+
+
 def admission(t: torch.Tensor, surv: torch.Tensor, screen: torch.Tensor,
               cfg: Config) -> torch.Tensor:
     """[W] f32 admit mask of the transmits t ([W, ...]): finite, and
@@ -216,11 +253,13 @@ def admission(t: torch.Tensor, surv: torch.Tensor, screen: torch.Tensor,
     eligible admits all), mult being screen_norm_mult or, under
     --target_screened_rate, the value of `screen`. All ones when
     `screen` is 0: the mask is computed and not applied."""
-    W = t.shape[0]
-    ok = torch.isfinite(t).reshape(W, -1).all(dim=1)
+    return admit(*client_checks(t, cfg), surv, screen, cfg)
+
+
+def admit(ok: torch.Tensor, l2: Optional[torch.Tensor], surv: torch.Tensor,
+          screen: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """admission from the whole cohort's client_checks."""
     if cfg.update_screen == "norm":
-        l2 = torch.sqrt(torch.square(t.to(torch.float32))
-                        .reshape(W, -1).sum(dim=1))
         elig = (surv > 0) & torch.isfinite(l2) & (l2 > 0)
         med = masked_median(l2, elig)
         mult = (screen.to(torch.float32) if cfg.adaptive_screen
@@ -319,13 +358,28 @@ def client_state_rows(cfg: Config, num_clients: int) -> int:
     return int(num_clients)
 
 
+def _sharded(layout) -> bool:
+    """Whether the rows and the cohort are split over ranks."""
+    return layout is not None and layout.connected
+
+
+def local_rows(num_clients: int, layout=None) -> int:
+    """The client rows one rank holds: the population padded to a
+    multiple of the clients axis, divided by it (padding rows are inert:
+    client ids stay below the population)."""
+    n = 1 if layout is None else layout.clients
+    return -(-int(num_clients) // n)
+
+
 def init_client_state(cfg: Config, num_clients: int, device,
-                      ps_weights: Optional[torch.Tensor] = None
-                      ) -> ClientState:
+                      ps_weights: Optional[torch.Tensor] = None,
+                      layout=None) -> ClientState:
     """Per-client rows for the blocks the config tracks, [0]
     placeholders otherwise. --topk_down's weight rows start as copies
-    of `ps_weights` (the clients' download at init)."""
+    of `ps_weights` (the clients' download at init). With a layout,
+    the rank's block of local_rows rows."""
     D = cfg.grad_size
+    num_clients = local_rows(num_clients, layout)
 
     def block(tracked: bool):
         shape = (num_clients, D) if tracked else (0,)
@@ -343,29 +397,128 @@ def init_client_state(cfg: Config, num_clients: int, device,
                        block(_has_velocities(cfg)), weights)
 
 
+def _tracked(cfg: Config):
+    return (_has_errors(cfg), _has_velocities(cfg), cfg.do_topk_down)
+
+
+def _owned(clients: ClientState, ids: torch.Tensor, layout):
+    """(mask of the cohort slots whose client row this rank holds, their
+    local row indices)."""
+    R = next(b.shape[0] for b in clients if b.ndim == 2)
+    lo = layout.clients_index * R
+    mine = (ids >= lo) & (ids < lo + R)
+    return mine, ids[mine] - lo
+
+
 def gather_cohort(cfg: Config, clients: ClientState,
-                  ids: torch.Tensor) -> CohortState:
+                  ids: torch.Tensor, layout=None) -> CohortState:
+    """The participants' rows. `ids` is the whole cohort's; with a
+    layout, each rank fills the rows it holds into a [tracked, W, D]
+    zero buffer, one all_reduce over the clients group completes it,
+    and the rank keeps its block's rows."""
     W = ids.shape[0]
     dev = ids.device
+    tracked = _tracked(cfg)
+    sharded = _sharded(layout)
+    Wl = W // layout.clients if sharded else W
+    full = None
+    if sharded and any(tracked):
+        mine, local = _owned(clients, ids, layout)
+        blocks = [b for b, t in zip(clients, tracked) if t]
+        buf = torch.zeros((len(blocks), W, cfg.grad_size),
+                          dtype=torch.float32, device=dev)
+        for j, b in enumerate(blocks):
+            buf[j, mine] = b[local]
+        full = iter(layout.block(layout.all_reduce(buf), dim=1))
 
     def rows(block, tracked):
-        return (block[ids] if tracked
-                else torch.zeros(W, dtype=torch.float32, device=dev))
+        if not tracked:
+            return torch.zeros(Wl, dtype=torch.float32, device=dev)
+        return next(full) if full is not None else block[ids]
 
-    return CohortState(rows(clients.errors, _has_errors(cfg)),
-                       rows(clients.velocities, _has_velocities(cfg)),
-                       rows(clients.weights, cfg.do_topk_down))
+    return CohortState(*[rows(b, t) for b, t in zip(clients, tracked)])
 
 
 def scatter_back(cfg: Config, clients: ClientState, ids: torch.Tensor,
-                 cohort: CohortState) -> ClientState:
-    if _has_errors(cfg):
-        clients.errors[ids] = cohort.errors
-    if _has_velocities(cfg):
-        clients.velocities[ids] = cohort.velocities
-    if cfg.do_topk_down:
-        clients.weights[ids] = cohort.weights
+                 cohort: CohortState, layout=None) -> ClientState:
+    """The participants' updated rows back into the blocks. With a
+    layout, the blocks' rows are gathered in cohort order (one
+    all_reduce) and each rank writes the rows it holds."""
+    tracked = _tracked(cfg)
+    if _sharded(layout):
+        if not any(tracked):
+            return clients
+        full = layout.gather(torch.stack(
+            [r for r, t in zip(cohort, tracked) if t]), dim=1)
+        mine, local = _owned(clients, ids, layout)
+        for j, b in enumerate(b for b, t in zip(clients, tracked) if t):
+            b[local] = full[j, mine]
+        return clients
+    for block, rows, t in zip(clients, cohort, tracked):
+        if t:
+            block[ids] = rows
     return clients
+
+
+def gather_rows_by_id(block: torch.Tensor, ids: torch.Tensor, layout,
+                      chunk_rows: int = 256) -> torch.Tensor:
+    """[len(ids), D]: the rows of the clients `ids` of a block sharded
+    by rank (each rank's local_rows), on every rank, in chunks of
+    `chunk_rows` ids (one all_reduce each)."""
+    if not _sharded(layout) or not len(ids):
+        return block[ids]
+    R, D = block.shape
+    lo = layout.clients_index * R
+    out = []
+    for a in range(0, len(ids), chunk_rows):
+        part = ids[a:a + chunk_rows]
+        buf = block.new_zeros((len(part), D))
+        mine = (part >= lo) & (part < lo + R)
+        buf[mine] = block[part[mine] - lo]
+        out.append(layout.all_reduce(buf))
+    return torch.cat(out)
+
+
+def gather_population(block: torch.Tensor, layout, chunk_rows: int = 256,
+                      keep: bool = True):
+    """A block sharded by rank as the whole [rows, D] population, in
+    chunks of `chunk_rows` rows (one all_reduce each, every rank takes
+    part): a host array where `keep`, else None (a rank that does not
+    write the checkpoint never holds the whole block)."""
+    if not _sharded(layout) or block.ndim < 2:
+        return block.detach().cpu().numpy() if keep else None
+    R, D = block.shape
+    rows = R * layout.clients
+    me = layout.clients_index
+    out = np.empty((rows, D), np.float32) if keep else None
+    for a in range(0, rows, chunk_rows):
+        b = min(a + chunk_rows, rows)
+        buf = block.new_zeros((b - a, D))
+        # the overlap of [a, b) with this rank's rows [me R, (me+1) R)
+        lo, hi = max(a, me * R), min(b, (me + 1) * R)
+        if lo < hi:
+            buf[lo - a:hi - a] = block[lo - me * R:hi - me * R]
+        layout.all_reduce(buf)
+        if keep:
+            out[a:b] = buf.cpu().numpy()
+    return out
+
+
+def own_block(rows: np.ndarray, num_clients: int, layout,
+              fill: Optional[np.ndarray] = None) -> np.ndarray:
+    """The rank's block of a whole-population [rows, D] host array (a
+    checkpoint's dense block, padded or not): local_rows rows from its
+    clients position, missing rows taken from `fill` (a [D] row, or
+    zeros)."""
+    R = local_rows(num_clients, layout)
+    lo = layout.clients_index * R
+    got = np.asarray(rows[lo:lo + R], np.float32)
+    if got.shape[0] == R:
+        return got
+    pad = np.zeros((R - got.shape[0], rows.shape[1]), np.float32)
+    if fill is not None:
+        pad[:] = fill
+    return np.concatenate([got, pad])
 
 
 def compute_dtype(cfg: Config):
@@ -375,15 +528,18 @@ def compute_dtype(cfg: Config):
 
 
 def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
-                  grad_mask: Optional[torch.Tensor] = None):
+                  grad_mask: Optional[torch.Tensor] = None, layout=None):
     """The train-round callable:
         train_round(server, clients, batch, lr, key) -> (server, clients,
                                                          RoundMetrics)
     `lr` is the scheduler's learning rate for this round (a float, or a
     [D] tensor with per-parameter scales), `key` the run's threefry key
     (ops/prng.py), `grad_mask` an optional [D] float mask, 0 at frozen
-    coordinates."""
+    coordinates, `layout` the rank layout (module docstring). The
+    RoundMetrics are the whole cohort's on every rank."""
     cfg.validate()
+    sharded = _sharded(layout)
+    n_blocks = layout.clients if sharded else 1
     flat_grad = fclient.make_flat_grad_fn(loss_fn, unravel,
                                           compute_dtype(cfg))
     flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel,
@@ -405,27 +561,46 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
         under a robust aggregator the per-client encode, the wire and
         the order statistics. Returns (local_sum or the normalized
         robust aggregate, counts, admitted, contributors, agg_stats)."""
+        gather = layout.gather if sharded else (lambda t: t)
+        block = layout.block if sharded else (lambda t: t)
         if cfg.byzantine_rate > 0:
-            tx = attack(tx, pois, surv, cfg, screen)
+            if sharded and cfg.attack in ("little_is_enough", "colluding"):
+                # the crafted update reads the whole cohort's transmits
+                tx = block(attack(gather(tx), gather(pois), gather(surv),
+                                  cfg, screen))
+            else:
+                tx = attack(tx, pois, surv, cfg, screen)
         else:
             tx = corrupt(tx, pois, cfg.poison_kind)
-        admitted = surv * admission(tx, surv, screen, cfg)
+        ok, l2 = client_checks(tx, cfg)
+        if sharded:
+            # the cohort-median l2 over the whole cohort
+            ok = gather(ok.to(torch.float32)) > 0
+            l2 = None if l2 is None else gather(l2)
+            admitted = surv * block(admit(ok, l2, gather(surv), screen,
+                                          cfg))
+        else:
+            admitted = surv * admit(ok, l2, surv, screen, cfg)
         counts = counts * admitted
         if not cfg.robust_aggregation:
             keep = _rows(admitted, tx) > 0
             return (torch.where(keep, tx, torch.zeros_like(tx)).sum(dim=0),
                     counts, admitted, None, None)
         if cfg.defer_sketch_encode:
-            # aggregation space: each client's table (K1 once a client)
+            # aggregation space: each client's table (K1 once a client,
+            # on the rank that owns the client)
             sketch = fserver.args2sketch(cfg)
             tx = torch.stack([sketch.encode(t) for t in tx])
         if cfg.mode == "sketch":
             tx = wire_roundtrip(tx, cfg.sketch_table_dtype)
-        W = tx.shape[0]
+        Wl = tx.shape[0]
+        # the order statistics over the whole cohort's tables, computed
+        # replicated on every rank
         agg, contrib, stats = robust_aggregate(
-            tx.reshape(W, -1).to(torch.float32), counts, admitted, cfg)
+            gather(tx.reshape(Wl, -1).to(torch.float32)), gather(counts),
+            gather(admitted), cfg)
         return (agg.reshape(tx.shape[1:]).to(tx.dtype), counts, admitted,
-                contrib, stats)
+                block(contrib), stats)
 
     def client_phase(ps_weights, batch: RoundBatch, cohort: CohortState,
                      lr, round_key):
@@ -445,6 +620,8 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
             return (local_sum, counts, losses, metrics, cohort, None,
                     None, None)
         results, new_w = [], []
+        # a client's key is its place in the whole cohort
+        base = (layout.clients_index * mask.shape[0]) if sharded else 0
         for c in range(mask.shape[0]):
             weights = client_weights(ps_weights, cohort.weights[c])
             data = tuple(x[c] for x in batch.data)
@@ -457,7 +634,7 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
                 res = fclient.local_step(flat_grad, weights, data, mask[c],
                                          cohort.errors[c],
                                          cohort.velocities[c], cfg,
-                                         fold_in(round_key, c),
+                                         fold_in(round_key, base + c),
                                          grad_mask=grad_mask)
             results.append(res)
             new_w.append(weights)
@@ -489,15 +666,29 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
         return (local_sum, counts, losses, metrics, cohort, admitted,
                 contrib, stats)
 
+    def gather_rows(*vecs):
+        """The [W_local] per-client vectors of the rank's block as the
+        whole cohort's [W], in cohort order: one gather of them all
+        (None stays None)."""
+        if not sharded:
+            return vecs
+        full = layout.gather(torch.stack(
+            [v.to(torch.float32) for v in vecs if v is not None], dim=1))
+        cols = iter(full.unbind(1))
+        return tuple(None if v is None else next(cols).to(v.dtype)
+                     for v in vecs)
+
     def round_step(server: ServerState, cohort: CohortState,
                    batch: RoundBatch, lr, key):
         round_key = fold_in(key, server.round_idx)
-        W = batch.mask.shape[0]
+        # the local block's slots, and the whole cohort's
+        Wl = batch.mask.shape[0]
+        W = Wl * n_blocks
         dev = batch.mask.device
         if batch.poison is not None:
             # the screened family always has survivors and a screen flag
             batch = batch._replace(
-                survivors=(torch.ones(W, device=dev)
+                survivors=(torch.ones(Wl, device=dev)
                            if batch.survivors is None
                            else batch.survivors.float()),
                 poison=batch.poison.float(),
@@ -505,7 +696,7 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
                         else torch.as_tensor(batch.screen, dtype=torch.float32,
                                              device=dev)))
         elif batch.work is not None and batch.survivors is None:
-            batch = batch._replace(survivors=torch.ones(W, device=dev))
+            batch = batch._replace(survivors=torch.ones(Wl, device=dev))
         (local_sum, counts, losses, metrics, new_cohort, admitted, contrib,
          agg_stats) = client_phase(server.ps_weights, batch, cohort, lr,
                                    round_key)
@@ -515,18 +706,26 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
                 # sketch linearity: encode the cohort's sum once (K1)
                 local_sum = fserver.args2sketch(cfg).encode(local_sum)
             if cfg.mode == "sketch":
-                # the quantized wire (the identity for f32). The JAX
-                # engine rounds each mesh shard's sum; one device holds
-                # one shard
+                # the quantized wire (the identity for f32): each rank
+                # rounds its block's sum, as the JAX engine rounds each
+                # mesh shard's
                 local_sum = wire_roundtrip(local_sum, cfg.sketch_table_dtype)
-        # the sum over the clients axis of the JAX engine (lax.psum) is
-        # the identity on one device
+            # the sum over the clients axis (the JAX engine's lax.psum);
+            # a robust aggregate is already the whole cohort's
+            if sharded:
+                local_sum = layout.all_reduce(local_sum)
         transmit = comp.post_aggregate(cfg, local_sum, round_key)
+        # the rows the rank's block keeps, before the cohort's gather
+        eff_local = admitted if admitted is not None else batch.survivors
+        counts, losses, admitted, contrib, survivors, *metrics = \
+            gather_rows(counts, losses, admitted, contrib,
+                        batch.survivors, *metrics)
+        metrics = tuple(metrics)
         total = counts.sum()
         # a robust aggregate is already the normalized estimate
         gradient = (transmit if robust
                     else transmit / torch.clamp(total, min=1.0))
-        eff = admitted if admitted is not None else batch.survivors
+        eff = admitted if admitted is not None else survivors
         # a round nobody completed (or every client was screened out)
         # leaves the server state bitwise untouched
         alive = None if eff is None else eff.sum() > 0
@@ -543,7 +742,7 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
         # stream and the fault draws
         new_server = ServerState(new_ps, upd.Vvelocity, upd.Verror,
                                  server.round_idx + 1)
-        keep = None if eff is None else eff[:, None] > 0
+        keep = None if eff_local is None else eff_local[:, None] > 0
         if _has_errors(cfg) and keep is not None:
             new_cohort = new_cohort._replace(errors=torch.where(
                 keep, new_cohort.errors, cohort.errors))
@@ -575,12 +774,13 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
         # host spans of the three dispatches (telemetry/trace.py); the
         # round tag comes from the caller's enclosing `dispatch` span
         with TRACE.span("gather"):
-            cohort = gather_cohort(cfg, clients, batch.client_ids)
+            cohort = gather_cohort(cfg, clients, batch.client_ids, layout)
         with TRACE.span("round_dispatch"):
             server, cohort, metrics = round_step(server, cohort, batch,
                                                  lr, key)
         with TRACE.span("scatter"):
-            clients = scatter_back(cfg, clients, batch.client_ids, cohort)
+            clients = scatter_back(cfg, clients, batch.client_ids, cohort,
+                                   layout)
         return server, clients, metrics
 
     train_round.round_step = round_step
@@ -588,10 +788,13 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
     return train_round
 
 
-def make_eval_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
+def make_eval_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
+                 layout=None):
     """eval_batch(ps_weights, data [S, vb, ...], mask [S, vb]) ->
     per-shard (loss [S], metrics, count [S]), forward only, in the
-    train round's compute type."""
+    train round's compute type. With a layout each rank evaluates its
+    block of the shards and the per-shard values are gathered in shard
+    order."""
     flat_loss = fclient.make_flat_loss_fn(loss_fn, unravel,
                                           compute_dtype(cfg))
 
@@ -605,6 +808,10 @@ def make_eval_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config):
         metrics = tuple(torch.stack([o[2][i] for o in outs])
                         for i in range(len(outs[0][2])))
         count = torch.stack([o[3] for o in outs])
+        if _sharded(layout):
+            out = layout.gather(torch.stack([loss, *metrics, count], dim=1))
+            loss, *metrics, count = out.unbind(1)
+            metrics = tuple(metrics)
         return loss, metrics, count
 
     return eval_batch

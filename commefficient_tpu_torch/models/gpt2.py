@@ -28,6 +28,12 @@ sort as strings (h_0, h_1, h_10, h_11, h_2, ...), `bias` before
 [in, out] (a torch Linear weight transposed), LayerNorm's weight is
 flax's `scale`, and the tied `wte` is one entry.
 
+Under --model_parallel > 1 (parallel/tp.py) the attention, the MLP
+and the tied embedding take their slices of the layout's model group:
+heads and hidden units column-parallel, the output projections
+row-parallel, `wte` over the vocabulary. Kernel K4 then runs on a
+rank's [B, H / mp, L, hd] head views.
+
 `GPT2Config.remat` (--remat) recomputes each block in the backward
 (torch.utils.checkpoint, non-reentrant): activation memory drops to
 about one block's, values and gradients are bitwise those without it,
@@ -61,6 +67,10 @@ from torch.utils.checkpoint import checkpoint
 from commefficient_tpu_torch.ops import prng
 from commefficient_tpu_torch.ops.attention import flash_attention
 from commefficient_tpu_torch.ops.flat import LayoutEntry
+from commefficient_tpu_torch.parallel.tp import (
+    copy_to_model, even_range, reduce_from_model, vocab_embedding,
+    vocab_logits,
+)
 from commefficient_tpu_torch.utils.atomic_io import atomic_write_text
 
 _IO_TO_OI = (1, 0)
@@ -111,7 +121,12 @@ class LayerNorm(nn.LayerNorm):
 
 
 class SelfAttention(nn.Module):
-    """Causal multi-head self-attention with a fused QKV projection."""
+    """Causal multi-head self-attention with a fused QKV projection.
+    Sharded (parallel/tp.shard_module), a rank computes its heads'
+    columns of the projection and its rows of c_proj."""
+
+    supports_tensor_parallel = True
+    _tp = None
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -122,11 +137,23 @@ class SelfAttention(nn.Module):
 
     def forward(self, h):
         B, L, E = h.shape
-        H = self.cfg.n_head
-        hd = E // H
-        q, k, v = self.c_attn(h).split(E, dim=-1)
+        hd = E // self.cfg.n_head
+        tp = self._tp
+        if tp is None:
+            H, El = self.cfg.n_head, E
+            q, k, v = self.c_attn(h).split(E, dim=-1)
+        else:
+            h0, h1 = even_range(self.cfg.n_head, tp, "n_head")
+            H, lo, hi = h1 - h0, h0 * hd, h1 * hd
+            El = hi - lo
+            W, b = self.c_attn.weight, self.c_attn.bias
+            rows = [slice(o + lo, o + hi) for o in (0, E, 2 * E)]
+            q, k, v = F.linear(copy_to_model(h, tp),
+                               torch.cat([W[r] for r in rows]),
+                               torch.cat([b[r] for r in rows])
+                               ).split(El, dim=-1)
 
-        def heads(x):  # [B, L, E] -> [B, H, L, hd]
+        def heads(x):  # [B, L, H * hd] -> [B, H, L, hd]
             return x.reshape(B, L, H, hd).transpose(1, 2)
 
         q, k, v = heads(q), heads(k), heads(v)
@@ -143,11 +170,20 @@ class SelfAttention(nn.Module):
             att = att.masked_fill(~causal, -1e9)
             att = torch.softmax(att, dim=-1).to(v.dtype)
             out = torch.matmul(att, v)
-        out = out.transpose(1, 2).reshape(B, L, E)
-        return self.c_proj(out)
+        out = out.transpose(1, 2).reshape(B, L, El)
+        if tp is None:
+            return self.c_proj(out)
+        part = F.linear(out, self.c_proj.weight[:, lo:hi])
+        return reduce_from_model(part, tp) + self.c_proj.bias
 
 
 class MLP(nn.Module):
+    """Sharded, a rank computes its hidden units' columns of c_fc and
+    its rows of c_proj."""
+
+    supports_tensor_parallel = True
+    _tp = None
+
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         E = cfg.n_embd
@@ -155,7 +191,14 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(4 * E, E)
 
     def forward(self, h):
-        return self.c_proj(F.gelu(self.c_fc(h), approximate="tanh"))
+        tp = self._tp
+        if tp is None:
+            return self.c_proj(F.gelu(self.c_fc(h), approximate="tanh"))
+        lo, hi = even_range(self.c_fc.out_features, tp, "4 * n_embd")
+        a = F.gelu(F.linear(copy_to_model(h, tp), self.c_fc.weight[lo:hi],
+                            self.c_fc.bias[lo:hi]), approximate="tanh")
+        part = F.linear(a, self.c_proj.weight[:, lo:hi])
+        return reduce_from_model(part, tp) + self.c_proj.bias
 
 
 class Block(nn.Module):
@@ -190,6 +233,13 @@ def _remat_block(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
 
 
 class GPT2Transformer(nn.Module):
+    """Sharded, the tied `wte` is split over the vocabulary: a rank
+    looks up and scores its own range (parallel/tp.vocab_embedding,
+    vocab_logits; the logits are gathered before the loss)."""
+
+    supports_tensor_parallel = True
+    _tp = None
+
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         self.cfg = cfg
@@ -201,12 +251,19 @@ class GPT2Transformer(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None):
         L = input_ids.shape[-1]
-        h = self.wte(input_ids) + self.wpe(
+        tp = self._tp
+
+        def embed(ids):
+            if tp is None:
+                return self.wte(ids)
+            return vocab_embedding(ids, self.wte.weight, tp)
+
+        h = embed(input_ids) + self.wpe(
             torch.arange(L, device=input_ids.device))
         if token_type_ids is not None:
             # token types are ordinary special-token ids of the SAME
             # embedding
-            h = h + self.wte(token_type_ids)
+            h = h + embed(token_type_ids)
         for i in range(self.cfg.n_layer):
             block = getattr(self, f"h_{i}")
             if self.cfg.remat and torch.is_grad_enabled():
@@ -215,6 +272,8 @@ class GPT2Transformer(nn.Module):
                 h = block(h)
         h = self.ln_f(h)
         # weight-tied LM logits
+        if tp is not None:
+            return h, vocab_logits(h, self.wte.weight, tp)
         return h, F.linear(h, self.wte.weight)
 
 

@@ -85,20 +85,24 @@ def materialize(x) -> np.ndarray:
 
 
 def attach_run_telemetry(model, cfg, log_dir: str, driver: str,
-                         materialize: Callable = materialize):
+                         materialize: Callable = materialize,
+                         coord: bool = True):
     """Build and attach a run's TelemetrySession (both drivers): the
-    journal at cfg.journal_path or <log_dir>/journal.jsonl, the model's
-    throughput tracker, the stage tracer under --trace. Journals
-    `run_start` and returns the session (the caller closes it), or None
-    under --no_telemetry."""
+    journal at cfg.journal_path or <log_dir>/journal.jsonl (on the
+    coordinator only, `coord`: the other ranks' sessions journal
+    nothing), the model's throughput tracker, the stage tracer under
+    --trace. Journals `run_start` and returns the session (the caller
+    closes it), or None under --no_telemetry."""
     if not cfg.telemetry:
         return None
-    jpath = cfg.journal_path or os.path.join(log_dir or ".",
-                                             "journal.jsonl")
-    # --pipeline: the appends ride a writer thread
-    journal = RunJournal(jpath, run_id=log_dir or driver,
-                         async_writer=bool(cfg.pipeline),
-                         drain_timeout=float(cfg.writer_drain_timeout_s))
+    journal = None
+    if coord:
+        jpath = cfg.journal_path or os.path.join(log_dir or ".",
+                                                 "journal.jsonl")
+        # --pipeline: the appends ride a writer thread
+        journal = RunJournal(jpath, run_id=log_dir or driver,
+                             async_writer=bool(cfg.pipeline),
+                             drain_timeout=float(cfg.writer_drain_timeout_s))
     tele = TelemetrySession(
         journal=journal, tracker=model.throughput,
         profile_spans=cfg.profile_spans,

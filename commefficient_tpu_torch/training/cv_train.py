@@ -15,15 +15,20 @@ utils/faults.py with the numeric rollback; `--scan_rounds` (spans of
 (`--sampler`, `--deadline_quantile`, `--target_survivors`,
 scheduler/), `--async_admit_rounds`, `--state_tier host` and the
 controllers (`--target_screened_rate`, `--speed_match`,
-`--scan_span_palette`, `--adapt_staleness`, control/). What the
-port does not run yet is refused by Config.validate: the rest of
-ROADMAP.md Queue 1.
+`--scan_span_palette`, `--adapt_staleness`, control/), and a grid of
+ranks (`--multihost`, `--num_slices`, parallel/). What the port does
+not run yet is refused by Config.validate: the rest of ROADMAP.md
+Queue 1.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.cv_train --mode sketch \
         --error_type virtual --virtual_momentum 0.9 --local_momentum 0 \
         --num_workers 8 --k 50000 --num_rows 5 --num_cols 500000
 and on the CPU with `--device cpu` (the kernels' plain versions).
+One rank a GPU, N ranks: the same command with `--multihost
+--num_processes N --process_id i --coordinator_address host:port` for
+each i (nccl); ranks that share one card add `--dist_backend gloo`.
+Only rank 0 prints, journals and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -46,6 +51,8 @@ from commefficient_tpu_torch.data import (
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import module_layout
+from commefficient_tpu_torch.parallel import multihost as mh
+from commefficient_tpu_torch.parallel.mesh import default_layout
 from commefficient_tpu_torch.scheduler import attach_round_scheduler
 from commefficient_tpu_torch.training import persist
 from commefficient_tpu_torch.training.scanloop import (
@@ -93,10 +100,12 @@ _DATASETS = {
 
 
 def get_data_loaders(cfg: Config,
-                     synthetic_examples: Optional[Tuple[int, int]] = None):
+                     synthetic_examples: Optional[Tuple[int, int]] = None,
+                     val_shards: int = 1):
     """Train and val loaders. `synthetic_examples=(n_train, n_val)` asks
     for the synthetic corpus when no archives are on disk (`--test`
-    asks for (2048, 512))."""
+    asks for (2048, 512)). `val_shards`: the eval's shards, one a rank
+    of the clients axis."""
     try:
         dataset_cls, transform_factory, test_sizes = \
             _DATASETS[cfg.dataset_name]
@@ -115,7 +124,8 @@ def get_data_loaders(cfg: Config,
     train_loader = FedLoader(train_set, cfg.num_workers,
                              cfg.local_batch_size, seed=cfg.seed,
                              max_local_batch=cfg.max_local_batch)
-    val_loader = FedValLoader(val_set, cfg.valid_batch_size, num_shards=1)
+    val_loader = FedValLoader(val_set, cfg.valid_batch_size,
+                              num_shards=val_shards)
     return train_loader, val_loader
 
 
@@ -156,7 +166,8 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
     acc) rows. Returns False on a NaN/divergent loss. EMNIST prints a
     line a round (reference cv_train.py:233-237)."""
     timer = timer or Timer()
-    per_step_log = cfg.dataset_name == "EMNIST"
+    coord = mh.is_coordinator()
+    per_step_log = cfg.dataset_name == "EMNIST" and coord
     spe = train_loader.steps_per_epoch
     total_rounds = math.ceil(cfg.num_epochs * spe)
     sampler = train_loader.sampler
@@ -171,13 +182,13 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
         sampler.discard_pending()
     ckpt_prefix = _ckpt_path(cfg)
     total_down = total_up = 0.0
-    writer = persist.try_tensorboard(log_dir) if cfg.use_tensorboard \
-        else None
+    writer = (persist.try_tensorboard(log_dir)
+              if cfg.use_tensorboard and coord else None)
     profile = None
     profiled = False
     while rounds_done < total_rounds:
         epoch += 1
-        if cfg.do_profile and not profiled:
+        if cfg.do_profile and not profiled and coord:
             profile = persist.EpochProfile(log_dir, model.device)
             profiled = True
         losses, accs = [], []
@@ -276,7 +287,9 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         mean_acc = float(np.mean(accs)) if accs else float("nan")
         if np.isnan(mean_loss) or mean_loss > cfg.nan_threshold:
-            print(f"found nan/divergent loss {mean_loss}, aborting")
+            # every rank computes the same mean, so all abort together
+            if coord:
+                print(f"found nan/divergent loss {mean_loss}, aborting")
             return False
 
         val_loss, val_acc = run_eval(model, val_loader)
@@ -346,7 +359,8 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
 
 
 def build(cfg: Config, device="cuda",
-          synthetic_examples: Optional[Tuple[int, int]] = None):
+          synthetic_examples: Optional[Tuple[int, int]] = None,
+          layout=None):
     """Loaders, model, optimizer and LR scheduler for `cfg`: what main()
     wires before it calls train(). `--test` shrinks the sketch to 1 x 10
     with k = 10 and a model that takes `channels` (ResNet9) to one
@@ -355,7 +369,11 @@ def build(cfg: Config, device="cuda",
     (the ResNet101LN's LayerNorms are built for that size). --finetune
     freezes the transferred parameters (finetune_from_checkpoint); the
     Fixup nets train their scalar biases and scales at 0.1x the
-    learning rate (reference cv_train.py:366-376)."""
+    learning rate (reference cv_train.py:366-376). Under
+    torch.distributed (--multihost) the model takes the default rank
+    layout (or `layout`) and the loaders feed the rank's rows."""
+    if layout is None and mh.is_distributed():
+        layout = default_layout(cfg)
     model_config = {}
     if cfg.do_test:
         model_config["channels"] = {"prep": 1, "layer1": 1,
@@ -363,7 +381,9 @@ def build(cfg: Config, device="cuda",
         cfg = cfg.replace(num_cols=10, num_rows=1, k=10)
     model_config.update(num_classes=num_classes_of_dataset(cfg.dataset_name),
                         do_batchnorm=cfg.do_batchnorm, seed=cfg.seed)
-    train_loader, val_loader = get_data_loaders(cfg, synthetic_examples)
+    train_loader, val_loader = get_data_loaders(
+        cfg, synthetic_examples,
+        val_shards=1 if layout is None else layout.clients)
     x0 = train_loader.dataset.get_client_batch(0, np.array([0]))[0]
     model_config["initial_channels"] = int(x0.shape[-1])
     model_config["input_hw"] = tuple(int(s) for s in x0.shape[1:3])
@@ -377,7 +397,11 @@ def build(cfg: Config, device="cuda",
         lr_scale_vec = fixup_lr_scales(module)
     model = FedModel(module, make_compute_loss(module), cfg, device=device,
                      num_clients=train_loader.dataset.num_clients,
-                     lr_scale_vec=lr_scale_vec)
+                     lr_scale_vec=lr_scale_vec, layout=layout)
+    if model.layout is not None:
+        # per-rank batch feeding: each rank materializes its rows only
+        mh.apply_feed_slices(model, train_loader, val_loader,
+                             cfg.num_workers, val_loader.num_shards)
     # the round scheduler on the loader's sampler and the model, and the
     # sampler's stream in checkpoints (before any --resume, so sched_*
     # and smp_* land in them)
@@ -435,18 +459,33 @@ def _ckpt_path(cfg: Config) -> str:
     return os.path.join(cfg.checkpoint_path, cfg.model)
 
 
-def main(argv=None) -> bool:
+def main(argv=None, backend: Optional[str] = None) -> bool:
+    """The CLI. `backend` (or the launcher's `--dist_backend`) picks the
+    torch.distributed backend under --multihost (multihost.initialize:
+    nccl on the card by default)."""
+    argv, flag_backend = mh.pop_backend_flag(argv)
     cfg = parse_args(argv=argv)
-    print(cfg)
+    device = cfg.device
+    if cfg.multihost:
+        # before the model touches a device: the rank's card
+        mh.initialize_from_config(cfg, backend=backend or flag_backend)
+        device = mh.rank_device(cfg.device)
+    coord = mh.is_coordinator()
+    if coord:
+        print(cfg)
     timer = Timer()
     np.random.seed(cfg.seed)
     model, opt, lr_scheduler, train_loader, val_loader = build(
-        cfg, device=cfg.device)
-    print(f"Finished initializing in {timer():.2f} seconds")
+        cfg, device=device)
+    if coord:
+        print(f"Finished initializing in {timer():.2f} seconds")
     t0 = time.monotonic()
+    # only the coordinator makes a run directory and prints the table
     ok = run(model, opt, lr_scheduler, train_loader, val_loader, model.cfg,
-             make_logdir(cfg), loggers=(TableLogger(),), timer=timer)
-    print(f"trained in {time.monotonic() - t0:.2f} seconds")
+             make_logdir(cfg) if coord else "",
+             loggers=(TableLogger(),) if coord else (), timer=timer)
+    if coord:
+        print(f"trained in {time.monotonic() - t0:.2f} seconds")
     return ok
 
 

@@ -19,16 +19,22 @@ locally cached HF checkpoint, or random from --seed
 `--scan_rounds`, `--pipeline`, `--ckpt_every_spans` and
 `--profile_spans` run the rounds in spans (training/scanloop.py); the
 round scheduler, `--async_admit_rounds`, `--state_tier host` and the
-controllers run as in cv_train. What the port does not run yet is
-refused by Config.validate: --model_parallel and the rest of ROADMAP.md
-Queue 1 item 9g.
+controllers run as in cv_train. A grid of ranks runs as in cv_train
+(`--multihost`, `--num_slices`, parallel/), and `--model_parallel N`
+splits each block's attention heads, MLP units and the tied embedding's
+vocabulary over N ranks (parallel/tp.py; it prints `tensor parallel:
+mesh {...}` as the JAX driver does). What the port does not run yet is
+refused by Config.validate: the rest of ROADMAP.md Queue 1 item 9g.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
         --dataset_name PERSONA --mode sketch --error_type virtual \\
         --virtual_momentum 0.9 --local_momentum 0 --num_workers 8
 and on the CPU with `--device cpu` (the kernels' plain versions), e.g.
-`--test --device cpu` for the smoke size.
+`--test --device cpu` for the smoke size. Two ranks of one layer each:
+`--model_parallel 2 --multihost --num_processes 2 --process_id i
+--coordinator_address host:port` for i = 0, 1 (nccl, one GPU a rank;
+`--dist_backend gloo` where the ranks share a card).
 """
 from __future__ import annotations
 
@@ -45,6 +51,11 @@ from commefficient_tpu_torch.data.persona import (
     IGNORE_INDEX, FedPERSONA, make_tokenizer,
 )
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
+from commefficient_tpu_torch.parallel import multihost as mh
+from commefficient_tpu_torch.parallel.mesh import (
+    default_layout, make_multihost_client_mesh,
+)
+from commefficient_tpu_torch.parallel.tp import tp_loss
 from commefficient_tpu_torch.models.convert import (
     from_jax_params, load_flat, to_jax_params,
 )
@@ -61,7 +72,7 @@ from commefficient_tpu_torch.training.scanloop import (
 )
 from commefficient_tpu_torch.utils.checkpoint import save_checkpoint
 from commefficient_tpu_torch.utils.logging import (
-    TableLogger, Timer, make_logdir,
+    SilentLogger, TableLogger, Timer, make_logdir,
 )
 from commefficient_tpu_torch.utils.schedules import LambdaLR, PiecewiseLinear
 
@@ -122,11 +133,11 @@ def make_compute_loss_val(model: GPT2DoubleHeads):
 
 def get_data_loaders(cfg: Config, tokenizer,
                      synthetic_examples: Optional[Tuple[int, int, int]]
-                     = None):
+                     = None, val_shards: int = 1):
     """Train and val loaders. `synthetic_examples=(personas,
     dialogs_per_persona, utterances_per_dialog)` asks for the synthetic
     corpus when no PersonaChat JSON is on disk (`--test` asks for (8, 2,
-    3)). One val shard: the port runs on one device."""
+    3)). `val_shards`: one a rank of the clients axis."""
     synthetic = synthetic_examples or ((8, 2, 3) if cfg.do_test else None)
     common = dict(dataset_dir=cfg.dataset_dir, tokenizer=tokenizer,
                   num_candidates=cfg.num_candidates,
@@ -141,7 +152,8 @@ def get_data_loaders(cfg: Config, tokenizer,
     train_loader = FedLoader(train_set, cfg.num_workers,
                              cfg.local_batch_size, seed=cfg.seed,
                              max_local_batch=cfg.max_local_batch)
-    val_loader = FedValLoader(val_set, cfg.valid_batch_size, num_shards=1)
+    val_loader = FedValLoader(val_set, cfg.valid_batch_size,
+                              num_shards=val_shards)
     return train_loader, val_loader
 
 
@@ -179,7 +191,8 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
     --scan_rounds it is called as round i is emitted, with its (loss,
     lm, mc) rows. Returns False on a NaN/divergent loss."""
     timer = timer or Timer()
-    logger = logger or TableLogger()
+    coord = mh.is_coordinator()
+    logger = logger or (TableLogger() if coord else SilentLogger())
     spe = train_loader.steps_per_epoch
     sampler = train_loader.sampler
     epoch_download = epoch_upload = 0.0
@@ -192,7 +205,7 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
     ckpt_prefix = _ckpt_path(cfg)
     losses = []
     profile = (persist.EpochProfile(log_dir, model.device)
-               if cfg.do_profile else None)
+               if cfg.do_profile and coord else None)
 
     def emit(p) -> bool:
         bidx, lr_v, l_, lm_, mc_ = p
@@ -288,7 +301,9 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
             profile.stop()
             profile = None
         if aborted:
-            print(f"found nan/divergent loss {losses[-1]}, aborting")
+            # every rank computes the same losses, so all abort together
+            if coord:
+                print(f"found nan/divergent loss {losses[-1]}, aborting")
             return False
         if model.telemetry is not None:
             model.telemetry.flush()
@@ -302,6 +317,8 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
                                      batch_idx)
 
     n_clients = model.num_clients
+    if not coord:
+        return True
     print(f"Total Download (MiB): {epoch_download:0.2f} (only epoch 1)")
     print(f"Total Upload (MiB): {epoch_upload:0.2f} (only epoch 1)")
     print(f"Avg Download Per Client: {epoch_download / n_clients:0.2f}"
@@ -317,7 +334,8 @@ def test_gpt2(model: FedModel, val_loader, timer: Optional[Timer] = None,
     nll, acc, ppl = run_eval(model, val_loader)
     stats = {"val_nll": nll, "val_acc": acc, "val_ppl": ppl,
              "val_time": timer(), "total_time": timer.total_time}
-    (logger or TableLogger()).append(stats)
+    (logger or (TableLogger() if mh.is_coordinator()
+                else SilentLogger())).append(stats)
     return stats
 
 
@@ -390,12 +408,37 @@ def finetune_source(cfg: Config) -> str:
     return cfg.model_checkpoint
 
 
+def tensor_parallel_layout(cfg: Config):
+    """--model_parallel > 1: the (clients, model) layout of the JAX
+    driver's TP branch, the widest clients axis over the ranks that
+    divides num_workers, slice-major under --num_slices."""
+    mp = cfg.model_parallel
+    ranks = list(range(mh.process_count()))
+    shards = max(len(ranks) // mp, 1)
+    while cfg.num_workers % shards:
+        shards -= 1
+    return make_multihost_client_mesh(
+        model_parallel=mp, devices=ranks[:shards * mp],
+        num_slices=cfg.num_slices if cfg.num_slices > 1 else None)
+
+
 def build(cfg: Config, tokenizer, device="cuda",
-          synthetic_examples: Optional[Tuple[int, int, int]] = None):
+          synthetic_examples: Optional[Tuple[int, int, int]] = None,
+          layout=None):
     """Loaders, model, optimizer and LR scheduler for `cfg`: what main()
-    wires before it calls train_gpt2()."""
-    train_loader, val_loader = get_data_loaders(cfg, tokenizer,
-                                                synthetic_examples)
+    wires before it calls train_gpt2(). Under --model_parallel > 1 the
+    losses are tp-wrapped (parallel/tp.py) on the tensor-parallel
+    layout; under torch.distributed the model takes the default layout
+    (or `layout`) and the loaders feed the rank's rows."""
+    if layout is None and cfg.model_parallel > 1:
+        layout = tensor_parallel_layout(cfg)
+        if mh.is_coordinator():
+            print(f"tensor parallel: mesh {dict(layout.shape)}")
+    elif layout is None and mh.is_distributed():
+        layout = default_layout(cfg)
+    train_loader, val_loader = get_data_loaders(
+        cfg, tokenizer, synthetic_examples,
+        val_shards=1 if layout is None else layout.clients)
     # each split pads to its own corpus max; the position table must
     # cover both
     seq_len = max(train_loader.dataset.seq_len, val_loader.dataset.seq_len)
@@ -403,9 +446,19 @@ def build(cfg: Config, tokenizer, device="cuda",
     module = build_model_and_params(
         cfg, tokenizer, seq_len, source=source,
         require_load=cfg.do_finetune and source == cfg.finetune_path)
-    model = FedModel(module, make_compute_loss_train(module, cfg), cfg,
-                     loss_val=make_compute_loss_val(module), device=device,
-                     num_clients=train_loader.dataset.num_clients)
+    loss_train = make_compute_loss_train(module, cfg)
+    loss_val = make_compute_loss_val(module)
+    if layout is not None and cfg.model_parallel > 1:
+        loss_train = tp_loss(loss_train, layout)
+        loss_val = tp_loss(loss_val, layout)
+    model = FedModel(module, loss_train, cfg, loss_val=loss_val,
+                     device=device,
+                     num_clients=train_loader.dataset.num_clients,
+                     layout=layout)
+    if model.layout is not None:
+        # per-rank batch feeding: each rank materializes its rows only
+        mh.apply_feed_slices(model, train_loader, val_loader,
+                             cfg.num_workers, val_loader.num_shards)
     # the round scheduler on the loader's sampler and the model, and the
     # sampler's stream in checkpoints (before any --resume, so sched_*
     # and smp_* land in them)
@@ -455,21 +508,34 @@ def _ckpt_path(cfg: Config) -> str:
     return os.path.join(cfg.checkpoint_path, "gpt2")
 
 
-def main(argv=None) -> bool:
+def main(argv=None, backend: Optional[str] = None) -> bool:
+    """The CLI. `backend` (or the launcher's `--dist_backend`) picks the
+    torch.distributed backend under --multihost (multihost.initialize:
+    nccl on the card by default)."""
+    argv, flag_backend = mh.pop_backend_flag(argv)
     cfg = parse_args(default_lr=DEFAULT_LR, argv=argv)
+    device = cfg.device
+    if cfg.multihost:
+        # before the model touches a device: the rank's card
+        mh.initialize_from_config(cfg, backend=backend or flag_backend)
+        device = mh.rank_device(cfg.device)
     if cfg.do_test:
         # smoke shrink of the compression geometry
         cfg = cfg.replace(num_rows=1, num_cols=1000, k=10, num_blocks=1)
-    print(cfg)
+    coord = mh.is_coordinator()
+    if coord:
+        print(cfg)
     timer = Timer()
     np.random.seed(cfg.seed)
     tokenizer = make_tokenizer(cfg.model_checkpoint,
                                fallback_vocab=500 if cfg.do_test else 5000)
     model, opt, lr_scheduler, train_loader, val_loader = build(
-        cfg, tokenizer, device=cfg.device)
-    print("Steps per epoch", train_loader.steps_per_epoch)
-    log_dir = make_logdir(cfg)
-    print(f"Finished initializing in {timer():.2f} seconds")
+        cfg, tokenizer, device=device)
+    # only the coordinator makes a run directory and writes artifacts
+    log_dir = make_logdir(cfg) if coord else ""
+    if coord:
+        print("Steps per epoch", train_loader.steps_per_epoch)
+        print(f"Finished initializing in {timer():.2f} seconds")
     if cfg.do_finetune:
         # --finetune evaluates the loaded artifact and trains nothing
         # (the reference's and the JAX driver's contract)
@@ -486,12 +552,14 @@ def main(argv=None) -> bool:
              timer=timer)
     # the final server state beside the run's artifacts, as the JAX
     # driver writes it, and the HF-style artifact: tokenizer + config +
-    # weights
+    # weights (the coordinator's; every rank holds the same weights)
     save_checkpoint(os.path.join(log_dir, "gpt2"), model.server,
                     scheduler_step=lr_scheduler.step_count)
     module = model.module
     load_flat(module, model.ps_weights)
-    save_pretrained(log_dir, to_jax_params(module), module.cfg, tokenizer)
+    if coord:
+        save_pretrained(log_dir, to_jax_params(module), module.cfg,
+                        tokenizer)
     test_gpt2(model, val_loader, timer=timer)
     model.finalize()
     return ok

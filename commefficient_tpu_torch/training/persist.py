@@ -16,6 +16,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from commefficient_tpu_torch.parallel import multihost as mh
 from commefficient_tpu_torch.telemetry import (
     NumericTripError, attach_run_telemetry,
 )
@@ -26,9 +27,14 @@ from commefficient_tpu_torch.utils.checkpoint import (
 
 
 def _state_kwargs(model, lr_scheduler) -> dict:
-    """Everything a checkpoint carries besides the server and client
-    state."""
-    return dict(scheduler_step=lr_scheduler.step_count,
+    """Everything a checkpoint carries besides the server state: the
+    client rows as the O(cohort) payload, else the dense blocks
+    (gathered over the ranks in a multi-rank run: collective, so every
+    rank saves)."""
+    rows = model.client_rows_payload()
+    return dict(clients=model.checkpoint_clients() if rows is None
+                else None,
+                scheduler_step=lr_scheduler.step_count,
                 accountant=model.accountant,
                 prev_change_words=model._prev_change_words,
                 fingerprint=model.checkpoint_fingerprint,
@@ -36,7 +42,7 @@ def _state_kwargs(model, lr_scheduler) -> dict:
                 scheduler=model.scheduler_state(),
                 sampler=model.sampler_state(),
                 async_admit=model.async_admit_state(),
-                client_rows=model.client_rows_payload())
+                client_rows=rows)
 
 
 def resume(model, lr_scheduler, prefix: str,
@@ -53,7 +59,8 @@ def resume(model, lr_scheduler, prefix: str,
         return None
     path, ckpt = loaded
     lr_scheduler.load_state_dict({"step_count": model.load_state(ckpt)})
-    print(f"resumed from {path} at round {int(ckpt.server.round_idx)}")
+    if mh.is_coordinator():
+        print(f"resumed from {path} at round {int(ckpt.server.round_idx)}")
     return path
 
 
@@ -61,7 +68,10 @@ def start_telemetry(model, cfg, log_dir: str, driver: str,
                     fallbacks=()):
     """The run's TelemetrySession (None under --no_telemetry), with the
     resume's fallbacks journaled as `checkpoint_fallback` events."""
-    tele = attach_run_telemetry(model, cfg, log_dir, driver=driver)
+    # every rank has a session (its numeric trips raise on every rank);
+    # the coordinator alone journals
+    tele = attach_run_telemetry(model, cfg, log_dir, driver=driver,
+                                coord=mh.is_coordinator())
     if tele is not None:
         for p, why in fallbacks:
             tele.journal_event("checkpoint_fallback", path=p,
@@ -77,10 +87,12 @@ def checkpoint_epoch(model, lr_scheduler, prefix: str, cfg,
     # queued span saves land before this one rotates the manifest
     model.drain_persistence()
     with TRACE.span("checkpoint", round=int(round_idx)):
-        path = save_rotating(prefix, model.server, model.clients,
+        path = save_rotating(prefix, model.server,
                              keep_last=cfg.keep_checkpoints,
                              max_age_hours=cfg.ckpt_max_age_hours,
                              **_state_kwargs(model, lr_scheduler))
+    if not mh.is_coordinator():
+        return path
     if model.telemetry is not None:
         model.telemetry.journal_event(
             "checkpoint", path=path,
@@ -93,11 +105,12 @@ def checkpoint_epoch(model, lr_scheduler, prefix: str, cfg,
 def checkpoint_final(model, lr_scheduler, prefix: str, cfg) -> str:
     """--checkpoint: the rotated save plus the fixed `<prefix>.npz`."""
     model.drain_persistence()
-    path = save_final(prefix, model.server, model.clients,
+    path = save_final(prefix, model.server,
                       keep_last=cfg.keep_checkpoints,
                       max_age_hours=cfg.ckpt_max_age_hours,
                       **_state_kwargs(model, lr_scheduler))
-    print(f"saved checkpoint to {path}")
+    if mh.is_coordinator():
+        print(f"saved checkpoint to {path}")
     return path
 
 
@@ -131,10 +144,11 @@ def numeric_rollback(model, prefix: str, cfg, tele,
     step = model.load_state(ckpt)
     # after load_state: the window counts from the restored round
     model.force_screen_rounds(cfg.rollback_screen_rounds)
-    print(f"numeric trip at round {trip.round_idx} "
-          f"({', '.join(trip.metrics) or 'telemetry'}): rolled back to "
-          f"{path} (round {int(ckpt.server.round_idx)}); update "
-          f"screening forced for {cfg.rollback_screen_rounds} rounds")
+    if mh.is_coordinator():
+        print(f"numeric trip at round {trip.round_idx} "
+              f"({', '.join(trip.metrics) or 'telemetry'}): rolled back to "
+              f"{path} (round {int(ckpt.server.round_idx)}); update "
+              f"screening forced for {cfg.rollback_screen_rounds} rounds")
     return step
 
 

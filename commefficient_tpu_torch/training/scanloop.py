@@ -339,6 +339,7 @@ def make_span_checkpoint(prefix: str, model, cfg, lr_scheduler):
     model's AsyncCheckpointWriter."""
     if not (cfg.checkpoint_every and cfg.ckpt_every_spans):
         return None
+    from commefficient_tpu_torch.parallel import multihost as mh
     from commefficient_tpu_torch.telemetry.trace import TRACE
     from commefficient_tpu_torch.utils.checkpoint import save_rotating
 
@@ -370,9 +371,12 @@ def make_span_checkpoint(prefix: str, model, cfg, lr_scheduler):
         t0 = time.monotonic()
         server, rows = model.wait_snapshot(snapshot["state"])
         dense = rows is not None and "dense" in rows
+        # a stateless config's placeholders (gathered on the ranks)
+        clients = (rows["dense"] if dense else
+                   model.checkpoint_clients() if rows is None else None)
         with TRACE.span("checkpoint", round=int(server.round_idx)):
             path = save_rotating(
-                prefix, server, rows["dense"] if dense else model.clients,
+                prefix, server, clients,
                 keep_last=cfg.keep_checkpoints,
                 max_age_hours=cfg.ckpt_max_age_hours,
                 scheduler_step=snapshot["scheduler_step"],
@@ -393,7 +397,8 @@ def make_span_checkpoint(prefix: str, model, cfg, lr_scheduler):
                 "checkpoint", path=path,
                 seconds=round(time.monotonic() - t0, 3),
                 span_boundary=True)
-        print(f"checkpointed to {path}")
+        if mh.is_coordinator():
+            print(f"checkpointed to {path}")
 
     span_checkpoint.snapshot = take_snapshot
     span_checkpoint.cursor = stream_cursor

@@ -1,7 +1,10 @@
-"""Atomic file writes (`<path>.tmp`, flush, fsync, os.replace) and the
-durable append of self-delimited lines: the port's copy of
+"""Atomic file writes (`<path>.<pid>.tmp`, flush, fsync, os.replace)
+and the durable append of self-delimited lines: the port's copy of
 commefficient_tpu/utils/atomic_io.py (dataset caches, checkpoints, the
-run journal)."""
+run journal). The temporary name carries the writer's process id, so
+processes that write the same file at once (the ranks of a grid
+preparing one dataset cache, with the same bytes) never rename one
+another's half-written file."""
 from __future__ import annotations
 
 import os
@@ -9,8 +12,12 @@ import os
 import numpy as np
 
 
+def _tmp(path: str) -> str:
+    return f"{path}.{os.getpid()}.tmp"
+
+
 def atomic_write_text(path: str, text: str) -> None:
-    tmp = path + ".tmp"
+    tmp = _tmp(path)
     with open(tmp, "w") as f:
         f.write(text)
         f.flush()
@@ -19,7 +26,7 @@ def atomic_write_text(path: str, text: str) -> None:
 
 
 def atomic_write_bytes(path: str, data: bytes) -> None:
-    tmp = path + ".tmp"
+    tmp = _tmp(path)
     with open(tmp, "wb") as f:
         f.write(data)
         f.flush()
@@ -63,7 +70,7 @@ def atomic_append_lines(path: str, lines, check_tail: bool = True) -> None:
 def atomic_save(path: str, arr) -> None:
     """np.save to exactly `path` (the tmp file is opened here, so numpy
     appends no suffix)."""
-    tmp = path + ".tmp"
+    tmp = _tmp(path)
     with open(tmp, "wb") as f:
         np.save(f, arr)
         f.flush()
@@ -72,7 +79,7 @@ def atomic_save(path: str, arr) -> None:
 
 
 def atomic_savez(path: str, **arrays) -> None:
-    tmp = path + ".tmp"
+    tmp = _tmp(path)
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
         f.flush()

@@ -26,6 +26,14 @@ into a new one and says which coordinates it froze.
 rename and manifest of `save_rotating(..., writer=)` onto one bounded
 FIFO writer thread; the device-to-host gather stays on the caller's
 thread.
+
+In a multi-rank run (parallel/) the client rows reach the writers
+already gathered by the model (FedModel.client_rows_payload, or
+checkpoint_clients in chunks); the coordinator alone writes the file,
+the manifest and the fixed copy, and every rank then waits at a
+barrier, so no rank runs ahead of a half-written checkpoint. A load
+reads the file on every rank and each installs its own block
+(FedModel.load_state).
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 from commefficient_tpu_torch.federated.round import ClientState, ServerState
 from commefficient_tpu_torch.models.convert import load_flat
 from commefficient_tpu_torch.ops.flat import flatten_params, module_layout
+from commefficient_tpu_torch.parallel import multihost as mh
 from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.utils.atomic_io import atomic_write_text
 from commefficient_tpu_torch.utils.watchdog import drain_queue
@@ -275,10 +284,16 @@ def save_checkpoint(path: str, server: ServerState,
                     "intact (atomic .tmp+replace).") from e
             raise
 
-    if writer is None:
-        _write()
-    else:
-        writer.submit(_write)
+    # a multi-rank run's client blocks reach here already gathered
+    # (FedModel.client_rows_payload / checkpoint_clients, collective);
+    # the coordinator alone writes, the reference's rank-0 rule, and
+    # every rank waits for the file
+    if mh.is_coordinator():
+        if writer is None:
+            _write()
+        else:
+            writer.submit(_write)
+    mh.sync_processes("checkpoint-written")
     return path
 
 
@@ -475,12 +490,15 @@ def save_rotating(prefix: str, server: ServerState,
     round_idx = int(_host(server.round_idx))
     path = f"{prefix}-r{round_idx:08d}.npz"
     save_checkpoint(path, server, clients, writer=writer, **kw)
-    if writer is None:
+    if not mh.is_coordinator():
+        pass
+    elif writer is None:
         _manifest_and_prune(prefix, path, round_idx, keep_last,
                             max_age_hours)
     else:
         writer.submit(lambda: _manifest_and_prune(
             prefix, path, round_idx, keep_last, max_age_hours))
+    mh.sync_processes("checkpoint-rotated")
     return path
 
 
@@ -551,9 +569,11 @@ def save_final(prefix: str, server: ServerState,
         # the copy below reads the stamped bytes
         writer.drain()
     fixed = prefix if prefix.endswith(".npz") else prefix + ".npz"
-    tmp = fixed + ".tmp"
-    shutil.copyfile(stamped, tmp)
-    os.replace(tmp, fixed)
+    if mh.is_coordinator():
+        tmp = fixed + ".tmp"
+        shutil.copyfile(stamped, tmp)
+        os.replace(tmp, fixed)
+    mh.sync_processes("checkpoint-final")
     return fixed
 
 

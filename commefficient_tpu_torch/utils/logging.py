@@ -37,6 +37,14 @@ class TableLogger:
         print(*row)
 
 
+class SilentLogger:
+    """A logger that records nothing: the table of a rank that is not
+    the coordinator."""
+
+    def append(self, output: dict):
+        pass
+
+
 class Timer:
     """Interval timer on the monotonic clock."""
 

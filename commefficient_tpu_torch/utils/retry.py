@@ -14,6 +14,12 @@ round.scatter_back), the torch counterpart of the JAX engine's donated
 state: a dispatch that already wrote into its input state must not be
 replayed, so the model's `classify` refuses a retry once any state
 tensor's version counter has moved (FedModel._span_classify).
+
+The other guarded call is the rendezvous of a multi-process run
+(parallel/multihost.initialize), the most failure-prone moment of a
+launch: a neighbour starting a few seconds late looks like a dead
+coordinator. `is_rendezvous_transient` adds torch.distributed's own
+network error type to the transient class there.
 """
 from __future__ import annotations
 
@@ -53,6 +59,18 @@ def is_transient_error(exc: BaseException) -> bool:
         return True
     msg = str(exc).lower()
     return any(marker in msg for marker in _TRANSIENT_MARKERS)
+
+
+def is_rendezvous_transient(exc: BaseException) -> bool:
+    """The initialize guard's triage: is_transient_error, or a
+    torch.distributed network error (a store that cannot reach its
+    server yet). Anything else, a refused backend included, is
+    fatal."""
+    if is_transient_error(exc):
+        return True
+    import torch.distributed as dist
+    net = getattr(dist, "DistNetworkError", None)
+    return net is not None and isinstance(exc, net)
 
 
 def with_retries(fn: Callable[[], T], *,

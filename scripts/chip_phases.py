@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Phases 27-36 of chip_smoke.py alone on one CUDA card, and the host
+"""Phases 27-38 of chip_smoke.py alone on one CUDA card, and the host
 timeline of config #4's rounds, for work on the plugins, the span
 loop, the scheduler, async admission, the tiered client state, the
-controllers and the blockwise decode without the whole script:
+controllers, the blockwise decode and the ranks without the whole
+script:
 
     python3 scripts/chip_phases.py [powersgd dp_sketch privacy spans
                                     imagenet timeline sched async_admit
-                                    statetier control gpt2medium]
+                                    statetier control gpt2medium grid
+                                    tpgpt2]
 
 With no argument it runs every phase. Phase 4 (config #2) runs first
 for the ms/round the new phases print beside theirs, `imagenet` runs
 phase 13 before phase 31 and `statetier` phase 11 before phase 34 for
 the same reason; `gpt2medium` runs phase 36's kernel checks, then its
-rounds (without phase 7 beside them). `timeline` drives
+rounds (without phase 7 beside them). `grid` runs phase 5 after phase
+4 (its reduced table is held to phase 5's), then phase 37's kernel rows
+and ranks; `tpgpt2` runs K4's 6-head check and phase 38 (without phase
+7 beside it). `timeline` drives
 config #4 (chip_smoke.CONFIG4) plain and each way of
 chip_smoke.IMAGENET_SPANS for TIMELINE_ROUNDS rounds with the stage
 tracer on, and prints every stage span (plan, stage, dispatch,
@@ -35,7 +40,7 @@ import torch  # noqa: E402
 
 PHASES = ("powersgd", "dp_sketch", "privacy", "spans", "imagenet",
           "timeline", "sched", "async_admit", "statetier", "control",
-          "gpt2medium")
+          "gpt2medium", "grid", "tpgpt2")
 TIMELINE_ROUNDS = 6
 
 
@@ -130,11 +135,35 @@ def main(argv) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_phases_")
     try:
         if set(which) & {"powersgd", "dp_sketch", "privacy", "spans",
-                         "sched", "async_admit", "control"}:
-            model, round_ms, _, _, _ = cs.main_path(sc, ac, cv_train,
-                                                    parse_args, c2)
+                         "sched", "async_admit", "control", "grid"}:
+            model, round_ms, _, _, batch = cs.main_path(sc, ac, cv_train,
+                                                        parse_args, c2)
+            if "grid" in which:
+                from commefficient_tpu_torch import models
+                from commefficient_tpu_torch.models import convert
+                w = model.ps_weights.detach().cpu()
+
+                def build_resnet9():
+                    module = models.build_model("ResNet9", num_classes=10)
+                    convert.load_flat(module, w)
+                    return module
+
+                keep = {"cfg": model.cfg}
+                cs.parity_phase("parity", build_resnet9, w, batch[1],
+                                batch[2], model.cfg,
+                                cv_train.make_compute_loss, cs.PARITY_RTOL,
+                                cs.ACCURACY_FLOOR, fclient, fserver, flat,
+                                keep=keep)
             del model
             torch.cuda.empty_cache()
+        if "grid" in which:
+            for row in cs.grid_rows(sc, CSVec):
+                cs.phase("grid", f"kernels-line row: {row}")
+            cs.grid_phase(sc, CSVec, round_ms, keep, w, batch, tmp)
+        if "tpgpt2" in which:
+            cs.phase("tpgpt2", f"kernels-line row: {cs.k4_tp_row(ac)}")
+            cs.tpgpt2_phase(gpt2_train, parse_args, HashTokenizer, fserver,
+                            None, None, tmp)
         if "powersgd" in which:
             cs.powersgd_phase(sc, ac, cv_train, parse_args, c2, fclient,
                               prng, round_ms)

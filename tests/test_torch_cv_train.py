@@ -70,10 +70,23 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
     (("--plan_transport", "emulated"), "--plan_transport"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
+    # --multihost and --model_parallel are ported (item 9g's first
+    # half): they parse and validate as the JAX package's parse_args
+    # does; the plan transport and the transfer guard stay refused
+    argv = _argv(tmp_path, *flags)
+    if needle in ("--multihost", "--model_parallel"):
+        from commefficient_tpu.config import parse_args as j_parse_args
+        cfg = parse_args(argv=argv)
+        jcfg = j_parse_args(argv=[a for a in argv
+                                  if a not in ("--device", "cpu")])
+        assert (cfg.multihost, cfg.model_parallel) == (
+            jcfg.multihost, jcfg.model_parallel)
+        assert cfg.multihost or cfg.model_parallel == 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
-        parse_args(argv=_argv(tmp_path, *flags))
+        parse_args(argv=argv)
     try:
-        parse_args(argv=_argv(tmp_path, *flags))
+        parse_args(argv=argv)
     except NotImplementedError as e:
         assert needle in str(e)
 
@@ -301,7 +314,8 @@ for flags in (["--mode", "powersgd", "--error_type", "local"],
 for name in ("compress.powersgd", "compress.dp_sketch", "compress.privacy",
              "training.scanloop", "utils.retry", "utils.watchdog",
              "control.base", "control.screen", "control.speed",
-             "control.span", "control.staleness"):
+             "control.span", "control.staleness", "parallel.mesh",
+             "parallel.multihost", "parallel.tp", "parallel.mh_worker"):
     assert "commefficient_tpu_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"

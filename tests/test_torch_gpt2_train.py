@@ -183,16 +183,18 @@ def test_fedmodel_rounds_match_jax_in_the_threshold_regime(monkeypatch):
     (("--finetune",), "--finetune"),
 ])
 def test_what_the_gpt2_path_leaves_is_refused(tmp_path, flags, needle):
-    # item 7 is ported: --remat and --finetune parse; --model_parallel
-    # > 1 waits for item 9's multi-device step
+    # item 7 is ported: --remat and --finetune parse; so does
+    # --model_parallel > 1 since item 9g's tensor parallelism, as the
+    # JAX package's parse_args takes it (tests/test_torch_tp.py runs it)
     argv = _argv(tmp_path, *flags)
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=argv)
     if needle != "--model_parallel":
-        cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=argv)
         assert cfg.do_remat or cfg.do_finetune
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9") as e:
-        parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=argv)
-    assert needle in str(e.value)
+    from commefficient_tpu.config import parse_args as j_parse_args
+    jcfg = j_parse_args(default_lr=gpt2_train.DEFAULT_LR,
+                        argv=[a for a in argv if a not in ("--device", "cpu")])
+    assert cfg.model_parallel == jcfg.model_parallel == 2
 
 
 def test_pretrained_artifact_is_refused_not_loaded(tmp_path):
