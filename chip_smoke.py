@@ -269,8 +269,10 @@ before the result line:
                each a subprocess of this script (`--rank`) sharing the
                card over gloo (NCCL refuses two ranks on one device),
                4 clients a rank, through cv_train with --multihost.
-               Round one from phase 5's weights and batch: the ranks'
-               all-reduced table within PARITY_RTOL of phase 5's card
+               Round one from phase 5's weights and batch, a real
+               round of the model's (its result dropped) whose
+               all-reduced table is read where round.reduce_transmit
+               returns it: within PARITY_RTOL of phase 5's card
                table, no less accurate against the float64 table (phase
                5's accuracy rule), >= 99% of the top-k shared. Then
                ROUNDS rounds: ps_weights bitwise equal on the ranks, K1
@@ -3993,21 +3995,42 @@ def grid_rank(args, mh) -> dict:
     out = {"layout": None if lay is None else lay.ranks.tolist(),
            "device": str(model.device)}
     if kind == "grid":
-        # round one's reduced table from phase 5's weights and batch
+        # round one's reduced table from phase 5's weights and batch: a
+        # real round on the model's state (the result dropped), the
+        # table read where the round's cross-rank sum returns it
+        from commefficient_tpu_torch.federated import round as fround
         (ids, data, mask), z = load_batch(os.path.join(args.io,
                                                        "grid_parity.npz"))
-        w0 = model.ps_weights.clone()
-        model.server = model.server._replace(
-            ps_weights=torch.from_numpy(z["w"]).to(model.device))
         sl = lay.local_row_slice(mask.shape[0])
-        table = model.cohort_transmit(
-            (ids, tuple(d[sl] for d in data), mask[sl]), encoded=True)
-        table = table / float(mask.sum())
+        dev = model.device
+        placed = fround.RoundBatch(
+            torch.as_tensor(np.asarray(ids, np.int64).reshape(-1),
+                            device=dev),
+            tuple(torch.as_tensor(d[sl], device=dev) for d in data),
+            torch.as_tensor(mask[sl], device=dev).to(torch.float32))
+        server = model.server._replace(
+            ps_weights=torch.from_numpy(z["w"]).to(dev))
+        tables, reduce = [], fround.reduce_transmit
+
+        def record(*a, **kw):
+            out = reduce(*a, **kw)
+            tables.append(out.clone())
+            return out
+
+        fround.reduce_transmit = record
+        try:
+            model._train_round(server, model.clients, placed, model._lr(),
+                               model._key)
+        finally:
+            fround.reduce_transmit = reduce
+        if len(tables) != 1:
+            raise AssertionError(f"grid: the round reduced {len(tables)} "
+                                 "tables (1 expected)")
+        table = tables[0] / float(mask.sum())
         if mh.is_coordinator():
             np.save(os.path.join(args.io, "grid_table.npy"),
                     table.cpu().numpy())
-        model.server = model.server._replace(ps_weights=w0)
-        del table
+        del table, tables, server
     res = timed_rank_run(
         model, lambda on_round: cv_train.train(
             model, opt, sched, loader, val, model.cfg, on_round=on_round),

@@ -117,12 +117,10 @@ from commefficient_tpu_torch.federated.accounting import (
     CommAccountant, from_words, pack_change_bits, to_words,
 )
 from commefficient_tpu_torch.federated.async_agg import AsyncAdmitBuffer
-from commefficient_tpu_torch.federated import server as fserver
 from commefficient_tpu_torch.federated.statestore import (
     TieredStateStore, tracked_fields,
 )
 from commefficient_tpu_torch.ops.flat import flatten_params
-from commefficient_tpu_torch.ops.kernels.quant import wire_roundtrip
 from commefficient_tpu_torch.ops.prng import PRNGKey, fold_in
 from commefficient_tpu_torch.parallel import multihost as mh
 from commefficient_tpu_torch.parallel import tp as tensor_parallel
@@ -1100,17 +1098,14 @@ class FedModel:
             raise InjectedFault(this_round)
         return [metrics.losses, *metrics.metrics, download, upload]
 
-    def cohort_transmit(self, batch, encoded: bool = False
-                        ) -> torch.Tensor:
+    def cohort_transmit(self, batch) -> torch.Tensor:
         """The summed client transmit of a round's batch (client_ids,
         data, mask: the rank's rows, as __call__ takes them) on the
         current weights: in the gradient modes the cohort's gradient
-        sum, summed over the clients group with a layout (and completed
-        over the model group under tensor parallelism). With `encoded`,
-        what crosses the ranks in the round instead: each rank's block
-        sum encoded (sketch mode's deferred encode) and rounded on the
-        wire, then summed. A probe for parity checks: no fault
-        operands, and the state is left as it was."""
+        sum, summed over the clients group by the round's own reduce
+        (round.reduce_transmit, without its encode) and completed over
+        the model group under tensor parallelism. A probe for parity
+        checks: no fault operands, and the state is left as it was."""
         client_ids, data, mask = batch
         ids = np.asarray(client_ids).reshape(-1)
         self._check_rows(mask, len(ids))
@@ -1123,14 +1118,8 @@ class FedModel:
         key = fold_in(self._key, self.server.round_idx)
         local_sum = self._train_round.client_phase(
             self.server.ps_weights, placed, cohort, self._lr(), key)[0]
-        if encoded and self.cfg.defer_sketch_encode:
-            local_sum = fserver.args2sketch(self.cfg).encode(local_sum)
-        if encoded and self.cfg.mode == "sketch":
-            local_sum = wire_roundtrip(local_sum,
-                                       self.cfg.sketch_table_dtype)
-        if self.layout is not None:
-            local_sum = self.layout.all_reduce(local_sum.contiguous())
-        return local_sum
+        return fround.reduce_transmit(self.cfg, local_sum, self.layout,
+                                      encode=False)
 
     def _journal_tier(self, **where) -> None:
         """The tiered store's `state_tier` event (its counters' deltas)

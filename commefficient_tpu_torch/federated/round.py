@@ -527,6 +527,25 @@ def compute_dtype(cfg: Config):
     return torch.bfloat16 if cfg.do_bf16 else None
 
 
+def reduce_transmit(cfg: Config, local_sum: torch.Tensor, layout=None,
+                    encode: bool = True) -> torch.Tensor:
+    """A rank's block sum of the client transmits as the whole cohort's,
+    the round's one cross-rank sum. With `encode`: sketch linearity's
+    one K1 encode of the block's sum (--defer_sketch_encode), then in
+    sketch mode the quantized wire (the identity for f32), each rank
+    rounding its block's sum as the JAX engine rounds each mesh
+    shard's. Then the all_reduce over the clients group (the JAX
+    engine's lax.psum). FedModel.cohort_transmit runs it too, without
+    the encode."""
+    if encode and cfg.defer_sketch_encode:
+        local_sum = fserver.args2sketch(cfg).encode(local_sum)
+    if encode and cfg.mode == "sketch":
+        local_sum = wire_roundtrip(local_sum, cfg.sketch_table_dtype)
+    if _sharded(layout):
+        local_sum = layout.all_reduce(local_sum)
+    return local_sum
+
+
 def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
                   grad_mask: Optional[torch.Tensor] = None, layout=None):
     """The train-round callable:
@@ -702,18 +721,8 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
                                    round_key)
         robust = admitted is not None and cfg.robust_aggregation
         if not robust:
-            if cfg.defer_sketch_encode:
-                # sketch linearity: encode the cohort's sum once (K1)
-                local_sum = fserver.args2sketch(cfg).encode(local_sum)
-            if cfg.mode == "sketch":
-                # the quantized wire (the identity for f32): each rank
-                # rounds its block's sum, as the JAX engine rounds each
-                # mesh shard's
-                local_sum = wire_roundtrip(local_sum, cfg.sketch_table_dtype)
-            # the sum over the clients axis (the JAX engine's lax.psum);
             # a robust aggregate is already the whole cohort's
-            if sharded:
-                local_sum = layout.all_reduce(local_sum)
+            local_sum = reduce_transmit(cfg, local_sum, layout)
         transmit = comp.post_aggregate(cfg, local_sum, round_key)
         # the rows the rank's block keeps, before the cohort's gather
         eff_local = admitted if admitted is not None else batch.survivors

@@ -140,28 +140,14 @@ def initialize(coordinator_address: Optional[str] = None,
     _initialized = True
 
 
-def initialize_from_config(cfg, backend: Optional[str] = None) -> None:
+def initialize_from_config(cfg) -> None:
     """Driver entry: --coordinator_address / --num_processes /
     --process_id (config.py flags), on the run's --device."""
     initialize(
         coordinator_address=cfg.coordinator_address or None,
         num_processes=cfg.num_processes if cfg.num_processes > 0 else None,
         process_id=cfg.process_id if cfg.process_id >= 0 else None,
-        backend=backend, device=cfg.device)
-
-
-def pop_backend_flag(argv=None):
-    """(argv without it, the value of the launcher's `--dist_backend
-    NAME` or None): the drivers' one flag outside the JAX package's
-    flag set, for the ranks that share one card over gloo."""
-    import sys
-    argv = list(sys.argv[1:] if argv is None else argv)
-    backend = None
-    if "--dist_backend" in argv:
-        i = argv.index("--dist_backend")
-        backend = argv[i + 1]
-        del argv[i:i + 2]
-    return argv, backend
+        device=cfg.device)
 
 
 def shutdown() -> None:

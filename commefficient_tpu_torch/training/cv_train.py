@@ -27,7 +27,7 @@ Run on the card:
 and on the CPU with `--device cpu` (the kernels' plain versions).
 One rank a GPU, N ranks: the same command with `--multihost
 --num_processes N --process_id i --coordinator_address host:port` for
-each i (nccl); ranks that share one card add `--dist_backend gloo`.
+each i (nccl).
 Only rank 0 prints, journals and writes checkpoints.
 """
 from __future__ import annotations
@@ -459,16 +459,14 @@ def _ckpt_path(cfg: Config) -> str:
     return os.path.join(cfg.checkpoint_path, cfg.model)
 
 
-def main(argv=None, backend: Optional[str] = None) -> bool:
-    """The CLI. `backend` (or the launcher's `--dist_backend`) picks the
-    torch.distributed backend under --multihost (multihost.initialize:
-    nccl on the card by default)."""
-    argv, flag_backend = mh.pop_backend_flag(argv)
+def main(argv=None) -> bool:
+    """The CLI. Under --multihost the rank joins its grid first
+    (multihost.initialize: nccl on the card, gloo on the CPU)."""
     cfg = parse_args(argv=argv)
     device = cfg.device
     if cfg.multihost:
         # before the model touches a device: the rank's card
-        mh.initialize_from_config(cfg, backend=backend or flag_backend)
+        mh.initialize_from_config(cfg)
         device = mh.rank_device(cfg.device)
     coord = mh.is_coordinator()
     if coord:

@@ -33,8 +33,7 @@ Run on the card:
 and on the CPU with `--device cpu` (the kernels' plain versions), e.g.
 `--test --device cpu` for the smoke size. Two ranks of one layer each:
 `--model_parallel 2 --multihost --num_processes 2 --process_id i
---coordinator_address host:port` for i = 0, 1 (nccl, one GPU a rank;
-`--dist_backend gloo` where the ranks share a card).
+--coordinator_address host:port` for i = 0, 1 (nccl, one GPU a rank).
 """
 from __future__ import annotations
 
@@ -52,9 +51,7 @@ from commefficient_tpu_torch.data.persona import (
 )
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.parallel import multihost as mh
-from commefficient_tpu_torch.parallel.mesh import (
-    default_layout, make_multihost_client_mesh,
-)
+from commefficient_tpu_torch.parallel.mesh import default_layout
 from commefficient_tpu_torch.parallel.tp import tp_loss
 from commefficient_tpu_torch.models.convert import (
     from_jax_params, load_flat, to_jax_params,
@@ -408,20 +405,6 @@ def finetune_source(cfg: Config) -> str:
     return cfg.model_checkpoint
 
 
-def tensor_parallel_layout(cfg: Config):
-    """--model_parallel > 1: the (clients, model) layout of the JAX
-    driver's TP branch, the widest clients axis over the ranks that
-    divides num_workers, slice-major under --num_slices."""
-    mp = cfg.model_parallel
-    ranks = list(range(mh.process_count()))
-    shards = max(len(ranks) // mp, 1)
-    while cfg.num_workers % shards:
-        shards -= 1
-    return make_multihost_client_mesh(
-        model_parallel=mp, devices=ranks[:shards * mp],
-        num_slices=cfg.num_slices if cfg.num_slices > 1 else None)
-
-
 def build(cfg: Config, tokenizer, device="cuda",
           synthetic_examples: Optional[Tuple[int, int, int]] = None,
           layout=None):
@@ -430,12 +413,10 @@ def build(cfg: Config, tokenizer, device="cuda",
     losses are tp-wrapped (parallel/tp.py) on the tensor-parallel
     layout; under torch.distributed the model takes the default layout
     (or `layout`) and the loaders feed the rank's rows."""
-    if layout is None and cfg.model_parallel > 1:
-        layout = tensor_parallel_layout(cfg)
-        if mh.is_coordinator():
-            print(f"tensor parallel: mesh {dict(layout.shape)}")
-    elif layout is None and mh.is_distributed():
+    if layout is None and (cfg.model_parallel > 1 or mh.is_distributed()):
         layout = default_layout(cfg)
+        if cfg.model_parallel > 1 and mh.is_coordinator():
+            print(f"tensor parallel: mesh {dict(layout.shape)}")
     train_loader, val_loader = get_data_loaders(
         cfg, tokenizer, synthetic_examples,
         val_shards=1 if layout is None else layout.clients)
@@ -508,16 +489,14 @@ def _ckpt_path(cfg: Config) -> str:
     return os.path.join(cfg.checkpoint_path, "gpt2")
 
 
-def main(argv=None, backend: Optional[str] = None) -> bool:
-    """The CLI. `backend` (or the launcher's `--dist_backend`) picks the
-    torch.distributed backend under --multihost (multihost.initialize:
-    nccl on the card by default)."""
-    argv, flag_backend = mh.pop_backend_flag(argv)
+def main(argv=None) -> bool:
+    """The CLI. Under --multihost the rank joins its grid first
+    (multihost.initialize: nccl on the card, gloo on the CPU)."""
     cfg = parse_args(default_lr=DEFAULT_LR, argv=argv)
     device = cfg.device
     if cfg.multihost:
         # before the model touches a device: the rank's card
-        mh.initialize_from_config(cfg, backend=backend or flag_backend)
+        mh.initialize_from_config(cfg)
         device = mh.rank_device(cfg.device)
     if cfg.do_test:
         # smoke shrink of the compression geometry

@@ -293,8 +293,18 @@ def save_checkpoint(path: str, server: ServerState,
             _write()
         else:
             writer.submit(_write)
-    mh.sync_processes("checkpoint-written")
+    _barrier_after_write(writer, "checkpoint-written")
     return path
+
+
+def _barrier_after_write(writer: Optional[AsyncCheckpointWriter],
+                         name: str) -> None:
+    """The barrier every rank waits at after the coordinator's write. In
+    a multi-rank run an async `writer` is drained first, so that no rank
+    passes the barrier before the file is on disk."""
+    if writer is not None and mh.is_multihost():
+        writer.drain()
+    mh.sync_processes(name)
 
 
 def _prefixed(z, prefix: str) -> dict:
@@ -498,7 +508,7 @@ def save_rotating(prefix: str, server: ServerState,
     else:
         writer.submit(lambda: _manifest_and_prune(
             prefix, path, round_idx, keep_last, max_age_hours))
-    mh.sync_processes("checkpoint-rotated")
+    _barrier_after_write(writer, "checkpoint-rotated")
     return path
 
 

@@ -24,6 +24,7 @@ over gloo:
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -73,11 +74,33 @@ def test_rank_device_rule():
     assert tmh.resolve_backend("gloo", "cuda") == "gloo"
 
 
-def test_backend_flag_is_the_launchers_own():
-    argv, be = tmh.pop_backend_flag(["--test", "--dist_backend", "gloo",
-                                     "--multihost"])
-    assert argv == ["--test", "--multihost"] and be == "gloo"
-    assert tmh.pop_backend_flag(["--test"]) == (["--test"], None)
+def test_initialize_takes_the_given_backend_and_never_falls_back(
+        monkeypatch):
+    """The backend is the caller's, else the device's (gloo on the CPU);
+    an init that the backend refuses raises as it is, and is never tried
+    again on another backend."""
+    import torch.distributed as dist
+    calls, up = [], [False]
+
+    def init(backend, **kw):
+        calls.append(backend)
+        if backend == "nccl":
+            raise RuntimeError("Duplicate GPU detected : rank 1 and rank 0 "
+                               "both on CUDA device 0")
+        up[0] = True
+
+    monkeypatch.setattr(dist, "init_process_group", init)
+    monkeypatch.setattr(dist, "is_initialized", lambda: up[0])
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    monkeypatch.setattr(tmh, "_initialized", False)
+    with pytest.raises(RuntimeError, match="Duplicate GPU"):
+        tmh.initialize("127.0.0.1:1", 2, 1, backend="nccl", device="cpu",
+                       retry_sleep=lambda s: None)
+    assert calls == ["nccl"]
+    tmh.initialize("127.0.0.1:1", 2, 1, device="cpu",
+                   retry_sleep=lambda s: None)
+    assert calls == ["nccl", "gloo"]
+    monkeypatch.setattr(tmh, "_initialized", False)
 
 
 def test_initialize_retries_transient_and_rebuilds(monkeypatch):
@@ -417,6 +440,63 @@ def test_int8_wire_rounds_each_ranks_sum_as_jax_rounds_each_shards(
                                    atol=JAX_ATOL, err_msg=f"jax:{key}")
     assert not np.allclose(grid["ps_weights"], single["ps_weights"],
                            rtol=tmw.RTOL, atol=tmw.ATOL)
+
+
+def test_the_round_sums_its_table_through_reduce_transmit(monkeypatch):
+    """The round's one cross-rank sum is round.reduce_transmit: wrapped,
+    it sees one call a round, and what it returns is the probe's
+    gradient sum (FedModel.cohort_transmit) encoded and put on the wire
+    by the same function (the table the card script's grid phase reads
+    from a real round)."""
+    from commefficient_tpu_torch.federated import round as fround
+    from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
+    module, _ = tmw.make_model("base")
+    cfg = tmw.scenario_config(dict(do_topk_down=False))
+    fed = FedModel(module, tmw.make_loss(module), cfg, device="cpu",
+                   num_clients=tmw.N_CLIENTS)
+    FedOptimizer(fed).param_groups[0]["lr"] = 0.1
+    ids, x, y, mask = tmw.scenario_batches("base")[0]
+    want = fround.reduce_transmit(fed.cfg, fed.cohort_transmit(
+        (ids, (x, y), mask)))
+    assert tuple(want.shape) == (cfg.num_rows, cfg.num_cols)
+    tables, reduce = [], fround.reduce_transmit
+
+    def record(*a, **kw):
+        out = reduce(*a, **kw)
+        tables.append(out.clone())
+        return out
+
+    monkeypatch.setattr(fround, "reduce_transmit", record)
+    fed((ids, (x, y), mask))
+    assert len(tables) == 1
+    np.testing.assert_array_equal(tables[0].numpy(), want.numpy())
+
+
+def test_async_checkpoint_is_on_disk_before_each_barrier(tmp_path,
+                                                         monkeypatch):
+    """In a multi-rank run the coordinator drains an async writer before
+    each barrier of a save, so no rank passes a barrier before the file,
+    then the manifest, is on disk."""
+    from commefficient_tpu_torch.federated.round import ServerState
+    from commefficient_tpu_torch.utils import checkpoint as ck
+    seen = []
+    monkeypatch.setattr(tmh, "is_multihost", lambda: True)
+    monkeypatch.setattr(tmh, "sync_processes", lambda name="barrier":
+                        seen.append((name, sorted(os.listdir(tmp_path)))))
+    v = torch.arange(4.0)
+    writer = ck.AsyncCheckpointWriter(max_pending=4)
+    try:
+        # a writer that is behind when the save is queued
+        writer.submit(lambda: time.sleep(0.3))
+        ck.save_final(str(tmp_path / "m"), ServerState(v, v, v, 3),
+                      writer=writer)
+    finally:
+        writer.close()
+    assert [n for n, _ in seen] == ["checkpoint-written",
+                                    "checkpoint-rotated", "checkpoint-final"]
+    assert "m-r00000003.npz" in seen[0][1]
+    assert "m.latest" in seen[1][1]
+    assert "m.npz" in seen[2][1]
 
 
 @pytest.mark.parametrize("position", [0, 1])
