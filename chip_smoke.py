@@ -295,6 +295,38 @@ before the result line:
                against its plain version and timed there first), K1
                twice, K3a and K3b once a round; ms/round and each rank's
                peak beside phase 7's.
+39. plan    — config #2, ROUNDS rounds under PLAN (`--sampler
+               throughput`) on phase 32's scripted clock, deterministic:
+               with `--plan_transport emulated --plan_controllers 3` (three
+               controllers in the process, followers' trackers never fed)
+               bitwise the one controller with the same flags, every round
+               broadcast once, K1 and K2 once a round; then the takeover
+               drill (TAKEOVER_ROUNDS rounds, a journal, a checkpoint after
+               round 1, FaultSchedule(coordinator_crash_at=TAKEOVER_CRASH),
+               controller 1 promoted, the checkpoint and the journal's plan
+               stream loaded, rounds 2-3 replayed from the journaled plans
+               with their digests consumed): weights and client ids bitwise
+               the uninterrupted run; the takeover's wall seconds.
+40. plangrid — phase 37's two ranks run a second leg, config #2 under
+               PLAN_GRID (`--sampler throughput --plan_transport
+               collective`), ROUNDS rounds, each rank's tracker fed its own
+               wall clock: ps_weights bitwise equal, on each rank a plan
+               broadcast and two digest gathers a round (plan, install),
+               K1 and K2 once a round; the transport's calls, bytes and
+               host ms a round beside the round's own collectives. Phase
+               37's NCCL world of one rank and its one-process twin run
+               under PLAN_NCCL1 (a plan a round through the collective
+               transport, on a gloo group of the transport's own beside
+               NCCL's), still bitwise equal.
+41. ring    — on the same two ranks, parallel/ring.ring_attention on
+               GPT2-small's [16, 12, RING_L, 64] head views of one fused
+               QKV projection, RING_L // 2 positions a rank, the chunks
+               rotated by a broadcast from each rank (gloo has no send on
+               CUDA tensors): the forward within K4_RTOL of K4 on the whole
+               sequence, the gradients of sum(out ** 2) within
+               RING_GRAD_RTOL of autograd of the plain reference (relative
+               to the largest); ms a call forward and forward-backward, the
+               folds alone, the bytes rotated.
 Phases 27-36 print their peak memory as read in the full script, beside
 the memory earlier phases leave allocated (live_gib).
 
@@ -324,7 +356,10 @@ config #5 with --bf16, and flash_fwd_gpt2medium), and since phases
 37-38 K1 and K2 as a rank of the grid launches them
 (sketch_encode_grid, sketch_estimate_all_grid) and K4 on a
 tensor-parallel rank's 6-head views (flash_fwd_tp), each with the
-launches of its own path's run ("path"; a grid's or TP run's rank 0). The line before the last holds
+launches of its own path's run ("path"; a grid's or TP run's rank 0).
+Phases 39-41 add no entry: they launch K1, K2 and K4 as the paths above
+do, and the ring folds with the plain online-softmax fold, as the JAX
+ring does. The line before the last holds
 the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 `--profile [DIR]` additionally traces three more rounds of each path
@@ -3976,18 +4011,26 @@ def timed_rank_run(model, run, deterministic=False) -> dict:
                 collectives=None if lay is None else lay.stats.as_dict())
 
 
+def _rank_flags(args) -> list:
+    """The driver's --multihost flags of a rank started by start_ranks
+    (none for the one-process run)."""
+    if args.num_processes <= 0:
+        return []
+    return ["--multihost", "--num_processes", str(args.num_processes),
+            "--process_id", str(args.process_id), "--coordinator_address",
+            f"127.0.0.1:{args.port}"]
+
+
 def grid_rank(args, mh) -> dict:
-    """A rank of phase 37 (`grid`), or one process of its NCCL world of
-    one (`nccl1`) or of the one-process run beside it (`single`)."""
+    """A rank of phase 37 (`grid`), which then runs phases 40 and 41, or
+    one process of its NCCL world of one (`nccl1`) or of the one-process
+    run beside it (`single`), both under PLAN_NCCL1."""
     from commefficient_tpu_torch.config import parse_args
     from commefficient_tpu_torch.parallel.mh_worker import ranks_bitwise_equal
     from commefficient_tpu_torch.training import cv_train
     kind = args.rank
     rounds = ROUNDS if kind == "grid" else NCCL1_ROUNDS
-    extra = [] if kind == "single" else [
-        "--multihost", "--num_processes", str(args.num_processes),
-        "--process_id", str(args.process_id), "--coordinator_address",
-        f"127.0.0.1:{args.port}"]
+    extra = _rank_flags(args) + ([] if kind == "grid" else PLAN_NCCL1)
     model, opt, sched, loader, val = config2_build(
         cv_train, parse_args, os.path.join(HERE, "build", "chip_smoke_data"),
         extra, rounds)
@@ -4041,9 +4084,18 @@ def grid_rank(args, mh) -> dict:
         sum(res["round_ms"][1:]) / max(len(res["round_ms"]) - 1, 1)]),
         equal=bool(ranks_bitwise_equal(model.ps_weights))
         if lay is not None and lay.connected else True)
+    if kind != "grid":
+        out["transport"] = model.plan_transport.stats.as_dict()
+        out["gloo_group"] = model.plan_transport.group is not None
     if kind != "grid" and mh.is_coordinator():
         np.save(os.path.join(args.io, f"{kind}_weights.npy"),
                 model.ps_weights.cpu().numpy())
+    if kind == "grid":
+        # phases 40 and 41 on the same ranks
+        del model, opt, sched, loader, val
+        torch.cuda.empty_cache()
+        out["plangrid"] = plangrid_rank_leg(args, mh, cv_train, parse_args)
+        out["ring"] = ring_rank_leg(args, mh)
     return out
 
 
@@ -4246,14 +4298,23 @@ def grid_phase(sc, CSVec, main_ms, keep, w, batch, tmp) -> dict:
     same = (np.array_equal(wa.view(np.uint32), wb.view(np.uint32))
             and one["uploads"] == single["uploads"])
     phase("grid", f"an NCCL world of one rank (layout {one['layout']}) vs "
-          f"the one-process run, {NCCL1_ROUNDS} rounds each, deterministic: "
+          f"the one-process run, {NCCL1_ROUNDS} rounds each under "
+          f"{' '.join(PLAN_NCCL1)}, deterministic: "
           f"weights and bytes bitwise equal {same}; NCCL collectives "
-          f"{one['collectives']['calls']}; ms/round (the two runs side by "
+          f"{one['collectives']['calls']}; the plan transport's "
+          f"{one['transport']['calls']} broadcasts on a gloo group of its "
+          f"own ({one['gloo_group']}; the one process's "
+          f"{single['transport']['calls']}); ms/round (the two runs side by "
           f"side on the card) {med(one['round_ms'][1:]):.2f} and "
           f"{med(single['round_ms'][1:]):.2f}")
-    if not same:
+    if not (same and one["gloo_group"]
+            and one["transport"]["calls"] == NCCL1_ROUNDS):
         raise AssertionError("grid: the NCCL world of one rank differs "
-                             "from the one-process run")
+                             "from the one-process run, or its plans did "
+                             "not cross the transport's gloo group")
+    # phases 40-41, from the grid's ranks
+    plangrid_report(res["plangrid"], res)
+    ring_report(res["ring"])
     return res["launches"]
 
 
@@ -4380,6 +4441,355 @@ def tpgpt2_phase(gpt2_train, parse_args, HashTokenizer, fserver, g_ms,
           f"collectives {col['calls']} calls, {col['bytes'] / 2 ** 30:.2f} "
           f"GiB, {col['seconds']:.2f} s host over the {TP_ROUNDS} rounds")
     return res["launches"]
+
+
+# ---------------- item 9g's rest: phases 39-41 ------------------------------
+
+# phase 39: config #2 under the emulated plan transport (3 controllers in
+# the process) against the one controller, on phase 32's scripted clock;
+# then the takeover drill: TAKEOVER_ROUNDS rounds, a checkpoint after
+# round 1, the coordinator killed broadcasting round TAKEOVER_CRASH,
+# controller 1 promoted and resumed from the journal
+PLAN = ["--sampler", "throughput"]
+PLAN_EMULATED = PLAN + ["--plan_transport", "emulated",
+                        "--plan_controllers", "3"]
+TAKEOVER_ROUNDS = 6
+TAKEOVER_CRASH = 4
+TAKEOVER_LR = 0.05
+# phase 40: the grid's second leg; phase 37's NCCL world of one rank and
+# its one-process twin take the collective transport with a plan a
+# round (a survivor target of all 8 slots changes nothing)
+PLAN_GRID = PLAN + ["--plan_transport", "collective"]
+PLAN_NCCL1 = ["--target_survivors", "8", "--plan_transport", "collective"]
+# phase 41: ring attention on GPT2-small's head views, the sequence
+# split over the grid's two ranks; the gradients within tests/
+# test_ring.py's limit, relative to the largest
+RING_L = 1024
+RING_GRAD_RTOL = 2e-4
+
+
+def _plan_session(model, jpath=None):
+    """A telemetry session on phase 32's scripted clock (and a journal
+    at `jpath`), attached to `model`."""
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    tele = TelemetrySession(
+        journal=None if jpath is None else RunJournal(jpath),
+        tracker=model.throughput,
+        clock=lambda: scripted_time(model.server.round_idx))
+    model.attach_telemetry(tele)
+    return tele
+
+
+def _drive_plan(model, loader, total, start=0, save_after=None,
+                prefix=None):
+    """The drill's loop (tests/test_torch_plantransport.py's): begin_epoch,
+    the loader's stream, a round each at TAKEOVER_LR; after round
+    `save_after` the session's one-round-late buffer flushed, as the
+    drivers flush it before an epoch's checkpoint (a flushed round feeds
+    the tracker nothing), and with a `prefix` a rotated save of the
+    whole run state. Returns the rounds' client ids."""
+    from commefficient_tpu_torch.utils.checkpoint import save_rotating
+    model._optimizer.param_groups[0]["lr"] = TAKEOVER_LR
+    done, ids_log = start, []
+    while done < total:
+        model.scheduler.begin_epoch(done)
+        for ids, data, mask in loader.epoch():
+            model((ids, data, mask))
+            ids_log.append(np.asarray(ids).copy())
+            done += 1
+            if save_after is not None and done == save_after + 1:
+                model.telemetry.flush()
+            if prefix is not None and done == save_after + 1:
+                save_rotating(
+                    prefix, model.server, model.clients, scheduler_step=0,
+                    accountant=model.accountant,
+                    prev_change_words=model._prev_change_words,
+                    fingerprint=model.checkpoint_fingerprint,
+                    throughput=model.throughput.state_dict(),
+                    scheduler=model.scheduler_state(),
+                    sampler=model.sampler_state(),
+                    async_admit=model.async_admit_state(),
+                    client_rows=model.client_rows_payload())
+            if done >= total:
+                break
+    torch.cuda.synchronize()
+    return ids_log
+
+
+def plan_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp):
+    """Phase 39 (header): returns the transport run's launches."""
+    from commefficient_tpu_torch.parallel.plantransport import (
+        attach_emulated_cluster,
+    )
+    from commefficient_tpu_torch.utils.checkpoint import load_latest
+    from commefficient_tpu_torch.utils.faults import (
+        FaultSchedule, InjectedFault,
+    )
+    os.makedirs(os.path.join(tmp, "ckpt"), exist_ok=True)
+    med = statistics.median
+    runs = {}
+    with Deterministic():
+        for label, flags in (("single", PLAN), ("emulated", PLAN_EMULATED)):
+            model, rr, _ = config2_variant(
+                "plan", sc, ac, cv_train, parse_args, data_dir, flags,
+                setup=_plan_session)
+            model.telemetry.close(ok=True)
+            check_launches("plan", rr.launches,
+                           {"sketch_encode": ROUNDS,
+                            "sketch_estimate_all": ROUNDS})
+            runs[label] = (model.ps_weights.cpu(), rr, model.scheduler)
+            del model
+            torch.cuda.empty_cache()
+    (w1, rr1, _), (w3, rr3, mirror) = runs["single"], runs["emulated"]
+    net = mirror.transports[0].network
+    delivered = {r: net.deliveries.get(r) for r in range(ROUNDS)}
+    same = torch.equal(w1, w3)
+    if not same or any(v != 1 for v in delivered.values()):
+        raise AssertionError(f"plan: 3 controllers bitwise the one {same}; "
+                             f"deliveries {delivered}")
+    phase("plan", f"config #2, {ROUNDS} rounds under {' '.join(PLAN)}, "
+          "deterministic, scripted clock: 3 emulated controllers bitwise the "
+          f"one controller; every round broadcast once; K1 and K2 {ROUNDS} "
+          f"times each; median ms/round {med(rr3.round_ms[1:]):.2f} (3 "
+          f"controllers) and {med(rr1.round_ms[1:]):.2f} (one) beside config "
+          f"#2's {med(main_ms[1:]):.2f} (phase 4)")
+    launches = rr3.launches
+    del runs, mirror, net
+
+    # the takeover drill
+    jpath = os.path.join(tmp, "takeover.jsonl")
+    prefix = os.path.join(tmp, "ckpt", "ResNet9")
+    with Deterministic():
+        model_a, _, _, loader_a, _ = config2_build(
+            cv_train, parse_args, data_dir, PLAN_EMULATED, TAKEOVER_ROUNDS)
+        tele = _plan_session(model_a)
+        ids_a = _drive_plan(model_a, loader_a, TAKEOVER_ROUNDS, save_after=1)
+        tele.close(ok=True)
+        w_a = model_a.ps_weights.cpu()
+        del model_a, loader_a
+        torch.cuda.empty_cache()
+
+        model_b, _, _, loader_b, _ = config2_build(
+            cv_train, parse_args, data_dir, PLAN_EMULATED, TAKEOVER_ROUNDS)
+        net = model_b.scheduler.transports[0].network
+        net.schedule = FaultSchedule(coordinator_crash_at=TAKEOVER_CRASH)
+        tele = _plan_session(model_b, jpath)
+        try:
+            _drive_plan(model_b, loader_b, TAKEOVER_ROUNDS, save_after=1,
+                        prefix=prefix)
+            raise AssertionError("plan: the coordinator did not crash")
+        except InjectedFault as e:
+            crashed = e.round_idx
+        t_crash = time.perf_counter()
+        tele.close(ok=False)
+        del model_b, loader_b
+        torch.cuda.empty_cache()
+
+        promoted = net.promote()
+        net.schedule = None
+        model_c, _, _, loader_c, _ = config2_build(
+            cv_train, parse_args, data_dir, PLAN_EMULATED, TAKEOVER_ROUNDS)
+        attach_emulated_cluster(model_c, loader_c, network=net)
+        ckpt = load_latest(prefix,
+                           expect_fingerprint=model_c.checkpoint_fingerprint)
+        model_c.load_state(ckpt)
+        model_c.load_plan_stream(jpath)
+        done = int(ckpt.server.round_idx)
+        replay = sorted(model_c._replay_digests)
+        tele = _plan_session(model_c)
+        t_ready = time.perf_counter()
+        ids_c = _drive_plan(model_c, loader_c, TAKEOVER_ROUNDS, start=done)
+        t_done = time.perf_counter()
+        tele.close(ok=True)
+    left = sorted(model_c._replay_digests)
+    same = (torch.equal(model_c.ps_weights.cpu(), w_a)
+            and all(np.array_equal(a, c) for a, c in zip(ids_a[done:],
+                                                         ids_c)))
+    if not (crashed == TAKEOVER_CRASH - 1 and promoted == 1 and done == 2
+            and {2, 3} <= set(replay) and not {2, 3} & set(left)
+            and same):
+        raise AssertionError(
+            f"plan: takeover crashed after {crashed}, promoted {promoted}, "
+            f"resumed at {done}, replayed {replay} (left {left}), bitwise "
+            f"{same}")
+    phase("plan", f"takeover drill, {TAKEOVER_ROUNDS} rounds: a checkpoint "
+          f"after round 1, the coordinator killed broadcasting round "
+          f"{TAKEOVER_CRASH} (InjectedFault after round {crashed}); "
+          f"controller {promoted} promoted, resumed at round {done}, the "
+          f"journaled plans of rounds {sorted(set(replay) - set(left))} "
+          "replayed and their digests consumed: weights and client ids "
+          "bitwise the uninterrupted run; "
+          f"takeover {t_ready - t_crash:.2f} s wall (promote, build, "
+          f"checkpoint, plan stream), replay and rest "
+          f"{t_done - t_ready:.2f} s")
+    del model_c, loader_c
+    torch.cuda.empty_cache()
+    return launches
+
+
+def plangrid_rank_leg(args, mh, cv_train, parse_args) -> dict:
+    """Phase 40 on a grid rank: config #2 under PLAN_GRID on the ranks of
+    phase 37, the tracker fed each rank's own wall clock."""
+    from commefficient_tpu_torch.parallel.mh_worker import ranks_bitwise_equal
+    from commefficient_tpu_torch.telemetry import TelemetrySession
+    model, opt, sched, loader, val = config2_build(
+        cv_train, parse_args, os.path.join(HERE, "build", "chip_smoke_data"),
+        PLAN_GRID + _rank_flags(args), ROUNDS)
+    model.attach_telemetry(TelemetrySession(tracker=model.throughput))
+    t = model.plan_transport
+    t.stats.reset()
+    res = timed_rank_run(model, lambda on_round: cv_train.train(
+        model, opt, sched, loader, val, model.cfg, on_round=on_round))
+    l = res["launches"]
+    tr = t.stats.as_dict()
+    res.update(transport=tr, per_rank=per_rank(model.layout, model.device, [
+        tr["calls"], tr["bytes"], tr["seconds"], l["sketch_encode"],
+        l["sketch_estimate_all"]]),
+        equal=bool(ranks_bitwise_equal(model.ps_weights)),
+        gloo_group=t.group is not None)
+    del model, opt, sched, loader, val
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_rank_leg(args, mh) -> dict:
+    """Phase 41 on a grid rank: ring attention over the two ranks on
+    [16, 12, RING_L, 64] head views (this rank's chunk of RING_L // 2),
+    against K4 on the whole sequence and autograd of the plain reference
+    on the card."""
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch.ops.attention import reference_attention
+    from commefficient_tpu_torch.ops.kernels import attention_cuda as ac
+    from commefficient_tpu_torch.parallel.ring import SeqRing, ring_attention
+    n, me = mh.process_count(), mh.process_index()
+    ring = SeqRing(range(n)).bind()
+    shape = (K4_BATCH, RING_L, 3 * K4_HEADS * K4_DH)
+    qkv = torch.randn(*shape, generator=torch.Generator().manual_seed(41)
+                      ).to("cuda")
+    q, k, v = (t.reshape(K4_BATCH, RING_L, K4_HEADS, K4_DH).transpose(1, 2)
+               for t in qkv.split(K4_HEADS * K4_DH, dim=-1))
+    lc = RING_L // n
+    chunk = slice(me * lc, (me + 1) * lc)
+    qc, kc, vc = (t[:, :, chunk].detach().clone().requires_grad_(True)
+                  for t in (q, k, v))
+    o_k4, _ = ac.flash_fwd(q, k, v, 0.125)
+    out = ring_attention(qc, kc, vc, ring, sm_scale=0.125)
+    torch.cuda.synchronize()
+    want = o_k4[:, :, chunk]
+    e_fwd = float((out.detach() - want).abs().max())
+    fwd_ok = e_fwd <= K4_RTOL * float(want.abs().max())
+    (out ** 2).sum().backward()
+    qf, kf, vf = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    (reference_attention(qf, kf, vf, sm_scale=0.125) ** 2).sum().backward()
+    e_grad = []
+    for got, ref in zip((qc, kc, vc), (qf, kf, vf)):
+        w = ref.grad[:, :, chunk]
+        e_grad.append(float((got.grad - w).abs().max())
+                      / float(w.abs().max()))
+    del qf, kf, vf
+    ring.stats.reset()
+
+    def fwd():
+        with torch.no_grad():
+            ring_attention(qc, kc, vc, ring, sm_scale=0.125)
+
+    def fwd_bwd():
+        qc.grad = kc.grad = vc.grad = None
+        (ring_attention(qc, kc, vc, ring, sm_scale=0.125) ** 2
+         ).sum().backward()
+
+    times = {}
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        fn()
+        dist.barrier(group=ring.group)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[name] = statistics.median(ms)
+    rot = ring.stats.as_dict()
+    # the fold alone: this rank's two chunk folds without the rotation
+    with torch.no_grad():
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring_attention(qc, kc, vc, None, sm_scale=0.125)
+            ring_attention(qc, kc, vc, None, sm_scale=0.125)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    rows = torch.tensor([[float(fwd_ok), e_fwd, *e_grad, times["fwd"],
+                          times["fwd_bwd"], statistics.median(ms)]],
+                        dtype=torch.float64)
+    allr = torch.zeros((n, rows.shape[1]), dtype=torch.float64)
+    allr[me] = rows[0]
+    dist.all_reduce(allr, group=ring.group)
+    return dict(per_rank=allr.tolist(), mode=ring._mode(kc),
+                chunk_bytes=kc.numel() * kc.element_size(),
+                rotations=rot, calls=12)
+
+
+def plangrid_report(res, grid_res) -> None:
+    """Phase 40's lines (rank 0's results), beside phase 37's run."""
+    med = statistics.median
+    rows = res["per_rank"]
+    if not (res["ok"] and res["moved"] and res["equal"]
+            and len(res["round_ms"]) == ROUNDS
+            and all(row[0] == 3 * ROUNDS and row[3] == ROUNDS
+                    and row[4] == ROUNDS for row in rows)):
+        raise AssertionError(f"plangrid: ok {res['ok']}, moved "
+                             f"{res['moved']}, ranks bitwise equal "
+                             f"{res['equal']}, per rank {rows}")
+    tr, col = res["transport"], res["collectives"]
+    gcol = grid_res["collectives"]
+    phase("plangrid", f"config #2 on {GRID_RANKS} ranks, {ROUNDS} rounds "
+          f"under {' '.join(PLAN_GRID)}: ps_weights bitwise equal on both "
+          "ranks; on each, a plan broadcast and a plan and an install digest "
+          f"gathered every round ({3 * ROUNDS} transport calls), K1 and K2 "
+          f"{ROUNDS} times; gloo group of its own: {res['gloo_group']}")
+    phase("plangrid", f"transport (rank 0): {tr['calls'] / ROUNDS:.0f} calls, "
+          f"{tr['bytes'] / ROUNDS / 2 ** 20:.3f} MiB, "
+          f"{1e3 * tr['seconds'] / ROUNDS:.2f} ms host a round (rank 1 "
+          f"{1e3 * rows[1][2] / ROUNDS:.2f}); the round's own collectives "
+          f"{col['calls'] / ROUNDS:.1f} calls, "
+          f"{col['bytes'] / ROUNDS / 2 ** 20:.1f} MiB, "
+          f"{1e3 * col['seconds'] / ROUNDS:.2f} ms a round (phase 37's "
+          f"{1e3 * gcol['seconds'] / ROUNDS:.2f}); ms/round (rank 0) median "
+          f"{med(res['round_ms'][1:]):.2f} beside phase 37's "
+          f"{med(grid_res['round_ms'][1:]):.2f}")
+
+
+def ring_report(res) -> None:
+    """Phase 41's lines."""
+    rows = res["per_rank"]
+    ok = all(row[0] == 1.0 and max(row[2:5]) <= RING_GRAD_RTOL
+             for row in rows)
+    rot = res["rotations"]
+    phase("ring", f"[{K4_BATCH}, {K4_HEADS}, {RING_L}, {K4_DH}] over "
+          f"{len(rows)} ranks ({RING_L // len(rows)} positions a rank, "
+          f"rotation by {res['mode']}): forward vs K4 on the whole sequence "
+          "max abs err " + ", ".join(f"{row[1]:.3e}" for row in rows)
+          + f" (<= {K4_RTOL:g} of the largest); gradients vs autograd of the "
+          "plain reference, relative to the largest, "
+          + "; ".join("/".join(f"{v:.2e}" for v in row[2:5]) for row in rows)
+          + f" (<= {RING_GRAD_RTOL:g})")
+    phase("ring", "ms a call (rank 0, rank 1): forward "
+          + ", ".join(f"{row[5]:.2f}" for row in rows) + "; forward and "
+          "backward " + ", ".join(f"{row[6]:.2f}" for row in rows)
+          + "; this rank's two folds alone, no rotation "
+          + ", ".join(f"{row[7]:.2f}" for row in rows)
+          + f"; rotated over the {res['calls']} calls (2 of them warm-up): "
+          f"{rot['calls']} collectives, {rot['bytes'] / 2 ** 20:.1f} MiB, "
+          f"{rot['seconds']:.2f} s host (rank 0); a chunk of k or v "
+          f"{res['chunk_bytes'] / 2 ** 20:.1f} MiB")
+    if not ok:
+        raise AssertionError(f"ring: a rank failed its checks: {rows}")
 
 
 def main(argv=None) -> int:
@@ -4754,6 +5164,14 @@ def main(argv=None) -> int:
                                    fserver, g_ms, g_peak, grid_tmp)
     finally:
         shutil.rmtree(grid_tmp, ignore_errors=True)
+
+    # phase 39: the plan transport in process (item 9g's rest); phases
+    # 40-41 ran on phase 37's ranks
+    plan_tmp = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    try:
+        plan_phase(sc, ac, cv_train, parse_args, c2_dir, round_ms, plan_tmp)
+    finally:
+        shutil.rmtree(plan_tmp, ignore_errors=True)
 
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,

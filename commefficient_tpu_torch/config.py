@@ -46,8 +46,7 @@ DEFAULT_NUM_CLIENTS = {
     "PERSONA": 17568,
 }
 
-# ROADMAP.md Queue 1 items that still hold each unported path
-Q_SCALE = "Queue 1 item 9g (the multi-device step)"
+# the ROADMAP.md Queue 1 item that still holds the unported path
 Q_ANALYSIS = "Queue 1 item 10 (the analysis tiers)"
 
 
@@ -457,6 +456,32 @@ class Config:
             raise ValueError(
                 f"async_staleness_decay={self.async_staleness_decay} "
                 "must be in (0, 1] (1.0 = undiscounted late admission)")
+        if self.plan_transport not in ("", "collective", "emulated"):
+            raise ValueError(
+                f"unknown plan_transport {self.plan_transport!r} "
+                "(choices: '' — none, collective — the production "
+                "one-to-all host collective, emulated — the in-process "
+                "N-controller harness; parallel/plantransport.py)")
+        if self.plan_controllers < 1:
+            raise ValueError("plan_controllers must be >= 1")
+        if self.plan_transport == "emulated" and self.plan_controllers < 2:
+            raise ValueError(
+                "--plan_transport emulated needs --plan_controllers "
+                ">= 2 (one coordinator plus at least one follower — "
+                "a single controller has nobody to broadcast to and "
+                "would silently test nothing)")
+        if self.plan_transport and self.do_checkpoint \
+                and not self.journal_path:
+            raise ValueError(
+                "--plan_transport with --checkpoint requires an "
+                "explicit --journal_path: the write-ahead plan "
+                "journal is the authoritative decision log a "
+                "--resume takeover replays, and the default journal "
+                "location (<run dir>/journal.jsonl) is a fresh "
+                "timestamped directory each run — a resumed process "
+                "could never find the crashed run's stream and would "
+                "silently recompute (and diverge from) its durably "
+                "committed plans")
         if self.plan_transport == "emulated" and self.multihost:
             raise ValueError(
                 "--plan_transport emulated is the IN-PROCESS "
@@ -529,9 +554,6 @@ class Config:
                 "--state_working_set caps the device-resident rows of "
                 "the HOST tier and requires --state_tier host (the "
                 "device tier keeps every row in HBM, uncapped)")
-        if self.plan_transport not in ("", "collective", "emulated"):
-            raise ValueError(
-                f"unknown plan_transport {self.plan_transport!r}")
         if self.kernel_backend not in ("xla", "pallas"):
             raise ValueError(
                 f"unknown kernel_backend {self.kernel_backend!r}")
@@ -678,10 +700,6 @@ class Config:
             # mode would also trip on the port's explicit one-round-late
             # copies, so it is not the same guard (ROADMAP.md item 10)
             refuse("--debug_transfer_guard", Q_ANALYSIS)
-        if self.plan_transport:
-            # the rest of the multi-device layer: the coordinator's plan
-            # broadcast and the followers' install
-            refuse("--plan_transport", Q_SCALE)
 
 
 def _build_parser(default_lr: Optional[float] = None) -> argparse.ArgumentParser:
@@ -782,8 +800,19 @@ def _build_parser(default_lr: Optional[float] = None) -> argparse.ArgumentParser
     a("--state_working_set", type=int, default=0)
     a("--state_spill_dir", type=str, default="")
     a("--plan_transport", choices=("", "collective", "emulated"),
-      default="")
-    a("--plan_controllers", type=int, default=2)
+      default="",
+      help="coordinator-broadcast control plane "
+           "(parallel/plantransport.py): collective = the production "
+           "one-to-all host collective (lifts the single-controller "
+           "rejection of non-default schedulers / --async_admit_rounds "
+           "in multihost runs), emulated = the in-process N-controller "
+           "harness (--plan_controllers; chaos scripting via "
+           "CCTPU_EMU_COORD_CRASH / CCTPU_EMU_COORDINATOR env vars), "
+           "'' = none (the default — bit-identical to the "
+           "transport-free build)")
+    a("--plan_controllers", type=int, default=2,
+      help="controller count of the emulated plan-transport harness "
+           "(>= 2 when --plan_transport emulated)")
     a("--writer_drain_timeout_s", type=float, default=0.0)
     a("--sampler", choices=("uniform", "throughput"), default="uniform")
     a("--explore_floor", type=float, default=0.1)

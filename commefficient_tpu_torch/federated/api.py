@@ -1,5 +1,5 @@
 """Reference-shaped high-level API: FedModel + FedOptimizer, the port
-of commefficient_tpu/federated/api.py (no plan transport).
+of commefficient_tpu/federated/api.py.
 
 The call contract is the JAX package's:
 
@@ -56,6 +56,18 @@ defers the round's stragglers and admits the entries due. Under
 device slots (`plan_round`, after admission) and the rows move before
 the round (`execute`); spans plan every round of the span first
 (`plan_span`).
+
+A plan transport (parallel/plantransport.py, `attach_transport`) makes
+each round's decision write-ahead: `_seal_plan` digests the composed
+decision (the cohort after admission, its survivor, work, poison and
+screen operands, the admission merges), journals it on the round's
+`schedule` event (one for every round while a transport is attached,
+with the serialized plan when the round had one), cross-checks it with
+the other controllers, and `_flush_write_ahead` makes the journal
+durable before the round, or the span, is dispatched. A deterministic
+restart loads the crashed run's stream (`load_plan_stream`): the
+journaled plans install into the scheduler, and each replayed round's
+digest must equal the journaled one (PlanDigestError).
 
 dp_sketch runs the RDP accountant (compress/privacy.py) on the host:
 each committed round journals a `privacy` event with the cumulative
@@ -125,6 +137,9 @@ from commefficient_tpu_torch.ops.prng import PRNGKey, fold_in
 from commefficient_tpu_torch.parallel import multihost as mh
 from commefficient_tpu_torch.parallel import tp as tensor_parallel
 from commefficient_tpu_torch.parallel.mesh import default_layout
+from commefficient_tpu_torch.parallel.plantransport import (
+    PlanDigestError, install_digest, journaled_plan_stream, serialize_plan,
+)
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
 from commefficient_tpu_torch.telemetry.metrics import METRIC_INDEX
 from commefficient_tpu_torch.telemetry.trace import TRACE
@@ -324,6 +339,12 @@ class FedModel:
         self.scheduler = None
         self._plan_active: dict = {}
         self._plan_journal: dict = {}
+        # the control plane: the attached transport, a restart's
+        # journaled digests by round, and whether a sealed record waits
+        # for the write-ahead flush
+        self.plan_transport = None
+        self._replay_digests: dict = {}
+        self._wa_dirty = False
         # --target_screened_rate: the adaptive screen, and each planned
         # round's stamped multiplier (a plan's value wins over the
         # controller's own); the controller bank (None without a bank
@@ -465,6 +486,21 @@ class FedModel:
                 if self.state_store is not None else None)
             scheduler.screen_ctl = self.screen_ctl
             scheduler.control_bank = self.control_bank
+
+    def attach_transport(self, transport) -> None:
+        """Install a plantransport.PlanTransport (or None): every
+        round's decision is then digested, journaled write-ahead and
+        cross-checked with the other controllers (module docstring)."""
+        self.plan_transport = transport
+
+    def load_plan_stream(self, journal_path: str) -> None:
+        """A deterministic restart's hook: the crashed run's journaled
+        plans install into the scheduler (replayed rounds run the
+        decisions it committed, not ones recomputed from the restored
+        tracker), and its digests check every replayed round."""
+        self._replay_digests, plans = journaled_plan_stream(journal_path)
+        if plans and self.scheduler is not None:
+            self.scheduler.load_replay_plans(plans)
 
     def scheduler_state(self) -> Optional[dict]:
         """The `sched_*` payload of the attached scheduler, or None."""
@@ -769,7 +805,11 @@ class FedModel:
                 self._plan_controls[int(round_idx)] = dict(plan.controls)
                 if self.control_bank is not None:
                     self.control_bank.install(plan.controls)
-            self._plan_journal[int(round_idx)] = plan.journal_fields()
+            fields = plan.journal_fields()
+            if self.plan_transport is not None:
+                # the journal is then the decision log a restart replays
+                fields["plan"] = serialize_plan(plan).decode()
+            self._plan_journal[int(round_idx)] = fields
         if work is not None:
             work = np.asarray(work, np.float32)
             cutoff = self.cfg.straggler_cutoff
@@ -845,18 +885,61 @@ class FedModel:
                                          round=int(round_idx))
             self.telemetry.flush()
 
-    def _seal_plan(self, round_idx: int, pois, screen) -> None:
-        """Journal a planned round's `schedule` event as it is planned,
-        before it is queued: the plan's fields, and in the screened
-        family the screen flag and the poisoned count. A round without a
-        plan journals none (the JAX rule)."""
+    def _seal_plan(self, round_idx: int, client_ids, survivors, work,
+                   admits=(), pois=None, screen=None) -> None:
+        """The write-ahead seal of a round's decision, before it is
+        queued: the `schedule` event (the plan's fields, in the screened
+        family the screen flag and the poisoned count), with the install
+        digest while a transport or a replay stream is live; the digest
+        held to the journaled one on a replay and cross-checked with the
+        other controllers. Without a transport a round without a plan
+        journals none (the JAX rule)."""
         fields = self._plan_journal.pop(int(round_idx), None)
-        if fields is None or self.telemetry is None:
-            return
-        if pois is not None:
-            fields["screen_on"] = float(screen)
+        digest = None
+        if self.plan_transport is not None or self._replay_digests:
+            digest = install_digest(round_idx, client_ids, survivors, work,
+                                    admits, poison=pois, screen_on=screen)
+        if pois is not None and fields is not None:
+            fields["screen_on"] = (None if screen is None
+                                   else float(screen))
             fields["n_poisoned"] = int((np.asarray(pois) > 0).sum())
-        self.telemetry.journal_event("schedule", **fields)
+        if self._replay_digests:
+            expect = self._replay_digests.pop(int(round_idx), None)
+            if expect is not None and expect != digest:
+                raise PlanDigestError(
+                    f"round {round_idx}: deterministic-restart replay "
+                    f"computed install digest {digest[:12]}… but the "
+                    f"write-ahead journal recorded {expect[:12]}… — "
+                    "the resumed control stream diverged from what "
+                    "the crashed run durably committed (differing "
+                    "config/seed, or a non-deterministic decision "
+                    "leaked into the plan)")
+        if self.plan_transport is not None and fields is None:
+            # every round of a transport run: its operands and merges
+            # are the decision a takeover verifies
+            ids = np.asarray(client_ids).reshape(-1)
+            fields = {"round": int(round_idx),
+                      "sampler": self.cfg.sampler,
+                      "n_sampled": int(len(ids) if survivors is None
+                                       else (np.asarray(survivors)
+                                             > 0).sum())}
+        if fields is not None and self.telemetry is not None:
+            if digest is not None:
+                fields["digest"] = digest
+            self.telemetry.journal_event("schedule", **fields)
+            if self.plan_transport is not None:
+                self._wa_dirty = True
+        if self.plan_transport is not None and digest is not None:
+            self.plan_transport.verify(round_idx, digest, scope="install")
+
+    def _flush_write_ahead(self) -> None:
+        """The write-ahead barrier: every sealed record durable before
+        the dispatch that executes it (a no-op without a transport, and
+        for the synchronous journal, durable as it returns)."""
+        if self._wa_dirty:
+            self._wa_dirty = False
+            if self.telemetry is not None:
+                self.telemetry.journal_flush()
 
     def _journal_round_faults(self, round_idx, survivors, admitted,
                               agg_stats) -> None:
@@ -966,9 +1049,11 @@ class FedModel:
         admissions merged into ids, data and mask."""
         survivors, work = self._faults_for_round(round_idx, ids_host)
         self._apply_plan_controls(round_idx)
+        admits = ()
         if self.async_admit is not None:
             ids_host, data, mask, survivors, work = self.async_admit.compose(
                 round_idx, ids_host, data, mask, survivors, work)
+            admits = self.async_admit.last_admits
         pois = screen = None
         if self._screened_dispatch(round_idx):
             W = len(ids_host)
@@ -976,7 +1061,8 @@ class FedModel:
             screen = self._screen_flag(round_idx)
             if survivors is None:
                 survivors = np.ones(W, np.float32)
-        self._seal_plan(round_idx, pois, screen)
+        self._seal_plan(round_idx, ids_host, survivors, work, admits, pois,
+                        screen)
         return ids_host, data, mask, (survivors, work, pois, screen)
 
     def _commit_round(self, round_idx: int, ids_host: np.ndarray,
@@ -1035,6 +1121,7 @@ class FedModel:
         with TRACE.span("plan", round=this_round):
             ids_host, data, mask, ops = self._plan_round(
                 this_round, ids_host, data, mask)
+            self._flush_write_ahead()
         # the tiered store's slots for the cohort, admissions included
         tier_plan = None
         ids_device = ids_host
@@ -1252,6 +1339,8 @@ class FedModel:
                    for i in range(len(ms[0].metrics))}})
             return server, clients, host, len(ms[0].metrics), bits[-1]
 
+        # every sealed plan of the span durable before it is queued
+        self._flush_write_ahead()
         versions = self._state_versions()
 
         def classify(exc: BaseException) -> bool:

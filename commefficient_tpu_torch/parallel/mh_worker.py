@@ -9,7 +9,7 @@ gathered over the ranks in chunks. The grid must give what the single
 process gives, with per-rank batch feeding (each rank passes its block
 of the rows).
 
-Three variants (--variant), the JAX worker's:
+Three variants (--variant) are the JAX worker's:
   * ``base``     - a 1-D clients layout over the ranks.
   * ``tp``       - a (clients x 2 model) layout with a tensor-parallel
                    MLP sandwich (parallel/tp.py): column-parallel up
@@ -21,6 +21,22 @@ Three variants (--variant), the JAX worker's:
                    of 4 feeds block 2. (The JAX worker's globalize()
                    fallback has no counterpart: one rank always feeds
                    one contiguous block.)
+
+and two are the port's own (the JAX package runs them in one process):
+  * ``plan``     - the base scenario's model and round config under
+                   --sampler throughput --plan_transport collective
+                   (parallel/plantransport.py), ROUNDS + SPAN rounds
+                   drawn by a FedSampler through the RoundScheduler, the
+                   tracker fed each rank's own wall clock: the
+                   coordinator's plans broadcast, every plan and install
+                   digest cross-checked, the coordinator's journal
+                   holding a digest a round. `--diverge_rank r` drops
+                   slot 0 of round 1 on rank r alone, a divergence every
+                   rank must raise as PlanDigestError (exit code 3).
+  * ``ring``     - ring attention (parallel/ring.py) over the ranks on
+                   RING_SHAPE's q, k, v from a seed: each rank's chunk's
+                   output and the gradients of sum(out ** 2), written to
+                   <out>.<rank>.npz (`--rotate` picks the rotation).
 
 Launch, here two ranks on the CPU over gloo and the single process:
 
@@ -54,7 +70,13 @@ import numpy as np
 # the single-process reference run
 W, B, N_CLIENTS, ROUNDS, SPAN = 8, 2, 16, 3, 2
 MESH_DEVICES = 8
-VARIANTS = ("base", "tp", "noncontig")
+VARIANTS = ("base", "tp", "noncontig", "plan", "ring")
+# the plan scenario's flags over the base config
+PLAN_OVERRIDES = dict(sampler="throughput", plan_transport="collective")
+# exit code of a rank whose control plane diverged (PlanDigestError)
+DIVERGED = 3
+# the ring scenario's [B, H, L, Dh] (L split over the ranks)
+RING_SHAPE = (2, 2, 64, 16)
 # grid-vs-single-process tolerance, stated in every comparison
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -299,6 +321,110 @@ def run_scenario(out_path: str, variant: str = "base", device="cuda",
           f"/{mh.process_count()} ok", flush=True)
 
 
+def run_plan_scenario(out_path: str, device="cuda",
+                      diverge_rank: Optional[int] = None) -> None:
+    """The `plan` variant (module docstring)."""
+    from types import SimpleNamespace
+
+    from commefficient_tpu_torch.data.sampler import FedSampler
+    from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
+    from commefficient_tpu_torch.parallel import multihost as mh
+    from commefficient_tpu_torch.parallel.plantransport import (
+        PlanDigestError, attach_config_transport, deserialize_plan,
+        journaled_plan_stream,
+    )
+    from commefficient_tpu_torch.scheduler import attach_round_scheduler
+    from commefficient_tpu_torch.telemetry import (
+        RunJournal, TelemetrySession,
+    )
+    from commefficient_tpu_torch.utils.faults import FaultSchedule
+
+    module, _ = make_model("base")
+    layout = make_layout("base")
+    fed = FedModel(module, make_loss(module),
+                   scenario_config({**PLAN_OVERRIDES,
+                                    "multihost": layout is not None}),
+                   device=device, num_clients=N_CLIENTS, layout=layout)
+    FedOptimizer(fed).param_groups[0]["lr"] = 0.1
+    rs = np.random.RandomState(0)
+    x = rs.randn(N_CLIENTS, B, 16, 16, 3).astype(np.float32)
+    y = rs.randint(0, 10, (N_CLIENTS, B)).astype(np.int32)
+    smp = FedSampler(np.full(N_CLIENTS, B), W, B, seed=7)
+    loader = SimpleNamespace(sampler=smp)
+    sched = attach_round_scheduler(fed, loader)
+    transport = attach_config_transport(fed, loader, fed.cfg)
+    jpath = out_path + ".jsonl"
+    coord = mh.is_coordinator()
+    tele = TelemetrySession(journal=RunJournal(jpath) if coord else None,
+                            tracker=fed.throughput)
+    fed.attach_telemetry(tele)
+    if diverge_rank is not None and mh.process_index() == diverge_rank:
+        fed.set_fault_schedule(FaultSchedule(drop_slots={1: [0]}))
+    sl = mh.local_row_slice(fed.layout, W)
+    total, done, dispatched = ROUNDS + SPAN, 0, []
+    try:
+        while done < total:
+            sched.begin_epoch(done)
+            for ids, idx, mask in smp.epoch():
+                ids = np.asarray(ids)
+                fed((ids, (x[ids[:, None], idx][sl], y[ids[:, None], idx][sl]),
+                     mask[sl]))
+                dispatched.append(ids)
+                done += 1
+                if done >= total:
+                    break
+    except PlanDigestError as e:
+        with open(f"{out_path}.diverged.{mh.process_index()}", "w") as f:
+            f.write(str(e))
+        raise SystemExit(DIVERGED)
+    finally:
+        tele.close()
+    same = np.asarray(1)
+    if fed.layout is not None and fed.layout.connected:
+        same = np.asarray(int(ranks_bitwise_equal(fed.ps_weights)))
+    if coord:
+        digests, plans = journaled_plan_stream(jpath)
+        parts = [np.asarray(deserialize_plan(plans[r]).participants)
+                 for r in range(total)]
+        np.savez(out_path,
+                 ps_weights=fed.ps_weights.detach().cpu().numpy(),
+                 process_count=mh.process_count(),
+                 ranks_bitwise_equal=same,
+                 rounds=total,
+                 digest_rounds=np.asarray(sorted(digests)),
+                 plan_ids_match=np.asarray(int(all(
+                     np.array_equal(p, d[:len(p)])
+                     for p, d in zip(parts, dispatched)))),
+                 transport_calls=transport.stats.calls,
+                 transport_bytes=transport.stats.bytes)
+    mh.sync_processes("plan-done")
+    print(f"mh_worker[plan] rank={mh.process_index()}"
+          f"/{mh.process_count()} ok", flush=True)
+
+
+def run_ring_scenario(out_path: str, device="cuda",
+                      rotate: str = "auto") -> None:
+    """The `ring` variant (module docstring)."""
+    import torch
+
+    from commefficient_tpu_torch.parallel import multihost as mh
+    from commefficient_tpu_torch.parallel.ring import SeqRing, ring_attention
+    n, me = mh.process_count(), mh.process_index()
+    ring = SeqRing(range(n), rotate=rotate).bind()
+    Bq, H, L, Dh = RING_SHAPE
+    rs = np.random.RandomState(0)
+    full = [rs.randn(Bq, H, L, Dh).astype(np.float32) for _ in range(3)]
+    lc = L // n
+    q, k, v = (torch.tensor(a[:, :, me * lc:(me + 1) * lc], device=device,
+                            requires_grad=True) for a in full)
+    out = ring_attention(q, k, v, ring)
+    (out ** 2).sum().backward()
+    np.savez(f"{out_path}.{me}.npz", out=out.detach().cpu().numpy(),
+             dq=q.grad.cpu().numpy(), dk=k.grad.cpu().numpy(),
+             dv=v.grad.cpu().numpy(), rotations=ring.stats.calls)
+    print(f"mh_worker[ring] rank={me}/{n} ok", flush=True)
+
+
 def ranks_bitwise_equal(t) -> bool:
     """Whether every rank's tensor `t` is bitwise rank 0's (a broadcast
     and an all_reduce, both served by gloo on a card)."""
@@ -406,6 +532,10 @@ def main(argv=None) -> None:
                     help="a .npy flat weight vector to start from")
     ap.add_argument("--overrides", default=None,
                     help="Config fields over the scenario's, as JSON")
+    ap.add_argument("--diverge_rank", type=int, default=None,
+                    help="plan: the rank whose round 1 diverges")
+    ap.add_argument("--rotate", default="auto",
+                    help="ring: the rotation (auto, p2p, broadcast)")
     args = ap.parse_args(argv)
 
     from commefficient_tpu_torch.parallel import multihost as mh
@@ -417,10 +547,16 @@ def main(argv=None) -> None:
                       device=args.device)
         device = mh.rank_device(args.device)
     try:
-        run_scenario(args.out, variant=args.variant, device=device,
-                     init=args.init,
-                     overrides=json.loads(args.overrides)
-                     if args.overrides else None)
+        if args.variant == "plan":
+            run_plan_scenario(args.out, device=device,
+                              diverge_rank=args.diverge_rank)
+        elif args.variant == "ring":
+            run_ring_scenario(args.out, device=device, rotate=args.rotate)
+        else:
+            run_scenario(args.out, variant=args.variant, device=device,
+                         init=args.init,
+                         overrides=json.loads(args.overrides)
+                         if args.overrides else None)
     finally:
         mh.shutdown()
 

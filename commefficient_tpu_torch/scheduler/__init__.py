@@ -27,8 +27,21 @@ the scheduler: the adaptive screen (`screen_ctl`, its multiplier on
 `RoundPlan.screen_mult`) and the controller bank (`control_bank`, which
 stamps each fresh plan's `controls` and min-composes its work
 fractions). Either makes the scheduler plan every round, and their
-state rides the same `sched_*` keys. Not ported here: the plan
-transport of the multi-host layer (ROADMAP.md Queue 1 item 9g).
+state rides the same `sched_*` keys.
+
+The control plane (parallel/plantransport.py, `attach_transport`): a
+policy that reads process-local state (the throughput sampler, the
+deadline, the survival estimate) would diverge across controllers, so
+with a transport attached the coordinator broadcasts each round's
+serialized plan at `commit_round`, the plan carrying its chosen
+`participants`, and every controller, the coordinator included,
+installs the delivered bytes through `_install`, which cross-checks
+their digest (`transport.verify`). A follower takes its selection from
+the broadcast (`_recv_plan`, inside a `plan_install` trace span); a
+shared-stream draw (uniform) still runs on every controller and is
+held to the broadcast. On a deterministic restart `replay_plans` holds
+the crashed run's journaled plans: a replayed round installs them, and
+the coordinator broadcasts them again verbatim.
 """
 from __future__ import annotations
 
@@ -37,6 +50,9 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 
 from commefficient_tpu_torch.control.screen import AdaptiveScreenController
+from commefficient_tpu_torch.parallel.plantransport import (
+    PlanDigestError, deserialize_plan, plan_digest, serialize_plan,
+)
 from commefficient_tpu_torch.scheduler.deadline import (
     DeadlineDecision, DeadlinePolicy, overprovision,
 )
@@ -45,6 +61,7 @@ from commefficient_tpu_torch.scheduler.policy import (
     make_sampler,
 )
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
+from commefficient_tpu_torch.telemetry.trace import TRACE
 
 __all__ = [
     "AdaptiveScreenController", "DeadlineDecision", "DeadlinePolicy",
@@ -70,6 +87,9 @@ class RoundPlan(NamedTuple):
     est_round_s: Optional[float]
     expected_round_s: Optional[float]
     sampler: str
+    # the chosen ids before padding, on transport runs only: a follower
+    # installs the coordinator's selection from the broadcast
+    participants: Optional[np.ndarray] = None
     screen_mult: Optional[float] = None
     controls: Optional[dict] = None
 
@@ -127,6 +147,61 @@ class RoundScheduler:
         # (FedModel.attach_scheduler)
         self.screen_ctl = None
         self.control_bank = None
+        # the control plane (module docstring): the attached transport,
+        # the last selection (carried by the coordinator's plan), the
+        # follower's received plan, and a restart's journaled plans
+        self.transport = None
+        self._last_selected: Optional[np.ndarray] = None
+        self._received: Optional[RoundPlan] = None
+        self.replay_plans: Dict[int, bytes] = {}
+
+    def load_replay_plans(self, plans: Dict[int, bytes]) -> None:
+        """Install a crashed run's journaled plans ({round: serialized
+        plan}) for the deterministic restart's replay."""
+        self.replay_plans = dict(plans)
+
+    def attach_transport(self, transport) -> None:
+        """Install a plantransport.PlanTransport (or None). It matters
+        only off the default, which plans nothing."""
+        self.transport = transport
+
+    @property
+    def _follower(self) -> bool:
+        """A transport attached, a non-default policy and not the
+        coordinator: this controller installs broadcast plans."""
+        return (self.transport is not None and not self.is_default
+                and not self.transport.is_coordinator)
+
+    def _recv_plan(self, round_idx: int) -> RoundPlan:
+        """A follower's receive of the round's broadcast, installed as
+        delivered; idempotent (a duplicated delivery installs the same
+        plan under the same round)."""
+        with TRACE.span("plan_install", round=int(round_idx)):
+            plan = deserialize_plan(self.transport.broadcast(round_idx))
+        self._received = plan
+        return plan
+
+    def _selection_from_plan(self, plan: RoundPlan, alive, rng,
+                             source: str, diverged: str) -> np.ndarray:
+        """The round's participants from an installed plan (broadcast or
+        journaled). A shared-stream policy still draws, so that every
+        controller's rng advances alike, and its draw must equal the
+        plan's or PlanDigestError is raised."""
+        if plan.participants is None:
+            raise PlanDigestError(
+                f"round {self._next_round}: {source} carries no "
+                "participants — coordinator running a pre-transport "
+                "build?")
+        part = np.asarray(plan.participants)
+        if not self.policy.process_local:
+            mine = np.asarray(self.policy.select(
+                np.asarray(alive), len(part), rng, self._next_round))
+            if not np.array_equal(mine, part):
+                raise PlanDigestError(
+                    f"round {self._next_round}: this controller's "
+                    f"shared-stream draw disagrees with {source} — "
+                    f"{diverged}")
+        return part
 
     @property
     def is_default(self) -> bool:
@@ -144,16 +219,39 @@ class RoundScheduler:
         plans of an abandoned stream tail are dropped."""
         self._next_round = int(first_round)
         self._plans.clear()
+        self._last_selected = None
+        self._received = None
 
     def select(self, alive: np.ndarray, num_slots: int,
                rng) -> np.ndarray:
         """This round's active participants: over-provisioning picks the
         count (n <= num_slots), the policy the ids. The FedSampler pads
-        the other slots with idle rows."""
+        the other slots with idle rows. A follower takes the ids and
+        their count from the coordinator's broadcast; a replayed round
+        from the journaled plan."""
+        if self._follower:
+            plan = self._recv_plan(self._next_round)
+            return self._selection_from_plan(
+                plan, alive, rng, source="the coordinator's broadcast",
+                diverged="rng replicas diverged")
+        wire = (self.replay_plans.get(self._next_round)
+                if self.transport is not None else None)
+        if wire is not None:
+            part = self._selection_from_plan(
+                deserialize_plan(wire), alive, rng,
+                source="the write-ahead journaled plan",
+                diverged="restored rng state diverged from the "
+                         "crashed run")
+            self._last_selected = np.array(part, copy=True)
+            return part
         n = overprovision(self.target_survivors, int(num_slots),
                           len(alive), self._survival_estimate())
-        return np.asarray(self.policy.select(np.asarray(alive), n, rng,
-                                             self._next_round))
+        chosen = np.asarray(self.policy.select(np.asarray(alive), n, rng,
+                                               self._next_round))
+        if self.transport is not None:
+            # the coordinator's plan carries the selection itself
+            self._last_selected = np.array(chosen, copy=True)
+        return chosen
 
     def _survival_estimate(self) -> float:
         """The tracker's completion ratio once it has seen a round's
@@ -182,6 +280,26 @@ class RoundScheduler:
             self.state_prefetch(ids[ex > 0])
         if self.is_default:
             return
+        if self._follower:
+            # the broadcast plan, never a local computation: select
+            # received it (a commit without a select receives it here)
+            plan = self._received
+            if plan is None or plan.round_idx != round_idx:
+                plan = self._recv_plan(round_idx)
+            self._received = None
+            self._install(round_idx, plan, fresh)
+            return
+        wire = (self.replay_plans.pop(round_idx, None)
+                if self.transport is not None else None)
+        if wire is not None:
+            # a replayed round: the journaled bytes installed and
+            # broadcast again verbatim
+            self._last_selected = None
+            with TRACE.span("plan_install", round=int(round_idx)):
+                delivered = self.transport.broadcast(round_idx, wire)
+                self._install(round_idx, deserialize_plan(delivered),
+                              fresh)
+            return
         active = ex > 0
         n_active = int(active.sum())
         if fresh:
@@ -204,13 +322,41 @@ class RoundScheduler:
         plan = RoundPlan(
             round_idx, n_active, active_mask, work,
             decision.deadline_s, decision.est_round_s,
-            decision.expected_round_s, self.policy.name)
+            decision.expected_round_s, self.policy.name,
+            self._last_selected if self.transport is not None else None)
         if self.screen_ctl is not None:
             plan = plan._replace(screen_mult=self.screen_ctl.plan_mult())
         if self.control_bank is not None:
             plan = self.control_bank.stamp_plan(plan, ids, ex,
                                                 self.tracker)
+        self._last_selected = None
+        if self.transport is not None:
+            # the coordinator installs the delivered bytes, as every
+            # follower does
+            with TRACE.span("plan_install", round=int(round_idx)):
+                delivered = self.transport.broadcast(
+                    round_idx, serialize_plan(plan))
+                self._install(round_idx, deserialize_plan(delivered),
+                              fresh=False)
+            return
         self._plans[round_idx] = plan
+
+    def _install(self, round_idx: int, plan: RoundPlan,
+                 fresh: bool) -> None:
+        """Install a delivered plan for take_plan: a fresh follower or
+        replayed round advances the counters from the plan's fields
+        (the coordinator's advanced as it computed it), and the plan's
+        digest is cross-checked against every other controller's."""
+        if fresh:
+            self.clients_sampled += int(plan.n_sampled)
+            if plan.work is not None:
+                self.truncated_slots += int(
+                    (np.asarray(plan.work) < 1.0).sum())
+            if plan.deadline_s is not None:
+                self.deadline_rounds += 1
+                self.last_deadline_s = float(plan.deadline_s)
+        self._plans[round_idx] = plan
+        self.transport.verify(round_idx, plan_digest(plan))
 
     # -- dispatch (FedModel) ----------------------------------------------
     def take_plan(self, round_idx: int) -> Optional[RoundPlan]:

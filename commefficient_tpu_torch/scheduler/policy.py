@@ -29,6 +29,10 @@ class ParticipantSampler:
     policy draws from."""
 
     name = "?"
+    # whether the choice reads this process's own state (a tracker fed
+    # its wall clock): a follower controller then installs the
+    # coordinator's broadcast choice instead of drawing
+    process_local = False
 
     def select(self, alive: np.ndarray, num_slots: int, rng,
                round_idx: int) -> np.ndarray:
@@ -96,6 +100,7 @@ class ThroughputAwareSampler(ParticipantSampler):
     table and draws the same stream."""
 
     name = "throughput"
+    process_local = True    # reads the coordinator's live tracker
 
     def __init__(self, seed: int, tracker: ClientThroughputTracker,
                  explore_floor: float = 0.1, speed_bias: float = 2.0,

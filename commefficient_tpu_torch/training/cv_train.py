@@ -16,8 +16,11 @@ utils/faults.py with the numeric rollback; `--scan_rounds` (spans of
 scheduler/), `--async_admit_rounds`, `--state_tier host` and the
 controllers (`--target_screened_rate`, `--speed_match`,
 `--scan_span_palette`, `--adapt_staleness`, control/), and a grid of
-ranks (`--multihost`, `--num_slices`, parallel/). What the port does
-not run yet is refused by Config.validate: the rest of ROADMAP.md
+ranks (`--multihost`, `--num_slices`, parallel/) with the plan
+transport (`--plan_transport collective|emulated`,
+parallel/plantransport.py: attached after the scheduler, its journaled
+plan stream loaded on `--resume` with `--journal_path`). What the port
+does not run yet is refused by Config.validate: the rest of ROADMAP.md
 Queue 1.
 
 Run on the card:
@@ -53,6 +56,9 @@ from commefficient_tpu_torch.ops import lowp
 from commefficient_tpu_torch.ops.flat import module_layout
 from commefficient_tpu_torch.parallel import multihost as mh
 from commefficient_tpu_torch.parallel.mesh import default_layout
+from commefficient_tpu_torch.parallel.plantransport import (
+    attach_config_transport,
+)
 from commefficient_tpu_torch.scheduler import attach_round_scheduler
 from commefficient_tpu_torch.training import persist
 from commefficient_tpu_torch.training.scanloop import (
@@ -339,7 +345,8 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
     happens."""
     fallbacks = []
     if cfg.resume:
-        persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks)
+        persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks,
+                       cfg.journal_path)
     tele = persist.start_telemetry(model, cfg, log_dir, "cv_train",
                                    fallbacks)
     ok = False
@@ -406,6 +413,9 @@ def build(cfg: Config, device="cuda",
     # sampler's stream in checkpoints (before any --resume, so sched_*
     # and smp_* land in them)
     attach_round_scheduler(model, train_loader)
+    # --plan_transport: the collective transport on that scheduler, or
+    # the emulated controllers in its place (before any --resume too)
+    attach_config_transport(model, train_loader, model.cfg)
     opt = FedOptimizer(model)
     # cifar10-fast schedule: knots [0, pivot, num_epochs] -> [0, lr, 0]
     lr_scale = cfg.lr_scale if cfg.lr_scale is not None else 0.4

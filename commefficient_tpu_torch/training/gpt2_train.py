@@ -23,8 +23,10 @@ controllers run as in cv_train. A grid of ranks runs as in cv_train
 (`--multihost`, `--num_slices`, parallel/), and `--model_parallel N`
 splits each block's attention heads, MLP units and the tied embedding's
 vocabulary over N ranks (parallel/tp.py; it prints `tensor parallel:
-mesh {...}` as the JAX driver does). What the port does not run yet is
-refused by Config.validate: the rest of ROADMAP.md Queue 1 item 9g.
+mesh {...}` as the JAX driver does). `--plan_transport` attaches the
+control plane (parallel/plantransport.py) as in cv_train. What the port
+does not run yet is refused by Config.validate: ROADMAP.md Queue 1
+item 10's `--debug_transfer_guard`.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
@@ -52,6 +54,9 @@ from commefficient_tpu_torch.data.persona import (
 from commefficient_tpu_torch.federated.api import FedModel, FedOptimizer
 from commefficient_tpu_torch.parallel import multihost as mh
 from commefficient_tpu_torch.parallel.mesh import default_layout
+from commefficient_tpu_torch.parallel.plantransport import (
+    attach_config_transport,
+)
 from commefficient_tpu_torch.parallel.tp import tp_loss
 from commefficient_tpu_torch.models.convert import (
     from_jax_params, load_flat, to_jax_params,
@@ -444,6 +449,9 @@ def build(cfg: Config, tokenizer, device="cuda",
     # sampler's stream in checkpoints (before any --resume, so sched_*
     # and smp_* land in them)
     attach_round_scheduler(model, train_loader)
+    # --plan_transport: the collective transport on that scheduler, or
+    # the emulated controllers in its place (before any --resume too)
+    attach_config_transport(model, train_loader, model.cfg)
     opt = FedOptimizer(model)
     spe = train_loader.steps_per_epoch
     lr = cfg.lr_scale if cfg.lr_scale is not None else DEFAULT_LR
@@ -467,7 +475,8 @@ def run(model: FedModel, opt: FedOptimizer, lr_scheduler, train_loader,
     happens."""
     fallbacks = []
     if cfg.resume:
-        persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks)
+        persist.resume(model, lr_scheduler, _ckpt_path(cfg), fallbacks,
+                       cfg.journal_path)
     tele = persist.start_telemetry(model, cfg, log_dir, "gpt2_train",
                                    fallbacks)
     ok = False

@@ -46,21 +46,28 @@ def _state_kwargs(model, lr_scheduler) -> dict:
 
 
 def resume(model, lr_scheduler, prefix: str,
-           fallbacks: List[Tuple[str, str]]) -> Optional[str]:
+           fallbacks: List[Tuple[str, str]],
+           journal_path: str = "") -> Optional[str]:
     """--resume: load the newest good checkpoint of `prefix` into the
     model (falling back past corrupt files, each appended to
     `fallbacks` as (path, reason)) and the LR schedule's step. Attach
-    the run's sampler before this, so its stream is restored too.
-    Returns the file loaded, or None when there is none."""
+    the run's sampler before this, so its stream is restored too. With
+    a plan transport and a `journal_path`, the crashed run's
+    write-ahead plan stream is loaded after it (the deterministic
+    restart: FedModel.load_plan_stream). Returns the file loaded, or
+    None when there is none."""
     loaded = load_resilient(
         prefix, expect_fingerprint=model.checkpoint_fingerprint,
         on_fallback=lambda p, why: fallbacks.append((p, why)))
-    if loaded is None:
-        return None
-    path, ckpt = loaded
-    lr_scheduler.load_state_dict({"step_count": model.load_state(ckpt)})
-    if mh.is_coordinator():
-        print(f"resumed from {path} at round {int(ckpt.server.round_idx)}")
+    path = None
+    if loaded is not None:
+        path, ckpt = loaded
+        lr_scheduler.load_state_dict({"step_count": model.load_state(ckpt)})
+        if mh.is_coordinator():
+            print(f"resumed from {path} at round "
+                  f"{int(ckpt.server.round_idx)}")
+    if model.plan_transport is not None and journal_path:
+        model.load_plan_stream(journal_path)
     return path
 
 

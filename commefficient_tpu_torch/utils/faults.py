@@ -22,10 +22,10 @@ The failure classes the round engine models:
 functions of (seed, round) on numpy's counter-based generator, each on
 its own domain tag (DOMAINS, the JAX package's integers unchanged), so a
 resumed or rolled-back run replays the identical faults, bit for bit
-the JAX package's. `FaultSchedule` scripts them for tests and drills. The JAX
-schedule's control-plane members (coordinator crash, broadcast loss)
-belong to the multi-host layer, which the port does not have yet
-(ROADMAP.md Queue 1 item 9).
+the JAX package's. `FaultSchedule` scripts them for tests and drills,
+and scripts the control plane's faults too (the coordinator dying
+mid-broadcast, lost, duplicated and late broadcasts), which the plan
+transport consumes (parallel/plantransport.py), never FedModel.
 """
 from __future__ import annotations
 
@@ -130,6 +130,21 @@ class FaultSchedule:
     crash_in_span: raise InjectedFault(round - 1) before this round
                  commits anything (each round is its own span here); it
                  fires again on a resume that keeps the schedule
+
+    Control-plane faults, consumed by the plan transport
+    (parallel/plantransport.py), not by FedModel:
+
+    coordinator_crash_at: the coordinator dies while broadcasting this
+                 round's plan, before it reaches any other controller
+                 (it may already be journaled write-ahead). Raises
+                 InjectedFault(round - 1), the last round completed; it
+                 fires again while the schedule stays installed.
+    broadcast_drop: rounds whose first broadcast send is lost (the
+                 retry around the send delivers it).
+    broadcast_dup: rounds delivered twice; the install is idempotent by
+                 round.
+    broadcast_slow: {round: n}: the first n receives of that round time
+                 out before the payload lands.
     """
     drop: Mapping[int, Sequence[int]] = field(default_factory=dict)
     drop_slots: Mapping[int, Sequence[int]] = field(default_factory=dict)
@@ -139,6 +154,10 @@ class FaultSchedule:
     byzantine: Mapping[int, Sequence[int]] = field(default_factory=dict)
     crash_after: Optional[int] = None
     crash_in_span: Optional[int] = None
+    coordinator_crash_at: Optional[int] = None
+    broadcast_drop: Sequence[int] = ()
+    broadcast_dup: Sequence[int] = ()
+    broadcast_slow: Mapping[int, int] = field(default_factory=dict)
 
     def survival_mask(self, round_idx: int,
                       client_ids) -> Optional[np.ndarray]:
@@ -196,3 +215,23 @@ class FaultSchedule:
         return (self.crash_in_span is not None
                 and int(first_round) <= int(self.crash_in_span)
                 < int(first_round) + int(n_rounds))
+
+    def should_crash_coordinator(self, round_idx: int) -> bool:
+        """Whether the coordinator dies broadcasting this round's plan
+        (the transport raises InjectedFault(round_idx - 1))."""
+        return (self.coordinator_crash_at is not None
+                and int(round_idx) == int(self.coordinator_crash_at))
+
+    def broadcast_dropped(self, round_idx: int, attempt: int) -> bool:
+        """Whether this send attempt of the round's broadcast is lost
+        (only the first; the retry goes through)."""
+        return (attempt == 0 and int(round_idx)
+                in set(int(r) for r in self.broadcast_drop))
+
+    def broadcast_duplicated(self, round_idx: int) -> bool:
+        return int(round_idx) in set(int(r) for r in self.broadcast_dup)
+
+    def broadcast_slow_attempts(self, round_idx: int) -> int:
+        """How many receives of this round time out before the payload
+        is visible (0: delivered at once)."""
+        return int(self.broadcast_slow.get(int(round_idx), 0))

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Phases 27-38 of chip_smoke.py alone on one CUDA card, and the host
+"""Phases 27-41 of chip_smoke.py alone on one CUDA card, and the host
 timeline of config #4's rounds, for work on the plugins, the span
 loop, the scheduler, async admission, the tiered client state, the
-controllers, the blockwise decode and the ranks without the whole
-script:
+controllers, the blockwise decode, the ranks and the plan transport
+without the whole script:
 
     python3 scripts/chip_phases.py [powersgd dp_sketch privacy spans
                                     imagenet timeline sched async_admit
                                     statetier control gpt2medium grid
-                                    tpgpt2]
+                                    tpgpt2 plan plangrid ring]
 
 With no argument it runs every phase. Phase 4 (config #2) runs first
 for the ms/round the new phases print beside theirs, `imagenet` runs
@@ -16,9 +16,10 @@ phase 13 before phase 31 and `statetier` phase 11 before phase 34 for
 the same reason; `gpt2medium` runs phase 36's kernel checks, then its
 rounds (without phase 7 beside them). `grid` runs phase 5 after phase
 4 (its reduced table is held to phase 5's), then phase 37's kernel rows
-and ranks; `tpgpt2` runs K4's 6-head check and phase 38 (without phase
-7 beside it). `timeline` drives
-config #4 (chip_smoke.CONFIG4) plain and each way of
+and ranks, whose second and third legs are phases 40-41 (`plangrid`
+and `ring` run the same); `tpgpt2` runs K4's 6-head check and phase 38
+(without phase 7 beside it); `plan` runs phase 39 after phase 4.
+`timeline` drives config #4 (chip_smoke.CONFIG4) plain and each way of
 chip_smoke.IMAGENET_SPANS for TIMELINE_ROUNDS rounds with the stage
 tracer on, and prints every stage span (plan, stage, dispatch,
 device_execute, collect, the checkpoint and journal writes) and every
@@ -40,7 +41,7 @@ import torch  # noqa: E402
 
 PHASES = ("powersgd", "dp_sketch", "privacy", "spans", "imagenet",
           "timeline", "sched", "async_admit", "statetier", "control",
-          "gpt2medium", "grid", "tpgpt2")
+          "gpt2medium", "grid", "tpgpt2", "plan", "plangrid", "ring")
 TIMELINE_ROUNDS = 6
 
 
@@ -134,8 +135,11 @@ def main(argv) -> int:
     c2 = os.path.join(HERE, "build", "chip_smoke_data")
     tmp = tempfile.mkdtemp(prefix="chip_phases_")
     try:
+        if {"plangrid", "ring"} & set(which):
+            which = list(which) + ["grid"]
         if set(which) & {"powersgd", "dp_sketch", "privacy", "spans",
-                         "sched", "async_admit", "control", "grid"}:
+                         "sched", "async_admit", "control", "grid",
+                         "plan"}:
             model, round_ms, _, _, batch = cs.main_path(sc, ac, cv_train,
                                                         parse_args, c2)
             if "grid" in which:
@@ -164,6 +168,9 @@ def main(argv) -> int:
             cs.phase("tpgpt2", f"kernels-line row: {cs.k4_tp_row(ac)}")
             cs.tpgpt2_phase(gpt2_train, parse_args, HashTokenizer, fserver,
                             None, None, tmp)
+        if "plan" in which:
+            cs.plan_phase(sc, ac, cv_train, parse_args, c2, round_ms,
+                          os.path.join(tmp, "plan"))
         if "powersgd" in which:
             cs.powersgd_phase(sc, ac, cv_train, parse_args, c2, fclient,
                               prng, round_ms)

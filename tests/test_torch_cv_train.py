@@ -70,18 +70,21 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
     (("--plan_transport", "emulated"), "--plan_transport"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
-    # --multihost and --model_parallel are ported (item 9g's first
-    # half): they parse and validate as the JAX package's parse_args
-    # does; the plan transport and the transfer guard stay refused
+    # --multihost, --model_parallel (item 9g's first half) and
+    # --plan_transport (its rest) are ported: they parse and validate as
+    # the JAX package's parse_args does; the transfer guard stays refused
     argv = _argv(tmp_path, *flags)
-    if needle in ("--multihost", "--model_parallel"):
+    if needle in ("--multihost", "--model_parallel", "--plan_transport"):
         from commefficient_tpu.config import parse_args as j_parse_args
         cfg = parse_args(argv=argv)
         jcfg = j_parse_args(argv=[a for a in argv
                                   if a not in ("--device", "cpu")])
-        assert (cfg.multihost, cfg.model_parallel) == (
-            jcfg.multihost, jcfg.model_parallel)
-        assert cfg.multihost or cfg.model_parallel == 2
+        assert (cfg.multihost, cfg.model_parallel, cfg.plan_transport,
+                cfg.plan_controllers) == (
+            jcfg.multihost, jcfg.model_parallel, jcfg.plan_transport,
+            jcfg.plan_controllers)
+        assert (cfg.multihost or cfg.model_parallel == 2
+                or cfg.plan_transport == "emulated")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
         parse_args(argv=argv)

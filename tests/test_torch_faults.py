@@ -610,9 +610,9 @@ def test_fault_flag_invariants_are_jax_validate(tmp_path, flags, match):
         j_parse_args(argv=[a for a in argv if a not in ("--device", "cpu")])
 
 
-# the options of item 9's multi-device step (9g): the plan transport
-# is still refused with its queue item named; --model_parallel > 1,
-# --multihost and --num_slices > 1 are ported and validate as in JAX
+# the options of item 9's multi-device step (9g): --model_parallel > 1,
+# --multihost, --num_slices > 1 and the plan transport are ported and
+# validate as in JAX
 ITEM_9_REFUSED = {
     "--model_parallel > 1": dict(model_parallel=2),
     "--plan_transport": dict(plan_transport="emulated"),
@@ -705,14 +705,10 @@ def test_what_item_9_still_holds_is_refused_naming_it(flag):
     kw = {**dict(mode="uncompressed", local_momentum=0.0),
           **ITEM_9_REFUSED[flag]}
     cfg = TConfig(**kw)
-    if flag != "--plan_transport":
-        # ported in item 9g's first half: validates as JAX's Config
-        assert cfg.validate() is cfg
-        jcfg = JConfig(**kw).validate()
-        assert (cfg.model_parallel, cfg.multihost, cfg.num_slices) == (
-            jcfg.model_parallel, jcfg.multihost, jcfg.num_slices)
-        return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 9") as e:
-        cfg.validate()
-    assert flag in str(e.value)
+    # ported in item 9g: validates as JAX's Config
+    assert cfg.validate() is cfg
+    jcfg = JConfig(**kw).validate()
+    assert (cfg.model_parallel, cfg.multihost, cfg.num_slices,
+            cfg.plan_transport, cfg.plan_controllers) == (
+        jcfg.model_parallel, jcfg.multihost, jcfg.num_slices,
+        jcfg.plan_transport, jcfg.plan_controllers)

@@ -15,6 +15,10 @@ over gloo:
     (tests/test_mesh.py:68-98: placement changes only the reduce's
     order);
   * cv_train's --multihost driver on 2 ranks;
+  * --sampler throughput --plan_transport collective on 2 ranks (the
+    mh_worker `plan` scenario and cv_train's driver): weights bitwise
+    equal, every round's digests cross-checked and journaled, and an
+    injected divergence on rank 1 raising PlanDigestError on both;
   * the round's other families on 2 ranks against the one process (the
     screened family's cohort statistics, the robust aggregators, the
     per-client rows under dropout, --dp, dp_sketch), and the int8 wire,
@@ -32,6 +36,7 @@ import torch
 
 from commefficient_tpu_torch.parallel import mh_worker as tmw
 from commefficient_tpu_torch.parallel import multihost as tmh
+from commefficient_tpu_torch.parallel.plantransport import PLAN_MAX_BYTES
 
 pytestmark = pytest.mark.torch_port
 
@@ -537,3 +542,133 @@ def test_load_state_installs_the_ranks_block(position):
                 getattr(one.clients, name)[block].numpy(), err_msg=name)
         np.testing.assert_array_equal(rank.ps_weights.numpy(),
                                       one.ps_weights.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the plan transport (parallel/plantransport.py) over the ranks
+
+
+def _plan_grid(tmp_path, diverge_rank=None, timeout=120):
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    port = tmw.free_port()
+    out = str(tmp_path / "plan.npz")
+    extra = [] if diverge_rank is None else ["--diverge_rank",
+                                             str(diverge_rank)]
+    procs = [tmw.spawn(["--out", out if i == 0 else f"{out}.{i}",
+                        "--device", "cpu", "--process_id", str(i),
+                        "--num_processes", "2", "--port", str(port),
+                        *extra], env, "plan") for i in range(2)]
+    t0 = time.monotonic()
+    try:
+        logs = [p.communicate(timeout=timeout)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out, [p.returncode for p in procs], logs, time.monotonic() - t0
+
+
+def test_plan_grid_on_two_ranks(tmp_path):
+    """--sampler throughput --plan_transport collective on 2 ranks, each
+    tracker fed its own wall clock: the coordinator's plans broadcast,
+    the ranks' weights bitwise equal, a plan and an install digest
+    cross-checked every round and journaled write-ahead."""
+    out, codes, logs, _ = _plan_grid(tmp_path)
+    assert codes == [0, 0], logs[0][-3000:] + logs[1][-3000:]
+    z = np.load(out)
+    rounds = int(z["rounds"])
+    assert int(z["process_count"]) == 2
+    assert int(z["ranks_bitwise_equal"]) == 1
+    assert z["digest_rounds"].tolist() == list(range(rounds))
+    assert int(z["plan_ids_match"]) == 1
+    # a broadcast and two digest gathers (plan, install) a round
+    assert int(z["transport_calls"]) == 3 * rounds
+    # the [8 + PLAN_MAX_BYTES] buffer, and two [2, 32] int64 gathers
+    assert int(z["transport_bytes"]) == rounds * (
+        8 + PLAN_MAX_BYTES + 2 * 2 * 32 * 8)
+
+
+def test_plan_grid_divergence_raises_on_every_rank(tmp_path):
+    """Rank 1 alone drops a slot of round 1: the install digests are
+    gathered before any rank compares, so both ranks raise
+    PlanDigestError at round 1, and neither hangs."""
+    out, codes, logs, secs = _plan_grid(tmp_path, diverge_rank=1)
+    assert codes == [tmw.DIVERGED, tmw.DIVERGED], logs
+    assert secs < 120
+    for i, path in enumerate((out, f"{out}.1")):
+        with open(f"{path}.diverged.{i}") as f:
+            said = f.read()
+        assert said.startswith("round 1: install digest diverged"), said
+
+
+@pytest.mark.parametrize("diverge", [False, True],
+                         ids=["agree", "rank1-diverges"])
+def test_cv_train_plan_transport_collective_on_two_ranks(tmp_path, diverge):
+    """cv_train --multihost --sampler throughput --plan_transport
+    collective on two CPU ranks: both exit 0 with bitwise equal weights,
+    every round's plan and install digests cross-checked (3 transport
+    calls a round), the coordinator's journal holding a digest and the
+    serialized plan for every round. With slot 0 of round 1 dropped on
+    rank 1 alone, both ranks raise PlanDigestError at round 1."""
+    port = tmw.free_port()
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    jpath = str(tmp_path / "j.jsonl")
+    argv = ["--test", "--device", "cpu", "--mode", "sketch",
+            "--error_type", "virtual", "--local_momentum", "0",
+            "--num_workers", "4", "--num_epochs", "0.25",
+            "--dataset_dir", str(tmp_path / "ds"), "--sampler", "throughput",
+            "--plan_transport", "collective", "--journal_path", jpath,
+            "--multihost", "--num_processes", "2",
+            "--coordinator_address", f"127.0.0.1:{port}"]
+    # cv_train.main, its run() wrapped to report the ranks' weights and
+    # the transport's calls
+    code = (
+        "import sys\n"
+        "from commefficient_tpu_torch.training import cv_train\n"
+        "from commefficient_tpu_torch.parallel.mh_worker import "
+        "ranks_bitwise_equal\n"
+        "from commefficient_tpu_torch.utils.faults import FaultSchedule\n"
+        "run = cv_train.run\n"
+        "def wrapped(model, *a, **kw):\n"
+        f"    if {diverge} and model.layout.rank == 1:\n"
+        "        model.set_fault_schedule(\n"
+        "            FaultSchedule(drop_slots={1: [0]}))\n"
+        "    ok = run(model, *a, **kw)\n"
+        "    print('RANKS_EQUAL', ranks_bitwise_equal(model.ps_weights),\n"
+        "          'CALLS', model.plan_transport.stats.calls,\n"
+        "          'ROUNDS', model.server.round_idx, flush=True)\n"
+        "    return ok\n"
+        "cv_train.run = wrapped\n"
+        "sys.exit(0 if cv_train.main(sys.argv[1:]) else 1)\n")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, *argv, "--process_id", str(i)],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for i in range(2)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=120 if diverge else 300)[0].decode()
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if diverge:
+        for p, o in zip(procs, outs):
+            assert p.returncode != 0, o[-3000:]
+            assert "PlanDigestError: round 1: install digest diverged" in o
+        return
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    reports = [[ln.split() for ln in o.splitlines()
+                if ln.startswith("RANKS_EQUAL")][0] for o in outs]
+    rounds = int(reports[0][5])
+    assert rounds > 0
+    for rep in reports:
+        assert rep[1] == "True"
+        assert int(rep[3]) == 3 * rounds
+    from commefficient_tpu_torch.parallel.plantransport import (
+        journaled_plan_stream,
+    )
+    digests, plans = journaled_plan_stream(jpath)
+    assert sorted(digests) == sorted(plans) == list(range(rounds))

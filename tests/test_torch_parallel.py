@@ -240,10 +240,12 @@ def test_multihost_validations_are_jax_word_for_word(case):
                                 dict(multihost=True, scan_rounds=True,
                                      model_parallel=2)],
                          ids=["multihost", "mp", "slices", "spans"])
-def test_ported_flags_validate_and_the_transport_stays_refused(kw):
+def test_ported_flags_validate_with_the_collective_transport(kw):
     base = dict(mode="uncompressed", local_momentum=0.0, num_workers=8)
     assert TConfig(**{**base, **kw}).validate()
     JConfig(**{**base, **kw}).validate()
-    with pytest.raises(NotImplementedError, match="item 9g"):
-        TConfig(**{**base, **kw,
-                   "plan_transport": "collective"}).validate()
+    with_transport = {**base, **kw, "plan_transport": "collective"}
+    cfg = TConfig(**with_transport)
+    assert cfg.validate() is cfg
+    jcfg = JConfig(**with_transport).validate()
+    assert cfg.plan_transport == jcfg.plan_transport == "collective"
