@@ -327,6 +327,22 @@ before the result line:
                RING_GRAD_RTOL of autograd of the plain reference (relative
                to the largest); ms a call forward and forward-backward, the
                folds alone, the bytes rotated.
+42. analysis — config #2 for ROUNDS rounds with the journal on through
+               the paths that own threads (ANALYSIS: phase 34's host tier
+               in pipelined spans of 2, the download top-k giving the
+               tier its stale weight rows): under the port's
+               LockOrderSanitizer, interleaving_stress and
+               NumericSanitizer (analysis/runtime.py), then again
+               unsanitized, both under deterministic algorithms. The lock
+               graph acyclic, the guard's `checked` >= ROUNDS, the
+               weights bitwise the unsanitized run's, K1 and K2 once a
+               round, the tier spilling, each journal valid under the
+               port's validate_journal with summarize's ROUNDS rounds and
+               byte totals equal to cv_train's accountant totals; then
+               the port's lint and sync audit over the checkout (zero
+               findings each, the audit's digest journaled and
+               validated). Each run's ms/round beside its twin's, and the
+               phase's seconds.
 Phases 27-36 print their peak memory as read in the full script, beside
 the memory earlier phases leave allocated (live_gib).
 
@@ -4467,6 +4483,18 @@ PLAN_NCCL1 = ["--target_survivors", "8", "--plan_transport", "collective"]
 RING_L = 1024
 RING_GRAD_RTOL = 2e-4
 
+# phase 42: config #2 through the paths that own threads (the journal
+# writer, the staging thread, the spill writer): phase 34's host tier
+# in its pipelined spans of 2 (a span's 2 x 8 clients fill the working
+# set of 16), without checkpoints (a tiered checkpoint carries every
+# touched client's D-float row: gigabytes a save at full width). Config
+# #2 keeps no client rows, so the tier would hold nothing: the download
+# top-k (--topk_down) gives each client a stale weight row for the tier
+# to spill and restore; the round still encodes once (K1) and decodes
+# once (K2)
+ANALYSIS = (["--scan_rounds", "--scan_span", "2", "--pipeline"] + TIER
+            + ["--topk_down", "--down_k", "50000"])
+
 
 def _plan_session(model, jpath=None):
     """A telemetry session on phase 32's scripted clock (and a journal
@@ -4790,6 +4818,127 @@ def ring_report(res) -> None:
           f"{res['chunk_bytes'] / 2 ** 20:.1f} MiB")
     if not ok:
         raise AssertionError(f"ring: a rank failed its checks: {rows}")
+
+
+def analysis_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp
+                   ) -> None:
+    """Phase 42 (header): the sanitized run, then its unsanitized twin,
+    then the lint and the sync audit over the checkout."""
+    from commefficient_tpu_torch.analysis import runtime, syncaudit
+    from commefficient_tpu_torch.analysis.engine import lint_paths
+    from commefficient_tpu_torch.telemetry.journal import (
+        summarize, validate_journal,
+    )
+    t_phase = time.perf_counter()
+    med = statistics.median
+    runs = {}
+
+    def run(label, sanitized):
+        jpath = os.path.join(tmp, f"{label}.jsonl")
+        ck = os.path.join(tmp, label)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if sanitized:
+                locks = stack.enter_context(runtime.LockOrderSanitizer())
+                stack.enter_context(runtime.interleaving_stress())
+                num = stack.enter_context(runtime.NumericSanitizer())
+            # the model and its writers inside the sanitizers: only
+            # locks built after install are instrumented
+            model, opt, sched, loader, val = config2_build(
+                cv_train, parse_args, data_dir, ANALYSIS + [
+                    "--checkpoint_path", ck, "--journal_path", jpath])
+            # cv_train's epoch row: its byte totals, summed from the
+            # accountant's per-round charges
+            rows = _Rows()
+            rr = drive_rounds(label, sc, ac, model, loader, ROUNDS,
+                              lambda timed, on_round: cv_train.run(
+                                  model, opt, sched, timed, val, model.cfg,
+                                  ck, loggers=(rows,), on_round=on_round))
+            store = model.state_store
+            spills = (store.spills, store.restores)
+            model.close_persistence()
+            wall = time.perf_counter() - t0
+        check_launches(label, rr.launches, {"sketch_encode": ROUNDS,
+                                            "sketch_estimate_all": ROUNDS})
+        if not spills[0]:
+            raise AssertionError(f"{label}: the tier never spilled")
+        recs, problems = validate_journal(jpath)
+        if problems:
+            raise AssertionError(f"{label}: journal problems {problems}")
+        summary = summarize(recs)
+        per_round = [(r["down_bytes"], r["up_bytes"]) for r in recs
+                     if r["event"] == "round"]
+        end = [r for r in recs if r["event"] == "run_end"][-1]
+        down, up = (rows.rows[-1]["down (MiB)"] * 2 ** 20,
+                    rows.rows[-1]["up (MiB)"] * 2 ** 20)
+        journaled = (sum(d for d, _ in per_round),
+                     sum(u for _, u in per_round))
+        if (summary["rounds"] != ROUNDS or journaled != (down, up)
+                or (end["down_bytes_total"], end["up_bytes_total"])
+                != (down, up)
+                or (summary["down_mib"], summary["up_mib"])
+                != (round(down / 2 ** 20, 3), round(up / 2 ** 20, 3))):
+            raise AssertionError(
+                f"{label}: the journal's {summary['rounds']} rounds and "
+                f"bytes {journaled} (run_end {end['down_bytes_total']}, "
+                f"{end['up_bytes_total']}) against the accountant's "
+                f"{ROUNDS} rounds and {(down, up)}")
+        out = {"w": model.ps_weights.detach().cpu(), "rr": rr,
+               "wall": wall, "spills": spills, "jpath": jpath,
+               "bytes": (down, up)}
+        if sanitized:
+            locks.assert_acyclic()
+            if num.checked < ROUNDS:
+                raise AssertionError(f"{label}: the numeric guard saw "
+                                     f"{num.checked} metric vectors")
+            out.update(edges=len(locks.edges()), locks=locks.locks,
+                       checked=num.checked)
+        runs[label] = out
+        del model, opt, loader, val, store
+        torch.cuda.empty_cache()
+
+    with Deterministic():
+        run("analysis_sanitized", True)
+        run("analysis_plain", False)
+    plain, san = runs["analysis_plain"], runs["analysis_sanitized"]
+    if not torch.equal(san["w"], plain["w"]):
+        raise AssertionError("analysis: the sanitized run's weights differ "
+                             "from the unsanitized twin's")
+    phase("analysis", f"{' '.join(ANALYSIS)}, {ROUNDS} rounds: lock graph "
+          f"acyclic ({san['edges']} edges over {san['locks']} "
+          f"instrumented locks), the numeric guard checked "
+          f"{san['checked']} metric vectors, weights bitwise the "
+          f"unsanitized twin's, K1 and K2 {ROUNDS} each in both runs; "
+          f"{san['spills'][0]} spills, {san['spills'][1]} restores; "
+          f"journals valid, {ROUNDS} rounds and {san['bytes'][0]:.0f} / "
+          f"{san['bytes'][1]:.0f} bytes down / up, the accountant's")
+    # spans collect their rounds together: means, not medians
+    mean = statistics.mean
+    phase("analysis", f"ms/round, the mean over all {ROUNDS} rounds (over "
+          f"rounds 2-{ROUNDS}): sanitized {mean(san['rr'].round_ms):.2f} "
+          f"({mean(san['rr'].round_ms[1:]):.2f}), then its unsanitized "
+          f"twin {mean(plain['rr'].round_ms):.2f} "
+          f"({mean(plain['rr'].round_ms[1:]):.2f}); phase 4's median "
+          f"{med(main_ms[1:]):.2f}; each run's wall, build to writers "
+          f"closed: {san['wall']:.2f} s sanitized, {plain['wall']:.2f} s "
+          "unsanitized")
+    t0 = time.perf_counter()
+    lint = lint_paths([os.path.join(HERE, "commefficient_tpu_torch")])
+    report, findings = syncaudit.run_sync_audit(
+        [os.path.join(HERE, p) for p in syncaudit.DEFAULT_PATHS])
+    syncaudit.journal_digest(san["jpath"], report, len(findings))
+    recs, problems = validate_journal(san["jpath"])
+    if lint or findings or problems or summarize(recs)[
+            "analysis_digests"]["sync_audit_digest"] != report["digest"]:
+        raise AssertionError(
+            f"analysis: lint {[v.render() for v in lint]}, sync "
+            f"{[v.render() for v in findings]}, journal {problems}")
+    phase("analysis", f"graftlint: {len(lint)} findings; graftsync: "
+          f"{len(findings)} findings over {report['files_scanned']} files, "
+          f"{report['registry']['ordering_edges']} ordering edges, digest "
+          f"{report['digest'][:12]} journaled and validated; "
+          f"{time.perf_counter() - t0:.2f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -5172,6 +5321,14 @@ def main(argv=None) -> int:
         plan_phase(sc, ac, cv_train, parse_args, c2_dir, round_ms, plan_tmp)
     finally:
         shutil.rmtree(plan_tmp, ignore_errors=True)
+
+    # phase 42: the analysis tiers' host half (item 10 a-d) on config #2
+    ana_tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    try:
+        analysis_phase(sc, ac, cv_train, parse_args, c2_dir, round_ms,
+                       ana_tmp)
+    finally:
+        shutil.rmtree(ana_tmp, ignore_errors=True)
 
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,

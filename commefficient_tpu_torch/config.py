@@ -47,7 +47,8 @@ DEFAULT_NUM_CLIENTS = {
 }
 
 # the ROADMAP.md Queue 1 item that still holds the unported path
-Q_ANALYSIS = "Queue 1 item 10 (the analysis tiers)"
+Q_ANALYSIS = ("Queue 1 item 10f (the trace tiers' torch counterparts, "
+              "among them a guard for implicit syncs)")
 
 
 def num_classes_of_dataset(dataset_name: str) -> int:
@@ -698,7 +699,8 @@ class Config:
         if self.debug_transfer_guard:
             # the JAX guard forbids IMPLICIT transfers; CUDA's sync debug
             # mode would also trip on the port's explicit one-round-late
-            # copies, so it is not the same guard (ROADMAP.md item 10)
+            # copies, so it is not the same guard: item 10f plans one
+            # that flags implicit syncs only
             refuse("--debug_transfer_guard", Q_ANALYSIS)
 
 

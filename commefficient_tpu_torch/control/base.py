@@ -30,26 +30,14 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+# controller name -> its RoundPlan wire field: the registry's (the JAX
+# package's values), frozen (journals and checkpoints carry these
+# names, and two controllers on one field would overwrite each other's
+# journaled decisions)
+from commefficient_tpu_torch.analysis.domains import CONTROL_FIELDS
+
 __all__ = ["Adjustment", "CONTROL_FIELDS", "Controller", "ControllerBank",
            "control_field"]
-
-# controller name -> its RoundPlan wire field: the JAX package's
-# analysis/domains.CONTROL_FIELDS, frozen (journals and checkpoints
-# carry these names, and two controllers on one field would overwrite
-# each other's journaled decisions)
-CONTROL_FIELDS = {
-    "screen_adapt": "screen_mult",
-    "speed_match": "speed_ratio",
-    "span_cadence": "scan_span",
-    "staleness_decay": "staleness_decay",
-}
-
-_fields = list(CONTROL_FIELDS.values())
-assert len(set(_fields)) == len(_fields), (
-    "controller wire-field collision in CONTROL_FIELDS: two controllers "
-    "sharing a plan wire field overwrite each other's journaled "
-    "adjustments")
-
 
 def control_field(name: str) -> str:
     """The registered wire field of controller `name`; KeyError naming
@@ -60,7 +48,7 @@ def control_field(name: str) -> str:
         raise KeyError(
             f"unknown controller {name!r}; registered: "
             f"{sorted(CONTROL_FIELDS)} (add new controllers to "
-            "control.base.CONTROL_FIELDS)") from None
+            "analysis/domains.CONTROL_FIELDS)") from None
 
 
 class Adjustment(NamedTuple):

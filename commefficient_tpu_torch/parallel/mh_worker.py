@@ -37,6 +37,11 @@ and two are the port's own (the JAX package runs them in one process):
                    RING_SHAPE's q, k, v from a seed: each rank's chunk's
                    output and the gradients of sum(out ** 2), written to
                    <out>.<rank>.npz (`--rotate` picks the rotation).
+                   `--rings R` splits the world into R rings of
+                   consecutive ranks, ring i holding block i of the
+                   batch, beside a (R clients x ring size) Layout bound
+                   first: each rank also gathers its sequence
+                   position's outputs over the Layout's clients group.
 
 Launch, here two ranks on the CPU over gloo and the single process:
 
@@ -374,7 +379,7 @@ def run_plan_scenario(out_path: str, device="cuda",
                 if done >= total:
                     break
     except PlanDigestError as e:
-        with open(f"{out_path}.diverged.{mh.process_index()}", "w") as f:
+        with open(f"{out_path}.diverged.{mh.process_index()}", "w") as f:  # graftlint: disable=GL006 -- a test scenario's marker, read once by its test
             f.write(str(e))
         raise SystemExit(DIVERGED)
     finally:
@@ -402,26 +407,37 @@ def run_plan_scenario(out_path: str, device="cuda",
           f"/{mh.process_count()} ok", flush=True)
 
 
-def run_ring_scenario(out_path: str, device="cuda",
-                      rotate: str = "auto") -> None:
+def run_ring_scenario(out_path: str, device="cuda", rotate: str = "auto",
+                      rings: int = 1) -> None:
     """The `ring` variant (module docstring)."""
     import torch
 
     from commefficient_tpu_torch.parallel import multihost as mh
+    from commefficient_tpu_torch.parallel.mesh import make_client_model_mesh
     from commefficient_tpu_torch.parallel.ring import SeqRing, ring_attention
     n, me = mh.process_count(), mh.process_index()
-    ring = SeqRing(range(n), rotate=rotate).bind()
+    size = n // rings
+    partition = [list(range(i * size, (i + 1) * size))
+                 for i in range(rings)]
+    layout = make_client_model_mesh(rings, size).bind()
+    ring = SeqRing(partition[me // size], rotate=rotate).bind(
+        partition=partition)
     Bq, H, L, Dh = RING_SHAPE
     rs = np.random.RandomState(0)
     full = [rs.randn(Bq, H, L, Dh).astype(np.float32) for _ in range(3)]
-    lc = L // n
-    q, k, v = (torch.tensor(a[:, :, me * lc:(me + 1) * lc], device=device,
-                            requires_grad=True) for a in full)
+    lc, bc = L // size, Bq // rings
+    pos, blk = ring.position, me // size
+    q, k, v = (torch.tensor(a[blk * bc:(blk + 1) * bc, :,
+                              pos * lc:(pos + 1) * lc],
+                            device=device, requires_grad=True)
+               for a in full)
     out = ring_attention(q, k, v, ring)
     (out ** 2).sum().backward()
-    np.savez(f"{out_path}.{me}.npz", out=out.detach().cpu().numpy(),
-             dq=q.grad.cpu().numpy(), dk=k.grad.cpu().numpy(),
-             dv=v.grad.cpu().numpy(), rotations=ring.stats.calls)
+    gathered = layout.gather(out.detach(), dim=0)
+    np.savez(f"{out_path}.{me}.npz", out=out.detach().cpu().numpy(),  # graftlint: disable=GL006 -- a test scenario's output, read once by its test
+             out_all=gathered.cpu().numpy(), dq=q.grad.cpu().numpy(),
+             dk=k.grad.cpu().numpy(), dv=v.grad.cpu().numpy(),
+             rotations=ring.stats.calls, ring=me // size, position=pos)
     print(f"mh_worker[ring] rank={me}/{n} ok", flush=True)
 
 
@@ -536,6 +552,8 @@ def main(argv=None) -> None:
                     help="plan: the rank whose round 1 diverges")
     ap.add_argument("--rotate", default="auto",
                     help="ring: the rotation (auto, p2p, broadcast)")
+    ap.add_argument("--rings", type=int, default=1,
+                    help="ring: the number of rings the world splits into")
     args = ap.parse_args(argv)
 
     from commefficient_tpu_torch.parallel import multihost as mh
@@ -551,7 +569,8 @@ def main(argv=None) -> None:
             run_plan_scenario(args.out, device=device,
                               diverge_rank=args.diverge_rank)
         elif args.variant == "ring":
-            run_ring_scenario(args.out, device=device, rotate=args.rotate)
+            run_ring_scenario(args.out, device=device, rotate=args.rotate,
+                              rings=args.rings)
         else:
             run_scenario(args.out, variant=args.variant, device=device,
                          init=args.init,

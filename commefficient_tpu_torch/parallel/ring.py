@@ -15,7 +15,11 @@ of its ranks and their order (position i holds chunk i). The JAX
 package names a `seq` mesh axis; here a mesh axis is a process group
 (parallel/mesh.py), and the ring holds the group and the ordered ranks
 itself, so it composes with a Layout's clients and model groups without
-widening the Layout.
+widening the Layout. A world of several rings is a PARTITION of its
+ranks (`bind(partition=...)`): torch.distributed.new_group is a
+collective every rank of the world makes for every group, in one order,
+so every rank builds every ring's group and keeps its own, as
+Layout.bind builds every clients and model group.
 
 The rotation (`_Rotate`, a torch.autograd.Function whose backward is
 the inverse rotation) is a point-to-point exchange with the neighbours
@@ -44,7 +48,8 @@ ROTATIONS = ("auto", "p2p", "broadcast")
 class SeqRing:
     """The ranks of one ring in order, this rank's position, and their
     process group (built by `bind`, a collective call every rank of the
-    world makes in the same order). `rotate` picks the rotation:
+    world makes in the same order: with the same `partition`, after the
+    same other groups). `rotate` picks the rotation:
     "p2p", "broadcast", or "auto" (broadcast for CUDA tensors under a
     gloo group, p2p otherwise). `stats` counts the rotations' calls,
     bytes and host seconds."""
@@ -63,14 +68,37 @@ class SeqRing:
     def size(self) -> int:
         return len(self.ranks)
 
-    def bind(self, rank: Optional[int] = None) -> "SeqRing":
+    def bind(self, rank: Optional[int] = None,
+             partition: Optional[Sequence[Sequence[int]]] = None
+             ) -> "SeqRing":
+        """Fix this rank's position and, under torch.distributed, build
+        the group of every ring of `partition` (disjoint rings, this
+        one among them, covering the world), keeping this ring's. With
+        no partition the ring must span the whole world."""
         me = mh.process_index() if rank is None else int(rank)
         if me not in self.ranks:
             raise ValueError(f"rank {me} is not in the ring {self.ranks}")
         self.position = self.ranks.index(me)
+        rings = ([self.ranks] if partition is None
+                 else [[int(r) for r in ring] for ring in partition])
+        if self.ranks not in rings:
+            raise ValueError(f"the ring {self.ranks} is not a ring of the "
+                             f"partition {rings}")
+        flat = [r for ring in rings for r in ring]
+        if len(set(flat)) != len(flat):
+            raise ValueError(f"the rings of {rings} overlap")
         if mh.is_distributed():
             import torch.distributed as dist
-            self.group = dist.new_group(ranks=self.ranks)
+            world = mh.process_count()
+            if sorted(flat) != list(range(world)):
+                raise ValueError(
+                    f"the rings {rings} do not partition the world of "
+                    f"{world} ranks: new_group is a collective of every "
+                    "rank, so bind every ring of the world (partition=)")
+            for ring in rings:
+                g = dist.new_group(ranks=ring)
+                if ring == self.ranks:
+                    self.group = g
         return self
 
     def _mode(self, t: torch.Tensor) -> str:

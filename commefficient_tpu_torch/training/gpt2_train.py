@@ -26,7 +26,7 @@ vocabulary over N ranks (parallel/tp.py; it prints `tensor parallel:
 mesh {...}` as the JAX driver does). `--plan_transport` attaches the
 control plane (parallel/plantransport.py) as in cv_train. What the port
 does not run yet is refused by Config.validate: ROADMAP.md Queue 1
-item 10's `--debug_transfer_guard`.
+item 10f's `--debug_transfer_guard`.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\

@@ -220,6 +220,6 @@ def try_tensorboard(log_dir: str):
         return SummaryWriter(log_dir=log_dir or ".")
     # broad by necessity: tensorboard/protobuf version skew raises
     # AttributeError or TypeError, not only ImportError
-    except Exception as e:
+    except Exception as e:  # graftlint: disable=GL005 -- optional-dep probe
         print(f"tensorboard unavailable ({e}); continuing without")
         return None

@@ -284,7 +284,7 @@ class _StagingThread:
                     return
             self._put(self._END)
         # handed to the loop's thread, which re-raises it
-        except BaseException as e:
+        except BaseException as e:  # graftlint: disable=GL005 -- re-raised on the loop's thread
             self._put(_Raised(e))
 
     def _put(self, item) -> bool:

@@ -61,7 +61,7 @@ def atomic_append_lines(path: str, lines, check_tail: bool = True) -> None:
         except (OSError, ValueError):
             pass  # missing or empty file: nothing to seal
     data = seal + "".join(f"{ln}\n" for ln in lines).encode()
-    with open(path, "ab") as f:
+    with open(path, "ab") as f:  # graftlint: disable=GL006 -- the append-only JSONL path: fsynced, a torn tail sealed (docstring)
         f.write(data)
         f.flush()
         os.fsync(f.fileno())

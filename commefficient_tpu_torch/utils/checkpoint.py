@@ -148,7 +148,7 @@ class AsyncCheckpointWriter:
                     else:
                         job()
                 # re-raised on the caller's thread by drain() / submit()
-                except BaseException as e:
+                except BaseException as e:  # graftlint: disable=GL005 -- re-raised on the caller's thread
                     with self._exc_lock:
                         if self._exc is None:
                             self._exc = e

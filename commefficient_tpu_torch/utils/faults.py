@@ -34,17 +34,10 @@ from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
-# PRNG domain tags: the JAX package's analysis/domains.DOMAINS values,
-# frozen (changing one changes every historical run's fault replay)
-DOMAINS = {
-    "dropout": 0x0D120,
-    "straggler": 0x51044,
-    "sampler": 0x5C4ED,
-    "poison": 0xBAD0D,
-    "byzantine": 0xB42A1,
-    "dp": 0xD9A05,
-    "powersgd": 0x909D0,
-}
+# the PRNG domain tags (the JAX package's values, frozen: changing one
+# changes every historical run's fault replay) live in the registry;
+# scheduler/policy and compress/ import them from here
+from commefficient_tpu_torch.analysis.domains import DOMAINS
 
 
 class InjectedFault(RuntimeError):

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Phases 27-41 of chip_smoke.py alone on one CUDA card, and the host
+"""Phases 27-42 of chip_smoke.py alone on one CUDA card, and the host
 timeline of config #4's rounds, for work on the plugins, the span
 loop, the scheduler, async admission, the tiered client state, the
-controllers, the blockwise decode, the ranks and the plan transport
-without the whole script:
+controllers, the blockwise decode, the ranks, the plan transport and
+the analysis tiers without the whole script:
 
     python3 scripts/chip_phases.py [powersgd dp_sketch privacy spans
                                     imagenet timeline sched async_admit
                                     statetier control gpt2medium grid
-                                    tpgpt2 plan plangrid ring]
+                                    tpgpt2 plan plangrid ring analysis]
 
 With no argument it runs every phase. Phase 4 (config #2) runs first
 for the ms/round the new phases print beside theirs, `imagenet` runs
@@ -18,7 +18,8 @@ rounds (without phase 7 beside them). `grid` runs phase 5 after phase
 4 (its reduced table is held to phase 5's), then phase 37's kernel rows
 and ranks, whose second and third legs are phases 40-41 (`plangrid`
 and `ring` run the same); `tpgpt2` runs K4's 6-head check and phase 38
-(without phase 7 beside it); `plan` runs phase 39 after phase 4.
+(without phase 7 beside it); `plan` runs phase 39 and `analysis`
+phase 42 after phase 4.
 `timeline` drives config #4 (chip_smoke.CONFIG4) plain and each way of
 chip_smoke.IMAGENET_SPANS for TIMELINE_ROUNDS rounds with the stage
 tracer on, and prints every stage span (plan, stage, dispatch,
@@ -41,7 +42,8 @@ import torch  # noqa: E402
 
 PHASES = ("powersgd", "dp_sketch", "privacy", "spans", "imagenet",
           "timeline", "sched", "async_admit", "statetier", "control",
-          "gpt2medium", "grid", "tpgpt2", "plan", "plangrid", "ring")
+          "gpt2medium", "grid", "tpgpt2", "plan", "plangrid", "ring",
+          "analysis")
 TIMELINE_ROUNDS = 6
 
 
@@ -139,7 +141,7 @@ def main(argv) -> int:
             which = list(which) + ["grid"]
         if set(which) & {"powersgd", "dp_sketch", "privacy", "spans",
                          "sched", "async_admit", "control", "grid",
-                         "plan"}:
+                         "plan", "analysis"}:
             model, round_ms, _, _, batch = cs.main_path(sc, ac, cv_train,
                                                         parse_args, c2)
             if "grid" in which:
@@ -171,6 +173,10 @@ def main(argv) -> int:
         if "plan" in which:
             cs.plan_phase(sc, ac, cv_train, parse_args, c2, round_ms,
                           os.path.join(tmp, "plan"))
+        if "analysis" in which:
+            os.makedirs(os.path.join(tmp, "analysis"))
+            cs.analysis_phase(sc, ac, cv_train, parse_args, c2, round_ms,
+                              os.path.join(tmp, "analysis"))
         if "powersgd" in which:
             cs.powersgd_phase(sc, ac, cv_train, parse_args, c2, fclient,
                               prng, round_ms)

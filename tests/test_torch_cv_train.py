@@ -269,8 +269,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     # a fresh interpreter imports every module of the port (walking the
-    # package; the plugins, the span loop, the writer threads and the
-    # controllers named),
+    # package; the plugins, the span loop, the writer threads, the
+    # controllers, the analysis tiers and the journal summary named),
     # runs one round of cv_train's model with the fault operands on, one
     # powersgd and one dp_sketch round and a pipelined span, then checks
     # sys.modules (the resume is held by tests/test_torch_checkpoint.py)
@@ -318,7 +318,10 @@ for name in ("compress.powersgd", "compress.dp_sketch", "compress.privacy",
              "training.scanloop", "utils.retry", "utils.watchdog",
              "control.base", "control.screen", "control.speed",
              "control.span", "control.staleness", "parallel.mesh",
-             "parallel.multihost", "parallel.tp", "parallel.mh_worker"):
+             "parallel.multihost", "parallel.tp", "parallel.mh_worker",
+             "analysis", "analysis.domains", "analysis.engine",
+             "analysis.rules", "analysis.syncaudit", "analysis.runtime",
+             "analysis.__main__", "telemetry.journal_summary"):
     assert "commefficient_tpu_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"

@@ -40,27 +40,31 @@ def _reference(full):
     return out.detach().numpy(), [t.grad.numpy() for t in (q, k, v)]
 
 
-def _jax_ring(full, n):
+def _jax_ring(full, n, clients=1):
+    """The JAX ring on a ("clients", "seq") = (clients, n) CPU mesh, the
+    batch split over clients."""
     import jax
     from jax.sharding import Mesh, PartitionSpec as P
 
     from commefficient_tpu.parallel.compat import shard_map
     from commefficient_tpu.parallel.ring import ring_attention as j_ring
-    if len(jax.devices()) < n:
-        pytest.skip(f"needs {n} CPU devices")
-    mesh = Mesh(np.asarray(jax.devices()[:n]), axis_names=("seq",))
-    spec = P(None, None, "seq", None)
+    if len(jax.devices()) < n * clients:
+        pytest.skip(f"needs {n * clients} CPU devices")
+    mesh = Mesh(np.asarray(jax.devices()[:n * clients]).reshape(clients, n),
+                axis_names=("clients", "seq"))
+    spec = P("clients", None, "seq", None)
     fn = jax.jit(shard_map(lambda q, k, v: j_ring(q, k, v, axis_name="seq"),
                            mesh=mesh, in_specs=(spec,) * 3, out_specs=spec))
     return np.asarray(fn(*full))
 
 
-def _run_ring(tmp_path, n, rotate):
+def _run_ring(tmp_path, n, rotate, rings=1):
     """The `ring` scenario on n CPU ranks; each rank's arrays."""
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     port = tmw.free_port()
-    out = str(tmp_path / f"ring_{rotate}_{n}")
+    out = str(tmp_path / f"ring_{rotate}_{n}_{rings}")
     procs = [tmw.spawn(["--out", out, "--device", "cpu", "--rotate", rotate,
+                        "--rings", str(rings),
                         "--process_id", str(i), "--num_processes", str(n),
                         "--port", str(port)], env, "ring")
              for i in range(n)]
@@ -98,6 +102,38 @@ def test_ring_matches_reference_and_jax_ring(tmp_path, n, rotate):
     assert int(ranks[0]["rotations"]) == 4 * (n - 1) * per
 
 
+def test_two_rings_of_two_match_reference_and_jax_ring(tmp_path):
+    # four ranks as two rings, [0, 1] and [2, 3], ring i on batch row i,
+    # beside a (2 clients x 2) Layout bound first: every rank builds both
+    # rings' groups. Built by each ring alone, the groups of [0, 1] and
+    # [2, 3] were one group under two names and the second positions
+    # came out wrong
+    full = _full()
+    ranks = _run_ring(tmp_path, 4, "p2p", rings=2)
+    assert [(int(r["ring"]), int(r["position"])) for r in ranks] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    rows = [np.concatenate([ranks[2 * i + p]["out"] for p in range(2)],
+                           axis=2) for i in range(2)]
+    out = np.concatenate(rows, axis=0)
+    ref, grads = _reference(full)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out, _jax_ring(full, 2, clients=2),
+                               rtol=RTOL, atol=ATOL)
+    for name, want in zip(("dq", "dk", "dv"), grads):
+        got = np.concatenate([np.concatenate(
+            [ranks[2 * i + p][name] for p in range(2)], axis=2)
+            for i in range(2)], axis=0)
+        np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+    # the Layout's clients groups after the rings': each position's
+    # outputs gathered over the two rings, in batch order
+    for p in range(2):
+        for r in (ranks[p], ranks[2 + p]):
+            np.testing.assert_array_equal(
+                r["out_all"], out[:, :, p * 32:(p + 1) * 32])
+    assert all(int(r["rotations"]) == 4 for r in ranks)
+
+
 def test_ring_of_one_is_causal_attention():
     full = _full()
     q, k, v = (torch.tensor(a, requires_grad=True) for a in full)
@@ -118,3 +154,21 @@ def test_seq_ring_validates():
         SeqRing([1, 2]).bind(rank=0)
     ring = SeqRing([3, 1]).bind(rank=1)
     assert (ring.size, ring.position, ring.group) == (2, 1, None)
+    ring = SeqRing([2, 3]).bind(rank=3, partition=[[0, 1], [2, 3]])
+    assert (ring.position, ring.group) == (1, None)
+    with pytest.raises(ValueError, match="not a ring of the partition"):
+        SeqRing([0, 1]).bind(rank=0, partition=[[0, 2], [1, 3]])
+    with pytest.raises(ValueError, match="overlap"):
+        SeqRing([0, 1]).bind(rank=0, partition=[[0, 1], [1, 2]])
+
+
+def test_seq_ring_refuses_a_partial_world(monkeypatch):
+    # a ring narrower than the world with no partition would build a
+    # group only some ranks took part in
+    from commefficient_tpu_torch.parallel import multihost as mh
+    monkeypatch.setattr(mh, "is_distributed", lambda: True)
+    monkeypatch.setattr(mh, "process_count", lambda: 4)
+    with pytest.raises(ValueError, match="do not partition the world"):
+        SeqRing([0, 1]).bind(rank=0)
+    with pytest.raises(ValueError, match="do not partition the world"):
+        SeqRing([0, 1]).bind(rank=1, partition=[[0, 1], [2]])
