@@ -343,6 +343,28 @@ before the result line:
                findings each, the audit's digest journaled and
                validated). Each run's ms/round beside its twin's, and the
                phase's seconds.
+43. audit   — the trace tiers' torch counterparts (item 10f) on the
+               card, under deterministic algorithms: (a) config #2 for
+               ROUNDS rounds through cv_train.train with
+               --debug_transfer_guard (analysis/runtime.forbid_transfers
+               around every round after the first): no implicit sync,
+               weights and every round's billed bytes bitwise its
+               unguarded twin's, the explicit boundaries a round by
+               reason and both runs' ms/round; (b) one steady-state
+               config #2 round under the RoundRecorder: its ops, FLOPs
+               and bytes (costmodel), K1 and K2 one kernel entry each
+               with the bytes and operations of their rows in the
+               kernels line, and those bytes at 3.35 TB/s, graftnum's
+               NU004 list of the ops that are not bitwise reproducible
+               on the card, the ops other threads dispatched, and the
+               recorder's cost beside the same round unrecorded; (c) config #5 for AUDIT_GPT2_ROUNDS
+               rounds under the guard: K1 twice, K3a, K3b once and K4
+               96 times a round, no implicit sync; (d) graftaudit at
+               AUDIT_GEOMETRY on the card beside the same audit on the
+               CPU (which must equal the committed baseline): the same
+               kernel entries and the same count of every op both
+               devices dispatch, each op that only one device
+               dispatches printed by name, no finding on either.
 Phases 27-36 print their peak memory as read in the full script, beside
 the memory earlier phases leave allocated (live_gib).
 
@@ -820,11 +842,8 @@ def kernel_phase(sc, CSVec):
 
 
 def estimate_row(sc, sk, table, name, path):
-    """The K2 row at `sk`'s geometry on `table` (on the card). K2 reads
-    the table, off and the sign bits of eps [r, c] and delta [r, B]
-    once and writes the [B, c] estimate once. Operations per estimate:
-    2r sign flips, the r(r-1)/2 compare-exchanges (2 each), the
-    middle."""
+    """The K2 row at `sk`'s geometry on `table` (on the card), its bytes
+    and operations sc.estimate_cost's."""
     d, c, r, B = sk.d, sk.c, sk.r, sk.n_chunks
     off, eps, delta = sk.tables(table.device)
     eps_bits, delta_bits = sk.sign_bits(table.device)
@@ -835,29 +854,14 @@ def estimate_row(sc, sk, table, name, path):
         fn=lambda: sc.estimate_all(table, off, delta_bits, eps_bits, d),
         plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d),
         library=None,
-        bytes=(4 * r * c + bits_bytes(r * c) + 4 * r * B
-               + bits_bytes(r * B) + 4 * B * c),
-        ops=B * c * (2 * r + r * (r - 1) + 2))
-
-
-def bits_bytes(n: int) -> int:
-    """Bytes of the int32 words that hold n packed sign bits: the form
-    in which K1, K3a and K3b read the +-1 tables eps and delta."""
-    return 4 * -(-n // 32)
-
-
-def k1_bytes(d: int, r: int, c: int, B: int) -> int:
-    """K1 reads x, off [r, B] and the sign bits of eps [r, c] and delta
-    [r, B] once and writes the [r, c] table once."""
-    return 4 * d + 4 * r * B + bits_bytes(r * c) + bits_bytes(r * B) \
-        + 4 * r * c
+        cost=sc.estimate_cost(r, c, B))
 
 
 def encode_row(sc, sk, x, name, path):
-    """The K1 row at `sk`'s geometry on `x` (on the card). Operations:
-    r * d * (2 multiplies + 1 add) in f32. Library yardstick: one
-    index_add_ of the pre-hashed, pre-signed [r * d] values into the
-    flat table (hash and signs precomputed, not timed)."""
+    """The K1 row at `sk`'s geometry on `x` (on the card), its bytes and
+    operations sc.encode_cost's. Library yardstick: one index_add_ of
+    the pre-hashed, pre-signed [r * d] values into the flat table (hash
+    and signs precomputed, not timed)."""
     d, c, r = sk.d, sk.c, sk.r
     off, eps, delta = sk.tables(x.device)
     eps_bits, delta_bits = sk.sign_bits(x.device)
@@ -875,24 +879,28 @@ def encode_row(sc, sk, x, name, path):
         fn=lambda: sc.encode(x, off, delta_bits, eps_bits, c),
         plain=lambda: sc.encode_plain(x, off, delta, eps, c),
         library=lambda: lib_out.zero_().index_add_(0, flat_pos, src),
-        bytes=k1_bytes(d, r, c, sk.n_chunks), ops=3 * r * d)
+        cost=sc.encode_cost(d, r, c, sk.n_chunks))
 
 
 def timed_row(row, max_abs_err):
     """One entry of the kernels line: the kernel's, its plain version's
     and the library call's median times, and the bound from the bytes
-    and operations the work needs (PEAK_*: the operations at the row's
-    `peak_flops`, f32 outside the tensor cores unless it says
-    otherwise). `ms` is the kernel's device time; `host_ms` times the
-    same wrapper call with no device-side wait, so it also holds the
-    wrapper's host time beyond the L2 flush. `counter` names the launch
-    counter and `path` the main path whose count the entry takes."""
-    t_bytes = row["bytes"] / PEAK_BYTES_PER_S * 1e3
-    t_ops = row["ops"] / row.get("peak_flops", PEAK_F32_FLOPS) * 1e3
+    and operations the work needs (the row's `cost`, from the wrapper's
+    own `*_cost`, which also prices the kernel's recorder entry; PEAK_*:
+    the operations at the row's `peak_flops`, f32 outside the tensor
+    cores unless it says otherwise). `ms` is the kernel's device time;
+    `host_ms` times the same wrapper call with no device-side wait, so
+    it also holds the wrapper's host time beyond the L2 flush. `counter`
+    names the launch counter and `path` the main path whose count the
+    entry takes; `bytes` and `ops` are the bound's."""
+    nbytes, ops = row["cost"]
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / row.get("peak_flops", PEAK_F32_FLOPS) * 1e3
     res = dict(
         name=row["name"], counter=row["counter"], path=row["path"],
         route=row["route"], source=row["source"],
         replaces=row["replaces"], launches=0, max_abs_err=max_abs_err,
+        bytes=nbytes, ops=ops,
         ms=time_cuda(row["fn"], 50),
         host_ms=time_cuda(row["fn"], 50, wait=False),
         plain_ms=time_cuda(row["plain"], 5, warmup=1),
@@ -1420,20 +1428,13 @@ def kernel_phase_gpt2(sc, ac, CSVec):
                                  ns)
     thr = (sample.reshape(-1) ** 2).quantile(1 - MAIN_KEEP).reshape(1)
     early_out_shares(sk, table, off, thr)
-    # operations per estimate: 2r multiplies, r(r-1)/2 compare-exchanges
-    # (2 each), the middle; K3b adds the square and the compare
-    est_ops = 2 * r + r * (r - 1) + 2
     q, kk, v = k4_operands(GPT2_L, seed=3)
     qb, kb, vb = k4_operands(GPT2_L, seed=3, dtype=torch.bfloat16)
-    bh = K4_BATCH * K4_HEADS
-    pairs = bh * GPT2_L * (GPT2_L + 1) // 2      # causal (q, k) pairs
     sdpa = sdpa_efficient(ac, q, kk, v)
     sdpa_b = sdpa_flash_bf16(ac, qb, kb, vb)
     rows = [
         encode_row(sc, sk, x, "sketch_encode_gpt2", "config5"),
-        # K3a reads the whole table (its r * B * ns gathers cover it),
-        # the sign bits of eps at the r * ns sampled positions and of
-        # delta [r, B], off once, and writes the [B, ns] sample once
+        # K3a reads the whole table (its r * B * ns gathers cover it)
         dict(name="threshold_sample", counter="threshold_sample",
              path="config5", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/sketch.cu",
@@ -1442,12 +1443,7 @@ def kernel_phase_gpt2(sc, ac, CSVec):
                                             d, stride, ns),
              plain=lambda: sc.threshold_sample_plain(table, off, delta, eps,
                                                      d, stride, ns),
-             library=None,
-             bytes=4 * r * c + bits_bytes(r * ns) + 4 * r * B
-             + bits_bytes(r * B) + 4 * B * ns,
-             ops=B * ns * est_ops),
-        # K3b reads the table, off, the sign bits of eps and delta and
-        # the threshold once, and writes the [d] output once
+             library=None, cost=sc.sample_cost(r, c, B, ns)),
         dict(name="threshold_mask", counter="threshold_mask",
              path="config5", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/sketch.cu",
@@ -1456,28 +1452,21 @@ def kernel_phase_gpt2(sc, ac, CSVec):
                                           thr, d),
              plain=lambda: sc.threshold_mask_plain(table, off, delta, eps,
                                                    thr, d),
-             library=None,
-             bytes=4 * r * c + 4 * r * B + bits_bytes(r * c)
-             + bits_bytes(r * B) + 4 + 4 * d,
-             ops=d * (est_ops + 2)),
-        # q, k, v (the fused projection) read once, o and lse written
-        # once; 4 Dh operations (the score and the PV product) for each
-        # causal pair, f32-accurate, so on the TF32 tensor cores in
-        # three passes: 3x the operations at the TF32 rate (the route
-        # SDPA's own f32 kernel takes too), against which the bytes are
-        # the bound
+             library=None, cost=sc.mask_cost(d, r, c, B)),
+        # f32-accurate, so on the TF32 tensor cores in three passes
+        # (ac.flash_fwd_cost): 3x the operations at the TF32 rate (the
+        # route SDPA's own f32 kernel takes too), against which the
+        # bytes are the bound
         dict(name="flash_fwd", counter="flash_fwd", path="config5",
              route="cuda",
              source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="commefficient_tpu/ops/attention.py:91",
              fn=lambda: ac.flash_fwd(q, kk, v, 0.125),
              plain=lambda: ac.flash_fwd_plain(q, kk, v, 0.125),
-             library=sdpa,
-             bytes=4 * 4 * q.numel() + 4 * bh * GPT2_L,
-             ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
-        # bf16 operands (--bf16): q, k, v read and o written in bf16
-        # (2 bytes), lse in f32; 4 Dh operations a causal pair on bf16
-        # inputs, at the bf16 tensor-core rate. Its yardstick rounds P to
+             library=sdpa, cost=ac.flash_fwd_cost(q),
+             peak_flops=PEAK_TF32_FLOPS),
+        # bf16 operands (--bf16), one pass at the bf16 tensor-core
+        # rate. Its yardstick rounds P to
         # bf16 before P.V, so it is not quite the same function
         dict(name="flash_fwd_bf16", counter="flash_fwd_bf16",
              path="config5_bf16", route="cuda",
@@ -1485,9 +1474,8 @@ def kernel_phase_gpt2(sc, ac, CSVec):
              replaces="commefficient_tpu/ops/attention.py:91",
              fn=lambda: ac.flash_fwd(qb, kb, vb, 0.125),
              plain=lambda: ac.flash_fwd_plain(qb, kb, vb, 0.125),
-             library=sdpa_b,
-             bytes=4 * 2 * qb.numel() + 4 * bh * GPT2_L,
-             ops=4 * K4_DH * pairs, peak_flops=H100_BF16_FLOPS),
+             library=sdpa_b, cost=ac.flash_fwd_cost(qb),
+             peak_flops=H100_BF16_FLOPS),
     ]
     return [timed_row(row, err[row["counter"]]) for row in rows]
 
@@ -3750,8 +3738,8 @@ def gpt2medium_kernels(sc, ac, CSVec):
                              "vals) differ between the kernels and the "
                              "plain versions")
     est_ops = 2 * r + r * (r - 1) + 2
-    dec_bytes = (4 * r * c + 4 * r * B + bits_bytes(r * c)
-                 + bits_bytes(r * B) + 12 * GPT2M_K)
+    dec_bytes = (4 * r * c + 4 * r * B + sc.bits_bytes(r * c)
+                 + sc.bits_bytes(r * B) + 12 * GPT2M_K)
     dec_ms = time_cuda(decode, 10)
     plain_ms = time_cuda(plain_decode, 2, warmup=1)
     t_b = dec_bytes / PEAK_BYTES_PER_S * 1e3
@@ -3781,12 +3769,9 @@ def gpt2medium_kernels(sc, ac, CSVec):
         raise AssertionError("gpt2medium: K4 differs from its plain version "
                              f"on [{K4_BATCH}, {heads}, {GPT2_L}, {K4_DH}]")
     del o, lse, po, plse
-    bh = K4_BATCH * heads
-    pairs = bh * GPT2_L * (GPT2_L + 1) // 2
     rows = [
         encode_row(sc, sk, x, "sketch_encode_gpt2medium", "gpt2medium"),
-        # K2 on the first window: reads the table, off and the delta
-        # bits of its chunks and the eps bits once, writes [nb, c]
+        # K2 on the first window
         dict(name="sketch_estimate_window", counter="sketch_estimate_window",
              path="gpt2medium", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/sketch.cu",
@@ -3795,10 +3780,7 @@ def gpt2medium_kernels(sc, ac, CSVec):
                                            d, 0, nb),
              plain=lambda: sc.estimate_all_plain(table, off, delta, eps, d,
                                                  0, nb),
-             library=None,
-             bytes=(4 * r * c + bits_bytes(r * c) + 4 * r * nb
-                    + bits_bytes(r * nb) + 4 * nb * c),
-             ops=nb * c * est_ops),
+             library=None, cost=sc.estimate_cost(r, c, nb)),
         dict(name="flash_fwd_gpt2medium", counter="flash_fwd",
              path="gpt2medium", route="cuda",
              source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3806,8 +3788,7 @@ def gpt2medium_kernels(sc, ac, CSVec):
              fn=lambda: ac.flash_fwd(q, kk, v, 0.125),
              plain=lambda: ac.flash_fwd_plain(q, kk, v, 0.125),
              library=sdpa_efficient(ac, q, kk, v),
-             bytes=4 * 4 * q.numel() + 4 * bh * GPT2_L,
-             ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
+             cost=ac.flash_fwd_cost(q), peak_flops=PEAK_TF32_FLOPS),
     ]
     out = [timed_row(row, err[row["counter"]]) for row in rows]
     del rows, table, x, q, kk, v, qkv
@@ -4357,17 +4338,14 @@ def k4_tp_row(ac) -> dict:
     phase("tpgpt2", f"[{K4_BATCH}, {K4_TP_HEADS}, {GPT2_L}, {K4_DH}] head "
           f"views of a rank's fused QKV columns: K4 within {K4_RTOL:g} of "
           f"its plain version (max abs err o {e_o:.3e}, lse {e_l:.3e})")
-    bh = K4_BATCH * K4_TP_HEADS
-    pairs = bh * GPT2_L * (GPT2_L + 1) // 2
     return timed_row(dict(
         name="flash_fwd_tp", counter="flash_fwd", path="tpgpt2",
         route="cuda", source="commefficient_tpu_torch/ops/csrc/flash_fwd.cu",
         replaces="commefficient_tpu/ops/attention.py:91",
         fn=lambda: ac.flash_fwd(q, k, v, 0.125),
         plain=lambda: ac.flash_fwd_plain(q, k, v, 0.125),
-        library=sdpa_efficient(ac, q, k, v),
-        bytes=4 * 4 * q.numel() + 4 * bh * GPT2_L,
-        ops=3 * 4 * K4_DH * pairs, peak_flops=PEAK_TF32_FLOPS),
+        library=sdpa_efficient(ac, q, k, v), cost=ac.flash_fwd_cost(q),
+        peak_flops=PEAK_TF32_FLOPS),
         max(e_o, e_l))
 
 
@@ -4941,6 +4919,223 @@ def analysis_phase(sc, ac, cv_train, parse_args, data_dir, main_ms, tmp
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+AUDIT_GPT2_ROUNDS = 3       # the first exempt from the guard
+
+
+class _Guards:
+    """Captures the guards the drivers build (runtime.forbid_transfers,
+    looked up at each round) so a phase can read their counts. A guard
+    raises on the first implicit sync, so a run that ends had none."""
+
+    def __init__(self):
+        self.made = []
+
+    def __enter__(self):
+        from commefficient_tpu_torch.analysis import runtime
+        self.runtime = runtime
+        self.orig = runtime.forbid_transfers
+
+        def make(device="cuda"):
+            g = self.orig(device)
+            self.made.append(g)
+            return g
+
+        runtime.forbid_transfers = make
+        return self
+
+    def __exit__(self, *exc):
+        self.runtime.forbid_transfers = self.orig
+        return False
+
+    def explicit(self) -> dict:
+        out = {}
+        for g in self.made:
+            for reason, n in g.explicit.items():
+                out[reason] = out.get(reason, 0) + n
+        return out
+
+
+def audit_phase(sc, ac, cv_train, gpt2_train, parse_args, HashTokenizer,
+                data_dir, gpt2_dir, main_ms, kernels) -> None:
+    """Phase 43 (header); `kernels` the kernels line's timed rows."""
+    from commefficient_tpu_torch.analysis import audit, numaudit
+    from commefficient_tpu_torch.analysis.costmodel import records_cost
+    from commefficient_tpu_torch.analysis.recorder import RoundRecorder
+    t_phase = time.perf_counter()
+    med = statistics.median
+
+    # (a) the guard on config #2 at full width, and its unguarded twin
+    runs = {}
+    with Deterministic():
+        for label, extra in (("audit_guard", ["--debug_transfer_guard"]),
+                             ("audit_twin", [])):
+            with _Guards() as guards:
+                model, rr, loader = config2_variant(
+                    label, sc, ac, cv_train, parse_args, data_dir, extra)
+            check_launches(label, rr.launches,
+                           {"sketch_encode": ROUNDS,
+                            "sketch_estimate_all": ROUNDS})
+            runs[label] = dict(
+                w=model.ps_weights.detach().cpu(), rr=rr, guards=guards,
+                bytes=[u.tolist() for u in rr.uploads],
+                acct=model.accountant.state_dict())
+            if label == "audit_guard":
+                rec_model, rec_loader = model, loader
+            else:
+                del model
+    g, t = runs["audit_guard"], runs["audit_twin"]
+    if len(g["guards"].made) != ROUNDS - 1:
+        raise AssertionError(f"audit: {len(g['guards'].made)} guarded "
+                             f"rounds (want {ROUNDS - 1})")
+    if t["guards"].made:
+        raise AssertionError("audit: the twin armed a guard")
+    same_acct = all(np.array_equal(np.asarray(g["acct"][k]),
+                                   np.asarray(t["acct"][k]))
+                    for k in t["acct"])
+    if not (torch.equal(g["w"], t["w"]) and g["bytes"] == t["bytes"]
+            and same_acct and set(g["acct"]) == set(t["acct"])):
+        raise AssertionError("audit: the guarded run's weights or billed "
+                             "bytes differ from its unguarded twin's")
+    per_round = {k: v / (ROUNDS - 1)
+                 for k, v in sorted(g["guards"].explicit().items())}
+    phase("audit", f"(a) config #2, {ROUNDS} rounds, rounds 2-{ROUNDS} "
+          f"under --debug_transfer_guard: 0 implicit syncs; weights, "
+          f"every round's billed upload bytes and the accountant bitwise "
+          f"the unguarded twin's; explicit boundaries a round: "
+          + "; ".join(f"{k}: {v:g}" for k, v in per_round.items()))
+    phase("audit", f"(a) ms/round median (rounds 2-{ROUNDS}): guarded "
+          f"{med(g['rr'].round_ms[1:]):.2f}, unguarded twin "
+          f"{med(t['rr'].round_ms[1:]):.2f}; phase 4's "
+          f"{med(main_ms[1:]):.2f}")
+
+    # (b) one steady-state round of config #2 under the recorder, beside
+    # the same kind of round unrecorded
+    model = rec_model
+    batches = iter(rec_loader.epoch())
+    times, recs = {}, {}
+    # the first recorded round pays the mode's one-time set-up; the
+    # profiler over all threads (`foreign`) has its own cost
+    for label in ("warm", "plain", "recorded", "plain2", "foreign"):
+        client_ids, data, mask = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (RoundRecorder(count_foreign=label == "foreign")
+              if label in ("warm", "recorded", "foreign")
+              else contextlib.nullcontext()) as r:
+            model((client_ids, data, mask))
+            torch.cuda.synchronize()
+        times[label] = 1e3 * (time.perf_counter() - t0)
+        recs[label] = r
+    rec = recs["recorded"]
+    staged = [r for r in rec.records if r.stage is not None]
+    cost = records_cost(staged)
+    kern = {k.name: k for k in rec.kernels()}
+    counts = {}
+    for k in rec.kernels():
+        counts[k.name] = counts.get(k.name, 0) + 1
+    if counts != {"sketch_encode": 1, "sketch_estimate_all": 1}:
+        raise AssertionError(f"audit: kernel entries {counts}")
+    # the entries against the bytes and operations the kernels line's
+    # config #2 rows divide by
+    bound = {k["name"]: (k["bytes"], k["ops"]) for k in kernels
+             if k["path"] == "config2"}
+    got = {name: (e.bytes, e.flops) for name, e in kern.items()}
+    if got != bound:
+        raise AssertionError(f"audit: kernel entries {got} against the "
+                             f"kernels line's config #2 rows {bound}")
+    nondet = sorted({f.message.split("`")[1]
+                     for f in numaudit.determinism_findings(
+                         "config2", staged, names=rec.names)})
+    phase("audit", f"(b) one steady-state config #2 round recorded: "
+          f"{len(rec.ops())} aten ops ({len(staged)} in the train round's "
+          f"stages, {sum(r.allocates for r in staged)} allocating), "
+          f"{cost.flops / 1e9:.3f} GFLOP and {cost.hbm_bytes / 1e9:.3f} GB "
+          f"un-fused (costmodel); K1 {kern['sketch_encode'].bytes} bytes "
+          f"({kern['sketch_encode'].bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+          f"ms at 3.35 TB/s), K2 {kern['sketch_estimate_all'].bytes} "
+          f"bytes ({kern['sketch_estimate_all'].bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms); "
+          f"top ops by FLOPs {list(cost.as_dict(4)['by_primitive'])}")
+    phase("audit", f"(b) NU004, not bitwise reproducible on the card "
+          f"without deterministic algorithms: {nondet}; other threads' "
+          f"aten ops while armed: {recs['foreign'].foreign_ops}; the "
+          f"round {times['recorded']:.2f} ms recorded against "
+          f"{times['plain']:.2f} / {times['plain2']:.2f} ms unrecorded "
+          f"(the recorder's cost "
+          f"{times['recorded'] - med([times['plain'], times['plain2']]):.2f}"
+          f" ms; the first recorded round {times['warm']:.2f} ms, with the "
+          f"profiler over all threads {times['foreign']:.2f} ms)")
+    del model, rec_model, rec_loader, batches, rec, recs, staged
+    torch.cuda.empty_cache()
+
+    # (c) config #5 under the guard
+    spe = math.ceil(GPT2_CORPUS[0] * GPT2_CORPUS[1] * GPT2_CORPUS[2]
+                    / (8 * 8))
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=CONFIG5 + [
+        "--local_batch_size", "8", "--device", "cuda", "--dataset_dir",
+        gpt2_dir, "--num_epochs", str(AUDIT_GPT2_ROUNDS / spe), "--seed",
+        "21", "--debug_transfer_guard"])
+    model, opt, sched, loader, _ = gpt2_train.build(
+        cfg, HashTokenizer(GPT2_VOCAB), device="cuda",
+        synthetic_examples=GPT2_CORPUS)
+    assert model.cfg.grad_size == GPT2_D
+    with _Guards() as guards:
+        rr = drive_rounds("audit_gpt2", sc, ac, model, loader,
+                          AUDIT_GPT2_ROUNDS,
+                          lambda timed, on_round: gpt2_train.train_gpt2(
+                              model, opt, sched, timed, model.cfg,
+                              on_round=on_round))
+    check_launches("audit_gpt2", rr.launches, {
+        "sketch_encode": 2 * AUDIT_GPT2_ROUNDS,
+        "threshold_sample": AUDIT_GPT2_ROUNDS,
+        "threshold_mask": AUDIT_GPT2_ROUNDS,
+        "flash_fwd": 12 * 8 * AUDIT_GPT2_ROUNDS})
+    if len(guards.made) != AUDIT_GPT2_ROUNDS - 1:
+        raise AssertionError(f"audit_gpt2: {len(guards.made)} guarded "
+                             "rounds")
+    phase("audit", f"(c) config #5, {AUDIT_GPT2_ROUNDS} rounds, rounds "
+          f"2-{AUDIT_GPT2_ROUNDS} guarded: 0 implicit syncs, launches "
+          f"{rr.launches}; explicit boundaries "
+          f"{guards.explicit()}")
+    del model, opt, sched, loader, rr
+    torch.cuda.empty_cache()
+
+    # (d) graftaudit at AUDIT_GEOMETRY on the card beside the CPU
+    t0 = time.perf_counter()
+    cpu, cpu_f = audit.run_audit("cpu")
+    card, card_f = audit.run_audit("cuda")
+    drift = audit.AuditBaseline.load(audit.DEFAULT_BASELINE).apply_costs(
+        cpu["costs"], 0.0)
+    if cpu_f or card_f or drift:
+        raise AssertionError(f"audit: findings cpu {cpu_f}, card {card_f}, "
+                             f"baseline {drift}")
+    differ, only = [], {}
+    for prog in sorted(cpu["programs"]):
+        a, b = cpu["programs"][prog], card["programs"][prog]
+        if a["kernels"] != b["kernels"]:
+            raise AssertionError(f"audit: {prog} kernel entries "
+                                 f"{a['kernels']} (CPU), {b['kernels']} "
+                                 "(card)")
+        for op in set(a["ops"]) | set(b["ops"]):
+            if op in a["ops"] and op in b["ops"]:
+                if a["ops"][op] != b["ops"][op]:
+                    differ.append(f"{prog}:{op}")
+            else:
+                side = "CPU only" if op in a["ops"] else "card only"
+                only.setdefault(f"{op} ({side})", set()).add(
+                    prog.split("/")[0])
+    if differ:
+        raise AssertionError(f"audit: op counts differ by device: {differ}")
+    phase("audit", f"(d) graftaudit at {audit.AUDIT_GEOMETRY}: "
+          f"{len(card['programs'])} programs on the card, the CPU's equal "
+          f"to the committed baseline, no finding on either; kernel "
+          f"entries and the count of every op both dispatch equal; ops "
+          f"one device alone dispatches: "
+          + ("; ".join(f"{k} in {sorted(v)}" for k, v in sorted(
+              only.items())) or "none")
+          + f"; {time.perf_counter() - t0:.2f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", metavar="DIR", default=None,
@@ -5329,6 +5524,10 @@ def main(argv=None) -> int:
                        ana_tmp)
     finally:
         shutil.rmtree(ana_tmp, ignore_errors=True)
+
+    # phase 43: the trace tiers (item 10f) on config #2 and config #5
+    audit_phase(sc, ac, cv_train, gpt2_train, parse_args, HashTokenizer,
+                c2_dir, gpt2_dir, round_ms, kernels)
 
     # launches: each entry's count from its own main path's run
     path_launches = {"config2": launches, "config5": g_launches,

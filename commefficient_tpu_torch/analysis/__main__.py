@@ -1,7 +1,8 @@
 """CLI: ``python -m commefficient_tpu_torch.analysis [paths...]``.
 
 Lints the port package by default (run it from the repo root), with
-graftlint's host rules (analysis/rules.py). Exit codes are the JAX
+every graftlint rule (analysis/rules.py: the host rules, and the rules
+over the round's path and the rank layer). Exit codes are the JAX
 package's: 0 clean, 1 violations or lint errors, 2 usage errors (a
 path that does not exist). The port keeps no baseline file and reads no
 pyproject.toml table: its tree is held at zero hits, each deliberate

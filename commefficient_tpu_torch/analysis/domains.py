@@ -22,6 +22,8 @@ asserted at import time:
     for state a writer thread and the caller's thread both mutate.
     graftsync SY001 flags a mutation outside `with self.<guard>:` and
     cross-thread-mutated state missing from here.
+  * MESH_AXES: the Layout axis names (graftlint GL010).
+  * PRECISION_SEAMS: the registered lossy casts (graftnum NU002).
   * ORDERING_EDGES: named happens-before contracts between host calls,
     each a call-order dominance inside one function of the port
     (graftsync SY006: `before` present and its first call ahead of every
@@ -61,6 +63,62 @@ def domain(name: str) -> int:
             f"unknown PRNG domain {name!r}; registered: "
             f"{sorted(DOMAINS)} (add new streams to analysis/domains)"
         ) from None
+
+
+# the mesh-axis registry: parallel/mesh.py's axis names (the JAX
+# package's values, frozen). graftlint GL010 holds every axis-name
+# literal at a Layout call in parallel/ and federated/ to it
+CLIENTS_AXIS = "clients"
+MODEL_AXIS = "model"
+MESH_AXES = (CLIENTS_AXIS, MODEL_AXIS)
+
+assert len(set(MESH_AXES)) == len(MESH_AXES), (
+    "duplicate axis name in analysis/domains.MESH_AXES")
+
+
+# precision seams: the places a round deliberately LOSES precision, the
+# JAX package's registry re-pointed at the port's code. graftnum NU002
+# holds every lossy cast a recorded round makes (float narrowing, float
+# to int8/int16) to a registered (src, dst) dtype pair; a new seam is
+# declared here, with its residual story, before it ships
+PRECISION_SEAMS = {
+    "sketch-wire-bf16": {
+        "src": "float32", "dst": "bfloat16",
+        "path": "commefficient_tpu_torch/ops/kernels/quant.py",
+        "function": "quantize_table",
+        "why": "the bf16 sketch-table wire format: the rounding is "
+               "bounded per cell and lands in the error-feedback "
+               "residual, which FetchSGD re-transmits",
+    },
+    "sketch-wire-int8": {
+        "src": "float32", "dst": "int8",
+        "path": "commefficient_tpu_torch/ops/kernels/quant.py",
+        "function": "quantize_table",
+        "why": "the int8 symmetric sketch-table wire format: a per-row "
+               "scale rides beside the payload, the quantization noise "
+               "lands in the error-feedback residual",
+    },
+    "attention-output-cast": {
+        "src": "float32", "dst": "bfloat16",
+        "path": "commefficient_tpu_torch/ops/attention.py",
+        "function": "_flash_fwd_plain",
+        "why": "the flash-attention f32 accumulator is cast back to the "
+               "bf16 activation type on exit, outside the error-feedback "
+               "loop",
+    },
+}
+
+for _name, _seam in PRECISION_SEAMS.items():
+    assert {"src", "dst", "path", "function", "why"} <= set(_seam), (
+        f"PRECISION_SEAMS[{_name!r}] is missing a required field")
+    assert _seam["src"] != _seam["dst"], (
+        f"PRECISION_SEAMS[{_name!r}]: src and dst name the same dtype")
+
+
+def precision_seam_pairs() -> set:
+    """The registered (src, dst) dtype-name pairs graftnum NU002 holds
+    lossy casts to."""
+    return {(s["src"], s["dst"]) for s in PRECISION_SEAMS.values()}
 
 
 # controller name -> plan wire field (control/), the JAX package's,

@@ -30,9 +30,34 @@ run executes.
     compares every tensor's bytes (after a torch.cuda.synchronize()
     when a card is in use).
 
-The JAX package's program counter (`assert_program_count`) and
-transfer guard (`forbid_transfers`) count XLA compiles and guard
-jax.Array transfers; their torch counterparts are ROADMAP.md item 10f.
+  * `forbid_transfers(device)`: the implicit-sync guard behind
+    --debug_transfer_guard, the counterpart of JAX's
+    `jax.transfer_guard("disallow")`. A `TorchDispatchMode` that raises
+    `TransferGuardError`, naming the op and the caller's frame, on an
+    IMPLICIT device-to-host synchronisation (`sync_kind`): a scalar
+    read (`.item()`, `float()`, `int()`, `bool()`, `if t:`:
+    `aten._local_scalar_dense`), a blocking CUDA-to-CPU `_to_copy` or
+    `copy_`, and the ops whose output shape depends on the data
+    (`nonzero`, `masked_select`, boolean-mask indexing, `unique`,
+    `repeat_interleave` without `output_size`). `explicit_transfer(
+    reason)` marks a deliberate host boundary (JAX's explicit
+    device_get); the guard lets it pass and counts it by reason. CUDA's
+    own `torch.cuda.set_sync_debug_mode` is not this guard: it trips on
+    the explicit copies too. On a CPU run the guard treats CPU tensors
+    as the card's, so the tests exercise it (a CPU copy dispatches
+    nothing, so copies show only on the card). A CPU kernel region
+    (commefficient_tpu_torch/hooks.py), where a wrapper runs its plain
+    version, and a set-up region are exempt; a card wrapper's body is
+    not.
+  * `count_programs()` / `assert_program_count(n)`: the counterpart of
+    the JAX program counter. The port compiles nothing a round, so a
+    "program" is a distinct op-signature sequence a train round
+    dispatches (`recorder.RoundRecorder.digest` of each
+    `hooks.program()` scope inside the block), and every nvcc build
+    inside the block counts as one more. The JAX contract of three
+    round programs (mask-free, dropout, dropout + stragglers) reads:
+    rounds of one variant dispatch the same sequence, and the three
+    variants give three.
 """
 from __future__ import annotations
 
@@ -45,6 +70,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from commefficient_tpu_torch import hooks
+from commefficient_tpu_torch.analysis import recorder as _rec
 from commefficient_tpu_torch.analysis.engine import (
     edges_to_graph, find_cycles,
 )
@@ -358,3 +385,210 @@ class NumericSanitizer:
                     "the crash->resume bit-exactness contract does not "
                     "hold for this function")
         return first
+
+
+# ---------------------------------------------------------------------------
+# the implicit-sync guard
+
+
+explicit_transfer = hooks.explicit_transfer
+
+
+class TransferGuardError(RuntimeError):
+    """An implicit device-to-host synchronisation under
+    forbid_transfers()."""
+
+
+# ops that hand a device value to the host as a Python scalar
+SCALAR_READS = frozenset({
+    "_local_scalar_dense.default", "is_nonzero.default", "equal.default",
+})
+# ops whose output shape the host must read from the device
+DATA_DEPENDENT = frozenset({
+    "nonzero.default", "masked_select.default", "_unique2.default",
+    "_unique.default", "unique_dim.default", "unique_consecutive.default",
+    "repeat_interleave.Tensor",
+})
+# indexing ops that take a boolean mask through nonzero on the card
+_MASK_INDEX = frozenset({
+    "index.Tensor", "index_put_.default", "index_put.default",
+    "_index_put_impl_.default",
+})
+
+
+def sync_kind(op: str, ins, scalars, kwargs, device: str
+              ) -> Optional[str]:
+    """Why the op (its name, input metas (shape, dtype, device), scalar
+    and keyword arguments) synchronises `device` ("cuda", or "cpu" for
+    the guard's CPU reading) with the host, or None. Shared by the
+    guard and graftaudit's AU001."""
+    kw = dict(kwargs)
+    if not ins:
+        return None
+    on_dev = ins[0][2] == device
+    if op in SCALAR_READS and on_dev:
+        return "scalar read"
+    if op in DATA_DEPENDENT and on_dev:
+        if op == "repeat_interleave.Tensor" and kw.get("output_size"):
+            return None
+        return "data-dependent output shape"
+    if op in _MASK_INDEX and on_dev:
+        idx = ins[1:-1] if op != "index.Tensor" else ins[1:]
+        if any(m[1] == "bool" for m in idx):
+            return "boolean-mask index"
+    blocking = not (kw.get("non_blocking") or True in scalars[:1])
+    if op == "_to_copy.default" and ins[0][2] == "cuda" \
+            and kw.get("device") == "cpu" and blocking:
+        return "device-to-host copy"
+    if op == "copy_.default" and len(ins) > 1 and ins[0][2] == "cpu" \
+            and ins[1][2] == "cuda" and blocking:
+        return "device-to-host copy"
+    return None
+
+
+# every op sync_kind can name: the guard looks no further at others
+_CANDIDATES = (SCALAR_READS | DATA_DEPENDENT | _MASK_INDEX
+               | {"_to_copy.default", "copy_.default"})
+
+def _caller_frame() -> str:
+    """file:line (function) of the innermost frame outside torch and
+    this package's analysis modules."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        fn = frame.f_code.co_filename.replace("\\", "/")
+        if "/torch/" not in fn and "/analysis/" not in fn:
+            return (f"{fn}:{frame.f_lineno} "
+                    f"({frame.f_code.co_name})")
+        frame = frame.f_back
+    return "<unknown>"
+
+
+class TransferGuard:
+    """The armed guard: it raises on the first implicit sync, and
+    `explicit` counts the passed boundaries by reason."""
+
+    def __init__(self, device="cuda"):
+        dev = getattr(device, "type", None) or str(device).split(":")[0]
+        self.device = dev if dev in ("cuda", "cpu") else "cuda"
+        self.explicit: Dict[str, int] = {}
+        self.thread: Optional[int] = None
+        self._mode = None
+
+    def check(self, func, args, kwargs) -> None:
+        import torch
+        op = func.__name__
+        if op not in _CANDIDATES:
+            return
+        ins = tuple(_rec._meta(t) for t in _rec.tensors_of(
+            kwargs, _rec.tensors_of(args)))
+        scalars = tuple(a for a in args if isinstance(a, (bool, int,
+                                                          float)))
+        kw = {k: (_rec._scalar(v) if not isinstance(v, torch.Tensor)
+                  else None) for k, v in kwargs.items()}
+        kind = sync_kind(op, ins, scalars, kw, self.device)
+        if kind is None:
+            return
+        reason = hooks.explicit_reason()
+        if reason is not None:
+            self.explicit[reason] = self.explicit.get(reason, 0) + 1
+            return
+        raise TransferGuardError(
+            f"implicit device-to-host sync under forbid_transfers(): "
+            f"{kind} `{op}` at {_caller_frame()} — keep the value on the "
+            "device, or mark a deliberate host boundary with "
+            "explicit_transfer(reason)")
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        guard = self
+
+        class _Mode(TorchDispatchMode):
+            # the port compiles nothing: no Dynamo guard around the hook,
+            # whose first use imports Dynamo (seconds) and which costs each op
+            @classmethod
+            def _should_skip_dynamo(cls):
+                return False
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if not hooks.guard_exempt():
+                    guard.check(func, args, kwargs)
+                return func(*args, **kwargs)
+
+        self._mode = _Mode()
+        self._mode.__enter__()
+        hooks.arm(self)
+        return self
+
+    def __exit__(self, *exc):
+        hooks.disarm(self)
+        self._mode.__exit__(*exc)
+        self._mode = None
+        return False
+
+
+def forbid_transfers(device="cuda") -> TransferGuard:
+    """The guard over the block (module docstring); `device` is the
+    model's ("cpu" for the guard's CPU reading)."""
+    return TransferGuard(device)
+
+
+# ---------------------------------------------------------------------------
+# the program counter
+
+
+class ProgramCount:
+    """`count_programs`' handle: `.count` is the distinct round
+    programs seen plus the nvcc builds, live during the block;
+    `.digests` the program digests in order of first sight."""
+
+    def __init__(self):
+        from commefficient_tpu_torch.ops.kernels import _build
+        self._build = _build
+        self._builds0 = _build.BUILDS["nvcc"]
+        self.digests: List[str] = []
+        self.rounds = 0
+        self.thread: Optional[int] = None
+
+    def on_program(self, digest: str) -> None:
+        self.rounds += 1
+        if digest not in self.digests:
+            self.digests.append(digest)
+
+    @property
+    def builds(self) -> int:
+        return self._build.BUILDS["nvcc"] - self._builds0
+
+    @property
+    def count(self) -> int:
+        return len(self.digests) + self.builds
+
+
+@contextlib.contextmanager
+def count_programs():
+    """Count the distinct round programs (and nvcc builds) inside the
+    block."""
+    c = ProgramCount()
+    hooks.arm(c)
+    try:
+        yield c
+    finally:
+        hooks.disarm(c)
+
+
+@contextlib.contextmanager
+def assert_program_count(n: int):
+    """Assert EXACTLY `n` programs inside the block (count_programs)."""
+    with count_programs() as c:
+        yield c
+    got = c.count
+    if got != n:
+        why = ("an extra program means a round dispatched an op sequence "
+               "(op, shapes, dtypes) none before it did, or a kernel was "
+               "built inside the block" if got > n else
+               "fewer means fewer variants ran than the contract names")
+        raise AssertionError(
+            f"program-count contract violated: expected exactly {n} "
+            f"program(s) in this block, observed {got} ({len(c.digests)} "
+            f"op sequence(s) over {c.rounds} round(s), {c.builds} "
+            f"build(s)); {why} (see analysis/runtime.py)")

@@ -7,11 +7,10 @@ parity tests can build both configs from one argument list. The one
 difference is `--device`: the port takes cuda (the default) or cpu
 where the JAX package names a TPU.
 
-`validate()` runs the same invariants as the JAX package and then
-refuses, with NotImplementedError naming the ROADMAP.md queue item,
-every option whose path the port does not run yet. That is a loud
-refusal, never a fallback: a run either takes the ported path exactly
-or does not start.
+`validate()` runs the same invariants as the JAX package. The port
+runs every option the JAX package does (the last, `--debug_transfer_
+guard`, is analysis/runtime.forbid_transfers), so it refuses none for
+want of a port.
 
 `--kernel_backend` is accepted for flag parity only. The port's route
 is chosen by the tensor's device: a CUDA tensor goes through the
@@ -45,11 +44,6 @@ DEFAULT_NUM_CLIENTS = {
     "EMNIST": 3500,
     "PERSONA": 17568,
 }
-
-# the ROADMAP.md Queue 1 item that still holds the unported path
-Q_ANALYSIS = ("Queue 1 item 10f (the trace tiers' torch counterparts, "
-              "among them a guard for implicit syncs)")
-
 
 def num_classes_of_dataset(dataset_name: str) -> int:
     return FED_DATASETS[dataset_name]
@@ -307,10 +301,8 @@ class Config:
             f"num_clients must be given for dataset {self.dataset_name}")
 
     def validate(self) -> "Config":
-        """The JAX package's invariants (ValueError), then the port's
-        refusals of unported paths (NotImplementedError)."""
+        """The JAX package's invariants (ValueError)."""
         self._validate_invariants()
-        self._refuse_unported()
         return self
 
     def _validate_invariants(self) -> None:
@@ -689,19 +681,6 @@ class Config:
                     "bounded span: set --scan_span or "
                     "--scan_span_palette (epoch-sized spans have no "
                     "static bound)")
-
-    def _refuse_unported(self) -> None:
-        def refuse(what: str, where: str):
-            raise NotImplementedError(
-                f"{what} is not ported to commefficient_tpu_torch yet "
-                f"(ROADMAP.md {where})")
-
-        if self.debug_transfer_guard:
-            # the JAX guard forbids IMPLICIT transfers; CUDA's sync debug
-            # mode would also trip on the port's explicit one-round-late
-            # copies, so it is not the same guard: item 10f plans one
-            # that flags implicit syncs only
-            refuse("--debug_transfer_guard", Q_ANALYSIS)
 
 
 def _build_parser(default_lr: Optional[float] = None) -> argparse.ArgumentParser:

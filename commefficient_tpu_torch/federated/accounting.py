@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from commefficient_tpu_torch.hooks import explicit_transfer
 from commefficient_tpu_torch.config import Config
 
 DEQUE_MAXLEN_MULT = 10
@@ -48,7 +49,9 @@ def pack_change_bits(update: torch.Tensor) -> torch.Tensor:
 
 
 def to_words(packed: torch.Tensor) -> np.ndarray:
-    return packed.cpu().numpy().astype(np.uint32)
+    with explicit_transfer("accounting: the previous round's change "
+                           "bits, one round late"):
+        return packed.cpu().numpy().astype(np.uint32)
 
 
 def from_words(words: np.ndarray, device) -> torch.Tensor:

@@ -118,6 +118,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from commefficient_tpu_torch.hooks import explicit_transfer
 from commefficient_tpu_torch.compress import RdpAccountant
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.control import (
@@ -201,6 +202,14 @@ class _HostCopies:
         if self._event is not None:
             self._event.synchronize()
         return self._tensors
+
+
+def _bank_row(metrics, cfg: Config) -> Optional[np.ndarray]:
+    """The round's telemetry row on the host, for the controller bank."""
+    if not cfg.telemetry:
+        return None
+    with explicit_transfer("controllers: the round's telemetry row"):
+        return metrics.telemetry.cpu().numpy()
 
 
 def _host_rows(rows: Optional[dict], host: dict) -> Optional[dict]:
@@ -1158,14 +1167,15 @@ class FedModel:
             self._set_prev_bits(pack_change_bits(
                 self.server.ps_weights - prev_weights))
             # the host copies wait for this round
-            admitted, contrib, agg = (
-                None if t is None else t.cpu().numpy()
-                for t in (metrics.admitted, metrics.contributors,
-                          metrics.agg_stats))
+            with explicit_transfer("screening: the round's admission "
+                                   "masks, for the accountant"):
+                admitted, contrib, agg = (
+                    None if t is None else t.cpu().numpy()
+                    for t in (metrics.admitted, metrics.contributors,
+                              metrics.agg_stats))
             download, upload = self._commit_round(
                 this_round, ids_host, ops, prev_words, admitted, contrib,
-                agg, bank_row=lambda: (metrics.telemetry.cpu().numpy()
-                                       if self.cfg.telemetry else None))
+                agg, bank_row=lambda: _bank_row(metrics, self.cfg))
         sched_mask = self._plan_active.pop(this_round, None)
         if self.telemetry is not None:
             # the round's metric tensors, journaled one round late; idle

@@ -77,6 +77,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from commefficient_tpu_torch import hooks
 from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.federated import client as fclient
 from commefficient_tpu_torch.federated import server as fserver
@@ -486,7 +487,7 @@ def gather_population(block: torch.Tensor, layout, chunk_rows: int = 256,
     part): a host array where `keep`, else None (a rank that does not
     write the checkpoint never holds the whole block)."""
     if not _sharded(layout) or block.ndim < 2:
-        return block.detach().cpu().numpy() if keep else None
+        return block.detach().cpu().numpy() if keep else None  # graftlint: disable=GL002 -- the checkpoint's copy of the rows, between rounds
     R, D = block.shape
     rows = R * layout.clients
     me = layout.clients_index
@@ -500,7 +501,7 @@ def gather_population(block: torch.Tensor, layout, chunk_rows: int = 256,
             buf[lo - a:hi - a] = block[lo - me * R:hi - me * R]
         layout.all_reduce(buf)
         if keep:
-            out[a:b] = buf.cpu().numpy()
+            out[a:b] = buf.cpu().numpy()  # graftlint: disable=GL002 -- the checkpoint's copy of the rows, between rounds
     return out
 
 
@@ -781,15 +782,19 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
     def train_round(server: ServerState, clients: ClientState,
                     batch: RoundBatch, lr, key):
         # host spans of the three dispatches (telemetry/trace.py); the
-        # round tag comes from the caller's enclosing `dispatch` span
-        with TRACE.span("gather"):
-            cohort = gather_cohort(cfg, clients, batch.client_ids, layout)
-        with TRACE.span("round_dispatch"):
-            server, cohort, metrics = round_step(server, cohort, batch,
-                                                 lr, key)
-        with TRACE.span("scatter"):
-            clients = scatter_back(cfg, clients, batch.client_ids, cohort,
-                                   layout)
+        # round tag comes from the caller's enclosing `dispatch` span.
+        # The recorder's stages are the JAX engine's three programs
+        # (the round, and the two state-motion programs around it)
+        with hooks.program():
+            with TRACE.span("gather"), hooks.stage("gather"):
+                cohort = gather_cohort(cfg, clients, batch.client_ids,
+                                       layout)
+            with TRACE.span("round_dispatch"), hooks.stage("round"):
+                server, cohort, metrics = round_step(server, cohort, batch,
+                                                     lr, key)
+            with TRACE.span("scatter"), hooks.stage("scatter"):
+                clients = scatter_back(cfg, clients, batch.client_ids,
+                                       cohort, layout)
         return server, clients, metrics
 
     train_round.round_step = round_step

@@ -37,6 +37,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 # what each build printed (nvcc / ptxas register and spill report)
 BUILD_LOG: Dict[str, str] = {}
+# nvcc processes started by this process (analysis/runtime.count_programs
+# counts the builds inside its block)
+BUILDS = {"nvcc": 0}
 
 
 def _nvcc() -> str:
@@ -75,6 +78,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)
+        BUILDS["nvcc"] += 1
     errors = []
     for n, (proc, tmp) in procs.items():
         out, _ = proc.communicate()

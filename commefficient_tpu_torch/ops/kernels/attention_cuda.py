@@ -38,6 +38,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from commefficient_tpu_torch.hooks import kernel_region
 from commefficient_tpu_torch.ops.attention import _flash_fwd_plain
 from commefficient_tpu_torch.ops.kernels import _build
 
@@ -110,10 +111,28 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
     dev = q.device
-    if dev.type == "cpu":
-        return flash_fwd_plain(q, k, v, sm_scale)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    with kernel_region(_ENTRY.get(q.dtype, ("", "flash_fwd"))[1], dev,
+                       (q.shape,), *flash_fwd_cost(q)):
+        if dev.type == "cpu":
+            return flash_fwd_plain(q, k, v, sm_scale)
+        return _flash_fwd_cuda(q, k, v, sm_scale, dev)
+
+
+def flash_fwd_cost(q: torch.Tensor) -> tuple:
+    """(bytes, operations) K4's bound counts (PERF.md section 6): q, k,
+    v read and o written once in their type, lse in float32; 4 Dh
+    operations a causal (query, key) pair, three times over for float32
+    operands (the three-pass TF32 route that keeps f32 accuracy)."""
+    B, H, L, dh = q.shape
+    pairs = B * H * L * (L + 1) // 2
+    passes = 1 if q.dtype == torch.bfloat16 else 3
+    return (4 * q.element_size() * q.numel() + 4 * B * H * L,
+            passes * 4 * dh * pairs)
+
+
+def _flash_fwd_cuda(q, k, v, sm_scale: float, dev):
     if q.dtype not in _ENTRY:
         raise TypeError(f"the flash kernel takes torch.float32 or "
                         f"bfloat16, got {q.dtype}")

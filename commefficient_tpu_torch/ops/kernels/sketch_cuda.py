@@ -49,6 +49,13 @@ Build: ops/kernels/_build.py (nvcc for sm_90a into `build/`, ctypes).
 Counts: `LAUNCHES[name]` adds one each time the wrapper launches the
 kernel, and nowhere else (chip_smoke.py reads them around the main
 path).
+
+Each wrapper runs its launch, or its plain version, inside a
+`hooks.kernel_region` named as its count, with the bytes and operations
+its bound counts (`*_cost`, PERF.md section 6, chip_smoke.py's kernels
+line): the round recorder writes one kernel entry for it on either
+device, and the transfer guard leaves the plain version's host reads
+alone.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from commefficient_tpu_torch.hooks import kernel_region
 from commefficient_tpu_torch.ops.kernels import _build
 
 # kernel name -> launches through its wrapper (plain versions never count)
@@ -75,6 +83,52 @@ _SAMPLE_TARGET = 1024 * 1024
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# the bytes and operations each kernel's bound counts (PERF.md section 6):
+# every operand read once, every output written once, the signs as
+# packed bits
+
+
+def bits_bytes(n: int) -> int:
+    """Bytes of the int32 words that hold n packed sign bits."""
+    return 4 * -(-n // 32)
+
+
+def _est_ops(r: int) -> int:
+    """Operations of one median-of-rows estimate: 2r sign flips, the
+    r(r-1)/2 compare-exchanges (2 each), the middle."""
+    return 2 * r + r * (r - 1) + 2
+
+
+def encode_cost(d: int, r: int, c: int, B: int) -> tuple:
+    """(bytes, operations) of K1: x, off and the sign bits read, the
+    table written; r * d * (2 multiplies + 1 add)."""
+    return (4 * d + 4 * r * B + bits_bytes(r * c) + bits_bytes(r * B)
+            + 4 * r * c, 3 * r * d)
+
+
+def estimate_cost(r: int, c: int, nb: int) -> tuple:
+    """(bytes, operations) of K2 over nb chunks: the table, the window's
+    offsets and the sign bits read, the [nb, c] estimate written."""
+    return (4 * r * c + bits_bytes(r * c) + 4 * r * nb + bits_bytes(r * nb)
+            + 4 * nb * c, nb * c * _est_ops(r))
+
+
+def sample_cost(r: int, c: int, B: int, ns: int) -> tuple:
+    """(bytes, operations) of K3a: the table, the sampled eps bits, off
+    and the delta bits read, the [B, ns] sample written."""
+    return (4 * r * c + bits_bytes(r * ns) + 4 * r * B + bits_bytes(r * B)
+            + 4 * B * ns, B * ns * _est_ops(r))
+
+
+def mask_cost(d: int, r: int, c: int, B: int) -> tuple:
+    """(bytes, operations) of K3b: the table, off, the sign bits and the
+    threshold read, the [d] update written; an estimate, its square and
+    the compare a coordinate."""
+    return (4 * r * c + 4 * r * B + bits_bytes(r * c) + bits_bytes(r * B)
+            + 4 + 4 * d, d * (_est_ops(r) + 2))
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -134,7 +188,7 @@ def encode_plain(x: torch.Tensor, off: torch.Tensor, delta: torch.Tensor,
     d = x.shape[0]
     pad = B * c - d
     chunks = torch.nn.functional.pad(x, (0, pad)).view(B, c)
-    offs = off.tolist()
+    offs = off.tolist()  # graftlint: disable=GL002 -- the plain version, CPU tensors only
     rows = []
     for j in range(r):
         acc = torch.zeros(c, dtype=x.dtype, device=x.device)
@@ -155,7 +209,7 @@ def pack_sign_bits(t: torch.Tensor) -> torch.Tensor:
     bit i of the flattened table (word i // 32, bit i % 32) is set iff
     its value is -1. Raises ValueError if any value is not exactly +-1."""
     flat = t.reshape(-1)
-    if not bool(((flat == 1.0) | (flat == -1.0)).all()):
+    if not bool(((flat == 1.0) | (flat == -1.0)).all()):  # graftlint: disable=GL002,GL004,GL013 -- exact +-1 check, once per device (CSVec.sign_bits caches)
         raise ValueError("sign tables must hold exactly +-1")
     n = flat.numel()
     words = _words(n)
@@ -195,11 +249,18 @@ def encode(x: torch.Tensor, off: torch.Tensor, delta_bits: torch.Tensor,
     if B != -(-d // c):
         raise ValueError(f"off has {B} chunks, d={d}, c={c} needs "
                          f"{-(-d // c)}")
-    if dev.type == "cpu":
-        return encode_plain(x, off, unpack_sign_bits(delta_bits, (r, B)),
-                            unpack_sign_bits(eps_bits, (r, c)), c)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    with kernel_region("sketch_encode", dev, (x.shape, off.shape),
+                       *encode_cost(d, r, c, B)):
+        if dev.type == "cpu":
+            return encode_plain(x, off, unpack_sign_bits(delta_bits, (r, B)),
+                                unpack_sign_bits(eps_bits, (r, c)), c)
+        return _encode_cuda(x, off, delta_bits, eps_bits, r, c, B, d, dev)
+
+
+def _encode_cuda(x, off, delta_bits, eps_bits, r: int, c: int, B: int,
+                 d: int, dev) -> torch.Tensor:
     if not 1 <= r <= MAX_ROWS or r * c >= 2 ** 31:
         raise ValueError(f"encode takes 1 <= r <= {MAX_ROWS} rows and "
                          f"r * c < 2^31 on the card, got r={r}, c={c}")
@@ -240,7 +301,7 @@ def estimate_all_plain(table: torch.Tensor, off: torch.Tensor,
     r, c = table.shape
     B = off.shape[1]
     nb = B - b0 if nb is None else nb
-    offs = off[:, b0:b0 + nb].tolist()
+    offs = off[:, b0:b0 + nb].tolist()  # graftlint: disable=GL002 -- the plain version, CPU tensors only
     ests = []
     for i in range(nb):
         rows = torch.stack([torch.roll(table[j], -offs[j][i])
@@ -305,11 +366,19 @@ def _estimate(table, off, delta_bits, eps_bits, d: int, b0: int, nb: int,
     if not (0 <= b0 and 1 <= nb and b0 + nb <= B):
         raise ValueError(f"chunk window [{b0}, {b0 + nb}) is not within "
                          f"the {B} chunks")
-    if dev.type == "cpu":
-        return estimate_all_plain(table, off,
-                                  unpack_sign_bits(delta_bits, (r, B)),
-                                  unpack_sign_bits(eps_bits, (r, c)), d,
-                                  b0, nb)
+    with kernel_region(name, dev, (table.shape, off.shape),
+                       *estimate_cost(r, c, nb)):
+        if dev.type == "cpu":
+            return estimate_all_plain(table, off,
+                                      unpack_sign_bits(delta_bits, (r, B)),
+                                      unpack_sign_bits(eps_bits, (r, c)), d,
+                                      b0, nb)
+        return _estimate_cuda(table, off, delta_bits, eps_bits, r, c, B, d,
+                              b0, nb, name, dev)
+
+
+def _estimate_cuda(table, off, delta_bits, eps_bits, r: int, c: int, B: int,
+                   d: int, b0: int, nb: int, name: str, dev) -> torch.Tensor:
     lib = _load()
     est = torch.empty((nb, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -370,10 +439,18 @@ def threshold_sample(table: torch.Tensor, off: torch.Tensor,
     if stride < 1 or ns < 1 or (ns - 1) * stride >= c:
         raise ValueError(f"stride={stride}, ns={ns} leave chunk positions "
                          f"[0, {c})")
-    if dev.type == "cpu":
-        return threshold_sample_plain(
-            table, off, unpack_sign_bits(delta_bits, (r, B)),
-            unpack_sign_bits(eps_bits, (r, c)), d, stride, ns)
+    with kernel_region("threshold_sample", dev, (table.shape, off.shape),
+                       *sample_cost(r, c, B, ns)):
+        if dev.type == "cpu":
+            return threshold_sample_plain(
+                table, off, unpack_sign_bits(delta_bits, (r, B)),
+                unpack_sign_bits(eps_bits, (r, c)), d, stride, ns)
+        return _sample_cuda(table, off, delta_bits, eps_bits, r, c, B, d,
+                            stride, ns, dev)
+
+
+def _sample_cuda(table, off, delta_bits, eps_bits, r: int, c: int, B: int,
+                 d: int, stride: int, ns: int, dev) -> torch.Tensor:
     lib = _load()
     sample = torch.empty((B, ns), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -412,10 +489,18 @@ def threshold_mask(table: torch.Tensor, off: torch.Tensor,
     if thr.dtype != torch.float32 or thr.device != dev:
         raise ValueError(f"thr must be float32 on {dev}, got {thr.dtype} "
                          f"on {thr.device}")
-    if dev.type == "cpu":
-        return threshold_mask_plain(
-            table, off, unpack_sign_bits(delta_bits, (r, B)),
-            unpack_sign_bits(eps_bits, (r, c)), thr, d)
+    with kernel_region("threshold_mask", dev, (table.shape, off.shape),
+                       *mask_cost(d, r, c, B)):
+        if dev.type == "cpu":
+            return threshold_mask_plain(
+                table, off, unpack_sign_bits(delta_bits, (r, B)),
+                unpack_sign_bits(eps_bits, (r, c)), thr, d)
+        return _mask_cuda(table, off, delta_bits, eps_bits, thr, r, c, B, d,
+                          dev)
+
+
+def _mask_cuda(table, off, delta_bits, eps_bits, thr, r: int, c: int,
+               B: int, d: int, dev) -> torch.Tensor:
     lib = _load()
     thr = thr.reshape(1).contiguous()
     out = torch.empty((d,), dtype=torch.float32, device=dev)

@@ -38,6 +38,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from commefficient_tpu_torch.hooks import setup_region
 from commefficient_tpu_torch.ops.flat import (
     threshold_from_sq_sample, topk_indices,
 )
@@ -117,8 +118,9 @@ class CSVec:
             dev = torch.device("cuda", torch.cuda.current_device())
         got = self._on_device.get(dev)
         if got is None:
-            got = tuple(torch.from_numpy(a).to(dev)
-                        for a in (self._offsets, self._eps, self._delta))
+            with setup_region():
+                got = tuple(torch.from_numpy(a).to(dev)
+                            for a in (self._offsets, self._eps, self._delta))
             self._on_device[dev] = got
         return got
 
@@ -131,8 +133,9 @@ class CSVec:
         _, eps, delta = self.tables(device)
         got = self._bits_on_device.get(eps.device)
         if got is None:
-            got = (sketch_cuda.pack_sign_bits(eps),
-                   sketch_cuda.pack_sign_bits(delta))
+            with setup_region():
+                got = (sketch_cuda.pack_sign_bits(eps),
+                       sketch_cuda.pack_sign_bits(delta))
             self._bits_on_device[eps.device] = got
             self.sign_packs += 1
         return got

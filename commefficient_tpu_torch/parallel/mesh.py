@@ -48,10 +48,24 @@ def _rank_of(d) -> int:
 
 class CollectiveStats:
     """Calls, bytes and host seconds of a layout's collectives (the
-    parallel layer's metrics: PERF.md section 3)."""
+    parallel layer's metrics: PERF.md section 3). With `log` a list, each
+    collective is also appended to it as (kind, axis, shape, dtype,
+    round stage): what graftmesh and graftnum price
+    (analysis/costmodel.collective_cost, reassociation_ulp_bound)."""
 
     def __init__(self):
+        self.log: Optional[list] = None
         self.reset()
+
+    def note(self, kind: str, axis: str, t: torch.Tensor) -> None:
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+        if self.log is not None:
+            from commefficient_tpu_torch.analysis.recorder import (
+                current_stage, dtype_name,
+            )
+            self.log.append((kind, axis, tuple(int(d) for d in t.shape),
+                             dtype_name(t.dtype), current_stage()))
 
     def reset(self) -> None:
         self.calls = 0
@@ -185,8 +199,7 @@ class Layout:
             t = t.contiguous()
         t0 = time.perf_counter()
         dist.all_reduce(t, group=self._group(axis))
-        self.stats.calls += 1
-        self.stats.bytes += t.numel() * t.element_size()
+        self.stats.note("all_reduce", axis, t)
         self.stats.seconds += time.perf_counter() - t0
         return t
 
@@ -215,8 +228,7 @@ class Layout:
                 buf = t.new_empty(shape)
             dist.broadcast(buf, src=int(src), group=self._group(axis))
             parts.append(buf)
-            self.stats.calls += 1
-            self.stats.bytes += buf.numel() * buf.element_size()
+            self.stats.note("broadcast", axis, buf)
         self.stats.seconds += time.perf_counter() - t0
         return torch.cat(parts, dim=dim)
 

@@ -231,7 +231,7 @@ def sync_processes(name: str = "barrier") -> None:
     if not is_multihost():
         return
     import torch.distributed as dist
-    dist.all_reduce(torch.zeros(1, dtype=torch.float32,
+    dist.all_reduce(torch.zeros(1, dtype=torch.float32,  # graftlint: disable=GL007 -- the world's barrier, no layout axis
                                 device=_collective_device()))
 
 

@@ -27,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from commefficient_tpu_torch.hooks import explicit_transfer
 from commefficient_tpu_torch.telemetry import metrics as tmetrics
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
 from commefficient_tpu_torch.telemetry.journal import RunJournal, append_event
@@ -80,7 +81,9 @@ def materialize(x) -> np.ndarray:
     work queued on the stream, the round just dispatched included; the
     drivers' one-round-late metric emit waits for the same round."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with explicit_transfer("telemetry: a round's metrics, one round "
+                               "late"):
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 

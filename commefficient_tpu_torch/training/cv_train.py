@@ -19,9 +19,9 @@ controllers (`--target_screened_rate`, `--speed_match`,
 ranks (`--multihost`, `--num_slices`, parallel/) with the plan
 transport (`--plan_transport collective|emulated`,
 parallel/plantransport.py: attached after the scheduler, its journaled
-plan stream loaded on `--resume` with `--journal_path`). What the port
-does not run yet is refused by Config.validate: the rest of ROADMAP.md
-Queue 1.
+plan stream loaded on `--resume` with `--journal_path`), and
+`--debug_transfer_guard` (analysis/runtime.forbid_transfers around
+every round or span after the first).
 
 Run on the card:
     python -m commefficient_tpu_torch.training.cv_train --mode sketch \
@@ -35,6 +35,7 @@ Only rank 0 prints, journals and writes checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -187,6 +188,11 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
         # the uninterrupted run abandoned this stream at the cap
         sampler.discard_pending()
     ckpt_prefix = _ckpt_path(cfg)
+    # --debug_transfer_guard: every round after this call's first runs
+    # under the implicit-sync guard (the first builds the kernels and
+    # fills the caches), as the JAX driver guards its steady state
+    guard = persist.transfer_guard(model, cfg)
+    warmed = False
     total_down = total_up = 0.0
     writer = (persist.try_tensorboard(log_dir)
               if cfg.use_tensorboard and coord else None)
@@ -256,7 +262,7 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
                 span_emit, on_comm,
                 checkpoint=make_span_checkpoint(ckpt_prefix, model, cfg,
                                                 lr_scheduler),
-                pipeline=cfg.pipeline)
+                pipeline=cfg.pipeline, guard=guard)
         # the round budget is checked BEFORE the next round is drawn, so
         # ending early never draws (and discards) a round; the stream is
         # then abandoned, so a later checkpoint records no live epoch
@@ -269,7 +275,10 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
             except StopIteration:
                 break
             lr_scheduler.step()
-            out = model((client_ids, data, mask))
+            with (guard() if guard is not None and warmed
+                  else contextlib.nullcontext()):
+                out = model((client_ids, data, mask))
+            warmed = True
             opt.step()
             if on_round is not None:
                 on_round(rounds_done, out)

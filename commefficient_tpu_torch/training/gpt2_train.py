@@ -24,9 +24,9 @@ controllers run as in cv_train. A grid of ranks runs as in cv_train
 splits each block's attention heads, MLP units and the tied embedding's
 vocabulary over N ranks (parallel/tp.py; it prints `tensor parallel:
 mesh {...}` as the JAX driver does). `--plan_transport` attaches the
-control plane (parallel/plantransport.py) as in cv_train. What the port
-does not run yet is refused by Config.validate: ROADMAP.md Queue 1
-item 10f's `--debug_transfer_guard`.
+control plane (parallel/plantransport.py) as in cv_train, and
+`--debug_transfer_guard` guards every round or span after the first
+(analysis/runtime.forbid_transfers), as in cv_train.
 
 Run on the card:
     python -m commefficient_tpu_torch.training.gpt2_train \\
@@ -39,6 +39,7 @@ and on the CPU with `--device cpu` (the kernels' plain versions), e.g.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Callable, Optional, Tuple
@@ -205,6 +206,10 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
     if (sampler.pending_pos or 0) >= spe:
         sampler.discard_pending()
     ckpt_prefix = _ckpt_path(cfg)
+    # --debug_transfer_guard: every round after this call's first runs
+    # under the implicit-sync guard (cv_train.train's rule)
+    guard = persist.transfer_guard(model, cfg)
+    warmed = False
     losses = []
     profile = (persist.EpochProfile(log_dir, model.device)
                if cfg.do_profile and coord else None)
@@ -268,7 +273,7 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
                 span_emit, on_comm,
                 checkpoint=make_span_checkpoint(ckpt_prefix, model, cfg,
                                                 lr_scheduler),
-                pipeline=cfg.pipeline)
+                pipeline=cfg.pipeline, guard=guard)
         while not cfg.scan_rounds:
             if batch_idx - epoch * spe >= spe * frac:
                 # the epoch's cap: abandon without drawing, so a later
@@ -280,7 +285,10 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
             except StopIteration:
                 break
             lr_scheduler.step()
-            out = model((client_ids, data, mask))
+            with (guard() if guard is not None and warmed
+                  else contextlib.nullcontext()):
+                out = model((client_ids, data, mask))
+            warmed = True
             opt.step()
             if on_round is not None:
                 on_round(batch_idx, out)

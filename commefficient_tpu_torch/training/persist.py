@@ -212,6 +212,17 @@ class EpochProfile:
         return path
 
 
+def transfer_guard(model, cfg):
+    """--debug_transfer_guard: a factory of the implicit-sync guard
+    (analysis/runtime.forbid_transfers) on the model's device, which the
+    drivers arm around every round (or span) after the first; None
+    without the flag."""
+    if not cfg.debug_transfer_guard:
+        return None
+    from commefficient_tpu_torch.analysis.runtime import forbid_transfers
+    return lambda: forbid_transfers(model.device)
+
+
 def try_tensorboard(log_dir: str):
     """A SummaryWriter, or None (with a note) when tensorboard is not
     installed."""

@@ -34,6 +34,7 @@ billed bytes bitwise. The span is the unit of commit and of overlap.
 """
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -48,7 +49,8 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap,
                                                   None]] = None,
                        on_flush: Optional[Callable[[int], None]] = None,
                        checkpoint: Optional[Callable[..., None]] = None,
-                       pipeline: bool = False) -> bool:
+                       pipeline: bool = False,
+                       guard: Optional[Callable] = None) -> bool:
     """Drive spans of at most `span_cap` rounds over `stream`, which
     yields (tag, client_ids, data_tuple, mask, lr) a round; the caller
     ends the stream at its round budget. `span_cap` is an int, or a
@@ -84,6 +86,10 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap,
     client rows copied right after the span's dispatch) and the
     stream's (`.cursor`, the sampler and the LR step as the span's last
     round was drawn, before the staging thread draws the next span).
+
+    `guard` is the --debug_transfer_guard hook (persist.transfer_guard):
+    a factory of the implicit-sync guard armed around every span's
+    dispatch but the model's first.
 
     Returns True if every emit succeeded, False on an abort."""
     snapshot_fn = getattr(checkpoint, "snapshot", None)
@@ -138,8 +144,15 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap,
         span_idx = model._spans_dispatched
         if tele is not None:
             tele.span_profile_begin(span_idx)
+        # --debug_transfer_guard: every span after the model's first is
+        # dispatched (and, synchronously, collected) under the guard; the
+        # span index lives on the model, as the drivers call this once an
+        # epoch
+        ctx = (guard() if guard is not None and span_idx > 0
+               else contextlib.nullcontext())
         if not pipeline:
-            out = model.run_rounds(*args)
+            with ctx:
+                out = model.run_rounds(*args)
             if tele is not None:
                 tele.span_profile_end(span_idx)
             model._spans_dispatched = span_idx + 1
@@ -148,7 +161,8 @@ def run_scanned_rounds(model, stream: Iterable[Tuple], span_cap,
         # is dispatched (its collect raises InjectedFault)
         if pending and pending[0][0].crash_at is not None:
             collect_pending()
-        handle = model.dispatch_rounds(*args)
+        with ctx:
+            handle = model.dispatch_rounds(*args)
         model._spans_dispatched = span_idx + 1
         # this span's boundary; the stream's side of it (the sampler's
         # cursor, the LR step) was taken as its last round was drawn

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phases 27-42 of chip_smoke.py alone on one CUDA card, and the host
+"""Phases 27-43 of chip_smoke.py alone on one CUDA card, and the host
 timeline of config #4's rounds, for work on the plugins, the span
 loop, the scheduler, async admission, the tiered client state, the
 controllers, the blockwise decode, the ranks, the plan transport and
@@ -8,7 +8,8 @@ the analysis tiers without the whole script:
     python3 scripts/chip_phases.py [powersgd dp_sketch privacy spans
                                     imagenet timeline sched async_admit
                                     statetier control gpt2medium grid
-                                    tpgpt2 plan plangrid ring analysis]
+                                    tpgpt2 plan plangrid ring analysis
+                                    audit]
 
 With no argument it runs every phase. Phase 4 (config #2) runs first
 for the ms/round the new phases print beside theirs, `imagenet` runs
@@ -18,8 +19,8 @@ rounds (without phase 7 beside them). `grid` runs phase 5 after phase
 4 (its reduced table is held to phase 5's), then phase 37's kernel rows
 and ranks, whose second and third legs are phases 40-41 (`plangrid`
 and `ring` run the same); `tpgpt2` runs K4's 6-head check and phase 38
-(without phase 7 beside it); `plan` runs phase 39 and `analysis`
-phase 42 after phase 4.
+(without phase 7 beside it); `plan` runs phase 39, `analysis`
+phase 42 and `audit` phase 43 after phase 4.
 `timeline` drives config #4 (chip_smoke.CONFIG4) plain and each way of
 chip_smoke.IMAGENET_SPANS for TIMELINE_ROUNDS rounds with the stage
 tracer on, and prints every stage span (plan, stage, dispatch,
@@ -43,7 +44,7 @@ import torch  # noqa: E402
 PHASES = ("powersgd", "dp_sketch", "privacy", "spans", "imagenet",
           "timeline", "sched", "async_admit", "statetier", "control",
           "gpt2medium", "grid", "tpgpt2", "plan", "plangrid", "ring",
-          "analysis")
+          "analysis", "audit")
 TIMELINE_ROUNDS = 6
 
 
@@ -141,7 +142,7 @@ def main(argv) -> int:
             which = list(which) + ["grid"]
         if set(which) & {"powersgd", "dp_sketch", "privacy", "spans",
                          "sched", "async_admit", "control", "grid",
-                         "plan", "analysis"}:
+                         "plan", "analysis", "audit"}:
             model, round_ms, _, _, batch = cs.main_path(sc, ac, cv_train,
                                                         parse_args, c2)
             if "grid" in which:
@@ -177,6 +178,23 @@ def main(argv) -> int:
             os.makedirs(os.path.join(tmp, "analysis"))
             cs.analysis_phase(sc, ac, cv_train, parse_args, c2, round_ms,
                               os.path.join(tmp, "analysis"))
+        if "audit" in which:
+            # config #2's K1 and K2 rows of the kernels line, untimed
+            sk = CSVec(d=cs.MAIN_D, c=cs.MAIN_C, r=cs.MAIN_R)
+            x = torch.ones(cs.MAIN_D, device="cuda")
+            rows = [dict(name=row["name"], path=row["path"],
+                         bytes=row["cost"][0], ops=row["cost"][1])
+                    for row in (cs.encode_row(sc, sk, x, "sketch_encode",
+                                              "config2"),
+                                cs.estimate_row(sc, sk, sk.encode(x),
+                                                "sketch_estimate_all",
+                                                "config2"))]
+            del sk, x
+            cs.audit_phase(sc, ac, cv_train, gpt2_train, parse_args,
+                           HashTokenizer, c2,
+                           os.path.join(HERE, "build",
+                                        "chip_smoke_gpt2_data"), round_ms,
+                           rows)
         if "powersgd" in which:
             cs.powersgd_phase(sc, ac, cv_train, parse_args, c2, fclient,
                               prng, round_ms)

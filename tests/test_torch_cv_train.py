@@ -70,24 +70,21 @@ def test_train_loop_reports_finite_losses_and_bytes(tmp_path):
     (("--plan_transport", "emulated"), "--plan_transport"),
 ])
 def test_unported_options_are_refused_loudly(tmp_path, flags, needle):
-    # --multihost, --model_parallel (item 9g's first half) and
-    # --plan_transport (its rest) are ported: they parse and validate as
-    # the JAX package's parse_args does; the transfer guard stays refused
+    # every option is ported now (the last, --debug_transfer_guard, is
+    # item 10f's guard): each parses and validates as the JAX package's
+    # parse_args does, and Config refuses none for want of a port
+    from commefficient_tpu.config import parse_args as j_parse_args
     argv = _argv(tmp_path, *flags)
-    if needle in ("--multihost", "--model_parallel", "--plan_transport"):
-        from commefficient_tpu.config import parse_args as j_parse_args
-        cfg = parse_args(argv=argv)
-        jcfg = j_parse_args(argv=[a for a in argv
-                                  if a not in ("--device", "cpu")])
-        assert (cfg.multihost, cfg.model_parallel, cfg.plan_transport,
-                cfg.plan_controllers) == (
-            jcfg.multihost, jcfg.model_parallel, jcfg.plan_transport,
-            jcfg.plan_controllers)
-        assert (cfg.multihost or cfg.model_parallel == 2
-                or cfg.plan_transport == "emulated")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
-        parse_args(argv=argv)
+    cfg = parse_args(argv=argv)
+    jcfg = j_parse_args(argv=[a for a in argv
+                              if a not in ("--device", "cpu")])
+    assert (cfg.multihost, cfg.model_parallel, cfg.plan_transport,
+            cfg.plan_controllers, cfg.debug_transfer_guard) == (
+        jcfg.multihost, jcfg.model_parallel, jcfg.plan_transport,
+        jcfg.plan_controllers, jcfg.debug_transfer_guard)
+    assert (cfg.multihost or cfg.model_parallel == 2
+            or cfg.plan_transport == "emulated" or cfg.debug_transfer_guard)
+    assert not hasattr(Config, "_refuse_unported")
     try:
         parse_args(argv=argv)
     except NotImplementedError as e:
@@ -321,7 +318,10 @@ for name in ("compress.powersgd", "compress.dp_sketch", "compress.privacy",
              "parallel.multihost", "parallel.tp", "parallel.mh_worker",
              "analysis", "analysis.domains", "analysis.engine",
              "analysis.rules", "analysis.syncaudit", "analysis.runtime",
-             "analysis.__main__", "telemetry.journal_summary"):
+             "analysis.__main__", "analysis.recorder",
+             "analysis.costmodel", "analysis.audit", "analysis.numaudit",
+             "analysis.shardaudit", "telemetry.journal_summary",
+             "hooks"):
     assert "commefficient_tpu_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
