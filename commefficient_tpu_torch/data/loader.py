@@ -20,6 +20,7 @@ import numpy as np
 
 from commefficient_tpu_torch.data.fed_dataset import FedDataset
 from commefficient_tpu_torch.data.sampler import FedSampler, ValSampler
+from commefficient_tpu_torch.telemetry.trace import TRACE
 
 
 class FedLoader:
@@ -58,31 +59,33 @@ class FedLoader:
                     "this process owns no rows of the clients axis; "
                     "zero-row feeding is not supported — use a mesh "
                     "layout that gives every process client shards")
-            per_client = []
-            for w in rows:
-                n_valid = int(r.mask[w].sum())
-                # an idle slot (the scheduler sampled fewer than
-                # num_workers) fetches nothing: its rows stay zeros
-                got = (self.dataset.get_client_batch(
-                    int(r.client_ids[w]), r.idx_within[w, :n_valid])
-                    if n_valid else None)
-                per_client.append((n_valid, got))
-            # the scheduler selects at least one participant
-            protos = next((got for _, got in per_client
-                           if got is not None), None)
-            if protos is None:
-                raise NotImplementedError(
-                    "every row this process feeds is an idle "
-                    "(zero-mask) slot; feeding cannot derive batch "
-                    "shapes — scheduler over-provisioning is single-"
-                    "controller only (Config.validate enforces this)")
-            data = tuple(np.zeros((len(per_client), B) + p.shape[1:],
-                                  p.dtype) for p in protos)
-            for i, (n_valid, got) in enumerate(per_client):
-                if got is None:
-                    continue
-                for buf, g in zip(data, got):
-                    buf[i, :n_valid] = g
+            # the datasets count the bytes they read into `bytes_read`
+            with TRACE.span("data_fetch", clients=len(rows), bytes_read=0):
+                per_client = []
+                for w in rows:
+                    n_valid = int(r.mask[w].sum())
+                    # an idle slot (the scheduler sampled fewer than
+                    # num_workers) fetches nothing: its rows stay zeros
+                    got = (self.dataset.get_client_batch(
+                        int(r.client_ids[w]), r.idx_within[w, :n_valid])
+                        if n_valid else None)
+                    per_client.append((n_valid, got))
+                # the scheduler selects at least one participant
+                protos = next((got for _, got in per_client
+                               if got is not None), None)
+                if protos is None:
+                    raise NotImplementedError(
+                        "every row this process feeds is an idle "
+                        "(zero-mask) slot; feeding cannot derive batch "
+                        "shapes — scheduler over-provisioning is single-"
+                        "controller only (Config.validate enforces this)")
+                data = tuple(np.zeros((len(per_client), B) + p.shape[1:],
+                                      p.dtype) for p in protos)
+                for i, (n_valid, got) in enumerate(per_client):
+                    if got is None:
+                        continue
+                    for buf, g in zip(data, got):
+                        buf[i, :n_valid] = g
             mask = (r.mask if self.feed_slice is None
                     else r.mask[self.feed_slice])
             yield r.client_ids, data, mask

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from commefficient_tpu_torch.data.fed_dataset import FedDataset
+from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.utils.atomic_io import atomic_savez
 
 SPECIAL_TOKENS = ("<bos>", "<eos>", "<speaker1>", "<speaker2>", "<pad>")
@@ -402,16 +403,22 @@ class FedPERSONA(FedDataset):
             self._z[split] = np.load(self._npz_path(split), mmap_mode="r")
         return self._z[split]
 
+    @staticmethod
+    def _member(z, key: str) -> np.ndarray:
+        """One .npz member, read whole (a zip member maps no pages), its
+        bytes counted into the open span's `bytes_read`."""
+        a = z[key]
+        TRACE.add("bytes_read", a.nbytes)
+        return a
+
     def _batch_from(self, z, sel: np.ndarray):
-        return (np.asarray(z["input_ids"][sel]),
-                np.asarray(z["mc_token_ids"][sel]),
-                np.asarray(z["lm_labels"][sel]),
-                np.asarray(z["mc_labels"][sel]),
-                np.asarray(z["token_type_ids"][sel]))
+        return tuple(np.asarray(self._member(z, k)[sel])
+                     for k in ("input_ids", "mc_token_ids", "lm_labels",
+                               "mc_labels", "token_type_ids"))
 
     def _get_train_batch(self, nat_client_id: int, idxs: np.ndarray):
         z = self._load("train")
-        sel = z["offsets"][nat_client_id] + np.asarray(idxs)
+        sel = self._member(z, "offsets")[nat_client_id] + np.asarray(idxs)
         return self._batch_from(z, sel)
 
     def _get_val_batch(self, idxs: np.ndarray):

@@ -1091,8 +1091,9 @@ class FedModel:
         bill = admitted if contributors is None else contributors
         if bill is None:
             bill = survivors
-        download, upload = self.accountant.record_round(
-            ids_host, prev_words, survivors=bill)
+        with TRACE.span("account"):
+            download, upload = self.accountant.record_round(
+                ids_host, prev_words, survivors=bill)
         if self.telemetry is not None:
             if survivors is not None:
                 self._journal_round_faults(round_idx, survivors, admitted,

@@ -23,6 +23,7 @@ from commefficient_tpu_torch.config import Config
 from commefficient_tpu_torch.ops.flat import (
     clip_to_l2, dp_noise, global_norm_clip,
 )
+from commefficient_tpu_torch.telemetry.trace import TRACE
 
 LossFn = Callable[[dict, Tuple[torch.Tensor, ...], torch.Tensor],
                   Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]]
@@ -143,10 +144,11 @@ def forward_grad(flat_grad_fn, weights: torch.Tensor, batch,
     for b, m in _microbatches(batch, mask, n_mb, mb):
         count = m.sum()
         if compute_grad:
-            loss, metrics, grad = flat_grad_fn(weights, b, m)
+            with TRACE.span("client_forward"):
+                loss, metrics, grad = flat_grad_fn(weights, b, m)
             grad_sum = grad_sum + grad * count
         else:
-            with torch.no_grad():
+            with torch.no_grad(), TRACE.span("client_forward"):
                 loss, metrics = flat_grad_fn(weights, b, m)
         loss_sum = loss_sum + loss * count
         weighted = [v * count for v in metrics]
@@ -210,7 +212,9 @@ def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
     W = mask.shape[0]
     losses, metrics = [], []
     for c in range(W):
-        loss, mets = flat_loss_fn(w, tuple(x[c] for x in batch), mask[c])
+        with TRACE.span("client_forward", client=c):
+            loss, mets = flat_loss_fn(w, tuple(x[c] for x in batch),
+                                      mask[c])
         losses.append(loss)
         metrics.append(mets)
     losses = torch.stack(losses)
@@ -218,7 +222,10 @@ def fused_shard_grads(flat_loss_fn, weights: torch.Tensor, batch,
     if survivors is not None:
         counts = counts * survivors
     total = (losses * counts).sum()
-    grad_sum, = torch.autograd.grad(total, w)
+    # the round's thread waits here while autograd's launches the
+    # backward (its own thread on the card)
+    with TRACE.span("client_backward"):
+        grad_sum, = torch.autograd.grad(total, w)
     if grad_mask is not None:
         grad_sum = grad_sum * grad_mask
     if cfg.weight_decay != 0:

@@ -739,10 +739,11 @@ def make_train_fn(loss_fn: fclient.LossFn, unravel: Callable, cfg: Config,
         # a round nobody completed (or every client was screened out)
         # leaves the server state bitwise untouched
         alive = None if eff is None else eff.sum() > 0
-        upd = fserver.get_server_update(gradient, server.Vvelocity,
-                                        server.Verror, cfg, lr,
-                                        key=fold_in(round_key, W),
-                                        alive=alive)
+        with TRACE.span("server_update"):
+            upd = fserver.get_server_update(gradient, server.Vvelocity,
+                                            server.Verror, cfg, lr,
+                                            key=fold_in(round_key, W),
+                                            alive=alive)
         if alive is None:
             new_ps = server.ps_weights - upd.update
         else:

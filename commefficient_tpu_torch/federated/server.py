@@ -19,6 +19,7 @@ from commefficient_tpu_torch.ops.flat import dp_noise, masked_topk
 from commefficient_tpu_torch.ops.sketch import (
     CSVec, cached_sketch, scatter_drop,
 )
+from commefficient_tpu_torch.telemetry.trace import TRACE
 
 
 class ServerUpdate(NamedTuple):
@@ -121,13 +122,15 @@ def _sketched(sketched_grad, Vvelocity, Verror, cfg: Config,
     else:  # "none": decode straight from the momentum table
         decode_table = Vvelocity
 
-    if sketch._threshold_decode:
-        update = sketch.decode_topk_dense(decode_table, k=cfg.k)
-        sketched_update = sketch.encode(update)
-    else:
-        idx, vals = sketch.decode_topk_sparse(decode_table, k=cfg.k)
-        update = scatter_drop(cfg.grad_size, idx, vals)
-        sketched_update = sketch.encode_k_sparse(idx, vals, dense=update)
+    with TRACE.span("decode"):
+        if sketch._threshold_decode:
+            update = sketch.decode_topk_dense(decode_table, k=cfg.k)
+            sketched_update = sketch.encode(update)
+        else:
+            idx, vals = sketch.decode_topk_sparse(decode_table, k=cfg.k)
+            update = scatter_drop(cfg.grad_size, idx, vals)
+            sketched_update = sketch.encode_k_sparse(idx, vals,
+                                                     dense=update)
 
     not_sent = (sketched_update == 0).to(Vvelocity.dtype)
     if cfg.error_type == "virtual":

@@ -1,8 +1,9 @@
 """The hooks the round's path opens for the analysis tiers
 (commefficient_tpu_torch/analysis: the round recorder, the implicit-sync
 guard, the program counter). A leaf module of the stdlib alone: the
-round imports it without loading the tiers, and with nothing armed every
-hook is a shared null context behind one list check.
+round imports it without loading the tiers, and with nothing armed (and,
+for `kernel_region`, tracing off) every hook is a shared null context
+behind one module-global test.
 
   * `kernel_region(name, device, shapes, bytes, flops)`: each kernel
     wrapper launches (or runs its plain version) inside one. An armed
@@ -21,6 +22,11 @@ hook is a shared null context behind one list check.
     thread (analysis/runtime.count_programs).
   * `explicit_transfer(reason)`: a deliberate host boundary, whose syncs
     pass the guard and are counted under `reason`.
+
+While the global tracer is on (telemetry/trace.py) and torch's profiler
+records in this process, each kernel region is also a `kernel.<name>`
+range on the profiler's clock, on whichever thread enters it (autograd's
+too, where `--remat`'s recompute runs): `profiler_range` below.
 """
 from __future__ import annotations
 
@@ -35,6 +41,46 @@ _LOCAL = threading.local()
 OBSERVERS: list = []
 _STAGE = {"name": None}
 _NULL = contextlib.nullcontext()
+# kernel regions open `kernel.<name>` profiler ranges (kernel_ranges)
+_KERNEL_RANGES = False
+# kernel_region's one test: an observer armed or kernel ranges on
+_ACTIVE = False
+# torch's (profiler probe, range factory), or None without torch: filled
+# at the first profiler_range call, so this module imports without torch
+_PROFILER: list = []
+
+
+def profiler_range(name: str):
+    """A range named `name` on torch's profiler's clock, to enter and
+    exit, while the profiler records in this process; else (or without
+    torch) None. The range is `torch._C._profiler._RecordFunctionFast`,
+    which a TorchDispatchMode (the round recorder) does not see, where
+    `torch.profiler.record_function` dispatches two ops it would
+    record."""
+    if not _PROFILER:
+        try:
+            import torch
+            _PROFILER.append((torch.autograd._profiler_enabled,
+                              torch._C._profiler._RecordFunctionFast))
+        except (ImportError, AttributeError):
+            _PROFILER.append(None)
+    ranges = _PROFILER[0]
+    if ranges is None or not ranges[0]():
+        return None
+    return ranges[1](name)
+
+
+def _refresh() -> None:
+    global _ACTIVE
+    _ACTIVE = bool(OBSERVERS) or _KERNEL_RANGES
+
+
+def kernel_ranges(on: bool) -> None:
+    """Open a `kernel.<name>` profiler range in every kernel region, or
+    stop (the global tracer's enable and disable)."""
+    global _KERNEL_RANGES
+    _KERNEL_RANGES = bool(on)
+    _refresh()
 
 
 def mine() -> list:
@@ -46,11 +92,13 @@ def mine() -> list:
 def arm(observer) -> None:
     observer.thread = threading.get_ident()
     OBSERVERS.append(observer)
+    _refresh()
 
 
 def disarm(observer) -> None:
     if observer in OBSERVERS:
         OBSERVERS.remove(observer)
+    _refresh()
 
 
 def in_region() -> bool:
@@ -92,22 +140,27 @@ def _hidden(exempt: bool):
 
 
 @contextlib.contextmanager
-def _region(entry: KernelEntry, exempt: bool):
+def _region(entry: KernelEntry, exempt: bool, prof_range):
     for o in mine():
         if hasattr(o, "on_kernel"):
             o.on_kernel(entry)
-    with _hidden(exempt):
+    with prof_range, _hidden(exempt):
         yield
 
 
 def kernel_region(name: str, device, shapes, nbytes: int, flops: int):
     """The context a kernel wrapper launches in on the card, or runs its
     plain version in on the CPU (`device`: the operands' device)."""
-    if not OBSERVERS:
+    if not _ACTIVE:
         return _NULL
+    prof_range = profiler_range("kernel." + name) if _KERNEL_RANGES else None
+    if prof_range is None:
+        prof_range = _NULL
+    if not OBSERVERS:
+        return prof_range
     return _region(KernelEntry(
         name, tuple(tuple(int(d) for d in s) for s in shapes), int(nbytes),
-        int(flops)), getattr(device, "type", device) == "cpu")
+        int(flops)), getattr(device, "type", device) == "cpu", prof_range)
 
 
 def setup_region():

@@ -1,9 +1,11 @@
 """Stage tracing: the port's copy of commefficient_tpu/telemetry/trace.py.
 
-Monotonic-clock spans around the host stages of a round (stage,
-dispatch, collect, gather, round_dispatch, scatter, checkpoint,
-journal_write), buffered in per-thread rings and flushed by the
-telemetry session as batched `trace` journal events.
+Monotonic-clock spans around the host stages of a round (train_round,
+data_fetch, plan, stage, dispatch, gather, round_dispatch,
+client_forward, client_backward, server_update, decode, scatter,
+collect, account, checkpoint, journal_write), buffered in per-thread
+rings and flushed by the telemetry session as batched `trace` journal
+events.
 
 The global `TRACE` is always there and OFF by default: a disabled
 `TRACE.span(...)` costs one attribute check and returns a shared no-op
@@ -13,13 +15,24 @@ tracing changes no tensor a round computes.
 
 A span record is {"name", "t0" (monotonic s), "dur", "thread", ...tags};
 nested spans and instants inherit their enclosing span's `round` and
-`span` tags on the same thread.
+`span` tags on the same thread. `Tracer.add` adds to a counter of the
+innermost open span (`data_fetch`'s `bytes_read`).
+
+While a tracer is on and torch's profiler records in this process, each
+of its spans is also a range of the span's name on the profiler's clock
+(hooks.profiler_range), so a profile names the host time a span holds:
+the benchmark's device trace (portbench/devtrace.py), `--profile` and
+`--profile_spans`. The global `TRACE` also turns on the kernel regions'
+`kernel.<name>` ranges (hooks.kernel_ranges). Torch is imported when
+the first span opens while on: this module imports without it.
 """
 from __future__ import annotations
 
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
+
+from commefficient_tpu_torch import hooks
 
 __all__ = ["TRACE", "Tracer", "device_busy_wall", "overlap_efficiency",
            "stage_stats"]
@@ -48,14 +61,18 @@ _NULL_SPAN = _NullSpan()
 class _Span:
     """One open span; commits its record on exit."""
 
-    __slots__ = ("_tracer", "rec", "_stack")
+    __slots__ = ("_tracer", "rec", "_stack", "_range")
 
     def __init__(self, tracer: "Tracer", rec: dict, stack: list):
         self._tracer = tracer
         self.rec = rec
         self._stack = stack
+        self._range = None
 
     def __enter__(self):
+        self._range = hooks.profiler_range(self.rec["name"])
+        if self._range is not None:
+            self._range.__enter__()
         self.rec["t0"] = self._tracer._clock()
         self._stack.append(self.rec)
         return self
@@ -69,6 +86,8 @@ class _Span:
         rec["dur"] = round(t1 - rec["t0"], 6)
         rec["t0"] = round(rec["t0"], 6)
         self._tracer._commit(rec)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         return False
 
 
@@ -79,7 +98,8 @@ class Tracer:
 
     def __init__(self, enabled: bool = False, controller: int = 0,
                  ring_size: int = 4096,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 on_toggle: Optional[Callable[[bool], None]] = None):
         self.enabled = bool(enabled)
         self.controller = int(controller)
         self.ring_size = int(ring_size)
@@ -89,6 +109,8 @@ class Tracer:
         self._dropped = 0
         # per-thread stack of OPEN span records (tag inheritance)
         self._open = threading.local()
+        # called with the new state at enable and disable
+        self._on_toggle = on_toggle
 
     def _thread_stack(self) -> list:
         stack = getattr(self._open, "stack", None)
@@ -128,6 +150,16 @@ class Tracer:
             return _NULL_SPAN
         rec, stack = self._make_rec(name, tags)
         return _Span(self, rec, stack)
+
+    def add(self, key: str, n) -> None:
+        """Add `n` to counter `key` of the innermost open span on this
+        thread; a no-op when off or outside every span."""
+        if not self.enabled:
+            return
+        stack = self._thread_stack()
+        if stack:
+            rec = stack[-1]
+            rec[key] = rec.get(key, 0) + n
 
     def instant(self, name: str, **tags) -> None:
         """Zero-duration marker."""
@@ -179,17 +211,22 @@ class Tracer:
         if controller is not None:
             self.controller = int(controller)
         self.enabled = True
+        if self._on_toggle is not None:
+            self._on_toggle(True)
 
     def disable(self) -> None:
         """Turn tracing off and discard anything buffered."""
         self.enabled = False
+        if self._on_toggle is not None:
+            self._on_toggle(False)
         with self._lock:
             self._rings.clear()
             self._dropped = 0
 
 
-# The process-global tracer every instrumentation site records into.
-TRACE = Tracer(enabled=False)
+# The process-global tracer every instrumentation site records into; it
+# also turns the kernel regions' profiler ranges on and off.
+TRACE = Tracer(enabled=False, on_toggle=hooks.kernel_ranges)
 
 
 def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -222,21 +259,28 @@ def stage_stats(spans: List[dict]) -> dict:
     return out
 
 
+# the training loop's spans around the round's stages: they take in the
+# batch's fetch and the round's tail (logging, hooks), which are no part
+# of the stages' wall
+_OUTSIDE_WALL = ("train_round", "data_fetch")
+
+
 def device_busy_wall(spans: List[dict]
                      ) -> Optional[Tuple[float, float]]:
     """(device-busy seconds, wall seconds) over ONE trace segment (one
     process lifetime): busy is the union of the `device_execute`
-    spans' intervals, wall the extent of the segment. None without
-    device_execute spans or a wall extent."""
+    spans' intervals, wall the extent of the segment's stage spans
+    (all but `_OUTSIDE_WALL`). None without device_execute spans or a
+    wall extent."""
     dev = sorted((float(r["t0"]), float(r["t0"]) + float(r["dur"]))
                  for r in spans
                  if r.get("name") == "device_execute"
                  and isinstance(r.get("t0"), (int, float))
                  and isinstance(r.get("dur"), (int, float)))
-    times = [float(r["t0"]) for r in spans
-             if isinstance(r.get("t0"), (int, float))]
-    ends = [float(r["t0"]) + float(r.get("dur", 0.0)) for r in spans
-            if isinstance(r.get("t0"), (int, float))]
+    stages = [r for r in spans if isinstance(r.get("t0"), (int, float))
+              and r.get("name") not in _OUTSIDE_WALL]
+    times = [float(r["t0"]) for r in stages]
+    ends = [float(r["t0"]) + float(r.get("dur", 0.0)) for r in stages]
     if not dev or not times:
         return None
     wall = max(ends) - min(times)

@@ -61,6 +61,7 @@ from commefficient_tpu_torch.parallel.plantransport import (
     attach_config_transport,
 )
 from commefficient_tpu_torch.scheduler import attach_round_scheduler
+from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.training import persist
 from commefficient_tpu_torch.training.scanloop import (
     make_span_checkpoint, run_scanned_rounds,
@@ -270,26 +271,27 @@ def train(model: FedModel, opt: FedOptimizer, lr_scheduler,
             if rounds_done >= total_rounds:
                 sampler.abandon_epoch()
                 break
-            try:
-                client_ids, data, mask = next(stream)
-            except StopIteration:
-                break
-            lr_scheduler.step()
-            with (guard() if guard is not None and warmed
-                  else contextlib.nullcontext()):
-                out = model((client_ids, data, mask))
-            warmed = True
-            opt.step()
-            if on_round is not None:
-                on_round(rounds_done, out)
-            loss, acc, d, u = out
-            down += float(np.sum(d))
-            up += float(np.sum(u))
-            if pending is not None and not emit(pending):
-                pending = None
-                break
-            pending = (loss, acc, opt.param_groups[0]["lr"])
-            rounds_done += 1
+            with TRACE.span("train_round", round=rounds_done):
+                try:
+                    client_ids, data, mask = next(stream)
+                except StopIteration:
+                    break
+                lr_scheduler.step()
+                with (guard() if guard is not None and warmed
+                      else contextlib.nullcontext()):
+                    out = model((client_ids, data, mask))
+                warmed = True
+                opt.step()
+                if on_round is not None:
+                    on_round(rounds_done, out)
+                loss, acc, d, u = out
+                down += float(np.sum(d))
+                up += float(np.sum(u))
+                if pending is not None and not emit(pending):
+                    pending = None
+                    break
+                pending = (loss, acc, opt.param_groups[0]["lr"])
+                rounds_done += 1
         if pending is not None:
             emit(pending)
         total_down += down

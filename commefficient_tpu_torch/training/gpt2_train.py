@@ -69,6 +69,7 @@ from commefficient_tpu_torch.models.gpt2 import (
 )
 from commefficient_tpu_torch.ops import lowp, prng
 from commefficient_tpu_torch.scheduler import attach_round_scheduler
+from commefficient_tpu_torch.telemetry.trace import TRACE
 from commefficient_tpu_torch.training import persist
 from commefficient_tpu_torch.training.scanloop import (
     make_span_checkpoint, run_scanned_rounds,
@@ -280,31 +281,32 @@ def train_gpt2(model: FedModel, opt: FedOptimizer, lr_scheduler,
                 # checkpoint records no live epoch
                 sampler.abandon_epoch()
                 break
-            try:
-                client_ids, data, mask = next(stream)
-            except StopIteration:
-                break
-            lr_scheduler.step()
-            with (guard() if guard is not None and warmed
-                  else contextlib.nullcontext()):
-                out = model((client_ids, data, mask))
-            warmed = True
-            opt.step()
-            if on_round is not None:
-                on_round(batch_idx, out)
-            loss, lm, mc, down, up = out
-            batch_idx += 1
-            if epoch == 0:
-                # download totals are only trusted for epoch 1
-                # (reference gpt2_train.py:132-137)
-                epoch_download += float(np.sum(down)) / (1024 ** 2)
-                epoch_upload += float(np.sum(up)) / (1024 ** 2)
-            if pending is not None and not emit(pending):
-                pending = None
-                aborted = True
-                break
-            pending = (batch_idx, float(opt.param_groups[0]["lr"]),
-                       loss, lm, mc)
+            with TRACE.span("train_round", round=batch_idx):
+                try:
+                    client_ids, data, mask = next(stream)
+                except StopIteration:
+                    break
+                lr_scheduler.step()
+                with (guard() if guard is not None and warmed
+                      else contextlib.nullcontext()):
+                    out = model((client_ids, data, mask))
+                warmed = True
+                opt.step()
+                if on_round is not None:
+                    on_round(batch_idx, out)
+                loss, lm, mc, down, up = out
+                batch_idx += 1
+                if epoch == 0:
+                    # download totals are only trusted for epoch 1
+                    # (reference gpt2_train.py:132-137)
+                    epoch_download += float(np.sum(down)) / (1024 ** 2)
+                    epoch_upload += float(np.sum(up)) / (1024 ** 2)
+                if pending is not None and not emit(pending):
+                    pending = None
+                    aborted = True
+                    break
+                pending = (batch_idx, float(opt.param_groups[0]["lr"]),
+                           loss, lm, mc)
         if pending is not None and not emit(pending):
             aborted = True
         if profile is not None:

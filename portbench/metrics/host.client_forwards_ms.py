@@ -1,0 +1,16 @@
+"""Host milliseconds a round spends enqueuing its clients' forwards: the
+port's `client_forward` spans (federated/client.py), summed over the
+window's rounds outside the profiled ones and divided by their count."""
+LAYER = "round host"
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+MOVES = "round_ms"
+
+
+def read(run):
+    spans = [s["dur"] for s in run.spans
+             if s.get("name") == "client_forward"]
+    if not spans or not run.host_rounds:
+        return None
+    return 1e3 * sum(spans) / run.host_rounds

@@ -3,13 +3,20 @@ metric vector and the rounds' named metrics against the JAX package's,
 state bitwise the same with telemetry on and off, the journal held to
 the JAX package's validate_journal and scripts/journal_summary.py and
 to a JAX journal of the same rounds, the numeric trip, the throughput
-tracker's state against JAX's, and the tracer cases of
-tests/test_trace.py. Tolerances: float metrics within 1e-5 relative
-(the reductions run in another order), counts and bytes exact."""
+tracker's state against JAX's, the tracer cases of tests/test_trace.py,
+and the spans as profiler ranges: a profiled CPU GPT2 round's host
+events, the round recorder unchanged under them, the data fetch's bytes
+and the benchmark's four span metrics. Tolerances: float metrics within
+1e-5 relative (the reductions run in another order), counts and bytes
+exact."""
+import importlib.util
+import json
 import os
 import subprocess
 import sys
 import threading
+import tracemalloc
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +35,10 @@ from commefficient_tpu.telemetry.clients import (
     ClientThroughputTracker as JTracker,
 )
 from commefficient_tpu.telemetry.journal import validate_journal
-from commefficient_tpu_torch.config import Config as TConfig
+from commefficient_tpu_torch import hooks
+from commefficient_tpu_torch.analysis.recorder import RoundRecorder
+from commefficient_tpu_torch.config import Config as TConfig, parse_args
+from commefficient_tpu_torch.data.persona import HashTokenizer
 from commefficient_tpu_torch.federated.api import (
     FedModel as TFedModel, FedOptimizer as TFedOptimizer,
 )
@@ -36,12 +46,14 @@ from commefficient_tpu_torch.telemetry import (
     NumericTripError, RunJournal, TelemetrySession, attach_run_telemetry,
 )
 from commefficient_tpu_torch.telemetry import metrics as tmetrics
+from commefficient_tpu_torch.telemetry import trace as trace_mod
 from commefficient_tpu_torch.telemetry.clients import ClientThroughputTracker
 from commefficient_tpu_torch.telemetry.journal import read_journal
 from commefficient_tpu_torch.telemetry.trace import (
     TRACE, Tracer, overlap_efficiency, stage_stats,
 )
-from commefficient_tpu_torch.training import cv_train
+from commefficient_tpu_torch.training import cv_train, gpt2_train
+from commefficient_tpu_torch.utils.logging import SilentLogger
 
 pytestmark = pytest.mark.torch_port
 
@@ -400,8 +412,65 @@ def test_disabled_tracer_is_inert_and_allocation_free():
         pass
     tr.instant("mark")
     tr.record("device_execute", 0.0, 1.0)
+    tr.add("bytes_read", 8)
     assert tr.drain() == ([], 0)
     assert tr.current_tags() == {}
+    # the global tracer off and nothing armed: the round path's span and
+    # kernel region are the shared no-ops. Calling them allocates no more
+    # than calling a no-op function, and entering them no more than a
+    # `with` of an object that exists already
+    assert not TRACE.enabled and not hooks.OBSERVERS
+    assert TRACE.span("client_forward") is trace_mod._NULL_SPAN
+    shapes = ((4, 8),)
+    assert hooks.kernel_region("sketch_encode", "cpu", shapes, 8,
+                               1) is hooks._NULL
+    null = trace_mod._NULL_SPAN
+
+    def noop(name, device=None, shapes=None, nbytes=None, flops=None):
+        return None
+
+    def noops():
+        for _ in range(1000):
+            noop("sketch_encode", "cpu", shapes, 8, 1)
+
+    def span_calls():
+        for _ in range(1000):
+            tr.span("client_forward")
+
+    def region_calls():
+        for _ in range(1000):
+            hooks.kernel_region("sketch_encode", "cpu", shapes, 8, 1)
+
+    def spans():
+        for _ in range(1000):
+            with TRACE.span("client_forward"):
+                pass
+
+    def regions():
+        for _ in range(1000):
+            with hooks.kernel_region("sketch_encode", "cpu", shapes, 8, 1):
+                pass
+
+    def withs():
+        for _ in range(1000):
+            with null:
+                pass
+
+    def peak(fn):
+        tracemalloc.start()
+        try:
+            fn()
+            base = tracemalloc.get_traced_memory()[0]
+            tracemalloc.reset_peak()
+            fn()
+            return tracemalloc.get_traced_memory()[1] - base
+        finally:
+            tracemalloc.stop()
+
+    assert peak(span_calls) <= peak(noops)
+    assert peak(region_calls) <= peak(noops)
+    assert peak(spans) <= peak(withs)
+    assert peak(regions) <= peak(withs)
 
 
 def test_span_records_duration_and_tags():
@@ -477,6 +546,19 @@ def test_overlap_efficiency_takes_interval_union():
     assert overlap_efficiency([]) is None
 
 
+def test_overlap_efficiency_leaves_the_loops_spans_out_of_the_wall():
+    # the training loop's train_round and data_fetch take in the batch's
+    # fetch and the round's tail around the stages: the wall is the
+    # stages' alone
+    spans = [{"name": "train_round", "t0": -2.0, "dur": 9.0, "round": 0},
+             {"name": "data_fetch", "t0": -2.0, "dur": 1.5, "round": 0},
+             {"name": "device_execute", "t0": 0.0, "dur": 2.0},
+             {"name": "device_execute", "t0": 1.0, "dur": 2.0},
+             {"name": "collect", "t0": 3.0, "dur": 1.0}]
+    assert overlap_efficiency(spans) == pytest.approx(0.75)
+    assert overlap_efficiency(spans[:2]) is None
+
+
 def test_trace_event_schema_valid(tmp_path):
     p = str(tmp_path / "j.jsonl")
     RunJournal(p).event("trace", controller=0, spans=[
@@ -523,3 +605,233 @@ def test_session_flushes_spans_and_disables_the_tracer(tmp_path):
     assert problems == []
     assert [r["event"] for r in records] == ["round", "trace", "run_end"]
     assert records[1]["spans"][0]["name"] == "stage"
+
+
+# ---------------- program spans on the profiler's clock --------------------
+
+ROUND_SPANS = ("train_round", "data_fetch", "client_forward",
+               "client_backward", "server_update", "decode", "collect",
+               "account")
+
+
+def _gpt2(tmp_path, workers=3):
+    argv = ["--test", "--device", "cpu", "--dataset_name", "PERSONA",
+            "--dataset_dir", str(tmp_path / "ds"), "--local_momentum", "0",
+            "--num_workers", str(workers), "--local_batch_size", "2",
+            "--num_epochs", "1", "--mode", "sketch", "--error_type",
+            "virtual", "--virtual_momentum", "0.9", "--lr_scale", "0.1"]
+    cfg = parse_args(default_lr=gpt2_train.DEFAULT_LR, argv=argv)
+    return gpt2_train.build(cfg, HashTokenizer(100), device="cpu")
+
+
+class _Stop(Exception):
+    pass
+
+
+def _train(built, rounds):
+    model, opt, sched, loader, _ = built
+
+    def on_round(i, out):
+        if i == rounds - 1:
+            raise _Stop
+
+    with pytest.raises(_Stop):
+        gpt2_train.train_gpt2(model, opt, sched, loader, model.cfg,
+                              logger=SilentLogger(), on_round=on_round)
+
+
+def test_profiled_gpt2_rounds_name_their_spans_on_the_rounds_thread(
+        tmp_path):
+    W, rounds = 3, 2
+    built = _gpt2(tmp_path, W)
+    TRACE.enable()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _train(built, rounds)
+    recs, dropped = TRACE.drain()
+    assert dropped == 0
+    recs = [r for r in recs if r["name"] in ROUND_SPANS]
+    evs = sorted((e for e in prof.profiler.kineto_results.events()
+                  if e.name() in ROUND_SPANS
+                  or e.name().startswith("kernel.")),
+                 key=lambda e: e.start_ns())
+    # host events of one thread, the round's, one for each TRACE record
+    assert len({e.start_thread_id() for e in evs}) == 1
+    assert not any(e.is_user_annotation() for e in evs)
+    for name in ROUND_SPANS:
+        mine = [r for r in recs if r["name"] == name]
+        assert len(mine) == len([e for e in evs if e.name() == name]), name
+    want = {"train_round": rounds, "data_fetch": rounds,
+            "client_forward": W * rounds, "client_backward": rounds,
+            "server_update": rounds, "decode": rounds, "collect": rounds,
+            "account": rounds}
+    assert {n: sum(r["name"] == n for r in recs) for n in want} == want
+    assert [r["client"] for r in recs if r["name"] == "client_forward"] == (
+        list(range(W)) * rounds)
+    assert [r["round"] for r in recs if r["name"] == "client_backward"] == (
+        list(range(rounds)))
+    assert all(r["clients"] == W for r in recs if r["name"] == "data_fetch")
+
+    def span(e):
+        return e.start_ns(), e.start_ns() + e.duration_ns()
+
+    def within(e, outer):
+        (a, b), (lo, hi) = span(e), span(outer)
+        return lo <= a and b <= hi
+
+    def only(name, parent):
+        return [e for e in evs if e.name() == name and within(e, parent)]
+
+    kernels = [e for e in evs if e.name().startswith("kernel.")]
+    assert {e.name() for e in kernels} >= {"kernel.sketch_encode"}
+    for tr in (e for e in evs if e.name() == "train_round"):
+        (fetch,) = only("data_fetch", tr)
+        fwds = only("client_forward", tr)
+        (bwd,) = only("client_backward", tr)
+        (upd,) = only("server_update", tr)
+        (dec,) = only("decode", upd)
+        (collect,) = only("collect", tr)
+        (account,) = only("account", collect)
+        assert len(fwds) == W
+        # in the round's order: the fetch, the forwards one after
+        # another, the backward, then the server's step and its decode
+        seq = [fetch, *fwds, bwd, upd]
+        assert all(span(a)[1] <= span(b)[0] for a, b in zip(seq, seq[1:]))
+        assert within(dec, upd)
+        assert any(within(k, dec) for k in kernels)
+    assert all(any(within(k, tr) for tr in evs if tr.name() == "train_round")
+               for k in kernels)
+
+
+def test_profile_trace_names_the_spans_under_trace(tmp_path, monkeypatch,
+                                                  capsys):
+    # the operator's use: --profile's Chrome trace of a --trace run holds
+    # the program's spans and kernel regions as named ranges
+    monkeypatch.chdir(tmp_path)
+    assert gpt2_train.main([
+        "--test", "--device", "cpu", "--dataset_name", "PERSONA",
+        "--dataset_dir", str(tmp_path / "ds"), "--local_momentum", "0",
+        "--num_workers", "3", "--local_batch_size", "2", "--num_epochs", "1",
+        "--valid_batch_size", "4", "--lr_scale", "0.1", "--mode", "sketch",
+        "--error_type", "virtual", "--virtual_momentum", "0.9", "--trace",
+        "--profile"])
+    out = capsys.readouterr().out
+    path = out.split("profile trace written to ", 1)[1].splitlines()[0]
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert set(ROUND_SPANS) <= names
+    assert "kernel.sketch_encode" in names
+
+
+def test_recorded_round_is_the_same_with_spans_under_a_profiler():
+    batch = _rounds(1)[0]
+
+    def recorded():
+        tm, _ = _models("sketch", telemetry=False, jax_too=False)
+        with RoundRecorder() as rec:
+            tm(batch)
+        return [r.signature for r in rec.records], rec.digest()
+
+    ops, digest = recorded()
+    assert any(r is not None for r in ops)
+    TRACE.enable()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ops_on, digest_on = recorded()
+    TRACE.disable()
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert {"dispatch", "round_dispatch", "server_update", "decode",
+            "kernel.sketch_encode"} <= names
+    assert ops_on == ops and digest_on == digest
+
+
+def test_data_fetch_counts_the_members_it_reads(tmp_path):
+    W = 3
+    built = _gpt2(tmp_path, W)
+    loader = built[3]
+    z = np.load(loader.dataset._npz_path("train"))
+    members = sum(z[k].nbytes for k in z.files)
+    assert set(z.files) == {"offsets", "input_ids", "mc_token_ids",
+                            "lm_labels", "mc_labels", "token_type_ids"}
+    it = loader.epoch()
+    next(it)                        # tracing off: no record, no count
+    TRACE.enable()
+    next(it)
+    next(it)
+    recs, _ = TRACE.drain()
+    assert [r["name"] for r in recs] == ["data_fetch"] * 2
+    assert all(r["bytes_read"] == W * members and r["clients"] == W
+               for r in recs)
+
+
+def test_tracer_add_counts_into_the_innermost_open_span():
+    tr = Tracer(enabled=True)
+    tr.add("bytes_read", 5)                     # outside every span
+    with tr.span("data_fetch", bytes_read=0):
+        tr.add("bytes_read", 5)
+        with tr.span("inner"):
+            tr.add("bytes_read", 2)
+        tr.add("bytes_read", 7)
+    recs, _ = tr.drain()
+    by = {r["name"]: r for r in recs}
+    assert by["data_fetch"]["bytes_read"] == 12
+    assert by["inner"]["bytes_read"] == 2
+
+
+def _metric(name):
+    path = os.path.join(REPO, "portbench", "metrics", name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        "metric_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,want", [
+    ("data.fetch_ms", 1e3 * (0.010 + 0.030) / 2),
+    ("data.read_mib", 2 * 3 * 2 ** 20 / 2 ** 20 / 2),
+    ("host.client_forwards_ms", 1e3 * (0.001 + 0.002 + 0.003) / 2),
+    ("host.server_update_ms", 1e3 * 0.050 / 2),
+])
+def test_span_metrics_read_a_hand_built_run(name, want):
+    spans = [
+        {"name": "data_fetch", "dur": 0.010, "bytes_read": 3 * 2 ** 20},
+        {"name": "data_fetch", "dur": 0.030, "bytes_read": 3 * 2 ** 20},
+        {"name": "client_forward", "dur": 0.001},
+        {"name": "client_forward", "dur": 0.002},
+        {"name": "client_forward", "dur": 0.003},
+        {"name": "server_update", "dur": 0.050},
+        {"name": "round_dispatch", "dur": 0.500}]
+    mod = _metric(name)
+    assert mod.SOURCE == "program_span" and mod.MOVES == "round_ms"
+    got = mod.read(types.SimpleNamespace(spans=spans, host_rounds=2))
+    assert got == pytest.approx(want)
+    assert mod.read(types.SimpleNamespace(spans=[], host_rounds=2)) is None
+    assert mod.read(types.SimpleNamespace(spans=spans,
+                                          host_rounds=0)) is None
+
+
+def test_trace_and_hooks_import_without_torch():
+    path = os.path.join(REPO, "commefficient_tpu_torch", "telemetry",
+                        "trace.py")
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['torch'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from commefficient_tpu_torch import hooks\n"
+        "spec = importlib.util.spec_from_file_location('trace_alone', "
+        f"{path!r})\n"
+        "trace = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(trace)\n"
+        "trace.TRACE.enable()\n"
+        "with trace.TRACE.span('train_round', round=0):\n"
+        "    with hooks.kernel_region('k', 'cpu', ((2,),), 8, 1):\n"
+        "        pass\n"
+        "spans, dropped = trace.TRACE.drain()\n"
+        "assert [s['name'] for s in spans] == ['train_round'], spans\n"
+        "assert hooks.profiler_range('k') is None\n"
+        "assert 'torch' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
